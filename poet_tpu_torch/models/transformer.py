@@ -1,0 +1,260 @@
+"""Deformable transformer. Counterpart of `poet_tpu/models/transformer.py`.
+
+Tokens are channels-last (B, S, C) with static per-level shapes. One
+deformable-attention entry (`ops/deform_attn_cuda.py:ms_deform_attn`) serves
+the encoder's self-attention and the decoder's cross-attention: the JAX
+package's per-impl ladder (fused Pallas kernel in the encoder, one-hot
+matmuls in the decoder) and its token padding to the kernel's 128-query tile
+exist for the TPU only, so the port neither pads nor selects.
+
+Sampling offsets, attention logits, reference points and locations stay f32
+at any compute dtype. Dropout is not applied: this is the inference path.
+Submodule names follow the reference checkpoint
+(`transformer.encoder.layers.{i}.self_attn.value_proj`, ...).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from poet_tpu_torch.models.layers import Dense, LayerNorm, variance_scaling_
+from poet_tpu_torch.ops.deform_attn_cuda import ms_deform_attn
+
+
+def _grid_init_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
+    """Sampling-offset bias init: per-head unit directions scaled per point
+    (Deformable-DETR MSDeformAttn._reset_parameters)."""
+    thetas = np.arange(n_heads, dtype=np.float64) * (2.0 * math.pi / n_heads)
+    grid = np.stack([np.cos(thetas), np.sin(thetas)], axis=-1)  # (H, 2)
+    grid = grid / np.abs(grid).max(-1, keepdims=True)
+    grid = np.tile(grid[:, None, None, :], (1, n_levels, n_points, 1))
+    for i in range(n_points):
+        grid[:, :, i, :] *= i + 1
+    return grid.reshape(-1).astype(np.float32)
+
+
+class MSDeformAttn(nn.Module):
+    """Multi-scale deformable attention: projections around the sampling core."""
+
+    def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8,
+                 n_points: int = 4, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_levels, self.n_heads, self.n_points = n_levels, n_heads, n_points
+        H, L, P = n_heads, n_levels, n_points
+        self.value_proj = Dense(d_model, d_model, dtype)
+        self.sampling_offsets = Dense(d_model, H * L * P * 2, torch.float32,
+                                      kernel_init="zeros",
+                                      bias_init=_grid_init_bias(H, L, P))
+        self.attention_weights = Dense(d_model, H * L * P, torch.float32,
+                                       kernel_init="zeros")
+        self.output_proj = Dense(d_model, d_model, dtype)
+        self._wh = {}
+
+    def _level_wh(self, spatial_shapes, device) -> torch.Tensor:
+        """(L, 2) level sizes as (W, H), made once per geometry and device: a
+        host-to-device copy on every call would stall the host on the card."""
+        key = (spatial_shapes, str(device))
+        if key not in self._wh:
+            self._wh[key] = torch.tensor([[w, h] for h, w in spatial_shapes],
+                                         dtype=torch.float32, device=device)
+        return self._wh[key]
+
+    def forward(self, query: torch.Tensor,              # (B, Q, C)
+                reference_points: torch.Tensor,         # (B, Q, L, 2) normalized
+                input_flatten: torch.Tensor,            # (B, S, C)
+                spatial_shapes: Sequence[Tuple[int, int]],
+                input_padding_mask: Optional[torch.Tensor] = None,  # (B, S) True=pad
+                ) -> torch.Tensor:
+        B, Q, C = query.shape
+        S = input_flatten.shape[1]
+        H, L, P = self.n_heads, self.n_levels, self.n_points
+
+        value = self.value_proj(input_flatten)
+        if input_padding_mask is not None:
+            value = value.masked_fill(input_padding_mask[..., None], 0.0)
+        value = value.view(B, S, H, C // H)
+
+        offsets = self.sampling_offsets(query).view(B, Q, H, L, P, 2)
+        attn = self.attention_weights(query).view(B, Q, H, L * P)
+        attn = F.softmax(attn, dim=-1).view(B, Q, H, L, P)
+        # offsets are in feature-map fractions of each level: divide by (W, H)
+        wh = self._level_wh(tuple(spatial_shapes), query.device)
+        locations = (reference_points.float()[:, :, None, :, None, :]
+                     + offsets / wh[None, None, None, :, None, :])
+        out = ms_deform_attn(value.contiguous(), tuple(spatial_shapes),
+                             locations.contiguous(), attn.contiguous())
+        return self.output_proj(out)
+
+
+class MultiheadAttention(nn.Module):
+    """Self-attention with torch's packed `in_proj` layout (nn.MultiheadAttention
+    names) and flax `MultiHeadDotProductAttention` numerics."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.compute_dtype = dtype
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
+        self.out_proj = Dense(embed_dim, embed_dim, dtype)
+
+    def seeded_init(self, g: torch.Generator) -> None:
+        # flax: lecun_normal query/key/value kernels (fan_in = C), zero biases
+        variance_scaling_(self.in_proj_weight, 1.0, self.in_proj_weight.shape[1], g)
+        with torch.no_grad():
+            self.in_proj_bias.zero_()
+
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        B, Lq, C = q.shape
+        H = self.num_heads
+        w = self.in_proj_weight.to(dt).chunk(3)
+        b = self.in_proj_bias.to(dt).chunk(3)
+        qh = F.linear(q.to(dt), w[0], b[0]).view(B, Lq, H, C // H)
+        kh = F.linear(k.to(dt), w[1], b[1]).view(B, k.shape[1], H, C // H)
+        vh = F.linear(v.to(dt), w[2], b[2]).view(B, v.shape[1], H, C // H)
+        scores = torch.einsum("bqhd,bkhd->bhqk", qh / math.sqrt(C // H), kh)
+        weights = F.softmax(scores.float(), dim=-1).to(dt)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, vh).reshape(B, Lq, C)
+        return self.out_proj(out)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
+                 n_points: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, dtype)
+        self.norm1 = LayerNorm(d_model, dtype)
+        self.linear1 = Dense(d_model, d_ffn, dtype)
+        self.linear2 = Dense(d_ffn, d_model, dtype)
+        self.norm2 = LayerNorm(d_model, dtype)
+
+    def forward(self, src, pos, reference_points, spatial_shapes, padding_mask):
+        src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes, padding_mask)
+        src = self.norm1(src + src2)
+        src2 = self.linear2(F.relu(self.linear1(src)))
+        return self.norm2(src + src2)
+
+
+class DecoderLayer(nn.Module):
+    """MHA self-attention over the queries (q = k = tgt + pos, v = tgt),
+    deformable cross-attention into the memory, then the FFN."""
+
+    def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
+                 n_points: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.self_attn = MultiheadAttention(d_model, n_heads, dtype)
+        self.norm2 = LayerNorm(d_model, dtype)
+        self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, dtype)
+        self.norm1 = LayerNorm(d_model, dtype)
+        self.linear1 = Dense(d_model, d_ffn, dtype)
+        self.linear2 = Dense(d_ffn, d_model, dtype)
+        self.norm3 = LayerNorm(d_model, dtype)
+
+    def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
+                src_padding_mask):
+        q = tgt + query_pos
+        tgt = self.norm2(tgt + self.self_attn(q, q, tgt))
+        tgt2 = self.cross_attn(tgt + query_pos, reference_points, src, spatial_shapes,
+                               src_padding_mask)
+        tgt = self.norm1(tgt + tgt2)
+        tgt2 = self.linear2(F.relu(self.linear1(tgt)))
+        return self.norm3(tgt + tgt2)
+
+
+def encoder_reference_points(spatial_shapes: Sequence[Tuple[int, int]],
+                             valid_ratios: torch.Tensor) -> torch.Tensor:
+    """Per-pixel normalized reference grid scaled by the valid ratios,
+    (B, S, L, 2), in f32. valid_ratios is (B, L, 2) as (w_ratio, h_ratio)."""
+    refs = []
+    dev = valid_ratios.device
+    for lvl, (Hl, Wl) in enumerate(spatial_shapes):
+        ry, rx = torch.meshgrid(torch.arange(Hl, dtype=torch.float32, device=dev) + 0.5,
+                                torch.arange(Wl, dtype=torch.float32, device=dev) + 0.5,
+                                indexing="ij")
+        ry = ry.reshape(-1)[None] / (valid_ratios[:, None, lvl, 1] * Hl)
+        rx = rx.reshape(-1)[None] / (valid_ratios[:, None, lvl, 0] * Wl)
+        refs.append(torch.stack([rx, ry], dim=-1))          # (B, Hl*Wl, 2)
+    ref = torch.cat(refs, dim=1)                            # (B, S, 2)
+    return ref[:, :, None, :] * valid_ratios[:, None, :, :]
+
+
+def compute_valid_ratios(masks: List[torch.Tensor]) -> torch.Tensor:
+    """(B, L, 2) fraction of unpadded width/height per level (masks True = pad)."""
+    ratios = []
+    for m in masks:
+        not_m = ~m
+        valid_h = not_m[:, :, 0].float().sum(1)
+        valid_w = not_m[:, 0, :].float().sum(1)
+        ratios.append(torch.stack([valid_w / m.shape[2], valid_h / m.shape[1]], dim=-1))
+    return torch.stack(ratios, dim=1)
+
+
+class _LayerStack(nn.Module):
+    """Holds `layers` so that names read `encoder.layers.{i}` as in the reference."""
+
+    def __init__(self, layers: List[nn.Module]):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+
+class DeformableTransformer(nn.Module):
+    """Encoder over the flattened multi-scale tokens + decoder with stacked
+    intermediate states. Takes per-level maps channels-last."""
+
+    def __init__(self, d_model: int = 256, nhead: int = 8, num_encoder_layers: int = 6,
+                 num_decoder_layers: int = 6, dim_feedforward: int = 1024,
+                 num_feature_levels: int = 4, dec_n_points: int = 4,
+                 enc_n_points: int = 4, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.d_model = d_model
+        self.dtype = dtype
+        self.level_embed = nn.Parameter(torch.empty(num_feature_levels, d_model))
+        self.encoder = _LayerStack([
+            EncoderLayer(d_model, dim_feedforward, num_feature_levels, nhead,
+                         enc_n_points, dtype)
+            for _ in range(num_encoder_layers)])
+        self.decoder = _LayerStack([
+            DecoderLayer(d_model, dim_feedforward, num_feature_levels, nhead,
+                         dec_n_points, dtype)
+            for _ in range(num_decoder_layers)])
+
+    def seeded_init(self, g: torch.Generator) -> None:
+        with torch.no_grad():
+            self.level_embed.normal_(0.0, 1.0, generator=g)
+
+    def forward(self, srcs: List[torch.Tensor],        # per level (B, Hl, Wl, C)
+                masks: List[torch.Tensor],             # per level (B, Hl, Wl) True = pad
+                pos_embeds: List[torch.Tensor],        # per level (B, Hl, Wl, C)
+                query_embed: torch.Tensor,             # (B, Q, 2C)
+                reference_points: torch.Tensor):       # (B, Q, 2)
+        spatial_shapes = tuple((int(s.shape[1]), int(s.shape[2])) for s in srcs)
+        B, C = srcs[0].shape[0], self.d_model
+        src_flat = torch.cat([s.reshape(B, -1, C) for s in srcs], 1).to(self.dtype)
+        mask_flat = torch.cat([m.reshape(B, -1) for m in masks], 1)
+        pos_flat = torch.cat([p.reshape(B, -1, C) + self.level_embed[lvl]
+                              for lvl, p in enumerate(pos_embeds)], 1).to(self.dtype)
+        valid_ratios = compute_valid_ratios(masks)
+
+        enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
+        out = src_flat
+        for layer in self.encoder.layers:
+            out = layer(out, pos_flat, enc_ref, spatial_shapes, mask_flat)
+        memory = out
+
+        qe, tgt = query_embed.to(self.dtype).split(C, dim=2)
+        ref = reference_points
+        intermediates = []
+        output = tgt
+        for layer in self.decoder.layers:
+            ref_input = ref[:, :, None, :] * valid_ratios[:, None, :, :]   # (B, Q, L, 2)
+            output = layer(output, qe, ref_input, memory, spatial_shapes, mask_flat)
+            intermediates.append(output)
+        hs = torch.stack(intermediates).float()       # (n_dec_layers, B, Q, C)
+        return hs, ref, memory
