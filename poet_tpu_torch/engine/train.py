@@ -1,0 +1,307 @@
+"""Training engine: param groups, optimizer, train step, eval forward.
+
+Counterpart of `poet_tpu/engine/train.py`:
+  * `label_params` — main / linear_proj / backbone / frozen by the same name
+    keywords, on the port's parameter names;
+  * `make_lr_schedule` — StepLR by step; under gradient accumulation sized
+    in updates per epoch;
+  * `make_optimizer` — the optax chain clip_by_global_norm -> multi_transform
+    (AdamW or SGD(0.9) with added decayed weights, per group lr; frozen
+    excluded) -> MultiSteps, over a torch optimizer;
+  * `make_loss_fn` / `make_train_step` — forward with dropout, the shared
+    matching, all per-layer losses, backward through the deformable adjoint
+    kernels, clip, update; metrics stay on the device;
+  * `make_eval_forward` — forward and the final-layer match.
+
+Matching runs on the host, before the batch is uploaded (`match_targets`):
+in gt and jitter mode the matched boxes and classes come from the targets
+alone, so the step itself never waits on the device. The NaN guard reads
+the metrics on the host once they are fetched (`fetch_metrics`).
+
+The training model keeps f32 master weights: it must not go through
+`utils/params.py:cast_params_for_inference`. bf16 modules cast each f32
+weight at use (`models/layers.py`), bit-identical to the JAX step's
+pre-cast, and autograd returns f32 gradients.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from poet_tpu_torch.config import PoETConfig
+from poet_tpu_torch.models import criterion as crit
+from poet_tpu_torch.models.matcher import MatchResult, match_poses
+from poet_tpu_torch.models.poet import gt_queries
+
+Batch = Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor], MatchResult]
+
+
+# ---------------------------------------------------------------------------
+# Optimizer with the reference param groups
+# ---------------------------------------------------------------------------
+
+def label_params(model: nn.Module, cfg: PoETConfig) -> Dict[str, str]:
+    """Parameter name -> one of {main, linear_proj, backbone, frozen}.
+
+    The detector backbone is 'frozen' (the reference's requires_grad_(False)),
+    so the 'backbone' group stays empty, as in the JAX package.
+    """
+    if cfg.model.calibrate:
+        raise NotImplementedError("calibrate mode trains only the aleatoric heads, "
+                                  "which are not ported yet (ROADMAP queue A)")
+
+    def label_of(name: str) -> str:
+        if "backbone" in name:
+            return "frozen"
+        if any(k in name for k in cfg.optim.lr_linear_proj_names):
+            return "linear_proj"
+        return "main"
+
+    return {name: label_of(name) for name, _ in model.named_parameters()}
+
+
+def make_lr_schedule(base_lr: float, lr_drop_epochs: int,
+                     steps_per_epoch: int) -> Callable[[int], float]:
+    """StepLR: lr * 0.1^(epoch // lr_drop), epoch = step // steps_per_epoch."""
+
+    def schedule(step: int) -> float:
+        epoch = step // max(steps_per_epoch, 1)
+        return base_lr * (0.1 ** (epoch // lr_drop_epochs))
+
+    return schedule
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt(sum of squares of every element), a device scalar."""
+    if not tensors:
+        return torch.zeros(())
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+class Optimizer:
+    """optax `MultiSteps(chain(clip_by_global_norm, multi_transform(...)))`.
+
+    `step()` reads the parameters' `.grad` (one micro-batch). Every
+    `grad_accum_steps` calls it takes the mean of the accumulated gradients
+    (optax's running mean), clips it by its global norm as optax does
+    (t / norm * max_norm when norm >= max_norm; torch's clip_grad_norm_
+    divides by norm + 1e-6), sets each group's StepLR rate for this update
+    and applies the torch optimizer. It returns True when it updated.
+    """
+
+    def __init__(self, cfg: PoETConfig, model: nn.Module, steps_per_epoch: int):
+        o = cfg.optim
+        if o.mu_bf16:
+            raise NotImplementedError("mu_bf16 (bf16 AdamW first moment) is not ported "
+                                      "yet (ROADMAP queue A)")
+        labels = label_params(model, cfg)
+        scale = {"main": 1.0, "linear_proj": o.lr_linear_proj_mult,
+                 "backbone": o.lr_backbone / o.lr}
+        groups: Dict[str, List[torch.Tensor]] = {}
+        for name, p in model.named_parameters():
+            if labels[name] == "frozen":
+                continue
+            if p.dtype != torch.float32:
+                raise TypeError(f"{name} is {p.dtype}: training needs f32 master weights "
+                                "(do not cast the model for inference)")
+            groups.setdefault(labels[name], []).append(p)
+        self.param_groups = [{"params": ps, "name": lab, "lr": o.lr * scale[lab],
+                              "lr_scale": scale[lab]} for lab, ps in groups.items()]
+        self.params = [p for g in self.param_groups for p in g["params"]]
+        if o.sgd:
+            # optax add_decayed_weights before sgd == torch SGD's weight_decay
+            self.torch_opt = torch.optim.SGD(self.param_groups, lr=o.lr, momentum=0.9,
+                                             weight_decay=o.weight_decay)
+        else:
+            # optax adamw: eps outside the sqrt, bias correction, decay lr*wd*p
+            # on the pre-update parameter, on every trained tensor
+            self.torch_opt = torch.optim.AdamW(self.param_groups, lr=o.lr,
+                                               betas=(0.9, 0.999), eps=1e-8,
+                                               weight_decay=o.weight_decay)
+        self.accum = max(o.grad_accum_steps, 1)
+        # the inner count advances once per update: size StepLR in updates
+        self.schedule = make_lr_schedule(1.0, o.lr_drop,
+                                         max(1, steps_per_epoch // self.accum))
+        self.clip_max_norm = o.clip_max_norm
+        self.micro_step = 0
+        self.updates = 0
+        self._acc: Optional[List[torch.Tensor]] = None
+
+    def grads(self) -> List[torch.Tensor]:
+        """The trained parameters' gradients; a missing one counts as zero
+        (optax would still decay its parameter)."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return [p.grad for p in self.params]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        grads = self.grads()
+        if self.accum > 1:
+            if self._acc is None:
+                self._acc = [torch.zeros_like(g) for g in grads]
+            # acc + (g - acc) / (k + 1), optax MultiSteps' running mean
+            for a, g in zip(self._acc, grads):
+                a.add_((g - a) / (self.micro_step + 1))
+            self.micro_step += 1
+            if self.micro_step < self.accum:
+                return False
+            for a, g in zip(self._acc, grads):
+                g.copy_(a)
+                a.zero_()
+            self.micro_step = 0
+        if self.clip_max_norm > 0:
+            norm = global_norm(grads)
+            clip = norm >= self.clip_max_norm      # stays on the device: no sync
+            div = torch.where(clip, norm, torch.ones_like(norm))
+            mul = torch.where(clip, torch.full_like(norm, self.clip_max_norm),
+                              torch.ones_like(norm))
+            torch._foreach_div_(grads, div)
+            torch._foreach_mul_(grads, mul)
+        factor = self.schedule(self.updates)
+        for group in self.param_groups:
+            group["lr"] = self.torch_opt.defaults["lr"] * group["lr_scale"] * factor
+        self.torch_opt.step()
+        self.updates += 1
+        return True
+
+
+def make_optimizer(cfg: PoETConfig, model: nn.Module, steps_per_epoch: int) -> Optimizer:
+    return Optimizer(cfg, model, steps_per_epoch)
+
+
+# ---------------------------------------------------------------------------
+# Matching on the host, the batch on the device
+# ---------------------------------------------------------------------------
+
+def match_targets(cfg: PoETConfig, targets: Dict[str, torch.Tensor]) -> MatchResult:
+    """`match_poses` from the (CPU) targets: in gt/jitter mode the model's
+    boxes and classes are `gt_queries` of the targets."""
+    mcfg = cfg.model
+    if mcfg.bbox_mode not in ("gt", "jitter"):
+        raise NotImplementedError("bbox_mode='backbone' matches detections, which need "
+                                  "the detector (ROADMAP queue A, detect+pose)")
+    boxes, classes, n_boxes, _ = gt_queries(targets, mcfg.num_queries, mcfg.bbox_mode)
+    return match_poses(boxes, classes, targets["boxes"], targets["labels"], n_boxes,
+                       targets["n_boxes"], bbox_mode=mcfg.bbox_mode,
+                       class_mode=mcfg.class_mode, cost_bbox=cfg.matcher.set_cost_bbox,
+                       cost_class=cfg.matcher.set_cost_class,
+                       giou_thresh=cfg.matcher.giou_thresh)
+
+
+def _put(x, device) -> torch.Tensor:
+    """Host array -> `device`; through pinned memory to a GPU, so the copy
+    is asynchronous (from pageable memory it would first wait for the
+    stream)."""
+    t = torch.as_tensor(np.asarray(x)) if not isinstance(x, torch.Tensor) else x
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def prepare_batch(cfg: PoETConfig, images, pad_mask, targets: Dict, device) -> Batch:
+    """Host arrays (numpy or CPU tensors) -> (images, pad_mask, targets,
+    match) on `device`, the match computed on the host first."""
+    host = {k: torch.as_tensor(np.asarray(v)) for k, v in targets.items()}
+    match = match_targets(cfg, host)
+    return (_put(images, device), _put(pad_mask, device),
+            {k: _put(v, device) for k, v in host.items()},
+            MatchResult(_put(match.tgt_idx, device), _put(match.valid, device)))
+
+
+# ---------------------------------------------------------------------------
+# Train / eval steps
+# ---------------------------------------------------------------------------
+
+def make_loss_fn(model: nn.Module, cfg: PoETConfig) -> Callable:
+    """loss_fn(images, pad_mask, targets, match, generator) -> (total, losses)."""
+    mcfg = cfg.model
+
+    def loss_fn(images, pad_mask, targets, match: MatchResult,
+                generator: Optional[torch.Generator]):
+        outputs = model(images, pad_mask, targets, generator=generator)
+        losses = crit.compute_losses(outputs, targets, match,
+                                     rotation_mode=mcfg.rotation_representation,
+                                     aleatoric=mcfg.aleatoric)
+        total = crit.weighted_total(losses, cfg.loss.translation_loss_coef,
+                                    cfg.loss.rotation_loss_coef)
+        return total, losses
+
+    return loss_fn
+
+
+def make_train_step(model: nn.Module, cfg: PoETConfig, optimizer: Optimizer) -> Callable:
+    """step(images, pad_mask, targets, match, generator) -> metrics: the loss
+    dict, 'loss' and 'grad_norm' (of this micro-batch's gradients), all
+    device scalars. Forward in train() mode, backward, clip and update.
+
+    A model on the GPU is converted to channels_last in place (the
+    parameters stay the same objects, so `optimizer` still holds them), as
+    `PoseServer` does: cuDNN's fast bf16 convs want NHWC, which the NHWC
+    input already is."""
+    if next(model.parameters()).is_cuda:
+        model.to(memory_format=torch.channels_last)
+    loss_fn = make_loss_fn(model, cfg)
+
+    def step(images, pad_mask, targets, match: MatchResult,
+             generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        model.train()
+        optimizer.zero_grad()
+        total, losses = loss_fn(images, pad_mask, targets, match, generator)
+        total.backward()
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["loss"] = total.detach()
+        metrics["grad_norm"] = global_norm(optimizer.grads())
+        optimizer.step()
+        return metrics
+
+    return step
+
+
+def fetch_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Metrics on the host; raises FloatingPointError on a non-finite loss
+    (the reference stops training there)."""
+    values = torch.stack([v.float() for v in metrics.values()]).tolist()  # one copy
+    host = dict(zip(metrics, values))
+    if not math.isfinite(host["loss"]):
+        raise FloatingPointError(f"loss is {host['loss']}, stopping training: {host}")
+    return host
+
+
+def make_eval_forward(model: nn.Module, cfg: PoETConfig) -> Callable:
+    """forward(images, pad_mask, targets) -> final-layer poses and the match,
+    in eval() mode without autograd."""
+    mcfg = cfg.model
+
+    def forward(images, pad_mask, targets) -> Dict[str, torch.Tensor]:
+        model.eval()
+        with torch.no_grad():
+            outputs = model(images, pad_mask, targets)
+        match = match_poses(outputs["pred_boxes"], outputs["pred_classes"],
+                            targets["boxes"], targets["labels"], outputs["n_boxes"],
+                            targets["n_boxes"], bbox_mode=mcfg.bbox_mode,
+                            class_mode=mcfg.class_mode,
+                            cost_bbox=cfg.matcher.set_cost_bbox,
+                            cost_class=cfg.matcher.set_cost_class,
+                            giou_thresh=cfg.matcher.giou_thresh)
+        return {
+            "pred_translation": outputs["translations"][-1],
+            "pred_rotation": outputs["rotations"][-1],
+            "pred_boxes": outputs["pred_boxes"],
+            "pred_classes": outputs["pred_classes"],
+            "pred_scores": outputs["pred_scores"],
+            "match_tgt_idx": match.tgt_idx,
+            "match_valid": match.valid,
+        }
+
+    return forward

@@ -34,7 +34,10 @@ class MaskRCNNFeatureBackbone(nn.Module):
         self.backbone.requires_grad_(False)     # frozen, as in the reference
 
     def forward(self, images: torch.Tensor, pad_mask: torch.Tensor):
-        feats = self.backbone(images)
+        # frozen: no autograd graph, so no activations kept for a backward
+        # (poet_tpu/models/backbone.py:49 stop_gradient)
+        with torch.no_grad():
+            feats = self.backbone(images)
         features, masks = [], []
         for name in sorted(self.return_layers):
             x = feats[name]

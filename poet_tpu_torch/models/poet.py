@@ -4,7 +4,9 @@ Counterpart of `poet_tpu/models/poet.py:PoET` on the gt/jitter query path:
 the caller supplies boxes, pre-padded to `num_queries` with a valid count;
 dummy slots keep the reference conventions (boxes -1, query-embedding fill
 -10, class -1). Per-decoder-layer heads give stacked outputs
-(n_layers, B, Q, ...).
+(n_layers, B, Q, ...). The same module trains: in `train()` mode the
+transformer applies dropout from the generator passed to `forward`, and the
+frozen backbone runs without autograd (the JAX package's stop_gradient).
 
 Not ported yet (ROADMAP queue A): bbox_mode='backbone' and its
 `_select_detections` (detect+pose), learned query embeddings/reference
@@ -14,7 +16,7 @@ points/position embeddings, and the aleatoric heads.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -34,6 +36,20 @@ DUMMY_BOX_FILL = -1.0
 
 def compute_dtype_of(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def gt_queries(targets: Dict[str, torch.Tensor], num_queries: int, bbox_mode: str
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gt/jitter query source, from the targets alone: (boxes (B, Q, 4)
+    f32 with dummy slots -1, classes (B, Q) with dummy slots -1, n_boxes (B,),
+    valid (B, Q)). The model builds its queries from it, and the trainer
+    matches on the host from the same boxes and classes."""
+    t_boxes = targets["boxes"] if bbox_mode == "gt" else targets["jitter_boxes"]
+    n_boxes = targets["n_boxes"]
+    valid_q = torch.arange(num_queries, device=n_boxes.device)[None, :] < n_boxes[:, None]
+    t_boxes = torch.where(valid_q[..., None], t_boxes.float(), DUMMY_BOX_FILL)
+    t_classes = torch.where(valid_q, targets["labels"], -1)
+    return t_boxes, t_classes, n_boxes, valid_q
 
 
 class MLP(nn.Module):
@@ -89,7 +105,7 @@ class PoET(nn.Module):
             d_model=C, nhead=cfg.nheads, num_encoder_layers=cfg.enc_layers,
             num_decoder_layers=cfg.dec_layers, dim_feedforward=cfg.dim_feedforward,
             num_feature_levels=cfg.num_feature_levels, dec_n_points=cfg.dec_n_points,
-            enc_n_points=cfg.enc_n_points, dtype=dt)
+            enc_n_points=cfg.enc_n_points, dtype=dt, dropout=cfg.dropout)
 
         n_classes = cfg.n_classes + 1           # +1 dummy/background
         class_mult = n_classes if cfg.class_mode == "specific" else 1
@@ -100,7 +116,10 @@ class PoET(nn.Module):
 
     def forward(self, images: torch.Tensor,            # (B, H, W, 3) in [0, 1]
                 pad_mask: torch.Tensor,                # (B, H, W) bool, True = padded
-                targets: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                targets: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """`generator` draws the dropout masks in train() mode (required
+        there when cfg.dropout > 0); eval() ignores it."""
         cfg = self.cfg
         C, Q = cfg.hidden_dim, cfg.num_queries
         dt = self.compute_dtype
@@ -110,11 +129,7 @@ class PoET(nn.Module):
         pos = add_position_embeddings(masks, C, dt, scale=scale)
 
         # ---- query construction (gt / jitter boxes) -----------------------
-        t_boxes = targets["boxes"] if cfg.bbox_mode == "gt" else targets["jitter_boxes"]
-        n_boxes = targets["n_boxes"]
-        valid_q = torch.arange(Q, device=n_boxes.device)[None, :] < n_boxes[:, None]
-        t_boxes = torch.where(valid_q[..., None], t_boxes.float(), DUMMY_BOX_FILL)
-        t_classes = torch.where(valid_q, targets["labels"], -1)
+        t_boxes, t_classes, n_boxes, valid_q = gt_queries(targets, Q, cfg.bbox_mode)
         embed = bbox_embedding_sine(t_boxes, num_pos_feats=C // 8)     # (B, Q, C)
         embed = torch.cat([embed, embed], dim=-1)
         query_embeds = torch.where(valid_q[..., None], embed, DUMMY_EMBED_FILL)
@@ -131,7 +146,8 @@ class PoET(nn.Module):
             pos += add_position_embeddings([m], C, dt, scale=scale)
         srcs = [s.permute(0, 2, 3, 1) for s in srcs]                    # NHWC
 
-        hs, _, _ = self.transformer(srcs, masks, pos, query_embeds, t_boxes[:, :, :2])
+        hs, _, _ = self.transformer(srcs, masks, pos, query_embeds, t_boxes[:, :, :2],
+                                    generator)
 
         # ---- per-layer heads ----------------------------------------------
         output_idx = torch.where(t_classes > 0, t_classes, 0)

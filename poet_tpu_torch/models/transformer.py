@@ -8,7 +8,10 @@ matmuls in the decoder) and its token padding to the kernel's 128-query tile
 exist for the TPU only, so the port neither pads nor selects.
 
 Sampling offsets, attention logits, reference points and locations stay f32
-at any compute dtype. Dropout is not applied: this is the inference path.
+at any compute dtype. Dropout follows flax's (`poet_tpu/models/transformer.py:
+277-284` encoder, `:308-333` decoder): active only in `train()` mode, at the
+layer's `dropout` rate, with masks drawn from the `torch.Generator` that the
+caller passes to `forward` (the trainer owns it), never from the global RNG.
 Submodule names follow the reference checkpoint
 (`transformer.encoder.layers.{i}.self_attn.value_proj`, ...).
 """
@@ -25,6 +28,42 @@ import torch.nn.functional as F
 
 from poet_tpu_torch.models.layers import Dense, LayerNorm, variance_scaling_
 from poet_tpu_torch.ops.deform_attn_cuda import ms_deform_attn
+
+
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype`, as a Python number: jnp rounds a weakly
+    typed scalar to the array's dtype. (A CUDA scalar tensor instead would
+    cost a host-to-device copy and a sync per call.)"""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """flax `nn.Dropout`: keep with probability 1 - rate, kept values divided
+    by the keep probability in x's dtype, the mask drawn from `generator`."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / _rounded(keep, x.dtype), x.new_zeros(()))
+
+
+class _Dropout(nn.Module):
+    """Holds a layer's dropout rate; `active(generator)` says whether masks
+    are drawn, and raises in train() mode when no generator was passed."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def active(self, generator: Optional[torch.Generator]) -> bool:
+        if not (self.training and self.rate > 0.0):
+            return False
+        if generator is None:
+            raise ValueError(f"dropout {self.rate} in train() mode needs the caller's "
+                             "torch.Generator (forward(..., generator=...)); call eval() "
+                             "for inference")
+        return True
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        return dropout(x, self.rate, generator) if self.active(generator) else x
 
 
 def _grid_init_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
@@ -96,10 +135,12 @@ class MultiheadAttention(nn.Module):
     """Self-attention with torch's packed `in_proj` layout (nn.MultiheadAttention
     names) and flax `MultiHeadDotProductAttention` numerics."""
 
-    def __init__(self, embed_dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, embed_dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.compute_dtype = dtype
+        self.attn_drop = _Dropout(dropout)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = Dense(embed_dim, embed_dim, dtype)
@@ -110,7 +151,8 @@ class MultiheadAttention(nn.Module):
         with torch.no_grad():
             self.in_proj_bias.zero_()
 
-    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.compute_dtype
         B, Lq, C = q.shape
         H = self.num_heads
@@ -121,25 +163,34 @@ class MultiheadAttention(nn.Module):
         vh = F.linear(v.to(dt), w[2], b[2]).view(B, v.shape[1], H, C // H)
         scores = torch.einsum("bqhd,bkhd->bhqk", qh / math.sqrt(C // H), kh)
         weights = F.softmax(scores.float(), dim=-1).to(dt)
+        if self.attn_drop.active(generator):
+            # flax broadcast_dropout: ONE (Q, K) mask shared by batch and heads
+            # (torch's nn.MultiheadAttention draws one per batch and head)
+            keep = 1.0 - self.attn_drop.rate
+            mask = torch.rand((1, 1) + tuple(weights.shape[-2:]), generator=generator,
+                              device=weights.device) < keep
+            weights = weights * (mask.to(dt) / _rounded(keep, dt))
         out = torch.einsum("bhqk,bkhd->bqhd", weights, vh).reshape(B, Lq, C)
         return self.out_proj(out)
 
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
-                 n_points: int, dtype: torch.dtype = torch.float32):
+                 n_points: int, dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
+        self.drop = _Dropout(dropout)
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, dtype)
         self.norm1 = LayerNorm(d_model, dtype)
         self.linear1 = Dense(d_model, d_ffn, dtype)
         self.linear2 = Dense(d_ffn, d_model, dtype)
         self.norm2 = LayerNorm(d_model, dtype)
 
-    def forward(self, src, pos, reference_points, spatial_shapes, padding_mask):
+    def forward(self, src, pos, reference_points, spatial_shapes, padding_mask,
+                generator: Optional[torch.Generator] = None):
         src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes, padding_mask)
-        src = self.norm1(src + src2)
-        src2 = self.linear2(F.relu(self.linear1(src)))
-        return self.norm2(src + src2)
+        src = self.norm1(src + self.drop(src2, generator))
+        src2 = self.linear2(self.drop(F.relu(self.linear1(src)), generator))
+        return self.norm2(src + self.drop(src2, generator))
 
 
 class DecoderLayer(nn.Module):
@@ -147,9 +198,10 @@ class DecoderLayer(nn.Module):
     deformable cross-attention into the memory, then the FFN."""
 
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
-                 n_points: int, dtype: torch.dtype = torch.float32):
+                 n_points: int, dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, n_heads, dtype)
+        self.drop = _Dropout(dropout)
+        self.self_attn = MultiheadAttention(d_model, n_heads, dtype, dropout)
         self.norm2 = LayerNorm(d_model, dtype)
         self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, dtype)
         self.norm1 = LayerNorm(d_model, dtype)
@@ -158,14 +210,15 @@ class DecoderLayer(nn.Module):
         self.norm3 = LayerNorm(d_model, dtype)
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
-                src_padding_mask):
+                src_padding_mask, generator: Optional[torch.Generator] = None):
         q = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt))
+        tgt2 = self.self_attn(q, q, tgt, generator)
+        tgt = self.norm2(tgt + self.drop(tgt2, generator))
         tgt2 = self.cross_attn(tgt + query_pos, reference_points, src, spatial_shapes,
                                src_padding_mask)
-        tgt = self.norm1(tgt + tgt2)
-        tgt2 = self.linear2(F.relu(self.linear1(tgt)))
-        return self.norm3(tgt + tgt2)
+        tgt = self.norm1(tgt + self.drop(tgt2, generator))
+        tgt2 = self.linear2(self.drop(F.relu(self.linear1(tgt)), generator))
+        return self.norm3(tgt + self.drop(tgt2, generator))
 
 
 def encoder_reference_points(spatial_shapes: Sequence[Tuple[int, int]],
@@ -211,18 +264,19 @@ class DeformableTransformer(nn.Module):
     def __init__(self, d_model: int = 256, nhead: int = 8, num_encoder_layers: int = 6,
                  num_decoder_layers: int = 6, dim_feedforward: int = 1024,
                  num_feature_levels: int = 4, dec_n_points: int = 4,
-                 enc_n_points: int = 4, dtype: torch.dtype = torch.float32):
+                 enc_n_points: int = 4, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.dtype = dtype
         self.level_embed = nn.Parameter(torch.empty(num_feature_levels, d_model))
         self.encoder = _LayerStack([
             EncoderLayer(d_model, dim_feedforward, num_feature_levels, nhead,
-                         enc_n_points, dtype)
+                         enc_n_points, dtype, dropout)
             for _ in range(num_encoder_layers)])
         self.decoder = _LayerStack([
             DecoderLayer(d_model, dim_feedforward, num_feature_levels, nhead,
-                         dec_n_points, dtype)
+                         dec_n_points, dtype, dropout)
             for _ in range(num_decoder_layers)])
 
     def seeded_init(self, g: torch.Generator) -> None:
@@ -233,7 +287,8 @@ class DeformableTransformer(nn.Module):
                 masks: List[torch.Tensor],             # per level (B, Hl, Wl) True = pad
                 pos_embeds: List[torch.Tensor],        # per level (B, Hl, Wl, C)
                 query_embed: torch.Tensor,             # (B, Q, 2C)
-                reference_points: torch.Tensor):       # (B, Q, 2)
+                reference_points: torch.Tensor,        # (B, Q, 2)
+                generator: Optional[torch.Generator] = None):
         spatial_shapes = tuple((int(s.shape[1]), int(s.shape[2])) for s in srcs)
         B, C = srcs[0].shape[0], self.d_model
         src_flat = torch.cat([s.reshape(B, -1, C) for s in srcs], 1).to(self.dtype)
@@ -245,7 +300,7 @@ class DeformableTransformer(nn.Module):
         enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
         out = src_flat
         for layer in self.encoder.layers:
-            out = layer(out, pos_flat, enc_ref, spatial_shapes, mask_flat)
+            out = layer(out, pos_flat, enc_ref, spatial_shapes, mask_flat, generator)
         memory = out
 
         qe, tgt = query_embed.to(self.dtype).split(C, dim=2)
@@ -254,7 +309,8 @@ class DeformableTransformer(nn.Module):
         output = tgt
         for layer in self.decoder.layers:
             ref_input = ref[:, :, None, :] * valid_ratios[:, None, :, :]   # (B, Q, L, 2)
-            output = layer(output, qe, ref_input, memory, spatial_shapes, mask_flat)
+            output = layer(output, qe, ref_input, memory, spatial_shapes, mask_flat,
+                           generator)
             intermediates.append(output)
         hs = torch.stack(intermediates).float()       # (n_dec_layers, B, Q, C)
         return hs, ref, memory

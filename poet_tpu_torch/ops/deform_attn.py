@@ -9,8 +9,9 @@ contract every JAX formulation and the Pallas kernels hold):
   * output = sum over (levels, points) of attention weight * sampled value,
     accumulated in f32 and returned in the value dtype.
 
-This is the CPU path of `ops/deform_attn_cuda.py:ms_deform_attn` and the
-version the CUDA kernel is held against on the card.
+This and its adjoint `ms_deform_attn_torch_backward` are the CPU path of
+`ops/deform_attn_cuda.py:ms_deform_attn` and the versions the CUDA kernels
+are held against on the card.
 """
 
 from __future__ import annotations
@@ -58,3 +59,25 @@ def ms_deform_attn_torch(
         out += (sampled * a.reshape(B * H, 1, Q, P)).sum(-1)
     out = out.view(B, H, D, Q).permute(0, 3, 1, 2).reshape(B, Q, H * D)
     return out.to(value.dtype)
+
+
+def ms_deform_attn_torch_backward(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+    dout: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The adjoint of `ms_deform_attn_torch`, by autograd through it.
+
+    dout is (B, Q, H * D) in value's dtype. Returns (d_value (B, S, H, D) in
+    value's dtype, summed in f32, rows past sum(Hl * Wl) zero; d_loc
+    (B, Q, H, L, P, 2) f32 w.r.t. the normalized locations; d_attn
+    (B, Q, H, L, P) f32). The CPU path of the model's entry, and the version
+    the two adjoint kernels are held against on the card.
+    """
+    with torch.enable_grad():
+        inputs = tuple(t.detach().requires_grad_()
+                       for t in (value, sampling_locations, attention_weights))
+        out = ms_deform_attn_torch(inputs[0], spatial_shapes, *inputs[1:])
+        return torch.autograd.grad(out, inputs, dout)

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from poet_tpu.ops.deform_attn import ms_deform_attn_xla
 from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch
 from tests.test_deform_attn import _make_inputs
+from tests.test_torch_modules import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 2e-5
 
@@ -105,22 +106,21 @@ def test_cuda_entry_imports_without_nvcc_and_dispatches_cpu(rng):
     version through the model's entry and never count a launch."""
     from poet_tpu_torch.ops import deform_attn_cuda as dac
 
-    assert dac.MS_DEFORM_ATTN_FWD._lib is None
-    assert dac.SOURCE.is_file()
+    assert all(lib._lib is None and lib.source.is_file() for lib in dac.LIBRARIES)
     value, shapes, locs, w = _inputs(rng, ((4, 5), (2, 3)), 3, 1.0)
-    before = dac.MS_DEFORM_ATTN_FWD.launches
+    before = [k.launches for k in dac.KERNELS]
     got = dac.ms_deform_attn(torch.from_numpy(value), shapes, torch.from_numpy(locs),
                              torch.from_numpy(w)).numpy()
     np.testing.assert_array_equal(got, _port(value, shapes, locs, w))
-    assert dac.MS_DEFORM_ATTN_FWD.launches == before
-    assert dac.MS_DEFORM_ATTN_FWD._lib is None
+    assert [k.launches for k in dac.KERNELS] == before
+    assert all(lib._lib is None for lib in dac.LIBRARIES)
 
 
 def test_cuda_kernel_path_rejects_cpu_tensors(rng):
-    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_FWD
+    from poet_tpu_torch.ops.deform_attn_cuda import FWD_LIB, MS_DEFORM_ATTN_FWD
 
     value, shapes, locs, w = _inputs(rng, ((4, 5), (2, 3)), 3, 1.0)
     with pytest.raises(ValueError, match="CUDA tensors"):
         MS_DEFORM_ATTN_FWD(torch.from_numpy(value), shapes, torch.from_numpy(locs),
                            torch.from_numpy(w))
-    assert MS_DEFORM_ATTN_FWD._lib is None
+    assert FWD_LIB._lib is None

@@ -16,6 +16,18 @@ import jax.numpy as jnp
 from poet_tpu_torch.utils.jax_params import load_jax_params
 
 B, C, H, D, L, P = 2, 64, 4, 16, 4, 4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for the module. The suite runs in several
+    processes at once, and an OpenMP pool per process oversubscribes the
+    cores: a small train step then runs tens of times slower. The port's
+    test files import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 SHAPES = ((6, 8), (3, 4), (2, 2), (1, 1))
 S = sum(h * w for h, w in SHAPES)
 

@@ -20,6 +20,7 @@ from poet_tpu.utils.torch_import import (
     convert_resnet_fpn,
     state_dict_to_numpy,
 )
+from tests.test_torch_modules import one_torch_thread  # noqa: F401  (autouse)
 
 B, HW, ENC, DEC, HEADS = 2, (128, 128), 2, 2, 4
 # relative to the output scale: f32 through ResNet-50 and two layers of

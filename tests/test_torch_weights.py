@@ -16,7 +16,7 @@ from poet_tpu.utils.torch_import import (
     state_dict_to_numpy,
 )
 from poet_tpu_torch.utils.jax_params import load_jax_params
-from tests.test_torch_modules import random_tree
+from tests.test_torch_modules import one_torch_thread, random_tree  # noqa: F401  (autouse)
 
 ENC, DEC, HEADS = 2, 2, 4
 
