@@ -5,8 +5,8 @@
 
 Phases, each raising on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the deformable-attention kernels from poet_tpu_torch/csrc with
-     nvcc, one process per source, in parallel;
+  2. build the kernels (deformable attention and RoIAlign) from
+     poet_tpu_torch/csrc with nvcc, one process per source, in parallel;
   3. the forward kernel against its plain PyTorch version on the card:
      flagship encoder (Q=S=1600) and decoder (Q=10) shapes at B=16, edge
      level geometries, out-of-map and dummy-query locations; f32 and bf16;
@@ -14,8 +14,8 @@ Phases, each raising on failure:
   4. the serving slice: the port's PoseServer at the paper config, bf16,
      batch 16, 480x640, seeded weights, the flagship numpy batch; outputs
      finite, rotations orthonormal with det +1, exactly 10 forward launches
-     (5 encoder + 5 decoder layers) and no adjoint launch per request; p50 ms
-     and img/s;
+     (5 encoder + 5 decoder layers) and no adjoint or RoIAlign launch per
+     request; p50 ms and img/s;
   5. f32 end to end: the same seeded model at B=2 on the card (kernel) against
      the port on the CPU (plain version), TF32 off;
   6. the two adjoint kernels (d_value scatter, d_loc/d_attn gather) against
@@ -26,19 +26,42 @@ Phases, each raising on failure:
   7. the train slice: 8 steps of the paper config, bf16 over f32 master
      weights, B=16, 480x640, seeded weights, the flagship batch, dropout 0.1,
      AdamW with clipping; exactly 10 forward, 10 d_value and 10 d_loc
-     launches per step, finite losses and grad norm, the frozen backbone
-     bit-identical, the encoder moved; step p50 ms, img/s, peak memory;
+     launches and no RoIAlign launch per step, finite losses and grad norm,
+     the frozen backbone bit-identical, the encoder moved; step p50 ms,
+     img/s, peak memory;
   8. one f32 train step at B=2, 480x640, TF32 off: losses, grad norm and
-     every gradient on the card (kernels) against the CPU port (plain).
-Phases 3-8 take under 20 s on an H100 after a ~4 s build. The last two
-lines are the kernel report and {"ok": true, "device": ...}. Exits
-non-zero without a CUDA device, and imports no JAX.
+     every gradient on the card (kernels) against the CPU port (plain);
+  9. the RoIAlign kernel against its plain version on the card: the
+     detect+pose shape (levels (120,160)..(15,20) x 256, 16 x 1000
+     proposals), edge boxes (under 1 px, slivers, outside the image,
+     oversized, NaN) and a pyramid ending in a 2x2 level with C=6 (scalar
+     loads); f32 and bf16; kernel and plain ms;
+ 10. detect+pose serving: PoseServer in detector mode at the
+     `bench.py:bench_maskrcnn_detect_pose` config (bbox_mode='backbone',
+     bf16, batch 16, 480x640, 22 detector classes, 1000 proposals, 100
+     detections), seeded weights with well-conditioned detector heads: 8
+     requests through `infer`, then 8 through the pipelined `stream`;
+     exactly 1 RoIAlign and 10 forward launches per request and no adjoint
+     launch; outputs finite, rotations in SO(3), n_boxes <= Q, boxes inside
+     the image; valid detections per image, p50/p95, img/s, peak memory;
+     then one request through the final NMS's exact fallback (the whole
+     batch's per-class suppression, nms_prune_k=0): the pruned path's rows,
+     its ms and peak memory;
+ 11. f32 detect+pose at B=2, the card against the CPU port, TF32 off: the
+     selected queries matched row for row (robust to rank flips among
+     near-equal scores), and the poses of both on the same detections.
+Every kernel's entry in the report carries its bound: the larger of the
+bytes it must move (each input read once, each output written once) over
+3.35 TB/s and its f32 operations over 67 TFLOP/s, for this run's inputs.
+The last two lines are the kernel report and {"ok": true, "device": ...}.
+Exits non-zero without a CUDA device, and imports no JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -92,6 +115,24 @@ GEOMETRIES = [
 ADJ_GEOMETRIES = GEOMETRIES + [
     ("S > levels (7 pad tokens)", 2, 9, 4, 8, ((4, 5), (2, 3)), -0.2, 1.2, 7),
 ]
+# the card's published peaks (H100 SXM data sheet): the bounds in the report
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# RoIAlign kernel vs plain, f32, relative to max |feature|: the same f32
+# blend summed in another order; bf16 adds one bf16 rounding (2^-8 |ref|)
+ROI_F32_RTOL = 1e-5
+ROI_STRIDES = (4, 8, 16, 32)
+# (name, B, R, C, image (H, W), box kind)
+ROI_GEOMETRIES = [
+    ("detect+pose", 16, 1000, 256, FLAGSHIP_HW, "proposals"),
+    ("edge boxes", 2, 300, 256, FLAGSHIP_HW, "edges"),
+    ("2x2 level, C=6 (scalar loads)", 2, 200, 6, (64, 64), "edges"),
+]
+DETECT_REQUESTS = 8
+# f32 detect+pose card vs CPU: rows match when class, score (1e-4) and box
+# (5e-3 px) agree, as in the detector parity tests; poses of matched rows
+# within E2E_RTOL of the output scale
+DET_SCORE_ATOL, DET_BOX_ATOL_PX = 1e-4, 5e-3
 
 
 def log(msg: str) -> None:
@@ -124,6 +165,33 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, n_flops: float):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def deform_points_in_map(locs, shapes) -> int:
+    """Sampling points whose 2x2 footprint meets their level (the kernels
+    skip the rest)."""
+    n = 0
+    for l, (h, w) in enumerate(shapes):
+        x = locs[..., l, :, 0] * w - 0.5
+        y = locs[..., l, :, 1] * h - 0.5
+        n += int(((x > -1) & (x < w) & (y > -1) & (y < h)).sum())
+    return n
+
+
+def deform_bound(locs, shapes, D, *tensors):
+    """Bound of a deformable kernel that reads and writes `tensors` and
+    does 4 corners x D channels x 2 operations per point in the map."""
+    return bound(nbytes(*tensors), 8.0 * D * deform_points_in_map(locs, shapes))
 
 
 def deform_inputs(g, B, Q, H, D, shapes, P=4, lo=-0.2, hi=1.2, dtype=None, pad=0):
@@ -188,6 +256,8 @@ def phase_kernel(report):
                      f"bf16 {t['bf16'][0]:.4f}/{t['bf16'][1]:.4f}")
             report[name] = {"ms": t["bf16"][0], "plain_ms": t["bf16"][1],
                             "f32_ms": t["f32"][0], "f32_plain_ms": t["f32"][1]}
+            if name == "encoder":
+                report[name]["bound"] = deform_bound(locs, shapes, D, v16, locs, attn, got16)
         log(line)
 
     # CUDA tensors that require grad go through the entry and its adjoint
@@ -296,6 +366,11 @@ def phase_adjoint(report):
             line += "".join(f" | ms {dt}: " + ", ".join(f"{k} {x:.4f}" for k, x in ms.items())
                             for dt, ms in t.items())
             report[f"adjoint_{name}"] = t
+            if name == "encoder":
+                v, do = value.bfloat16(), dout.bfloat16()
+                report["adjoint_bounds"] = {
+                    "dvalue": deform_bound(locs, shapes, D, locs, attn, do, v),
+                    "dloc": deform_bound(locs, shapes, D, v, locs, attn, do, locs, attn)}
         log(line)
 
     # NaN locations: the point gets exactly 0 and adds nothing
@@ -328,6 +403,7 @@ def phase_slice(report):
     from poet_tpu_torch.flagship import flagship_batch, flagship_config
     from poet_tpu_torch.models import build_model
     from poet_tpu_torch.ops.deform_attn_cuda import KERNELS
+    from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD
     from poet_tpu_torch.utils.init import init_weights
 
     B, (H, W) = 16, (480, 640)
@@ -341,14 +417,16 @@ def phase_slice(report):
     server.reset_latency_stats()
     per_layer = cfg.model.enc_layers + cfg.model.dec_layers
 
-    for k in KERNELS:
+    kernels = list(KERNELS) + [ROI_ALIGN_FWD]
+    for k in kernels:
         k.launches = 0
     results = list(server.stream((images for _ in range(REQUESTS)), lambda prev: boxes))
-    counts = [k.launches for k in KERNELS]
+    counts = [k.launches for k in kernels]
     launches = counts[0]
-    if counts != [per_layer * REQUESTS, 0, 0]:
-        raise AssertionError(f"launches fwd/d_value/d_loc {counts} for {REQUESTS} requests, "
-                             f"expected {per_layer} forward per request and no adjoint")
+    if counts != [per_layer * REQUESTS, 0, 0, 0]:
+        raise AssertionError(f"launches fwd/d_value/d_loc/roi {counts} for {REQUESTS} "
+                             f"requests, expected {per_layer} forward per request, no adjoint "
+                             f"and no RoIAlign")
     if len(results) != REQUESTS:
         raise AssertionError(f"{len(results)} answers for {REQUESTS} requests")
     for res in results:
@@ -418,6 +496,7 @@ def phase_train(report):
     from poet_tpu_torch.flagship import flagship_batch, flagship_config
     from poet_tpu_torch.models import build_model
     from poet_tpu_torch.ops.deform_attn_cuda import KERNELS
+    from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD
     from poet_tpu_torch.utils.init import init_weights
 
     B, (H, W) = 16, FLAGSHIP_HW
@@ -436,7 +515,8 @@ def phase_train(report):
     torch.cuda.reset_peak_memory_stats()
 
     per_step = cfg.model.enc_layers + cfg.model.dec_layers
-    for k in KERNELS:
+    kernels = list(KERNELS) + [ROI_ALIGN_FWD]
+    for k in kernels:
         k.launches = 0
     times, history = [], []
     for _ in range(TRAIN_STEPS):
@@ -444,10 +524,11 @@ def phase_train(report):
         batch = prepare_batch(cfg, images, pad_mask, targets, DEVICE)   # host match + upload
         history.append(fetch_metrics(step(*batch, gen)))               # syncs on the metrics
         times.append(time.perf_counter() - t0)
-    launches = [k.launches for k in KERNELS]
-    if launches != [per_step * TRAIN_STEPS] * 3:
-        raise AssertionError(f"launches fwd/d_value/d_loc {launches} for {TRAIN_STEPS} steps, "
-                             f"expected {per_step} each per step")
+    launches = [k.launches for k in kernels]
+    if launches != [per_step * TRAIN_STEPS] * 3 + [0]:
+        raise AssertionError(f"launches fwd/d_value/d_loc/roi {launches} for {TRAIN_STEPS} "
+                             f"steps, expected {per_step} deformable each per step and no "
+                             f"RoIAlign")
     if not all(np.isfinite(list(m.values())).all() for m in history):
         raise AssertionError(f"non-finite training metrics: {history}")
     state = model.state_dict()
@@ -460,9 +541,9 @@ def phase_train(report):
              "img_s": float(B / ms.mean() * 1e3),
              "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     log(f"train: paper config bf16 B={B} {H}x{W}, dropout {cfg.model.dropout}, AdamW: "
-        f"{TRAIN_STEPS} steps, launches fwd/d_value/d_loc {launches} ({per_step} each per "
-        f"step), loss {history[0]['loss']:.4f} -> {history[-1]['loss']:.4f}, grad_norm "
-        f"{history[-1]['grad_norm']:.4f}, backbone bit-identical ({len(frozen)} tensors), "
+        f"{TRAIN_STEPS} steps, launches fwd/d_value/d_loc/roi {launches} ({per_step} "
+        f"deformable each per step), loss {history[0]['loss']:.4f} -> "
+        f"{history[-1]['loss']:.4f}, grad_norm {history[-1]['grad_norm']:.4f}, backbone bit-identical ({len(frozen)} tensors), "
         f"{w_name} moved; step p50 {stats['p50_ms']:.3f} ms, p95 {stats['p95_ms']:.3f} ms, "
         f"{stats['img_s']:.2f} img/s, peak mem {stats['peak_gib']:.2f} GiB")
     report["train_launches"] = launches
@@ -545,6 +626,338 @@ def phase_train_f32():
         f"{TRAIN_F32_L2_RTOL}), worst max/max {mx:.3e} ({mx_name}, tol {TRAIN_F32_MAX_RTOL})")
 
 
+def roi_boxes(g, B, R, H, W, kind):
+    """(B, R, 4) xyxy boxes on the card. 'proposals': clipped boxes of
+    8-600 px and aspect 1:2-2:1, like RPN proposals; 'edges': boxes under
+    1 px, slivers (aspect > 15), partly or wholly outside the image,
+    oversized, zero-area, and one NaN box per image."""
+    import torch
+
+    u = lambda *shape: torch.rand(shape, generator=g, device=DEVICE)
+    cx, cy = u(B, R) * W, u(B, R) * H
+    size = torch.exp(math.log(8.0) + u(B, R) * math.log(600.0 / 8.0))
+    aspect = torch.exp((u(B, R) - 0.5) * math.log(4.0))
+    w, h = size * aspect.sqrt(), size / aspect.sqrt()
+    if kind == "edges":
+        k = torch.arange(R, device=DEVICE) % 6
+        w = torch.where(k == 0, u(B, R) * 0.9 + 0.05, w)                 # under 1 px
+        h = torch.where(k == 0, u(B, R) * 0.9 + 0.05, h)
+        w = torch.where(k == 1, W * (0.6 + 0.6 * u(B, R)), w)            # slivers
+        h = torch.where(k == 1, 1.0 + u(B, R) * W / 20, h)
+        cx = torch.where(k == 2, -0.4 * W + 0.2 * W * u(B, R), cx)       # left of the image
+        cy = torch.where(k == 3, 1.3 * H + 0.5 * H * u(B, R), cy)        # below it
+        w = torch.where(k == 4, 3.0 * W, w)                              # oversized
+        h = torch.where(k == 4, 3.0 * H, h)
+        w = torch.where(k == 5, torch.zeros_like(w), w)                  # zero area
+    boxes = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    if kind == "proposals":
+        boxes = torch.minimum(boxes.clamp(min=0), torch.tensor([W, H, W, H], device=DEVICE))
+    else:
+        boxes[:, 7] = float("nan")
+    return boxes.contiguous()
+
+
+def roi_bound(shapes, boxes, feats, out):
+    """Bound of one RoIAlign call: the distinct feature cells its samples
+    read, the boxes and the output; 4 corners x C x 2 operations per pair of
+    inside samples, and the 1/4 scale per output value."""
+    import torch
+
+    from poet_tpu_torch.ops.detection import roi_geometry
+
+    geo = roi_geometry(shapes, ROI_STRIDES, boxes)
+    B, R = boxes.shape[:2]
+    C = feats[0].shape[-1]
+    lvl = geo.level.long()
+    sizes = torch.tensor([h * w for h, w in shapes], device=DEVICE)
+    base = torch.cumsum(torch.cat([sizes.new_zeros(1), sizes[:-1] * B]), 0)
+    Wl = torch.tensor([w for _, w in shapes], device=DEVICE)[lvl]
+    start = base[lvl] + torch.arange(B * R, device=DEVICE) // R * sizes[lvl]
+    yin, xin = geo.yw.sum(-1) > 0, geo.xw.sum(-1) > 0                  # (BR, N)
+    ys = torch.stack([geo.ylo, geo.ylo + 1], -1).flatten(1).long()
+    xs = torch.stack([geo.xlo, geo.xlo + 1], -1).flatten(1).long()
+    ym, xm = yin.repeat_interleave(2, 1), xin.repeat_interleave(2, 1)
+    touched = torch.zeros(int(sizes.sum()) * B, dtype=torch.bool, device=DEVICE)
+    for a in range(0, B * R, 2000):
+        sl = slice(a, a + 2000)
+        idx = start[sl, None, None] + ys[sl, :, None] * Wl[sl, None, None] + xs[sl, None, :]
+        touched[idx[ym[sl, :, None] & xm[sl, None, :]]] = True
+    pairs = int((yin.sum(1) * xin.sum(1)).sum())
+    n_bytes = int(touched.sum()) * C * feats[0].element_size() + nbytes(boxes, out)
+    return bound(n_bytes, 8.0 * C * pairs + out.numel())
+
+
+def phase_roi(report):
+    import torch
+
+    from poet_tpu_torch.ops.detection import multiscale_roi_align_torch as plain
+    from poet_tpu_torch.ops.detection import roi_geometry
+    from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD as K
+
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    worst = 0.0
+    for name, B, R, C, (H, W), kind in ROI_GEOMETRIES:
+        shapes = [(H // s, W // s) for s in ROI_STRIDES]
+        feats = [torch.randn((B, h, w, C), generator=g, device=DEVICE) for h, w in shapes]
+        boxes = roi_boxes(g, B, R, H, W, kind)
+        tol = ROI_F32_RTOL * max(f.abs().max().item() for f in feats)
+        with torch.inference_mode():
+            ref = plain(feats, ROI_STRIDES, boxes)
+            got = K(feats, ROI_STRIDES, boxes)
+            torch.cuda.synchronize()
+            err32 = (got - ref).abs().max().item()
+            if not err32 <= tol:
+                raise AssertionError(f"roi {name} f32: max |kernel - plain| {err32} > {tol}")
+            f16 = [f.bfloat16() for f in feats]
+            ref16 = plain([f.float() for f in f16], ROI_STRIDES, boxes)
+            got16 = K(f16, ROI_STRIDES, boxes)
+            torch.cuda.synchronize()
+            if got16.dtype != torch.bfloat16 or tuple(got16.shape) != (B, R, 7, 7, C):
+                raise AssertionError(f"roi {name}: kernel returned {got16.dtype} "
+                                     f"{tuple(got16.shape)}")
+            err16 = (got16.float() - ref16).abs()
+            if not bool((err16 <= tol + BF16_RTOL * ref16.abs()).all()):
+                raise AssertionError(f"roi {name} bf16: max |kernel - plain| "
+                                     f"{err16.max().item()} beyond {tol} + 2^-8 |ref|")
+            if kind == "edges" and not (bool((got[:, 7] == 0).all())
+                                        and bool((got16[:, 7] == 0).all())):
+                raise AssertionError(f"roi {name}: a NaN box pooled non-zero values")
+        worst = max(worst, err32)
+        line = (f"roi-vs-plain {name}: B={B} R={R} C={C} levels={shapes} f32 max_abs_err="
+                f"{err32:.3e} (tol {tol:.2e}) bf16 max_abs_err={err16.max().item():.3e} "
+                f"(tol {tol:.2e} + 2^-8 |ref|)")
+        if kind == "proposals":
+            with torch.inference_mode():
+                geo = roi_geometry(shapes, ROI_STRIDES, boxes)
+                t = {dt: (cuda_ms(lambda: K.launch(fs, boxes, geo)),
+                          cuda_ms(lambda: K(fs, ROI_STRIDES, boxes)),
+                          cuda_ms(lambda: plain(fs, ROI_STRIDES, boxes), iters=5, warmup=1))
+                     for dt, fs in (("f32", feats), ("bf16", f16))}
+                bms, by = roi_bound(shapes, boxes, f16, got16)
+            line += "".join(f" | ms {dt}: kernel {k:.4f}, with its geometry {w:.4f}, plain "
+                            f"{p:.4f}" for dt, (k, w, p) in t.items())
+            line += f" | bound {bms:.4f} ms ({by})"
+            report["roi"] = {"ms": t["bf16"][0], "wrapper_ms": t["bf16"][1],
+                             "plain_ms": t["bf16"][2], "f32_ms": t["f32"][0],
+                             "f32_plain_ms": t["f32"][2], "bound": (bms, by)}
+        log(line)
+    # a CUDA input that requires grad is refused: the op has no gradient
+    try:
+        K([f.requires_grad_() for f in feats], ROI_STRIDES, boxes)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("the RoIAlign kernel accepted an input that requires grad")
+    report["roi_max_abs_err"] = worst
+
+
+def check_detect_outputs(res, B, Q):
+    """Finite poses, SO(3) rotations, n_boxes <= Q, valid boxes inside the image."""
+    if res["translation"].shape != (B, Q, 3) or res["rotation"].shape != (B, Q, 3, 3):
+        raise AssertionError(f"output shapes {res['translation'].shape}, "
+                             f"{res['rotation'].shape}")
+    for k in ("translation", "rotation", "boxes"):
+        if not np.isfinite(res[k]).all():
+            raise AssertionError(f"non-finite {k}")
+    rotations_ok(res["rotation"])
+    n = res["n_boxes"]
+    if not ((n >= 0) & (n <= Q)).all():
+        raise AssertionError(f"n_boxes {n} outside [0, {Q}]")
+    valid = np.arange(Q)[None, :] < n[:, None]
+    cx, cy, w, h = np.moveaxis(res["boxes"][valid], -1, 0)
+    eps = 1e-5
+    if not ((cx - w / 2 >= -eps) & (cx + w / 2 <= 1 + eps) & (cy - h / 2 >= -eps)
+            & (cy + h / 2 <= 1 + eps) & (w >= 0) & (h >= 0)).all():
+        raise AssertionError("a selected box lies outside the image")
+
+
+def phase_detect(report):
+    import torch
+
+    from poet_tpu_torch.engine.serving import PoseServer
+    from poet_tpu_torch.flagship import detect_pose_batch, detect_pose_config, detect_pose_model
+    from poet_tpu_torch.ops.deform_attn_cuda import KERNELS
+    from poet_tpu_torch.ops.detection import FIXED_POINT
+    from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD
+
+    B, (H, W) = 16, FLAGSHIP_HW
+    cfg = detect_pose_config("bfloat16")
+    Q = cfg.model.num_queries
+    server = PoseServer(cfg, detect_pose_model(cfg), batch_size=B, image_size=(H, W))
+    if server.device.type != "cuda":
+        raise AssertionError(f"PoseServer defaulted to {server.device}")
+    images, _ = detect_pose_batch(B, H, W, seed=0)
+    dets = []
+    server.model.backbone.register_forward_hook(
+        lambda m, args, out: dets.append(int(out[2]["valid"].sum())))
+    for _ in range(2):                               # warm-up: cuDNN/cuBLAS init
+        server.fetch(server.infer_async(images))
+    server.reset_latency_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_layer = cfg.model.enc_layers + cfg.model.dec_layers
+    kernels = list(KERNELS) + [ROI_ALIGN_FWD]
+    expect = [per_layer * DETECT_REQUESTS, 0, 0, DETECT_REQUESTS]
+
+    def run(label, drive):
+        for k in kernels:
+            k.launches = 0
+        FIXED_POINT.reset()
+        dets.clear()
+        t0 = time.perf_counter()
+        results = drive()
+        wall = time.perf_counter() - t0
+        counts = [k.launches for k in kernels]
+        if counts != expect:
+            raise AssertionError(f"{label}: launches fwd/d_value/d_loc/roi {counts} for "
+                                 f"{DETECT_REQUESTS} requests, expected {expect}")
+        if len(results) != DETECT_REQUESTS:
+            raise AssertionError(f"{label}: {len(results)} answers")
+        for res in results:
+            check_detect_outputs(res, B, Q)
+        return results, counts, wall
+
+    res_infer, counts, _ = run("infer", lambda: [server.infer(images)
+                                                 for _ in range(DETECT_REQUESTS)])
+    stats = server.latency_stats()
+    fp = (FIXED_POINT.calls, FIXED_POINT.iterations, FIXED_POINT.max_iterations)
+    det_infer = list(dets)
+    res_stream, counts_stream, wall = run("stream", lambda: list(server.stream(
+        images for _ in range(DETECT_REQUESTS))))
+    for a, b in zip(res_infer, res_stream):
+        if not all(np.array_equal(a[k], b[k]) for k in ("classes", "n_boxes")):
+            raise AssertionError("the pipelined stream answered other detections than infer")
+    n_boxes = np.stack([r["n_boxes"] for r in res_infer])
+    if n_boxes.sum() == 0:
+        raise AssertionError("no valid detection: the checks saw nothing")
+    stream_fps = B * DETECT_REQUESTS / wall
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the final NMS's fallback when a certificate fails: the exact per-class
+    # suppression of the whole batch, (B, classes, P, P) at once. One request
+    # with the pruned path off; it must answer what the pruned path answered.
+    detector, prune_k = server.model.backbone, server.model.backbone.nms_prune_k
+    detector.nms_prune_k = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FIXED_POINT.reset()
+    t0 = time.perf_counter()
+    try:
+        res_exact = server.infer(images)
+    finally:
+        detector.nms_prune_k = prune_k
+    exact_ms = (time.perf_counter() - t0) * 1e3
+    exact_peak = torch.cuda.max_memory_allocated() / 2**30
+    check_detect_outputs(res_exact, B, Q)
+    for k in ("boxes", "classes", "n_boxes"):
+        if not np.array_equal(res_exact[k], res_infer[0][k]):
+            raise AssertionError(f"exact-NMS fallback: {k} differs from the pruned path's")
+    exact_pose_err = max(float(np.abs(res_exact[k] - res_infer[0][k]).max())
+                         for k in ("translation", "rotation"))
+    if exact_pose_err > E2E_RTOL:
+        raise AssertionError(f"exact-NMS fallback: poses differ by {exact_pose_err}")
+    log(f"detect+pose: PoseServer detector mode, paper config bf16 B={B} {H}x{W}, "
+        f"{cfg.model.n_classes + 1} classes, {cfg.backbone.post_nms_top_n} proposals: "
+        f"{DETECT_REQUESTS} requests via infer + {DETECT_REQUESTS} via stream, launches "
+        f"fwd/d_value/d_loc/roi {counts} per {DETECT_REQUESTS} requests; detector valid "
+        f"detections per image {np.mean(det_infer) / B:.2f} (of "
+        f"{cfg.backbone.max_detections}), selected queries per image mean "
+        f"{n_boxes.mean():.2f} min {n_boxes.min()} max {n_boxes.max()} (of {Q}); finite, "
+        f"SO(3), boxes inside the image; NMS fixed points {fp[0]} calls, {fp[1]} "
+        f"iterations (one host wait each), longest {fp[2]}; infer p50 "
+        f"{stats['p50_ms']:.3f} ms, p95 {stats['p95_ms']:.3f} ms, {stats['fps']:.2f} img/s; "
+        f"stream {stream_fps:.2f} img/s; peak mem {peak:.2f} GiB")
+    log(f"detect+pose exact-NMS fallback (nms_prune_k=0, one request): {exact_ms:.3f} ms, "
+        f"peak mem {exact_peak:.2f} GiB, NMS fixed points {FIXED_POINT.calls} calls, "
+        f"{FIXED_POINT.iterations} iterations ({FIXED_POINT.seconds * 1e3:.3f} ms in the "
+        f"loops); boxes, classes, n_boxes equal to the pruned path's, poses within "
+        f"{exact_pose_err:.2e}")
+    report["detect"] = {"launches": [a + b for a, b in zip(counts, counts_stream)],
+                        "p50_ms": stats["p50_ms"],
+                        "p95_ms": stats["p95_ms"], "img_s": stats["fps"],
+                        "stream_img_s": stream_fps, "peak_gib": peak,
+                        "nms_iterations_per_request": fp[1] / DETECT_REQUESTS,
+                        "exact_nms_ms": exact_ms, "exact_nms_peak_gib": exact_peak}
+
+
+def match_rows(card, cpu, b, H, W):
+    """Card query for each valid CPU query of image b (same class, score
+    within DET_SCORE_ATOL, box within DET_BOX_ATOL_PX)."""
+    scale = np.array([W, H, W, H])
+    n = int(cpu["n_boxes"][b])
+    used, pairs = set(), []
+    for j in range(n):
+        cand = [i for i in range(n) if i not in used
+                and card["pred_classes"][b, i] == cpu["pred_classes"][b, j]
+                and abs(card["pred_scores"][b, i] - cpu["pred_scores"][b, j]) < DET_SCORE_ATOL
+                and (np.abs(card["pred_boxes"][b, i] - cpu["pred_boxes"][b, j]) * scale
+                     ).max() < DET_BOX_ATOL_PX]
+        if not cand:
+            raise AssertionError(f"detect f32 image {b}: CPU query {j} (class "
+                                 f"{cpu['pred_classes'][b, j]}, score "
+                                 f"{cpu['pred_scores'][b, j]:.6f}) has no card match")
+        used.add(cand[0])
+        pairs.append((cand[0], j))
+    return pairs
+
+
+def phase_detect_f32():
+    """The selected queries of the card's own detections against the CPU's,
+    row for row; the poses on the same detections (the CPU's, fed to both).
+    Poses on each side's own detections are not comparable: the reference's
+    dyadic box embedding, sin/cos(c * 2^k) for k < hidden/8 = 32, turns a
+    box difference of 1e-4 px into O(1) pose differences (PERF.md, Findings)."""
+    import torch
+
+    from poet_tpu_torch.flagship import detect_pose_batch, detect_pose_config, detect_pose_model
+    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_FWD as K
+    from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD as KR
+
+    B, (H, W) = 2, FLAGSHIP_HW
+    cfg = detect_pose_config("float32")
+    model = detect_pose_model(cfg)
+    images, pad_mask = detect_pose_batch(B, H, W, seed=0)
+    args = (torch.from_numpy(images), torch.from_numpy(pad_mask))
+    with torch.inference_mode():
+        n0 = (K.launches, KR.launches)
+        cpu_dets = model.backbone(*args)[2]
+        cpu = {k: v.numpy() for k, v in model(*args).items()}
+        if (K.launches, KR.launches) != n0:
+            raise AssertionError("the CPU run launched a CUDA kernel")
+        with tf32_off():
+            model = model.cuda()
+            cargs = [a.cuda() for a in args]
+            card = {k: v.cpu().numpy() for k, v in model(*cargs).items()}
+            shared = {k: v.cpu().numpy() for k, v in model(*cargs, detections={
+                k: v.cuda() for k, v in cpu_dets.items()}).items()}
+        if (K.launches - n0[0], KR.launches - n0[1]) != (
+                2 * (cfg.model.enc_layers + cfg.model.dec_layers), 2):
+            raise AssertionError("the card runs did not go through the kernels")
+    if not np.array_equal(card["n_boxes"], cpu["n_boxes"]) or cpu["n_boxes"].sum() == 0:
+        raise AssertionError(f"n_boxes card {card['n_boxes']} vs CPU {cpu['n_boxes']}")
+    box_err = 0.0
+    for b in range(B):
+        pairs = match_rows(card, cpu, b, H, W)
+        gi, cj = [p[0] for p in pairs], [p[1] for p in pairs]
+        box_err = max(box_err, float(np.abs(card["pred_boxes"][b, gi] - cpu["pred_boxes"][b, cj]
+                                            ).max()) * max(H, W))
+    for k in ("pred_classes", "n_boxes", "query_valid"):
+        if not np.array_equal(shared[k], cpu[k]):
+            raise AssertionError(f"detect f32 on shared detections: {k} differs")
+    worst = 0.0
+    for k in ("translations", "rotations"):
+        ref, got = cpu[k], shared[k]
+        err = float(np.abs(got - ref).max()) / max(float(np.abs(ref).max()), 1.0)
+        if not (np.isfinite(got).all() and err <= E2E_RTOL):
+            raise AssertionError(f"detect f32 {k} on shared detections: max err / scale {err}")
+        worst = max(worst, err)
+    log(f"detect f32 card-vs-CPU (B={B}, {H}x{W}, TF32 off): n_boxes {cpu['n_boxes']} equal, "
+        f"every selected query matched (class, score {DET_SCORE_ATOL}, box "
+        f"{DET_BOX_ATOL_PX} px; worst box {box_err:.2e} px); poses on the CPU's "
+        f"detections, all {cfg.model.dec_layers} layers: max |card - cpu| / scale = "
+        f"{worst:.3e} (tol {E2E_RTOL})")
+
+
 def build_kernels():
     from poet_tpu_torch.ops.deform_attn_cuda import LIBRARIES, build_all
 
@@ -590,27 +1003,55 @@ def main() -> int:
     phase_adjoint(report)
     phase_train(report)
     phase_train_f32()
-    log(f"phases 3-8 in {time.perf_counter() - t0:.1f} s on {card}")
+    t1 = time.perf_counter()
+    phase_roi(report)
+    phase_detect(report)
+    phase_detect_f32()
+    log(f"phases 3-8 in {t1 - t0:.1f} s, phases 9-11 in {time.perf_counter() - t1:.1f} s "
+        f"on {card}")
 
     enc, adj = report["encoder"], report["adjoint_encoder"]["bf16"]
     serve, train = report["launches"], report["train_launches"]
-    errs = report["adjoint_max_abs_err"]
+    detect, roi = report["detect"]["launches"], report["roi"]
+    errs, bounds = report["adjoint_max_abs_err"], report["adjoint_bounds"]
     src, tpu = "poet_tpu_torch/csrc/", "poet_tpu/ops/deform_attn_pallas_v3.py:"
+
+    def by(paths):
+        return dict(zip(("serve", "train", "detect"), paths))
+
+    def timed(ms, plain_ms, bnd):
+        # no single PyTorch call computes these functions: the plain versions
+        # chain F.grid_sample per level (deformable attention) or gathers
+        # (RoIAlign), and torchvision's roi_align is not installed
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": None}
+
     print(json.dumps({"kernels": [
         {"name": "ms_deform_attn_fwd", "route": "cuda", "source": src + "ms_deform_attn_fwd.cu",
-         "replaces": tpu + "221", "launches": serve[0] + train[0],
-         "launches_by_path": {"serve": serve[0], "train": train[0]},
-         "max_abs_err": report["max_abs_err"], "ms": enc["ms"], "plain_ms": enc["plain_ms"]},
+         "replaces": tpu + "221", "launches": serve[0] + train[0] + detect[0],
+         "launches_by_path": by((serve[0], train[0], detect[0])),
+         "max_abs_err": report["max_abs_err"],
+         **timed(enc["ms"], enc["plain_ms"], enc["bound"])},
         {"name": "ms_deform_attn_bwd_dvalue", "route": "cuda",
          "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "434",
-         "launches": train[1], "launches_by_path": {"serve": serve[1], "train": train[1]},
-         "max_abs_err": errs["d_value"], "ms": adj["dvalue"], "plain_ms": adj["plain_dvalue"],
+         "launches": serve[1] + train[1] + detect[1],
+         "launches_by_path": by((serve[1], train[1], detect[1])),
+         "max_abs_err": errs["d_value"],
+         **timed(adj["dvalue"], adj["plain_dvalue"], bounds["dvalue"]),
          "plain_adjoint_ms": adj["plain"]},
         {"name": "ms_deform_attn_bwd_dloc", "route": "cuda",
          "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "470",
-         "launches": train[2], "launches_by_path": {"serve": serve[2], "train": train[2]},
-         "max_abs_err": max(errs["d_loc"], errs["d_attn"]), "ms": adj["dloc"],
-         "plain_ms": adj["plain_dloc"], "plain_adjoint_ms": adj["plain"]},
+         "launches": serve[2] + train[2] + detect[2],
+         "launches_by_path": by((serve[2], train[2], detect[2])),
+         "max_abs_err": max(errs["d_loc"], errs["d_attn"]),
+         **timed(adj["dloc"], adj["plain_dloc"], bounds["dloc"]),
+         "plain_adjoint_ms": adj["plain"]},
+        {"name": "roi_align_fwd", "route": "cuda", "source": src + "roi_align_fwd.cu",
+         "replaces": "poet_tpu/ops/roi_align_pallas.py:77",
+         "launches": serve[3] + train[3] + detect[3],
+         "launches_by_path": by((serve[3], train[3], detect[3])),
+         "max_abs_err": report["roi_max_abs_err"],
+         **timed(roi["ms"], roi["plain_ms"], roi["bound"]), "wrapper_ms": roi["wrapper_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

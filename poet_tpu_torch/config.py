@@ -1,5 +1,5 @@
 """Configuration for the port: the fields of `poet_tpu.config` that the
-serving slice and the train step read, with the same names and defaults.
+serving paths and the train step read, with the same names and defaults.
 
 `poet_tpu.config` cannot be imported here (`poet_tpu/__init__.py` pulls in
 JAX), so the dataclasses are restated. Fields that only select TPU
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass
@@ -37,6 +37,13 @@ class BackboneConfig:
     name: str = "maskrcnn"          # {maskrcnn, fasterrcnn, yolov4}
     position_embedding: str = "sine"     # {sine, learned}
     position_embedding_scale: float = 2 * math.pi
+    # fixed detector caps (bbox_mode='backbone'): detections per image, and
+    # RPN proposals entering the RoI heads (torchvision's test-time 1000)
+    max_detections: int = 100
+    post_nms_top_n: int = 1000
+    # per-FPN-level anchor sizes of the rcnn YAML; None -> torchvision's.
+    # Reading that YAML is not ported yet (it comes with the CLI).
+    anchor_sizes: Optional[Tuple[Tuple[int, ...], ...]] = None
 
 
 @dataclass
@@ -82,9 +89,15 @@ class LossConfig:
 
 
 @dataclass
+class DataConfig:
+    dataset: str = "ycbv"           # {ycbv, lmo}; lmo remaps the detector's ids
+
+
+@dataclass
 class PoETConfig:
     optim: OptimConfig = field(default_factory=OptimConfig)
     backbone: BackboneConfig = field(default_factory=BackboneConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     matcher: MatcherConfig = field(default_factory=MatcherConfig)
     loss: LossConfig = field(default_factory=LossConfig)
+    data: DataConfig = field(default_factory=DataConfig)

@@ -1,14 +1,16 @@
-"""Fixed-shape pose serving, tracker mode.
+"""Fixed-shape pose serving, tracker and detector modes.
 
-Counterpart of `poet_tpu/engine/serving.py:PoseServer` for the gt-style
-query source: the caller supplies boxes (e.g. from an EKF predictor) and
-PoET refines poses for exactly those boxes. Shapes are fixed per server
-(batch size, image size), the device is explicit, and every forward runs
-under `torch.inference_mode()`. With bf16 compute the bf16-compute weights
-are cast once at rest (`utils/params.py`).
+Counterpart of `poet_tpu/engine/serving.py:PoseServer`. Tracker mode
+(bbox_mode 'gt'/'jitter'): the caller supplies boxes (e.g. from an EKF
+predictor) and PoET refines poses for exactly those boxes. Detector mode
+(bbox_mode='backbone'): the Mask R-CNN detector inside the model finds the
+boxes, and requests carry images only. Shapes are fixed per server (batch
+size, image size), the model runs on the card unless the caller passes
+another device, and every forward runs under `torch.inference_mode()`.
+With bf16 compute the bf16-compute weights are cast once at rest
+(`utils/params.py`).
 
-Not ported yet (ROADMAP queue A): detector mode (bbox_mode='backbone') and
-the portable `export_model` artifact.
+Not ported yet (ROADMAP queue A): the portable `export_model` artifact.
 """
 
 from __future__ import annotations
@@ -30,16 +32,16 @@ class PoseServer:
 
     `model` is a built and initialized PoET module (`models.build_model`
     plus `utils/init.py:init_weights` or `utils/jax_params.py:load_jax_params`);
-    the server moves it to `device` and owns it from then on.
+    the server moves it to `device` (the card unless the caller passes
+    another, e.g. "cpu") and owns it from then on. A bbox_mode='backbone'
+    model makes a detector-mode server: requests carry images only.
     """
 
     def __init__(self, cfg: PoETConfig, model: nn.Module, batch_size: int = 1,
                  image_size=(480, 640), latency_window: int = 1000,
-                 device="cpu"):
-        if cfg.model.bbox_mode == "backbone":
-            raise NotImplementedError("detector-mode serving is not ported yet "
-                                      "(ROADMAP queue A, detect+pose)")
+                 device="cuda"):
         self.cfg = cfg
+        self.detector_mode = cfg.model.bbox_mode == "backbone"
         self.device = torch.device(device)
         self.batch_size = batch_size
         self.image_size = tuple(image_size)
@@ -57,8 +59,12 @@ class PoseServer:
     def _put(self, x: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x)).to(device=self.device, dtype=dtype)
 
-    def _targets(self, boxes, labels, n_boxes) -> Dict[str, torch.Tensor]:
+    def _targets(self, boxes, labels, n_boxes) -> Optional[Dict[str, torch.Tensor]]:
         B, Q = self.batch_size, self.cfg.model.num_queries
+        if self.detector_mode:
+            if boxes is not None or labels is not None or n_boxes is not None:
+                raise ValueError("detector mode finds its own boxes; pass images only")
+            return None
         if boxes is None:
             raise ValueError("tracker mode needs boxes (cxcywh, normalized)")
         boxes = np.asarray(boxes, np.float32)
@@ -85,8 +91,12 @@ class PoseServer:
     def infer_async(self, images: np.ndarray, boxes: Optional[np.ndarray] = None,
                     labels: Optional[np.ndarray] = None,
                     n_boxes: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
-        """Enqueue one frame (batch) and return device tensors without
-        waiting for the device; `fetch` materializes them on the host."""
+        """Enqueue one frame (batch) and return device tensors; `fetch`
+        materializes them on the host. In tracker mode nothing waits for the
+        device. In detector mode the NMS fixed points read one bool per
+        iteration and the final NMS its certificates: the host waits for the
+        device there, inside the forward, so what a caller can overlap with
+        the card is the rest of the forward's enqueue and its own host work."""
         B, (H, W) = self.batch_size, self.image_size
         if tuple(images.shape) != (B, H, W, 3):
             raise ValueError(f"images {tuple(images.shape)} != {(B, H, W, 3)}")
@@ -109,15 +119,34 @@ class PoseServer:
         self._latencies.append(time.perf_counter() - t0)
         return host
 
-    def stream(self, frames, boxes_fn):
-        """Serial tracker-mode loop: `boxes_fn(prev_host_result)` (None for
-        the first frame) returns (boxes, labels, n_boxes) for the next frame,
-        so frame k+1 depends on frame k's output and nothing overlaps."""
-        prev_host = None
+    def stream(self, frames, boxes_fn=None):
+        """Streaming driver over (B, H, W, 3) frames, results in frame order.
+
+        Detector mode: pipelined, as in JAX — frame k+1 is enqueued before
+        frame k is fetched. The overlap is bounded: frame k+1's NMS host
+        reads wait for the card to finish frame k and frame k+1's backbone
+        and RPN (see `infer_async`).
+
+        Tracker mode (`boxes_fn` given): serial by necessity.
+        `boxes_fn(prev_host_result)` (None for the first frame) returns
+        (boxes, labels, n_boxes) for the next frame, so frame k+1 depends on
+        frame k's output and nothing overlaps; each frame's latency is
+        recorded as in `infer`. The pipelined loop records none."""
+        if not self.detector_mode:
+            prev_host = None
+            for frame in frames:
+                b, l, n = boxes_fn(prev_host)
+                prev_host = self.infer(frame, boxes=b, labels=l, n_boxes=n)
+                yield prev_host
+            return
+        pending = None
         for frame in frames:
-            b, l, n = boxes_fn(prev_host)
-            prev_host = self.infer(frame, boxes=b, labels=l, n_boxes=n)
-            yield prev_host
+            nxt = self.infer_async(frame)
+            if pending is not None:
+                yield self.fetch(pending)
+            pending = nxt
+        if pending is not None:
+            yield self.fetch(pending)
 
     def reset_latency_stats(self) -> None:
         """Forget recorded latencies (e.g. after warm-up requests)."""

@@ -1,14 +1,18 @@
-"""The flagship serving configuration and its synthetic batch.
+"""The flagship serving configurations and their synthetic batches.
 
-Numpy-only twin of `__graft_entry__.py:_flagship_setup`: the paper config
-(5 enc / 5 dec / 16 heads, hidden 256, 10 queries, 4 levels x 4 points,
-gt bbox mode, class-specific heads, 6D rotations, sine embeddings) on the
-Mask R-CNN feature backbone, and a YCB-V-shaped batch drawn from the same
-seeded numpy stream, so both packages see the same arrays.
+Numpy-only twins of `__graft_entry__.py:_flagship_setup` and of
+`bench.py:bench_maskrcnn_detect_pose`: the paper config (5 enc / 5 dec /
+16 heads, hidden 256, 10 queries, 4 levels x 4 points, class-specific
+heads, 6D rotations, sine embeddings) in gt bbox mode on the Mask R-CNN
+feature backbone, and in bbox_mode='backbone' on the full Mask R-CNN
+detector (torchvision's defaults: 1000 proposals, 100 detections, 22
+classes); each with a batch drawn from the same seeded numpy stream as its
+JAX twin, so both packages see the same arrays.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import numpy as np
@@ -53,3 +57,94 @@ def flagship_batch(B: int, H: int = 480, W: int = 640, seed: int = 0
         "relative_rotation": q.reshape(B, Q, 3, 3).astype(np.float32),
     }
     return images, pad_mask, targets
+
+
+def detect_pose_config(dtype: str = "bfloat16") -> PoETConfig:
+    """`bench.py:bench_maskrcnn_detect_pose`'s config: the paper config in
+    bbox_mode='backbone' (n_classes 21 -> 22 detector classes)."""
+    cfg = flagship_config(dtype)
+    cfg.model.bbox_mode = "backbone"
+    return cfg
+
+
+def detect_pose_batch(B: int, H: int = 480, W: int = 640, seed: int = 0
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """(images (B,H,W,3) f32 in [0,1], all-False pad_mask (B,H,W)), the
+    arrays `bench.py:bench_maskrcnn_detect_pose` draws."""
+    rng = np.random.default_rng(seed)
+    images = rng.uniform(size=(B, H, W, 3)).astype(np.float32)
+    return images, np.zeros((B, H, W), dtype=bool)
+
+
+def detector_state_dict(num_classes: int = 22, seed: int = 7) -> Dict[str, np.ndarray]:
+    """Seeded, well-conditioned torchvision-named Mask R-CNN weights (the
+    draws of `tests/test_detector_numeric_parity.py:_rcnn_state_dict`).
+
+    Random weights at the JAX initializers double the ResNet's activation
+    variance in every block, so the RPN's deltas and the class logits
+    saturate: proposals collapse and no class clears the 0.05 score
+    threshold. Here the residual branches are damped (bn3 scale 0.2), the
+    box deltas scaled by 0.2 and the class logits by 0.6, so a random image
+    gives varied proposals and some valid detections."""
+    g = np.random.default_rng(seed)
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(name, o, i, k, bias=False, scale=1.0):
+        sd[f"{name}.weight"] = (g.normal(size=(o, i, k, k)) * math.sqrt(2.0 / (i * k * k))
+                                * scale).astype(np.float32)
+        if bias:
+            sd[f"{name}.bias"] = (g.normal(size=(o,)) * 0.05).astype(np.float32)
+
+    def lin(name, i, o, scale=1.0):
+        sd[f"{name}.weight"] = (g.normal(size=(o, i)) * math.sqrt(2.0 / i)
+                                * scale).astype(np.float32)
+        sd[f"{name}.bias"] = (g.normal(size=(o,)) * 0.05).astype(np.float32)
+
+    def bn(name, c, scale=1.0):
+        sd[f"{name}.weight"] = (scale * (1.0 + 0.1 * g.normal(size=(c,)))).astype(np.float32)
+        sd[f"{name}.bias"] = (0.1 * scale * g.normal(size=(c,))).astype(np.float32)
+        sd[f"{name}.running_mean"] = (0.1 * g.normal(size=(c,))).astype(np.float32)
+        sd[f"{name}.running_var"] = (0.5 + 0.5 * np.abs(g.normal(size=(c,)))).astype(np.float32)
+
+    conv("backbone.body.conv1", 64, 3, 7)
+    bn("backbone.body.bn1", 64)
+    widths, ins = [64, 128, 256, 512], [64, 256, 512, 1024]
+    for stage, n in enumerate([3, 4, 6, 3]):
+        for b in range(n):
+            p = f"backbone.body.layer{stage + 1}.{b}"
+            w, cin = widths[stage], ins[stage] if b == 0 else widths[stage] * 4
+            conv(f"{p}.conv1", w, cin, 1)
+            bn(f"{p}.bn1", w)
+            conv(f"{p}.conv2", w, w, 3)
+            bn(f"{p}.bn2", w)
+            conv(f"{p}.conv3", w * 4, w, 1)
+            bn(f"{p}.bn3", w * 4, scale=0.2)
+            if b == 0:
+                conv(f"{p}.downsample.0", w * 4, cin, 1)
+                bn(f"{p}.downsample.1", w * 4)
+    for i, cin in enumerate([256, 512, 1024, 2048]):
+        conv(f"backbone.fpn.inner_blocks.{i}", 256, cin, 1, bias=True)
+        conv(f"backbone.fpn.layer_blocks.{i}", 256, 256, 3, bias=True)
+    conv("rpn.head.conv", 256, 256, 3, bias=True)
+    conv("rpn.head.cls_logits", 3, 256, 1, bias=True)
+    conv("rpn.head.bbox_pred", 12, 256, 1, bias=True, scale=0.2)
+    lin("roi_heads.box_head.fc6", 256 * 49, 1024)
+    lin("roi_heads.box_head.fc7", 1024, 1024)
+    lin("roi_heads.box_predictor.cls_score", 1024, num_classes, scale=0.6)
+    lin("roi_heads.box_predictor.bbox_pred", 1024, num_classes * 4, scale=0.2)
+    return sd
+
+
+def detect_pose_model(cfg: PoETConfig, seed: int = 0):
+    """The seeded detect+pose model, on the CPU: the JAX initializers for
+    PoET (`utils/init.py`) and the well-conditioned detector weights of
+    `detector_state_dict`."""
+    import torch
+
+    from poet_tpu_torch.models import build_model
+    from poet_tpu_torch.utils.init import init_weights
+
+    model = init_weights(build_model(cfg), seed=seed)
+    sd = detector_state_dict(num_classes=cfg.model.n_classes + 1, seed=7)
+    model.backbone.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    return model.eval()

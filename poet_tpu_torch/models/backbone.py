@@ -1,18 +1,20 @@
-"""Feature backbone + positional encodings.
+"""Backbones + positional encodings.
 
-Counterpart of `poet_tpu/models/backbone.py:MaskRCNNFeatureBackbone` and
-`add_position_embeddings`. The detector heads (`MaskRCNNDetectorBackbone`,
-bbox_mode='backbone') are not ported yet (ROADMAP queue A, detect+pose).
+Counterpart of `poet_tpu/models/backbone.py`: `MaskRCNNFeatureBackbone`
+(gt/jitter modes: FPN levels only), `MaskRCNNDetectorBackbone`
+(bbox_mode='backbone': the same levels plus the detector's per-image
+detections from one FPN pass) and `add_position_embeddings`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
+from poet_tpu_torch.models.maskrcnn import MaskRCNNDetector
 from poet_tpu_torch.models.resnet_fpn import ResNetFPN, downsample_mask
 from poet_tpu_torch.ops.embeddings import position_embedding_sine
 
@@ -44,6 +46,56 @@ class MaskRCNNFeatureBackbone(nn.Module):
             features.append(x)
             masks.append(downsample_mask(pad_mask, x.shape[1:3]))
         return features, masks, None   # no detections
+
+
+class MaskRCNNDetectorBackbone(MaskRCNNDetector):
+    """ResNet-50-FPN levels ['2', '3', 'pool'] plus per-image fixed-size
+    detections from the RPN + RoI heads, all from one FPN pass, frozen.
+
+    torchvision's GeneralizedRCNN layout: `backbone` (every FPN level),
+    `rpn` and `roi_heads` side by side, so a detector state_dict loads as it
+    is. The detector computes in `dtype` (bf16 heads on the native bf16 maps
+    at bf16; ranking stays f32). `obj_id_map` ((raw, new), ...) is the LM-O
+    id remap: labels map through it and unmapped ids are dropped.
+    """
+
+    def __init__(self, num_classes: int = 22, max_detections: int = 100,
+                 post_nms_top_n: int = 1000,
+                 obj_id_map: Optional[Tuple[Tuple[int, int], ...]] = None,
+                 return_layers: Sequence[str] = ("2", "3", "pool"),
+                 anchor_sizes: Optional[Tuple[Tuple[int, ...], ...]] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(num_classes, max_detections=max_detections,
+                         post_nms_top_n=post_nms_top_n, anchor_sizes=anchor_sizes,
+                         dtype=dtype)
+        self.obj_id_map = obj_id_map
+        self.return_layers = tuple(return_layers)
+        self.num_channels = (256,) * len(self.return_layers)
+        self.backbone = ResNetFPN(dtype=dtype)
+        self.requires_grad_(False)              # frozen, as in the reference
+
+    def forward(self, images: torch.Tensor, pad_mask: torch.Tensor):
+        with torch.no_grad():
+            feats = self.backbone(images)
+            dets = super().forward(feats, tuple(images.shape[1:3]))
+        return self.outputs(feats, dets, pad_mask)
+
+    def outputs(self, feats, dets, pad_mask):
+        """(features, masks, detections) of the return layers, the LM-O
+        remap applied."""
+        if self.obj_id_map is not None:
+            raw = dets["labels"]
+            mapped = torch.full_like(raw, -1)
+            for src, dst in self.obj_id_map:
+                mapped = torch.where(raw == src, dst, mapped)
+            dets["valid"] = dets["valid"] & (mapped > 0)
+            dets["labels"] = mapped
+        features, masks = [], []
+        for name in sorted(self.return_layers):
+            x = feats[name]
+            features.append(x)
+            masks.append(downsample_mask(pad_mask, x.shape[1:3]))
+        return features, masks, dets
 
 
 def add_position_embeddings(masks: List[torch.Tensor], hidden_dim: int,

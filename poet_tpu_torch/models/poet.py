@@ -1,16 +1,19 @@
 """PoET — multi-object 6D pose estimation transformer.
 
-Counterpart of `poet_tpu/models/poet.py:PoET` on the gt/jitter query path:
-the caller supplies boxes, pre-padded to `num_queries` with a valid count;
-dummy slots keep the reference conventions (boxes -1, query-embedding fill
--10, class -1). Per-decoder-layer heads give stacked outputs
-(n_layers, B, Q, ...). The same module trains: in `train()` mode the
-transformer applies dropout from the generator passed to `forward`, and the
-frozen backbone runs without autograd (the JAX package's stop_gradient).
+Counterpart of `poet_tpu/models/poet.py:PoET`. The queries come from one
+of two sources: in gt/jitter modes the caller supplies boxes, pre-padded to
+`num_queries` with a valid count; in bbox_mode='backbone' the detector
+backbone's detections are reduced to the top `num_queries` by score
+(`_select_detections`). Dummy slots keep the reference conventions (boxes
+-1, query-embedding fill -10, class -1). Per-decoder-layer heads give
+stacked outputs (n_layers, B, Q, ...). The same module trains in gt/jitter
+modes: in `train()` mode the transformer applies dropout from the generator
+passed to `forward`, and the frozen backbone runs without autograd (the
+JAX package's stop_gradient).
 
-Not ported yet (ROADMAP queue A): bbox_mode='backbone' and its
-`_select_detections` (detect+pose), learned query embeddings/reference
-points/position embeddings, and the aleatoric heads.
+Not ported yet (ROADMAP queue A): training in bbox_mode='backbone' (the
+matcher on detections), learned query embeddings/reference points/position
+embeddings, and the aleatoric heads.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from poet_tpu_torch.models.backbone import add_position_embeddings
 from poet_tpu_torch.models.layers import Conv, Dense, GroupNorm
 from poet_tpu_torch.models.resnet_fpn import downsample_mask
 from poet_tpu_torch.models.transformer import DeformableTransformer
+from poet_tpu_torch.ops.detection import NEG_INF, topk
 from poet_tpu_torch.ops.embeddings import bbox_embedding_sine
+from poet_tpu_torch.utils.boxes import box_normalize_cxcywh, box_xyxy_to_cxcywh
 from poet_tpu_torch.utils.rotations import rotation_6d_to_matrix
 
 DUMMY_EMBED_FILL = -10.0
@@ -73,18 +78,15 @@ class PoET(nn.Module):
                  position_embedding: str = "sine",
                  position_embedding_scale: float = 2 * math.pi):
         super().__init__()
-        if cfg.bbox_mode not in ("gt", "jitter"):
-            raise NotImplementedError(
-                f"bbox_mode={cfg.bbox_mode!r}: the detect+pose path is not ported yet "
-                "(ROADMAP queue A, detect+pose)")
+        if cfg.bbox_mode not in ("gt", "jitter", "backbone"):
+            raise NotImplementedError(f"bbox_mode={cfg.bbox_mode!r}")
         unported = [f for f, ok in (
             ("position_embedding", position_embedding == "sine"),
             ("query_embedding", cfg.query_embedding == "bbox"),
             ("reference_points", cfg.reference_points == "bbox"),
             ("aleatoric", not cfg.aleatoric)) if not ok]
         if unported:
-            raise NotImplementedError(f"{unported}: only the gt-mode serving slice is ported "
-                                      "(ROADMAP queue A)")
+            raise NotImplementedError(f"{unported}: not ported yet (ROADMAP queue A)")
         self.cfg = cfg
         self.backbone = backbone
         self.position_embedding_scale = position_embedding_scale
@@ -116,20 +118,36 @@ class PoET(nn.Module):
 
     def forward(self, images: torch.Tensor,            # (B, H, W, 3) in [0, 1]
                 pad_mask: torch.Tensor,                # (B, H, W) bool, True = padded
-                targets: Dict[str, torch.Tensor],
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """`generator` draws the dropout masks in train() mode (required
-        there when cfg.dropout > 0); eval() ignores it."""
+                targets: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None,
+                detections: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
+        """`targets` carry the gt/jitter boxes; in bbox_mode='backbone'
+        `detections` (boxes (B, K, 4) xyxy pixels, scores, labels, valid)
+        replace the backbone's own. `generator` draws the dropout masks in
+        train() mode (required there when cfg.dropout > 0); eval() ignores
+        it."""
         cfg = self.cfg
         C, Q = cfg.hidden_dim, cfg.num_queries
         dt = self.compute_dtype
         scale = self.position_embedding_scale
 
-        features, masks, _ = self.backbone(images, pad_mask)
+        features, masks, backbone_dets = self.backbone(images, pad_mask)
         pos = add_position_embeddings(masks, C, dt, scale=scale)
 
-        # ---- query construction (gt / jitter boxes) -----------------------
-        t_boxes, t_classes, n_boxes, valid_q = gt_queries(targets, Q, cfg.bbox_mode)
+        # ---- query construction -------------------------------------------
+        if cfg.bbox_mode == "backbone":
+            dets = backbone_dets if detections is None else detections
+            if dets is None:
+                raise ValueError("bbox_mode='backbone' needs detections (the detector "
+                                 "backbone or the caller's)")
+            t_boxes, t_classes, t_scores, n_boxes, valid_q = self._select_detections(
+                dets, Q, tuple(images.shape[1:3]))
+            t_boxes = torch.where(valid_q[..., None], t_boxes, DUMMY_BOX_FILL)
+            t_classes = torch.where(valid_q, t_classes, -1)
+        else:
+            t_boxes, t_classes, n_boxes, valid_q = gt_queries(targets, Q, cfg.bbox_mode)
+            t_scores = valid_q.float()
         embed = bbox_embedding_sine(t_boxes, num_pos_feats=C // 8)     # (B, Q, C)
         embed = torch.cat([embed, embed], dim=-1)
         query_embeds = torch.where(valid_q[..., None], embed, DUMMY_EMBED_FILL)
@@ -165,10 +183,33 @@ class PoET(nn.Module):
             "rotations": torch.stack(rotations),         # (n_layers, B, Q, 3, 3|4)
             "pred_boxes": t_boxes,                       # (B, Q, 4)
             "pred_classes": t_classes,                   # (B, Q)
-            "pred_scores": valid_q.float(),              # (B, Q): 1 for valid queries
+            "pred_scores": t_scores,                     # (B, Q): detector scores in
+            # backbone mode, 1 for valid gt/jitter queries
             "n_boxes": n_boxes,                          # (B,)
             "query_valid": valid_q,                      # (B, Q)
         }
+
+    @staticmethod
+    def _select_detections(dets: Dict[str, torch.Tensor], Q: int, image_size):
+        """The top-Q detections by score -> (boxes (B, Q, 4) normalized
+        cxcywh, labels (B, Q) with -1 padding, scores (B, Q), n_boxes (B,),
+        valid (B, Q)). Ties keep the lower index first, as `lax.top_k`."""
+        scores = torch.where(dets["valid"], dets["scores"], NEG_INF)
+        k = min(Q, scores.shape[1])
+        top_s, top_i = topk(scores, k)
+        boxes = torch.gather(dets["boxes"], 1, top_i[..., None].expand(*top_i.shape, 4))
+        labels = torch.gather(dets["labels"], 1, top_i)
+        valid = torch.isfinite(top_s)
+        if k < Q:
+            pad = Q - k
+            boxes = F.pad(boxes, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, pad), value=-1)
+            valid = F.pad(valid, (0, pad))
+            top_s = F.pad(top_s, (0, pad))
+        scores = torch.where(valid, top_s, 0.0)
+        n_boxes = valid.sum(1).to(torch.int32)
+        boxes = box_normalize_cxcywh(box_xyxy_to_cxcywh(boxes.float()), image_size)
+        return boxes, labels, scores, n_boxes, valid
 
     def _select_class(self, out: torch.Tensor, output_idx: torch.Tensor) -> torch.Tensor:
         """(B, Q, n_classes * d) -> (B, Q, d), the row of each query's class."""

@@ -1,8 +1,10 @@
 """Bounding-box math. Counterpart of `poet_tpu/utils/boxes.py:13-85`: what
-the matcher needs (cxcywh -> xyxy, pairwise IoU and GIoU)."""
+the matcher and the detector need (cxcywh <-> xyxy, normalization, pairwise
+IoU and GIoU)."""
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -12,6 +14,29 @@ def box_cxcywh_to_xyxy(x: torch.Tensor) -> torch.Tensor:
     """(..., 4) cxcywh -> xyxy."""
     xc, yc, w, h = x.unbind(-1)
     return torch.stack([xc - 0.5 * w, yc - 0.5 * h, xc + 0.5 * w, yc + 0.5 * h], dim=-1)
+
+
+def box_xyxy_to_cxcywh(x: torch.Tensor) -> torch.Tensor:
+    """(..., 4) xyxy -> cxcywh."""
+    x0, y0, x1, y1 = x.unbind(-1)
+    return torch.stack([(x0 + x1) / 2, (y0 + y1) / 2, x1 - x0, y1 - y0], dim=-1)
+
+
+def box_normalize_cxcywh(x: torch.Tensor, image_size) -> torch.Tensor:
+    """Normalize (..., 4) cxcywh by the image's (H, W).
+
+    A true division by a tensor, as in JAX: PyTorch on CUDA multiplies by
+    the reciprocal when the divisor is a Python number, one ulp off, and the
+    dyadic box embedding (`ops/embeddings.py:bbox_embedding_sine`, up to
+    2^31 x the coordinate) turns one ulp into another pose."""
+    return x / _image_scale(float(image_size[1]), float(image_size[0]), x.dtype, x.device)
+
+
+@functools.lru_cache(maxsize=16)
+def _image_scale(iw: float, ih: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    # made once per image size and device: a tensor built from a host list
+    # on every call would be a blocking copy
+    return torch.tensor([iw, ih, iw, ih], dtype=dtype, device=device)
 
 
 def box_area(b: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,10 @@ Conversions (the inverse of `poet_tpu/utils/torch_import.py`):
 Module names map onto flax names by the rules in `_RULES` (e.g.
 `transformer.encoder.layers.0` -> `transformer/encoder_layer_0`,
 `backbone.backbone.body.layer1.0.downsample.0` ->
-`backbone/fpn_body/body/layer1_0/downsample_conv`).
+`backbone/fpn_body/body/layer1_0/downsample_conv`, `backbone.rpn.head.conv`
+-> `backbone/detector/rpn_head/conv`, `backbone.roi_heads.box_head.fc6` ->
+`backbone/detector/box_head/fc6`; fc6's JAX kernel has Dense's (in, out)
+layout in torchvision's (C, 7, 7) flatten order).
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from poet_tpu_torch.models.transformer import DeformableTransformer, MultiheadAt
 # port module name -> flax module path, applied in order to the dotted name
 _RULES = (
     (r"(^|\.)backbone\.backbone(?=\.|$)", r"\1backbone.fpn_body"),
+    (r"(^|\.)rpn\.head(?=\.|$)", r"\1detector.rpn_head"),
+    (r"(^|\.)roi_heads\.(box_head|box_predictor)(?=\.|$)", r"\1detector.\2"),
     (r"(^|\.)encoder\.layers\.(\d+)", r"\1encoder_layer_\2"),
     (r"(^|\.)decoder\.layers\.(\d+)", r"\1decoder_layer_\2"),
     (r"(^|\.)(translation_head|rotation_head)\.(\d+)", r"\1\2_\3"),

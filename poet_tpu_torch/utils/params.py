@@ -3,11 +3,14 @@
 Modules compute in their compute dtype and cast f32 weights at each use
 (`models/layers.py`). Casting the weight matrices and conv kernels of the
 bf16-compute subtrees once, at rest, gives bit-identical outputs and removes
-those per-call converts. The f32-compute islands keep f32: the
-sampling_offsets / attention_weights / reference_points projections and
-level_embed (MSDeformAttn's f32 coordinate path), and the translation /
-rotation heads, which take f32 decoder states. Vectors (biases, norm
-affines, FrozenBatchNorm statistics) stay f32: several feed f32 folds.
+those per-call converts. The `backbone` subtree holds the Mask R-CNN
+detector's heads in bbox_mode='backbone' (`backbone.rpn`,
+`backbone.roi_heads`: JAX's "detector" subtree), which compute in bf16
+too. The f32-compute islands keep f32: the sampling_offsets /
+attention_weights / reference_points projections and level_embed
+(MSDeformAttn's f32 coordinate path), and the translation / rotation
+heads, which take f32 decoder states. Vectors (biases, norm affines,
+FrozenBatchNorm statistics) stay f32: several feed f32 folds.
 """
 
 from __future__ import annotations
