@@ -5,7 +5,7 @@
 
 Phases, each raising on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the kernels (deformable attention and RoIAlign) from
+  2. build the kernels (deformable attention, RoIAlign, the stem conv) from
      poet_tpu_torch/csrc with nvcc, one process per source, in parallel;
   3. the forward kernel against its plain PyTorch version on the card:
      flagship encoder (Q=S=1600) and decoder (Q=10) shapes at B=16, edge
@@ -49,12 +49,33 @@ Phases, each raising on failure:
      its ms and peak memory;
  11. f32 detect+pose at B=2, the card against the CPU port, TF32 off: the
      selected queries matched row for row (robust to rank flips among
-     near-equal scores), and the poses of both on the same detections.
-Every kernel's entry in the report carries its bound: the larger of the
-bytes it must move (each input read once, each output written once) over
-3.35 TB/s and its f32 operations over 67 TFLOP/s, for this run's inputs.
-The last two lines are the kernel report and {"ok": true, "device": ...}.
-Exits non-zero without a CUDA device, and imports no JAX.
+     near-equal scores), and the poses of both on the same detections;
+ 12. the stem conv kernel against its plain version on the card: the
+     YOLOv4-CSP entry convs at the path's shapes (B=16; 3->32 3x3 and 32->64
+     3x3/2 at 480x640, 32->64 3x3 at 240x320; mish), the ResNet 7x7/2 stem,
+     and edge rows at B=2, 38x52 (asymmetric padding, 1x1, no bias, each
+     activation, channel counts that take scalar loads and stores, more
+     than 64 output channels); f32 (TF32 off) and bf16; kernel, plain and
+     cuDNN ms and the bounds at f32 and at bf16 tensor-core rate;
+ 13. YOLOv4-CSP detect+pose serving: PoseServer in detector mode at the
+     `bench.py:bench_yolov4_detect_pose(encoder_min_stride=1)` config (bf16,
+     batch 16, 480x640, the shipped cfg, conf 0.4, class NMS over the top
+     512, 20 detections, 6380 tokens), seeded well-conditioned weights: 8
+     requests through `infer`, then 8 through `stream`; exactly 3 stem and
+     10 forward launches per request and no other; outputs finite,
+     rotations in SO(3), n_boxes <= Q, boxes inside the image, at least one
+     valid detection per image; p50/p95, img/s, peak memory, NMS iterations;
+ 14. f32 YOLO detect+pose at B=2, the card against the CPU port, TF32 off:
+     the selected queries row for row, the poses on the CPU's detections.
+Phases 4, 7, 10 and 13 each set every kernel's launch count to 0 before
+they drive their path and read them after. Every kernel's entry in the
+report carries its bound: the larger of the bytes it must move (each input
+read once, each output written once) over 3.35 TB/s and its operations
+over the peak rate for its type (67 TFLOP/s f32 for the gathers; 989
+TFLOP/s for the stem's bf16 contraction, with its f32 bound beside it), for
+this run's inputs. The last two lines are the kernel report and
+{"ok": true, "device": ...}. Exits non-zero without a CUDA device, and
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -129,6 +150,28 @@ ROI_GEOMETRIES = [
     ("2x2 level, C=6 (scalar loads)", 2, 200, 6, (64, 64), "edges"),
 ]
 DETECT_REQUESTS = 8
+YOLO_REQUESTS = 8
+BF16_TC_FLOP_PER_S = 989e12
+# stem kernel vs plain, f32 (TF32 off), relative to max |ref|: the same f32
+# FMAs in another order; bf16 adds one bf16 rounding (2^-8 |ref|)
+STEM_F32_RTOL = 1e-5
+# (name, B, H, W, C, F, kh, kw, stride, padding, activation, bias)
+PAD1 = ((1, 1), (1, 1))
+STEM_GEOMETRIES = [
+    ("yolo L0", 16, 480, 640, 3, 32, 3, 3, 1, PAD1, "mish", True),
+    ("yolo L1", 16, 480, 640, 32, 64, 3, 3, 2, PAD1, "mish", True),
+    ("yolo L3", 16, 240, 320, 32, 64, 3, 3, 1, PAD1, "mish", True),
+    ("resnet stem", 16, 480, 640, 3, 64, 7, 7, 2, ((3, 3), (3, 3)), "relu", False),
+    ("5x3/2 asymmetric", 2, 38, 52, 4, 16, 5, 3, 2, ((2, 1), (1, 2)), None, True),
+    ("1x1", 2, 38, 52, 8, 24, 1, 1, 1, ((0, 0), (0, 0)), "relu", True),
+    ("no bias, none", 2, 38, 52, 3, 32, 3, 3, 1, PAD1, None, False),
+    ("no bias, relu", 2, 38, 52, 3, 32, 3, 3, 1, PAD1, "relu", False),
+    ("no bias, mish", 2, 38, 52, 32, 64, 3, 3, 2, PAD1, "mish", False),
+    ("no bias, leaky", 2, 38, 52, 32, 64, 3, 3, 1, PAD1, "leaky", False),
+    ("C=5 F=12 (scalar loads, stores)", 2, 38, 52, 5, 12, 3, 3, 2, PAD1, "leaky", True),
+    ("F=72 (two channel chunks)", 2, 38, 52, 8, 72, 3, 3, 1, PAD1, "mish", True),
+]
+STEM_PATH = ("yolo L0", "yolo L1", "yolo L3")
 # f32 detect+pose card vs CPU: rows match when class, score (1e-4) and box
 # (5e-3 px) agree, as in the detector parity tests; poses of matched rows
 # within E2E_RTOL of the output scale
@@ -137,6 +180,16 @@ DET_SCORE_ATOL, DET_BOX_ATOL_PX = 1e-4, 5e-3
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def all_kernels():
+    """Every kernel wrapper, in the report's order: forward, d_value, d_loc,
+    RoIAlign, stem."""
+    from poet_tpu_torch.ops.conv_stem_cuda import CONV_STEM_FWD
+    from poet_tpu_torch.ops.deform_attn_cuda import KERNELS
+    from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD
+
+    return list(KERNELS) + [ROI_ALIGN_FWD, CONV_STEM_FWD]
 
 
 @contextlib.contextmanager
@@ -402,8 +455,6 @@ def phase_slice(report):
     from poet_tpu_torch.engine.serving import PoseServer
     from poet_tpu_torch.flagship import flagship_batch, flagship_config
     from poet_tpu_torch.models import build_model
-    from poet_tpu_torch.ops.deform_attn_cuda import KERNELS
-    from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD
     from poet_tpu_torch.utils.init import init_weights
 
     B, (H, W) = 16, (480, 640)
@@ -417,16 +468,16 @@ def phase_slice(report):
     server.reset_latency_stats()
     per_layer = cfg.model.enc_layers + cfg.model.dec_layers
 
-    kernels = list(KERNELS) + [ROI_ALIGN_FWD]
+    kernels = all_kernels()
     for k in kernels:
         k.launches = 0
     results = list(server.stream((images for _ in range(REQUESTS)), lambda prev: boxes))
     counts = [k.launches for k in kernels]
     launches = counts[0]
-    if counts != [per_layer * REQUESTS, 0, 0, 0]:
-        raise AssertionError(f"launches fwd/d_value/d_loc/roi {counts} for {REQUESTS} "
-                             f"requests, expected {per_layer} forward per request, no adjoint "
-                             f"and no RoIAlign")
+    if counts != [per_layer * REQUESTS, 0, 0, 0, 0]:
+        raise AssertionError(f"launches fwd/d_value/d_loc/roi/stem {counts} for {REQUESTS} "
+                             f"requests, expected {per_layer} forward per request, no adjoint, "
+                             f"no RoIAlign and no stem")
     if len(results) != REQUESTS:
         raise AssertionError(f"{len(results)} answers for {REQUESTS} requests")
     for res in results:
@@ -495,8 +546,6 @@ def phase_train(report):
     )
     from poet_tpu_torch.flagship import flagship_batch, flagship_config
     from poet_tpu_torch.models import build_model
-    from poet_tpu_torch.ops.deform_attn_cuda import KERNELS
-    from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD
     from poet_tpu_torch.utils.init import init_weights
 
     B, (H, W) = 16, FLAGSHIP_HW
@@ -515,7 +564,7 @@ def phase_train(report):
     torch.cuda.reset_peak_memory_stats()
 
     per_step = cfg.model.enc_layers + cfg.model.dec_layers
-    kernels = list(KERNELS) + [ROI_ALIGN_FWD]
+    kernels = all_kernels()
     for k in kernels:
         k.launches = 0
     times, history = [], []
@@ -525,10 +574,10 @@ def phase_train(report):
         history.append(fetch_metrics(step(*batch, gen)))               # syncs on the metrics
         times.append(time.perf_counter() - t0)
     launches = [k.launches for k in kernels]
-    if launches != [per_step * TRAIN_STEPS] * 3 + [0]:
-        raise AssertionError(f"launches fwd/d_value/d_loc/roi {launches} for {TRAIN_STEPS} "
-                             f"steps, expected {per_step} deformable each per step and no "
-                             f"RoIAlign")
+    if launches != [per_step * TRAIN_STEPS] * 3 + [0, 0]:
+        raise AssertionError(f"launches fwd/d_value/d_loc/roi/stem {launches} for "
+                             f"{TRAIN_STEPS} steps, expected {per_step} deformable each per "
+                             f"step, no RoIAlign and no stem")
     if not all(np.isfinite(list(m.values())).all() for m in history):
         raise AssertionError(f"non-finite training metrics: {history}")
     state = model.state_dict()
@@ -541,7 +590,7 @@ def phase_train(report):
              "img_s": float(B / ms.mean() * 1e3),
              "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     log(f"train: paper config bf16 B={B} {H}x{W}, dropout {cfg.model.dropout}, AdamW: "
-        f"{TRAIN_STEPS} steps, launches fwd/d_value/d_loc/roi {launches} ({per_step} "
+        f"{TRAIN_STEPS} steps, launches fwd/d_value/d_loc/roi/stem {launches} ({per_step} "
         f"deformable each per step), loss {history[0]['loss']:.4f} -> "
         f"{history[-1]['loss']:.4f}, grad_norm {history[-1]['grad_norm']:.4f}, backbone bit-identical ({len(frozen)} tensors), "
         f"{w_name} moved; step p50 {stats['p50_ms']:.3f} ms, p95 {stats['p95_ms']:.3f} ms, "
@@ -776,9 +825,7 @@ def phase_detect(report):
 
     from poet_tpu_torch.engine.serving import PoseServer
     from poet_tpu_torch.flagship import detect_pose_batch, detect_pose_config, detect_pose_model
-    from poet_tpu_torch.ops.deform_attn_cuda import KERNELS
     from poet_tpu_torch.ops.detection import FIXED_POINT
-    from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD
 
     B, (H, W) = 16, FLAGSHIP_HW
     cfg = detect_pose_config("bfloat16")
@@ -796,8 +843,8 @@ def phase_detect(report):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     per_layer = cfg.model.enc_layers + cfg.model.dec_layers
-    kernels = list(KERNELS) + [ROI_ALIGN_FWD]
-    expect = [per_layer * DETECT_REQUESTS, 0, 0, DETECT_REQUESTS]
+    kernels = all_kernels()
+    expect = [per_layer * DETECT_REQUESTS, 0, 0, DETECT_REQUESTS, 0]
 
     def run(label, drive):
         for k in kernels:
@@ -809,7 +856,7 @@ def phase_detect(report):
         wall = time.perf_counter() - t0
         counts = [k.launches for k in kernels]
         if counts != expect:
-            raise AssertionError(f"{label}: launches fwd/d_value/d_loc/roi {counts} for "
+            raise AssertionError(f"{label}: launches fwd/d_value/d_loc/roi/stem {counts} for "
                                  f"{DETECT_REQUESTS} requests, expected {expect}")
         if len(results) != DETECT_REQUESTS:
             raise AssertionError(f"{label}: {len(results)} answers")
@@ -859,7 +906,7 @@ def phase_detect(report):
     log(f"detect+pose: PoseServer detector mode, paper config bf16 B={B} {H}x{W}, "
         f"{cfg.model.n_classes + 1} classes, {cfg.backbone.post_nms_top_n} proposals: "
         f"{DETECT_REQUESTS} requests via infer + {DETECT_REQUESTS} via stream, launches "
-        f"fwd/d_value/d_loc/roi {counts} per {DETECT_REQUESTS} requests; detector valid "
+        f"fwd/d_value/d_loc/roi/stem {counts} per {DETECT_REQUESTS} requests; detector valid "
         f"detections per image {np.mean(det_infer) / B:.2f} (of "
         f"{cfg.backbone.max_detections}), selected queries per image mean "
         f"{n_boxes.mean():.2f} min {n_boxes.min()} max {n_boxes.max()} (of {Q}); finite, "
@@ -958,6 +1005,256 @@ def phase_detect_f32():
         f"{worst:.3e} (tol {E2E_RTOL})")
 
 
+def stem_inputs(g, B, H, W, C, Fo, kh, kw, with_bias):
+    import torch
+
+    x = torch.randn((B, H, W, C), generator=g, device=DEVICE)
+    w = torch.randn((kh, kw, C, Fo), generator=g, device=DEVICE) / math.sqrt(kh * kw * C)
+    b = torch.randn((Fo,), generator=g, device=DEVICE) if with_bias else None
+    return x, w, b
+
+
+def stem_library(x, w, b, stride, padding, act):
+    """cuDNN's conv (channels-last, the kernel's dtype) and the activation:
+    two PyTorch calls, timed as one unit; the yardstick, not on the path."""
+    import torch
+    import torch.nn.functional as F
+
+    from poet_tpu_torch.ops.conv_stem_cuda import ACTIVATIONS
+
+    xn = x.permute(0, 3, 1, 2)                                  # NCHW view, channels-last
+    wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    bn = None if b is None else b.to(x.dtype)
+    (pt, _), (pl, _) = padding
+    act = F.mish if act == "mish" else ACTIVATIONS[act]
+    return lambda: act(F.conv2d(xn, wn, bn, stride=stride, padding=(pt, pl)))
+
+
+def stem_bounds(x16, w16, b, out16, Fo, K):
+    """(bf16 bound, f32 bound): bytes each read/written once over 3.35 TB/s
+    against 2 K F flops per output pixel over 989 (bf16 tensor cores) or 67
+    (f32) TFLOP/s."""
+    flops = 2.0 * out16.numel() * K
+    n_bytes = nbytes(x16, w16, out16) + (0 if b is None else nbytes(b))
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    out = []
+    for rate in (BF16_TC_FLOP_PER_S, F32_FLOP_PER_S):
+        t_ops = flops / rate
+        out.append((max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"))
+    return out, flops, n_bytes
+
+
+def phase_stem(report):
+    import torch
+
+    from poet_tpu_torch.ops.conv_stem_cuda import CONV_STEM_FWD as K
+    from poet_tpu_torch.ops.conv_stem_cuda import conv_stem_torch as plain
+
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    worst, worst_abs, per_layer = 0.0, 0.0, {}
+    for name, B, H, W, C, Fo, kh, kw, s, pad, act, with_bias in STEM_GEOMETRIES:
+        x, w, b = stem_inputs(g, B, H, W, C, Fo, kh, kw, with_bias)
+        kwargs = dict(stride=s, padding=pad, activation=act)
+        with torch.inference_mode(), tf32_off():
+            ref = plain(x, w, b, **kwargs)
+            got = K(x, w, b, **kwargs)
+            torch.cuda.synchronize()
+            tol = STEM_F32_RTOL * ref.abs().max().item()
+            err32 = (got - ref).abs().max().item()
+            if tuple(got.shape) != tuple(ref.shape) or not err32 <= tol:
+                raise AssertionError(f"stem {name} f32: shape {tuple(got.shape)} vs "
+                                     f"{tuple(ref.shape)}, max |kernel - plain| {err32} > {tol}")
+            x16, w16 = x.bfloat16(), w.bfloat16()
+            ref16 = plain(x16, w16, b, out_dtype=torch.float32, **kwargs)
+            got16 = K(x16, w16, b, **kwargs)
+            torch.cuda.synchronize()
+            if got16.dtype != torch.bfloat16:
+                raise AssertionError(f"stem {name}: bf16 kernel returned {got16.dtype}")
+            tol16 = STEM_F32_RTOL * ref16.abs().max().item()
+            err16 = (got16.float() - ref16).abs()
+            if not bool((err16 <= tol16 + BF16_RTOL * ref16.abs()).all()):
+                raise AssertionError(f"stem {name} bf16: max |kernel - plain| "
+                                     f"{err16.max().item()} beyond {tol16} + 2^-8 |ref|")
+        worst = max(worst, err32 / max(ref.abs().max().item(), 1e-30))
+        worst_abs = max(worst_abs, err32)
+        line = (f"stem-vs-plain {name}: B={B} {H}x{W} C={C} F={Fo} {kh}x{kw}/{s} pad={pad} "
+                f"act={act} bias={with_bias} f32 max_abs_err={err32:.3e} (tol {tol:.2e}) "
+                f"bf16 max_abs_err={err16.max().item():.3e} (tol {tol16:.2e} + 2^-8 |ref|)")
+        if B == 16:
+            with torch.inference_mode():
+                lib = stem_library(x16, w16, b, s, pad, act)
+                t = {"ms": cuda_ms(lambda: K(x16, w16, b, **kwargs)),
+                     "library_ms": cuda_ms(lib)}
+                with tf32_off():
+                    t["plain_ms"] = cuda_ms(lambda: plain(x16, w16, b, **kwargs), iters=5)
+                    t["f32_ms"] = cuda_ms(lambda: K(x, w, b, **kwargs))
+            (b16, b32), flops, n_bytes = stem_bounds(x16, w16, b, got16, Fo, kh * kw * C)
+            t.update(bound=b16, f32_bound=b32, gflop=flops / 1e9, mbytes=n_bytes / 1e6)
+            line += (f" | bf16 ms kernel {t['ms']:.4f}, plain {t['plain_ms']:.4f}, cuDNN conv + "
+                     f"act {t['library_ms']:.4f}; f32 kernel {t['f32_ms']:.4f} | {flops / 1e9:.2f} "
+                     f"GFLOP, {n_bytes / 1e6:.1f} MB: bound {b16[0]:.4f} ms ({b16[1]}, bf16 "
+                     f"tensor cores), {b32[0]:.4f} ms ({b32[1]}, f32 FMA)")
+            per_layer[name] = t
+        log(line)
+    # an input that requires grad is refused: the op has no gradient
+    x, w, b = stem_inputs(g, 1, 16, 16, 3, 8, 3, 3, True)
+    try:
+        K(x, w.requires_grad_(), b, stride=1, padding=PAD1)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("the stem kernel accepted an input that requires grad")
+    report["stem"] = per_layer
+    report["stem_max_err"] = (worst_abs, worst)
+
+
+def phase_yolo(report):
+    import torch
+
+    from poet_tpu_torch.engine.serving import PoseServer
+    from poet_tpu_torch.flagship import (
+        yolo_detect_pose_batch,
+        yolo_detect_pose_config,
+        yolo_detect_pose_model,
+    )
+    from poet_tpu_torch.ops.detection import FIXED_POINT
+
+    B, (H, W) = 16, FLAGSHIP_HW
+    cfg = yolo_detect_pose_config("bfloat16")
+    Q = cfg.model.num_queries
+    server = PoseServer(cfg, yolo_detect_pose_model(cfg), batch_size=B, image_size=(H, W))
+    if server.device.type != "cuda":
+        raise AssertionError(f"PoseServer defaulted to {server.device}")
+    images, _ = yolo_detect_pose_batch(B, H, W, seed=0)
+    dets, tokens = [], []
+
+    def seen(module, args, out):
+        feats = out[0]
+        dets.append(out[2]["valid"].sum(1).tolist())
+        h, w = feats[-1].shape[1:3]                  # + the one extra stride-2 level
+        tokens.append(sum(f.shape[1] * f.shape[2] for f in feats) + -(-h // 2) * -(-w // 2))
+
+    server.model.backbone.register_forward_hook(seen)
+    for _ in range(2):                               # warm-up: cuDNN/cuBLAS init
+        server.fetch(server.infer_async(images))
+    server.reset_latency_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_layer = cfg.model.enc_layers + cfg.model.dec_layers
+    kernels = all_kernels()
+    expect = [per_layer * YOLO_REQUESTS, 0, 0, 0, 3 * YOLO_REQUESTS]
+
+    def run(label, drive):
+        for k in kernels:
+            k.launches = 0
+        FIXED_POINT.reset()
+        dets.clear()
+        t0 = time.perf_counter()
+        results = drive()
+        wall = time.perf_counter() - t0
+        counts = [k.launches for k in kernels]
+        if counts != expect:
+            raise AssertionError(f"yolo {label}: launches fwd/d_value/d_loc/roi/stem {counts} "
+                                 f"for {YOLO_REQUESTS} requests, expected {expect}")
+        if len(results) != YOLO_REQUESTS:
+            raise AssertionError(f"yolo {label}: {len(results)} answers")
+        for res in results:
+            check_detect_outputs(res, B, Q)
+        per_image = np.asarray(dets)
+        if per_image.shape != (YOLO_REQUESTS, B) or per_image.min() < 1:
+            raise AssertionError(f"yolo {label}: an image without a valid detection: "
+                                 f"{per_image.tolist()}")
+        return results, counts, wall, per_image
+
+    res_infer, counts, _, det_infer = run("infer", lambda: [server.infer(images)
+                                                             for _ in range(YOLO_REQUESTS)])
+    stats = server.latency_stats()
+    fp = (FIXED_POINT.calls, FIXED_POINT.iterations, FIXED_POINT.max_iterations,
+          FIXED_POINT.seconds)
+    res_stream, counts_stream, wall, _ = run("stream", lambda: list(server.stream(
+        images for _ in range(YOLO_REQUESTS))))
+    for a, b in zip(res_infer, res_stream):
+        if not all(np.array_equal(a[k], b[k]) for k in ("classes", "n_boxes")):
+            raise AssertionError("yolo: the pipelined stream answered other detections than infer")
+    n_boxes = np.stack([r["n_boxes"] for r in res_infer])
+    stream_fps = B * YOLO_REQUESTS / wall
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"yolo detect+pose: PoseServer detector mode, YOLOv4-CSP paper config bf16 B={B} "
+        f"{H}x{W}, {tokens[-1]} tokens, conf "
+        f"{cfg.backbone.conf_thresh}, {cfg.backbone.max_detections} detections: "
+        f"{YOLO_REQUESTS} requests via infer + {YOLO_REQUESTS} via stream, launches "
+        f"fwd/d_value/d_loc/roi/stem {counts} per {YOLO_REQUESTS} requests; valid detections "
+        f"per image (first request) {det_infer[0].tolist()}, over all: min {det_infer.min()} "
+        f"mean {det_infer.mean():.2f} max {det_infer.max()} (of "
+        f"{cfg.backbone.max_detections}); selected queries per image mean {n_boxes.mean():.2f} "
+        f"min {n_boxes.min()} max {n_boxes.max()} (of {Q}); finite, SO(3), boxes inside the "
+        f"image; NMS fixed points {fp[0]} calls, {fp[1]} iterations, longest {fp[2]}, "
+        f"{fp[3] * 1e3 / YOLO_REQUESTS:.3f} ms per request in the loops; infer p50 "
+        f"{stats['p50_ms']:.3f} ms, p95 {stats['p95_ms']:.3f} ms, {stats['fps']:.2f} img/s; "
+        f"stream {stream_fps:.2f} img/s; peak mem {peak:.2f} GiB")
+    report["yolo"] = {"launches": [a + b for a, b in zip(counts, counts_stream)],
+                      "p50_ms": stats["p50_ms"], "p95_ms": stats["p95_ms"],
+                      "img_s": stats["fps"], "stream_img_s": stream_fps, "peak_gib": peak,
+                      "nms_iterations_per_request": fp[1] / YOLO_REQUESTS,
+                      "valid_detections_mean": float(det_infer.mean())}
+
+
+def phase_yolo_f32():
+    """Phase 11's check on the YOLO path: the card's selected queries against
+    the CPU's row for row, the poses of both on the CPU's detections."""
+    import torch
+
+    from poet_tpu_torch.flagship import (
+        yolo_detect_pose_batch,
+        yolo_detect_pose_config,
+        yolo_detect_pose_model,
+    )
+
+    B, (H, W) = 2, FLAGSHIP_HW
+    cfg = yolo_detect_pose_config("float32")
+    model = yolo_detect_pose_model(cfg)
+    images, pad_mask = yolo_detect_pose_batch(B, H, W, seed=0)
+    args = (torch.from_numpy(images), torch.from_numpy(pad_mask))
+    kernels = all_kernels()
+    with torch.inference_mode():
+        n0 = [k.launches for k in kernels]
+        cpu_dets = model.backbone(*args)[2]
+        cpu = {k: v.numpy() for k, v in model(*args).items()}
+        if [k.launches for k in kernels] != n0:
+            raise AssertionError("the CPU run launched a CUDA kernel")
+        with tf32_off():
+            model = model.cuda()
+            cargs = [a.cuda() for a in args]
+            card = {k: v.cpu().numpy() for k, v in model(*cargs).items()}
+            shared = {k: v.cpu().numpy() for k, v in model(*cargs, detections={
+                k: v.cuda() for k, v in cpu_dets.items()}).items()}
+        per = cfg.model.enc_layers + cfg.model.dec_layers
+        if [k.launches - n for k, n in zip(kernels, n0)] != [2 * per, 0, 0, 0, 2 * 3]:
+            raise AssertionError("the card runs did not go through the forward and stem kernels")
+    if not np.array_equal(card["n_boxes"], cpu["n_boxes"]) or cpu["n_boxes"].min() == 0:
+        raise AssertionError(f"n_boxes card {card['n_boxes']} vs CPU {cpu['n_boxes']}")
+    box_err = 0.0
+    for b in range(B):
+        pairs = match_rows(card, cpu, b, H, W)
+        gi, cj = [p[0] for p in pairs], [p[1] for p in pairs]
+        box_err = max(box_err, float(np.abs(card["pred_boxes"][b, gi] - cpu["pred_boxes"][b, cj]
+                                            ).max()) * max(H, W))
+    for k in ("pred_classes", "n_boxes", "query_valid"):
+        if not np.array_equal(shared[k], cpu[k]):
+            raise AssertionError(f"yolo f32 on shared detections: {k} differs")
+    worst = 0.0
+    for k in ("translations", "rotations"):
+        ref, got = cpu[k], shared[k]
+        err = float(np.abs(got - ref).max()) / max(float(np.abs(ref).max()), 1.0)
+        if not (np.isfinite(got).all() and err <= E2E_RTOL):
+            raise AssertionError(f"yolo f32 {k} on shared detections: max err / scale {err}")
+        worst = max(worst, err)
+    log(f"yolo f32 card-vs-CPU (B={B}, {H}x{W}, TF32 off): n_boxes {cpu['n_boxes']} equal, "
+        f"every selected query matched (class, score {DET_SCORE_ATOL}, box {DET_BOX_ATOL_PX} px; "
+        f"worst box {box_err:.2e} px); poses on the CPU's detections, all "
+        f"{cfg.model.dec_layers} layers: max |card - cpu| / scale = {worst:.3e} (tol {E2E_RTOL})")
+
+
 def build_kernels():
     from poet_tpu_torch.ops.deform_attn_cuda import LIBRARIES, build_all
 
@@ -993,6 +1290,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
+    t_start = time.perf_counter()
     build_kernels()
 
     report = {}
@@ -1007,17 +1305,25 @@ def main() -> int:
     phase_roi(report)
     phase_detect(report)
     phase_detect_f32()
-    log(f"phases 3-8 in {t1 - t0:.1f} s, phases 9-11 in {time.perf_counter() - t1:.1f} s "
-        f"on {card}")
+    t2 = time.perf_counter()
+    phase_stem(report)
+    phase_yolo(report)
+    phase_yolo_f32()
+    t3 = time.perf_counter()
+    log(f"phases 3-8 in {t1 - t0:.1f} s, phases 9-11 in {t2 - t1:.1f} s, phases 12-14 in "
+        f"{t3 - t2:.1f} s; the whole script {t3 - t_start:.1f} s on {card}")
 
     enc, adj = report["encoder"], report["adjoint_encoder"]["bf16"]
-    serve, train = report["launches"], report["train_launches"]
-    detect, roi = report["detect"]["launches"], report["roi"]
+    paths = {"serve": report["launches"], "train": report["train_launches"],
+             "detect": report["detect"]["launches"], "yolo": report["yolo"]["launches"]}
+    roi = report["roi"]
     errs, bounds = report["adjoint_max_abs_err"], report["adjoint_bounds"]
     src, tpu = "poet_tpu_torch/csrc/", "poet_tpu/ops/deform_attn_pallas_v3.py:"
 
-    def by(paths):
-        return dict(zip(("serve", "train", "detect"), paths))
+    def launched(i):
+        """A kernel's launches on each path, and their sum."""
+        by = {name: counts[i] for name, counts in paths.items()}
+        return {"launches": sum(by.values()), "launches_by_path": by}
 
     def timed(ms, plain_ms, bnd):
         # no single PyTorch call computes these functions: the plain versions
@@ -1026,32 +1332,43 @@ def main() -> int:
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": None}
 
+    # the stem entry: the sums over the three launches of a YOLO request
+    stem = [report["stem"][name] for name in STEM_PATH]
+    stem_total = {k: sum(t[k] for t in stem) for k in ("ms", "plain_ms", "library_ms", "f32_ms")}
     print(json.dumps({"kernels": [
         {"name": "ms_deform_attn_fwd", "route": "cuda", "source": src + "ms_deform_attn_fwd.cu",
-         "replaces": tpu + "221", "launches": serve[0] + train[0] + detect[0],
-         "launches_by_path": by((serve[0], train[0], detect[0])),
+         "replaces": tpu + "221", **launched(0),
          "max_abs_err": report["max_abs_err"],
          **timed(enc["ms"], enc["plain_ms"], enc["bound"])},
         {"name": "ms_deform_attn_bwd_dvalue", "route": "cuda",
-         "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "434",
-         "launches": serve[1] + train[1] + detect[1],
-         "launches_by_path": by((serve[1], train[1], detect[1])),
+         "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "434", **launched(1),
          "max_abs_err": errs["d_value"],
          **timed(adj["dvalue"], adj["plain_dvalue"], bounds["dvalue"]),
          "plain_adjoint_ms": adj["plain"]},
         {"name": "ms_deform_attn_bwd_dloc", "route": "cuda",
-         "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "470",
-         "launches": serve[2] + train[2] + detect[2],
-         "launches_by_path": by((serve[2], train[2], detect[2])),
+         "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "470", **launched(2),
          "max_abs_err": max(errs["d_loc"], errs["d_attn"]),
          **timed(adj["dloc"], adj["plain_dloc"], bounds["dloc"]),
          "plain_adjoint_ms": adj["plain"]},
         {"name": "roi_align_fwd", "route": "cuda", "source": src + "roi_align_fwd.cu",
-         "replaces": "poet_tpu/ops/roi_align_pallas.py:77",
-         "launches": serve[3] + train[3] + detect[3],
-         "launches_by_path": by((serve[3], train[3], detect[3])),
+         "replaces": "poet_tpu/ops/roi_align_pallas.py:77", **launched(3),
          "max_abs_err": report["roi_max_abs_err"],
          **timed(roi["ms"], roi["plain_ms"], roi["bound"]), "wrapper_ms": roi["wrapper_ms"]},
+        {"name": "conv_stem_fwd", "route": "cuda", "source": src + "conv_stem_fwd.cu",
+         "replaces": "poet_tpu/ops/conv_stem_pallas.py:66", **launched(4),
+         # f32 (TF32 off) over every phase-12 case; relative: to each case's max |plain|
+         "max_abs_err": report["stem_max_err"][0], "max_rel_err": report["stem_max_err"][1],
+         "ms": stem_total["ms"], "plain_ms": stem_total["plain_ms"],
+         "bound_ms": sum(t["bound"][0] for t in stem),
+         "bound_by": max(("bytes", "operations"), key=lambda kind: sum(
+             t["bound"][0] for t in stem if t["bound"][1] == kind)),
+         "library_ms": stem_total["library_ms"],
+         "library_is": "cuDNN F.conv2d + the activation, two calls",
+         "f32_bound_ms": sum(t["f32_bound"][0] for t in stem), "f32_ms": stem_total["f32_ms"],
+         "ms_are": "sums over a YOLO request's three launches (L0, L1, L3), bf16",
+         "per_layer": {name: {k: t[k] for k in ("ms", "plain_ms", "library_ms", "f32_ms")}
+                       | {"bound_ms": t["bound"][0], "f32_bound_ms": t["f32_bound"][0]}
+                       for name, t in zip(STEM_PATH, stem)}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,10 @@ its layouts (NHWC images, (B, S, H, D) attention values) so that parity
 tests compare like with like. Inside, the code is plain PyTorch: `nn.Module`s,
 an explicit `device`, `torch.Generator` for random numbers.
 
-The multi-scale deformable-attention sampling core is a hand-written CUDA
-kernel for sm_90a (`csrc/ms_deform_attn_fwd.cu`), built with nvcc at first
-use; on CPU tensors the same entry runs its plain PyTorch version.
+Every TPU kernel on a ported path is a hand-written CUDA kernel for sm_90a
+under `csrc/` (deformable-attention sampling and its adjoint, multi-scale
+RoIAlign, the small-C stem conv), built with nvcc at first use; on CPU
+tensors each entry runs its plain PyTorch version.
 
 This package never imports JAX or `poet_tpu`.
 """

@@ -35,6 +35,18 @@ class OptimConfig:
 @dataclass
 class BackboneConfig:
     name: str = "maskrcnn"          # {maskrcnn, fasterrcnn, yolov4}
+    # darknet cfg of the yolov4 backbone; "" -> configs/{dataset}_yolov4-csp.cfg
+    cfg_path: str = ""
+    # yolov4 detections: score threshold, NMS IoU, class-agnostic NMS
+    conf_thresh: float = 0.4
+    iou_thresh: float = 0.5
+    agnostic_nms: bool = False
+    # yolov4: feature maps finer than this stride are decoded for detections
+    # but not fed to the transformer; 1 = every map (the reference)
+    encoder_min_stride: int = 1
+    # yolov4 box decode: 'u5' (the reference wrapper's) or 'darknet'
+    # (classic new_coords=0, the cfg's scale_x_y, exp-wh)
+    yolo_box_decode: str = "u5"
     position_embedding: str = "sine"     # {sine, learned}
     position_embedding_scale: float = 2 * math.pi
     # fixed detector caps (bbox_mode='backbone'): detections per image, and

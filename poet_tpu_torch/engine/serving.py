@@ -3,8 +3,9 @@
 Counterpart of `poet_tpu/engine/serving.py:PoseServer`. Tracker mode
 (bbox_mode 'gt'/'jitter'): the caller supplies boxes (e.g. from an EKF
 predictor) and PoET refines poses for exactly those boxes. Detector mode
-(bbox_mode='backbone'): the Mask R-CNN detector inside the model finds the
-boxes, and requests carry images only. Shapes are fixed per server (batch
+(bbox_mode='backbone'): the detector inside the model (Mask R-CNN or
+YOLOv4-CSP, both answering {boxes, scores, labels, valid}) finds the boxes,
+and requests carry images only. Shapes are fixed per server (batch
 size, image size), the model runs on the card unless the caller passes
 another device, and every forward runs under `torch.inference_mode()`.
 With bf16 compute the bf16-compute weights are cast once at rest

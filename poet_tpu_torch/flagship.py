@@ -1,13 +1,17 @@
 """The flagship serving configurations and their synthetic batches.
 
-Numpy-only twins of `__graft_entry__.py:_flagship_setup` and of
-`bench.py:bench_maskrcnn_detect_pose`: the paper config (5 enc / 5 dec /
-16 heads, hidden 256, 10 queries, 4 levels x 4 points, class-specific
-heads, 6D rotations, sine embeddings) in gt bbox mode on the Mask R-CNN
-feature backbone, and in bbox_mode='backbone' on the full Mask R-CNN
-detector (torchvision's defaults: 1000 proposals, 100 detections, 22
-classes); each with a batch drawn from the same seeded numpy stream as its
-JAX twin, so both packages see the same arrays.
+Numpy-only twins of `__graft_entry__.py:_flagship_setup`, of
+`bench.py:bench_maskrcnn_detect_pose` and of `bench.py:
+bench_yolov4_detect_pose(encoder_min_stride=1)`: the paper config (5 enc /
+5 dec / 16 heads, hidden 256, 10 queries, 4 levels x 4 points,
+class-specific heads, 6D rotations, sine embeddings) in gt bbox mode on the
+Mask R-CNN feature backbone; in bbox_mode='backbone' on the full Mask
+R-CNN detector (torchvision's defaults: 1000 proposals, 100 detections, 22
+classes); and in bbox_mode='backbone' on the YOLOv4-CSP detector of the
+shipped cfg (strides 8/16/32 plus one extra level: 6380 tokens at
+480x640). Each comes with a batch drawn from the same seeded numpy stream
+as its JAX twin, and each detector with seeded, well-conditioned weights,
+so both packages see the same arrays.
 """
 
 from __future__ import annotations
@@ -147,4 +151,114 @@ def detect_pose_model(cfg: PoETConfig, seed: int = 0):
     model = init_weights(build_model(cfg), seed=seed)
     sd = detector_state_dict(num_classes=cfg.model.n_classes + 1, seed=7)
     model.backbone.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    return model.eval()
+
+
+def yolo_detect_pose_config(dtype: str = "bfloat16") -> PoETConfig:
+    """`bench.py:bench_yolov4_detect_pose(encoder_min_stride=1)`'s config:
+    the paper config in bbox_mode='backbone' on YOLOv4-CSP with the shipped
+    `configs/ycbv_yolov4-csp.cfg` (21 classes), conf 0.4, class-specific
+    NMS at IoU 0.5 over the top 512, 20 detections, the u5 decode, every
+    CSP-PAN map fed to the transformer."""
+    cfg = flagship_config(dtype)
+    cfg.backbone.name = "yolov4"
+    cfg.backbone.max_detections = 20
+    cfg.backbone.encoder_min_stride = 1
+    cfg.model.bbox_mode = "backbone"
+    cfg.model.n_classes = 21
+    return cfg
+
+
+# the images `bench.py:bench_yolov4_detect_pose` draws are the Mask R-CNN
+# bench's: uniform [0, 1] from default_rng(0), no padding
+yolo_detect_pose_batch = detect_pose_batch
+
+# Conditioning of `darknet_state`: the variance gain of the body's kernels,
+# N(0, BODY_GAIN / fan_in), which holds the activations near unit scale
+# through the 115 convs; the scale of the head kernels' box rows; the bias
+# of the w/h logits (boxes a few px across, inside their cell); the
+# objectness bias of the coarsest head's largest anchor and of every other
+# anchor; the class logit bias.
+BODY_GAIN = 1.8
+HEAD_BOX_KERNEL_SCALE = 0.05
+HEAD_WH_BIAS = -2.6
+HEAD_OBJ_BIAS_LARGEST, HEAD_OBJ_BIAS_OTHERS = -2.7, -12.0
+HEAD_CLS_BIAS = 3.0
+
+
+def darknet_state(cfg_sections, seed: int = 11) -> Dict[str, Dict[str, np.ndarray]]:
+    """Seeded, well-conditioned darknet weights in the flax names of
+    `DarknetBody` (`conv_{li}/kernel` HWIO, `conv_{li}/bias` for convs
+    without BN, `bn_{li}/{weight,bias,running_mean,running_var}`): what
+    `load_jax_params(model.backbone.body, ...)` takes and the JAX body's
+    `params` holds, so both packages run the same network.
+
+    At plain random init 115 convs with residual shortcuts drift the
+    activation scale, and the head logits either saturate or sit at
+    sigma(0)^2 = 0.25, under the 0.4 threshold: every candidate, or none,
+    is valid. Here the kernels are drawn at BODY_GAIN (He's 2 grows the
+    mish activations ~17x by the heads), the BN of each shortcut branch's
+    last conv is damped by 0.2 (as `detector_state_dict` damps bn3), and
+    the heads are biased so that on uniform-noise images only the coarsest
+    head's largest anchor clears the threshold, in the tail of its
+    objectness over the cells, with a confident class and a small box
+    inside its cell: some valid detections per image, fewer than the 20
+    kept, and every box inside the image (`chip_smoke.py` phase 13 reports
+    the counts).
+    """
+    from poet_tpu_torch.models.yolov4 import _ints, channel_walk
+    from poet_tpu_torch.utils.darknet_import import _channel_walk
+
+    sections = [dict(s) for s in cfg_sections]
+    body = sections[1:]
+    strides = channel_walk(sections)[1]
+    damped = {li - 1 for li, sec in enumerate(body) if sec["type"] == "shortcut"}
+    heads = {li - 1: sec for li, sec in enumerate(body) if sec["type"] == "yolo"}
+    coarsest = max(heads, key=lambda li: strides[li])
+    g = np.random.default_rng(seed)
+    tree: Dict[str, Dict[str, np.ndarray]] = {}
+    for li, sec, cin in _channel_walk(sections):
+        filters, size = int(sec["filters"]), int(sec["size"])
+        fan_in = cin * size * size
+        kernel = g.normal(size=(size, size, cin, filters))
+        if li in heads:
+            yolo = heads[li]
+            anchors, mask = _ints(yolo["anchors"]), _ints(yolo["mask"])
+            areas = [anchors[2 * m] * anchors[2 * m + 1] for m in mask]
+            per = 5 + int(yolo["classes"])
+            rows = np.ones(per, np.float32)
+            rows[:4] = HEAD_BOX_KERNEL_SCALE
+            bias = np.full((len(mask), per), HEAD_CLS_BIAS, np.float32)
+            bias[:, :2] = 0.0
+            bias[:, 2:4] = HEAD_WH_BIAS
+            bias[:, 4] = HEAD_OBJ_BIAS_OTHERS
+            if li == coarsest:
+                bias[int(np.argmax(areas)), 4] = HEAD_OBJ_BIAS_LARGEST
+            tree[f"conv_{li}"] = {
+                "kernel": (kernel * np.tile(rows, len(mask)) / math.sqrt(fan_in)).astype(np.float32),
+                "bias": bias.reshape(-1)}
+            continue
+        tree[f"conv_{li}"] = {"kernel": (kernel * math.sqrt(BODY_GAIN / fan_in)).astype(np.float32)}
+        if int(sec.get("batch_normalize", 0)):
+            scale = 0.2 if li in damped else 1.0
+            tree[f"bn_{li}"] = {
+                "weight": (scale * (1.0 + 0.1 * g.normal(size=(filters,)))).astype(np.float32),
+                "bias": (0.1 * scale * g.normal(size=(filters,))).astype(np.float32),
+                "running_mean": (0.1 * g.normal(size=(filters,))).astype(np.float32),
+                "running_var": (0.5 + 0.5 * np.abs(g.normal(size=(filters,)))).astype(np.float32)}
+        else:
+            tree[f"conv_{li}"]["bias"] = (0.05 * g.normal(size=(filters,))).astype(np.float32)
+    return tree
+
+
+def yolo_detect_pose_model(cfg: PoETConfig, seed: int = 0):
+    """The seeded YOLO detect+pose model, on the CPU: the JAX initializers
+    for PoET (`utils/init.py`) and `darknet_state` for the darknet body."""
+    from poet_tpu_torch.models import build_model
+    from poet_tpu_torch.utils.init import init_weights
+    from poet_tpu_torch.utils.jax_params import load_jax_params
+
+    model = init_weights(build_model(cfg), seed=seed)
+    body = model.backbone.body
+    load_jax_params(body, darknet_state(body.sections))
     return model.eval()

@@ -121,7 +121,9 @@ BWD_LIB = CudaLibrary(CSRC / "ms_deform_attn_bwd.cu", {
     "poet_ms_deform_attn_bwd_dloc": [P] * 6 + [I] * 8 + [INTS, I, P]})
 ROI_LIB = CudaLibrary(CSRC / "roi_align_fwd.cu", {
     "poet_roi_align_fwd": [PTRS, INTS, I] + [P] * 6 + [I] * 7 + [P]})
-LIBRARIES = (FWD_LIB, BWD_LIB, ROI_LIB)
+STEM_LIB = CudaLibrary(CSRC / "conv_stem_fwd.cu", {
+    "poet_conv_stem_fwd": [P] * 4 + [I] * 17 + [P]})
+LIBRARIES = (FWD_LIB, BWD_LIB, ROI_LIB, STEM_LIB)
 
 
 def build_all() -> None:

@@ -11,7 +11,9 @@ RPN levels at once:
     convergence test reads one bool per iteration: the host waits on the
     device once per iteration (`FIXED_POINT` counts iterations and waits).
   * top-k is a stable descending sort: ties keep the lower index first, as
-    `jax.lax.top_k` does, so keep sets and selections match JAX exactly.
+    `jax.lax.top_k` does, so keep sets and selections match JAX exactly;
+  * `nms_padded` and `batched_class_nms` (the YOLO detector's agnostic and
+    per-class NMS) run through the same fixed point.
 
 RoIAlign (torchvision `MultiScaleRoIAlign`, aligned=False) is split in two:
 `roi_geometry` computes each box's level and, per sample, the lower corner
@@ -115,6 +117,28 @@ def nms_fixed_point(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: fl
         keep_idx = torch.nn.functional.pad(keep_idx, (0, pad))
         keep_valid = torch.nn.functional.pad(keep_valid, (0, pad))
     return keep_idx, keep_valid
+
+
+def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+               max_outputs: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's `nms_padded` with leading batch dimensions: (..., N, 4) boxes,
+    (..., N) scores with -inf for invalid candidates -> (keep_idx, keep_valid)
+    of `max_outputs` in descending score, through `nms_fixed_point`."""
+    return nms_fixed_point(boxes, scores, iou_threshold, max_outputs)
+
+
+def batched_class_nms(boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor,
+                      valid: torch.Tensor, iou_threshold: float,
+                      max_outputs: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-class NMS by the coordinate-offset trick (torchvision batched_nms,
+    JAX's `batched_class_nms`), with leading batch dimensions: each problem's
+    boxes move by label x (its largest valid coordinate + 1), so boxes of
+    different classes never overlap, and one NMS runs over all of them."""
+    max_coord = torch.where(valid[..., None], boxes, 0.0).amax(dim=(-2, -1),
+                                                               keepdim=True) + 1.0
+    shifted = boxes + labels.to(boxes.dtype)[..., None] * max_coord
+    return nms_padded(shifted, torch.where(valid, scores, NEG_INF), iou_threshold,
+                      max_outputs)
 
 
 def nms_greedy(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,

@@ -31,6 +31,7 @@ KERNEL_CLASSES: Tuple[Tuple[str, str], ...] = (
     ("d_value kernel", r"ms_deform_attn_dvalue_kernel"),
     ("d_loc/d_attn kernel", r"ms_deform_attn_dloc_kernel"),
     ("RoIAlign kernel", r"roi_align_fwd_kernel"),
+    ("stem kernel", r"conv_stem_fwd_kernel"),
     ("memcpy / memset", r"^Mem(cpy|set)"),
     ("conv (cuDNN)", r"cudnn|conv|fprop|dgrad|wgrad"),
     ("GEMM", r"gemm|xmma|nvjet|cublas"),
