@@ -5,8 +5,9 @@
 
 Phases, each raising on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the kernels (deformable attention, RoIAlign, the stem conv) from
-     poet_tpu_torch/csrc with nvcc, one process per source, in parallel;
+  2. build the kernels (deformable attention, RoIAlign, the stem conv, the
+     min distance) from poet_tpu_torch/csrc with nvcc, one process per
+     source, in parallel;
   3. the forward kernel against its plain PyTorch version on the card:
      flagship encoder (Q=S=1600) and decoder (Q=10) shapes at B=16, edge
      level geometries, out-of-map and dummy-query locations; f32 and bf16;
@@ -66,14 +67,34 @@ Phases, each raising on failure:
      rotations in SO(3), n_boxes <= Q, boxes inside the image, at least one
      valid detection per image; p50/p95, img/s, peak memory, NMS iterations;
  14. f32 YOLO detect+pose at B=2, the card against the CPU port, TF32 off:
-     the selected queries row for row, the poses on the CPU's detections.
-Phases 4, 7, 10 and 13 each set every kernel's launch count to 0 before
-they drive their path and read them after. Every kernel's entry in the
-report carries its bound: the larger of the bytes it must move (each input
-read once, each output written once) over 3.35 TB/s and its operations
-over the peak rate for its type (67 TFLOP/s f32 for the gathers; 989
-TFLOP/s for the stem's bf16 contraction, with its f32 bound beside it), for
-this run's inputs. The last two lines are the kernel report and
+     the selected queries row for row, the poses on the CPU's detections;
+ 15. the min-distance (ADD-S) kernel against its plain version on the card:
+     the BOP shape (P=64, N=M=15 000), P=N=M=1, N=257 M=1000, M << N,
+     M >> N, clouds ~1 m from the origin, exact duplicates (minimum 0), a
+     NaN est cloud and a NaN gt point (NaN as in the plain version);
+     kernel, plain and torch.cdist ms, the bound of the matrix-unit form
+     and the direct form's f32 bound;
+ 16. evaluation in gt mode: pose_evaluate at the paper config (bf16, B=16,
+     480x640, seeded weights) over 8 batches of the `flagship.EvalFixture`
+     (1-10 objects per image, the 21 YCB-V classes, 15 000-point clouds),
+     then bop_evaluate over it; exactly 10 forward launches per batch, no
+     other but sum_c ceil(P_c / 64) min-distance launches in the ADD-S pass
+     and none in ADD(-S); finite results, the five metric directories,
+     every object matched, one CSV row per pair; the same pairs with pred
+     = gt score 100 and the full AUC; ADD-S card (kernel, TF32 on) vs CPU
+     port (plain) on every pair; images/s, host-wait share, seconds per pass;
+ 17. evaluation in backbone mode at phase 10's config, 2 batches, on
+     targets made of the detector's own detections: 1 RoIAlign and 10
+     forward launches per batch, matched pairs = valid detections.
+Phases 4, 7, 10, 13, 16 and 17 each set every kernel's launch count to 0
+before they drive their path and read them after. Every kernel's entry in
+the report carries its bound: the larger of the bytes it must move (each
+input read once, each output written once) over 3.35 TB/s and its
+operations over the peak rate for its type (67 TFLOP/s f32 for the
+gathers; for the contractions that the TPU kernels run on their matrix
+unit, 989 TFLOP/s bf16 for the stem and 495 TFLOP/s TF32, three products
+per f32 product, for the min distance's cross term; each with its f32
+bound beside it), for this run's inputs. The last two lines are the kernel report and
 {"ok": true, "device": ...}. Exits non-zero without a CUDA device, and
 imports no JAX.
 """
@@ -152,6 +173,7 @@ ROI_GEOMETRIES = [
 DETECT_REQUESTS = 8
 YOLO_REQUESTS = 8
 BF16_TC_FLOP_PER_S = 989e12
+TF32_TC_FLOP_PER_S = 495e12
 # stem kernel vs plain, f32 (TF32 off), relative to max |ref|: the same f32
 # FMAs in another order; bf16 adds one bf16 rounding (2^-8 |ref|)
 STEM_F32_RTOL = 1e-5
@@ -176,6 +198,31 @@ STEM_PATH = ("yolo L0", "yolo L1", "yolo L3")
 # (5e-3 px) agree, as in the detector parity tests; poses of matched rows
 # within E2E_RTOL of the output scale
 DET_SCORE_ATOL, DET_BOX_ATOL_PX = 1e-4, 5e-3
+# min-distance kernel vs plain, relative to the case's max |gt|^2: the same
+# f32 arithmetic, which nvcc contracts into one multiply and two FMAs where
+# the plain version rounds three products and two sums (a few ulps of a
+# squared distance, itself <= 4 max|gt|^2 for clouds of one extent)
+NN_RTOL = 2e-6
+# (name, P, N, M, kind)
+NN_CASES = [
+    ("BOP shape", 64, 15000, 15000, "centred"),
+    ("P=N=M=1", 1, 1, 1, "centred"),
+    ("N=257 M=1000", 3, 257, 1000, "centred"),
+    ("M << N", 4, 5000, 7, "centred"),
+    ("M >> N", 4, 9, 20000, "centred"),
+    ("uncentred, ~1 m from the origin", 8, 3000, 3000, "uncentred"),
+    ("exact duplicates", 4, 3000, 2000, "duplicates"),
+    ("NaN", 4, 1000, 1500, "nan"),
+]
+NN_LIBRARY_CHUNK = 8
+EVAL_B, EVAL_BATCHES = 16, 8
+EVAL_BACKBONE_BATCHES = 2
+# ADD-S card (kernel) vs CPU port (plain), meters: the transforms and minima
+# in f32 in other orders (~1e-8 m), far below the 1e-4 m AUC step
+EVAL_ADDS_ATOL = 1e-6
+# the card-vs-CPU ADD-S check runs over every 32nd point of each cloud (469
+# of 15 000): the CPU's plain search of a full cloud takes seconds per pose
+EVAL_THIN = 32
 
 
 def log(msg: str) -> None:
@@ -184,25 +231,31 @@ def log(msg: str) -> None:
 
 def all_kernels():
     """Every kernel wrapper, in the report's order: forward, d_value, d_loc,
-    RoIAlign, stem."""
+    RoIAlign, stem, min distance."""
     from poet_tpu_torch.ops.conv_stem_cuda import CONV_STEM_FWD
     from poet_tpu_torch.ops.deform_attn_cuda import KERNELS
+    from poet_tpu_torch.ops.nn_cuda import MIN_DIST_SQ
     from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD
 
-    return list(KERNELS) + [ROI_ALIGN_FWD, CONV_STEM_FWD]
+    return list(KERNELS) + [ROI_ALIGN_FWD, CONV_STEM_FWD, MIN_DIST_SQ]
 
 
 @contextlib.contextmanager
-def tf32_off():
-    """Full f32 for cuBLAS and cuDNN (cuDNN convs default to TF32)."""
+def tf32(allow: bool):
+    """TF32 for cuBLAS and cuDNN on or off (cuDNN convs default to TF32)."""
     import torch
 
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = allow
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def tf32_off():
+    """Full f32 for cuBLAS and cuDNN."""
+    return tf32(False)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -474,10 +527,10 @@ def phase_slice(report):
     results = list(server.stream((images for _ in range(REQUESTS)), lambda prev: boxes))
     counts = [k.launches for k in kernels]
     launches = counts[0]
-    if counts != [per_layer * REQUESTS, 0, 0, 0, 0]:
-        raise AssertionError(f"launches fwd/d_value/d_loc/roi/stem {counts} for {REQUESTS} "
+    if counts != [per_layer * REQUESTS, 0, 0, 0, 0, 0]:
+        raise AssertionError(f"launches fwd/d_value/d_loc/roi/stem/nn {counts} for {REQUESTS} "
                              f"requests, expected {per_layer} forward per request, no adjoint, "
-                             f"no RoIAlign and no stem")
+                             f"no RoIAlign, no stem and no min-distance launch")
     if len(results) != REQUESTS:
         raise AssertionError(f"{len(results)} answers for {REQUESTS} requests")
     for res in results:
@@ -574,10 +627,10 @@ def phase_train(report):
         history.append(fetch_metrics(step(*batch, gen)))               # syncs on the metrics
         times.append(time.perf_counter() - t0)
     launches = [k.launches for k in kernels]
-    if launches != [per_step * TRAIN_STEPS] * 3 + [0, 0]:
-        raise AssertionError(f"launches fwd/d_value/d_loc/roi/stem {launches} for "
+    if launches != [per_step * TRAIN_STEPS] * 3 + [0, 0, 0]:
+        raise AssertionError(f"launches fwd/d_value/d_loc/roi/stem/nn {launches} for "
                              f"{TRAIN_STEPS} steps, expected {per_step} deformable each per "
-                             f"step, no RoIAlign and no stem")
+                             f"step, no RoIAlign, no stem and no min-distance launch")
     if not all(np.isfinite(list(m.values())).all() for m in history):
         raise AssertionError(f"non-finite training metrics: {history}")
     state = model.state_dict()
@@ -590,7 +643,7 @@ def phase_train(report):
              "img_s": float(B / ms.mean() * 1e3),
              "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     log(f"train: paper config bf16 B={B} {H}x{W}, dropout {cfg.model.dropout}, AdamW: "
-        f"{TRAIN_STEPS} steps, launches fwd/d_value/d_loc/roi/stem {launches} ({per_step} "
+        f"{TRAIN_STEPS} steps, launches fwd/d_value/d_loc/roi/stem/nn {launches} ({per_step} "
         f"deformable each per step), loss {history[0]['loss']:.4f} -> "
         f"{history[-1]['loss']:.4f}, grad_norm {history[-1]['grad_norm']:.4f}, backbone bit-identical ({len(frozen)} tensors), "
         f"{w_name} moved; step p50 {stats['p50_ms']:.3f} ms, p95 {stats['p95_ms']:.3f} ms, "
@@ -844,7 +897,7 @@ def phase_detect(report):
     torch.cuda.reset_peak_memory_stats()
     per_layer = cfg.model.enc_layers + cfg.model.dec_layers
     kernels = all_kernels()
-    expect = [per_layer * DETECT_REQUESTS, 0, 0, DETECT_REQUESTS, 0]
+    expect = [per_layer * DETECT_REQUESTS, 0, 0, DETECT_REQUESTS, 0, 0]
 
     def run(label, drive):
         for k in kernels:
@@ -856,7 +909,7 @@ def phase_detect(report):
         wall = time.perf_counter() - t0
         counts = [k.launches for k in kernels]
         if counts != expect:
-            raise AssertionError(f"{label}: launches fwd/d_value/d_loc/roi/stem {counts} for "
+            raise AssertionError(f"{label}: launches fwd/d_value/d_loc/roi/stem/nn {counts} for "
                                  f"{DETECT_REQUESTS} requests, expected {expect}")
         if len(results) != DETECT_REQUESTS:
             raise AssertionError(f"{label}: {len(results)} answers")
@@ -906,7 +959,7 @@ def phase_detect(report):
     log(f"detect+pose: PoseServer detector mode, paper config bf16 B={B} {H}x{W}, "
         f"{cfg.model.n_classes + 1} classes, {cfg.backbone.post_nms_top_n} proposals: "
         f"{DETECT_REQUESTS} requests via infer + {DETECT_REQUESTS} via stream, launches "
-        f"fwd/d_value/d_loc/roi/stem {counts} per {DETECT_REQUESTS} requests; detector valid "
+        f"fwd/d_value/d_loc/roi/stem/nn {counts} per {DETECT_REQUESTS} requests; detector valid "
         f"detections per image {np.mean(det_infer) / B:.2f} (of "
         f"{cfg.backbone.max_detections}), selected queries per image mean "
         f"{n_boxes.mean():.2f} min {n_boxes.min()} max {n_boxes.max()} (of {Q}); finite, "
@@ -1142,7 +1195,7 @@ def phase_yolo(report):
     torch.cuda.reset_peak_memory_stats()
     per_layer = cfg.model.enc_layers + cfg.model.dec_layers
     kernels = all_kernels()
-    expect = [per_layer * YOLO_REQUESTS, 0, 0, 0, 3 * YOLO_REQUESTS]
+    expect = [per_layer * YOLO_REQUESTS, 0, 0, 0, 3 * YOLO_REQUESTS, 0]
 
     def run(label, drive):
         for k in kernels:
@@ -1154,7 +1207,7 @@ def phase_yolo(report):
         wall = time.perf_counter() - t0
         counts = [k.launches for k in kernels]
         if counts != expect:
-            raise AssertionError(f"yolo {label}: launches fwd/d_value/d_loc/roi/stem {counts} "
+            raise AssertionError(f"yolo {label}: launches fwd/d_value/d_loc/roi/stem/nn {counts} "
                                  f"for {YOLO_REQUESTS} requests, expected {expect}")
         if len(results) != YOLO_REQUESTS:
             raise AssertionError(f"yolo {label}: {len(results)} answers")
@@ -1183,7 +1236,7 @@ def phase_yolo(report):
         f"{H}x{W}, {tokens[-1]} tokens, conf "
         f"{cfg.backbone.conf_thresh}, {cfg.backbone.max_detections} detections: "
         f"{YOLO_REQUESTS} requests via infer + {YOLO_REQUESTS} via stream, launches "
-        f"fwd/d_value/d_loc/roi/stem {counts} per {YOLO_REQUESTS} requests; valid detections "
+        f"fwd/d_value/d_loc/roi/stem/nn {counts} per {YOLO_REQUESTS} requests; valid detections "
         f"per image (first request) {det_infer[0].tolist()}, over all: min {det_infer.min()} "
         f"mean {det_infer.mean():.2f} max {det_infer.max()} (of "
         f"{cfg.backbone.max_detections}); selected queries per image mean {n_boxes.mean():.2f} "
@@ -1229,7 +1282,7 @@ def phase_yolo_f32():
             shared = {k: v.cpu().numpy() for k, v in model(*cargs, detections={
                 k: v.cuda() for k, v in cpu_dets.items()}).items()}
         per = cfg.model.enc_layers + cfg.model.dec_layers
-        if [k.launches - n for k, n in zip(kernels, n0)] != [2 * per, 0, 0, 0, 2 * 3]:
+        if [k.launches - n for k, n in zip(kernels, n0)] != [2 * per, 0, 0, 0, 2 * 3, 0]:
             raise AssertionError("the card runs did not go through the forward and stem kernels")
     if not np.array_equal(card["n_boxes"], cpu["n_boxes"]) or cpu["n_boxes"].min() == 0:
         raise AssertionError(f"n_boxes card {card['n_boxes']} vs CPU {cpu['n_boxes']}")
@@ -1253,6 +1306,417 @@ def phase_yolo_f32():
         f"every selected query matched (class, score {DET_SCORE_ATOL}, box {DET_BOX_ATOL_PX} px; "
         f"worst box {box_err:.2e} px); poses on the CPU's detections, all "
         f"{cfg.model.dec_layers} layers: max |card - cpu| / scale = {worst:.3e} (tol {E2E_RTOL})")
+
+
+def nn_inputs(g, P, N, M, kind):
+    """(gt (P, N, 3), est (P, M, 3)) on the card: model-sized clouds (~0.1 m)
+    centred on the origin; 'uncentred' moves both ~1 m away (what the
+    evaluator's centring on the gt translation avoids); 'duplicates' makes
+    every other gt point an exact copy of an est point; 'nan' puts a NaN in
+    one est cloud and in one gt point."""
+    import torch
+
+    gt = 0.05 * torch.randn((P, N, 3), generator=g, device=DEVICE)
+    est = 0.05 * torch.randn((P, M, 3), generator=g, device=DEVICE)
+    if kind == "uncentred":
+        shift = torch.tensor([0.3, -0.2, 1.0], device=DEVICE)
+        gt, est = gt + shift, est + shift + 0.01
+    elif kind == "duplicates":
+        idx = torch.randint(0, M, (P, N), generator=g, device=DEVICE)
+        copies = torch.gather(est, 1, idx[..., None].expand(P, N, 3))
+        gt = torch.where((torch.arange(N, device=DEVICE) % 2 == 0)[None, :, None], copies, gt)
+    elif kind == "nan":
+        est[1, M // 2, 2] = float("nan")
+        gt[2, N // 3, 0] = float("nan")
+    return gt.contiguous(), est.contiguous()
+
+
+def nn_bounds(gt, est, out):
+    """(bound, f32 bound) of the min distance, each (ms, binds). The bound:
+    the bytes (inputs read once, the output written once) over 3.35 TB/s
+    against the operations of the matrix-unit form that the TPU kernel
+    runs, |g|^2 + |e|^2 - 2 g.e: the cross term's 3 multiply-adds per pair
+    on the tensor cores at f32 accuracy (3xTF32, three TF32 products per f32
+    product: 18 flops per pair over 495 TFLOP/s), overlapped with its
+    epilogue on the f32 pipes (one FMA and one add: 3 flops per pair over 67
+    TFLOP/s); the min is counted in neither form. The f32 bound: the direct
+    difference form that the kernel runs (3 subtractions, 1 multiply, 2
+    FMAs: 8 flops per pair over 67 TFLOP/s)."""
+    pairs = gt.shape[0] * gt.shape[1] * est.shape[1]
+    n_bytes = nbytes(gt, est, out)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(18.0 * pairs / TF32_TC_FLOP_PER_S, 3.0 * pairs / F32_FLOP_PER_S)
+    matrix = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return matrix, bound(n_bytes, 8.0 * pairs)
+
+
+def nn_library(gt, est, chunk=NN_LIBRARY_CHUNK):
+    """torch.cdist's min over est, squared: one PyTorch call per chunk of
+    poses, so that each (chunk, N, M) distance block fits (7.2 GB at the BOP
+    shape); the yardstick, not on the path."""
+    import torch
+
+    return torch.cat([torch.cdist(gt[s:s + chunk], est[s:s + chunk]).amin(-1).square()
+                      for s in range(0, gt.shape[0], chunk)])
+
+
+def phase_nn(report):
+    import torch
+
+    from poet_tpu_torch.ops.nn_cuda import MIN_DIST_SQ as K
+    from poet_tpu_torch.ops.nn_cuda import min_dist_sq_plain as plain
+
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    worst, worst_rel = 0.0, 0.0
+    for name, P, N, M, kind in NN_CASES:
+        gt, est = nn_inputs(g, P, N, M, kind)
+        ref = plain(gt, est)
+        got = K(gt, est)
+        torch.cuda.synchronize()
+        if tuple(got.shape) != (P, N) or got.dtype != torch.float32:
+            raise AssertionError(f"min_dist {name}: kernel returned {got.dtype} {tuple(got.shape)}")
+        nan = torch.isnan(ref)
+        if not torch.equal(torch.isnan(got), nan):
+            raise AssertionError(f"min_dist {name}: NaN where the plain version has "
+                                 f"{int(nan.sum())} NaN, the kernel {int(torch.isnan(got).sum())}")
+        scale = float(torch.nan_to_num(gt, nan=0.0).square().sum(-1).max())
+        err = float((got - ref)[~nan].abs().max()) if bool((~nan).any()) else 0.0
+        if not err <= NN_RTOL * scale:
+            raise AssertionError(f"min_dist {name}: max |kernel - plain| {err} > {NN_RTOL} x "
+                                 f"max|gt|^2 {scale}")
+        line = (f"min_dist-vs-plain {name}: P={P} N={N} M={M} max_abs_err={err:.3e} (tol "
+                f"{NN_RTOL} x max|gt|^2 = {NN_RTOL * scale:.3e})")
+        if kind == "duplicates":
+            dup = got[:, 0::2]
+            if not bool((dup == 0).all()):
+                raise AssertionError(f"min_dist {name}: a duplicated point's minimum is "
+                                     f"{float(dup.abs().max())}, not 0")
+            line += f"; {dup.numel()} duplicated points at exactly 0"
+        if kind == "nan":
+            if not (bool(torch.isnan(got[1]).all()) and int(torch.isnan(got).sum()) == N + 1):
+                raise AssertionError(f"min_dist {name}: the NaN est cloud did not make its "
+                                     f"whole row NaN, or NaN spread elsewhere")
+            line += ("; the NaN est cloud's row and the NaN gt point are NaN, as in the plain "
+                     "version")
+        worst = max(worst, err)
+        worst_rel = max(worst_rel, err / scale)
+        if name == "BOP shape":
+            with tf32_off():
+                t = {"ms": cuda_ms(lambda: K(gt, est)),
+                     "plain_ms": cuda_ms(lambda: plain(gt, est), iters=2, warmup=1),
+                     "library_ms": cuda_ms(lambda: nn_library(gt, est), iters=3, warmup=1)}
+                lib_err = float((nn_library(gt, est) - ref).abs().max())
+            t["bound"], t["f32_bound"] = nn_bounds(gt, est, got)
+            line += (f" | ms kernel {t['ms']:.4f}, plain {t['plain_ms']:.4f}, cdist (chunks of "
+                     f"{NN_LIBRARY_CHUNK} poses, TF32 off) {t['library_ms']:.4f} (max |cdist - "
+                     f"plain| {lib_err:.3e}) | {P * N * M:.3e} pairs, bound {t['bound'][0]:.4f} "
+                     f"ms ({t['bound'][1]}, the matrix-unit form), "
+                     f"{t['bound'][0] / t['ms'] * 100:.1f}% of it; the direct form's f32 bound "
+                     f"{t['f32_bound'][0]:.4f} ms ({t['f32_bound'][1]}), "
+                     f"{t['f32_bound'][0] / t['ms'] * 100:.1f}% of it")
+            report["nn"] = t
+        log(line)
+    try:
+        K(gt.cpu(), est.cpu())
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the min-distance kernel took CPU tensors")
+    report["nn_max_err"] = (worst, worst_rel)
+
+
+METRIC_PASSES = {"evaluate_pose_add": "ADD", "evaluate_pose_adi": "ADD-S",
+                 "evaluate_pose_adds": "ADD(-S)",
+                 "calculate_class_avg_translation_error": "average translation error",
+                 "calculate_class_avg_rotation_error": "average rotation error"}
+METRIC_FILES = ("add/add", "adi/adds", "adds/adds", "avg_t_error/avg_t_error",
+                "avg_rot_error/avg_rot_error")
+
+
+class EvalProbe:
+    """Times the eval loop from outside, by host clock: the waits for the
+    loader's next batch, the pinned uploads, the eval forwards (enqueue and
+    match), inside them the match (`engine/train.py:match_poses`, whose
+    identity certificate reads a bool and so waits for the forward on the
+    card), the pair extraction, and each metric pass of the evaluator with
+    the min-distance launches it made. Installed around one
+    `pose_evaluate` call and removed after it."""
+
+    STAGES = ("loader", "upload", "forward", "matcher", "extract")
+
+    def __init__(self, evaluator, loader):
+        from poet_tpu_torch.engine import evaluate, train
+        from poet_tpu_torch.ops.nn_cuda import MIN_DIST_SQ
+
+        self.train, self.evaluate, self.kernel = train, evaluate, MIN_DIST_SQ
+        self.evaluator, self.loader = evaluator, loader
+        self.host = dict.fromkeys(self.STAGES, 0.0)
+        self.loop_end = None
+        self.passes = {}
+
+    def _timed(self, fn, stage):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.host[stage] += time.perf_counter() - t0
+        return wrapper
+
+    def _epoch(self, epoch):
+        it = self.loader_epoch(epoch)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            self.host["loader"] += time.perf_counter() - t0
+            if batch is None:
+                return
+            yield batch
+
+    def _pass(self, name, fn):
+        def wrapper(*args, **kwargs):
+            if self.loop_end is None:
+                self.loop_end = time.perf_counter()
+            n0, t0 = self.kernel.launches, time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.passes[name] = (time.perf_counter() - t0, self.kernel.launches - n0)
+            return out
+        return wrapper
+
+    def __enter__(self):
+        train, evaluate = self.train, self.evaluate
+        self.saved = (train.match_poses, evaluate._matched_pairs_to_host, evaluate._upload,
+                      evaluate.make_eval_forward)
+        train.match_poses = self._timed(train.match_poses, "matcher")
+        evaluate._matched_pairs_to_host = self._timed(evaluate._matched_pairs_to_host, "extract")
+        evaluate._upload = self._timed(evaluate._upload, "upload")
+        make = evaluate.make_eval_forward
+        evaluate.make_eval_forward = lambda m, c: self._timed(make(m, c), "forward")
+        self.loader_epoch = self.loader.epoch
+        self.loader.epoch = self._epoch
+        for name in METRIC_PASSES:
+            setattr(self.evaluator, name, self._pass(name, getattr(self.evaluator, name)))
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        train, evaluate = self.train, self.evaluate
+        (train.match_poses, evaluate._matched_pairs_to_host, evaluate._upload,
+         evaluate.make_eval_forward) = self.saved
+        del self.loader.epoch
+        for name in METRIC_PASSES:
+            delattr(self.evaluator, name)
+
+
+def adi_launches(evaluator):
+    """The min-distance launches one ADD-S pass makes: sum over classes of
+    ceil(P_c / POSE_CHUNK)."""
+    from poet_tpu_torch.evaluation.pose_evaluator import POSE_CHUNK
+
+    return sum(-(-int(n) // POSE_CHUNK) for n in evaluator.num.values())
+
+
+def check_metric_files(out_dir, evaluator, results):
+    """The five metric directories with their .log and .json, finite
+    summaries, and every recorded pose's ADD and ADD-S errors finite."""
+    for stem in METRIC_FILES:
+        for ext in (".log", ".json"):
+            if not os.path.isfile(os.path.join(out_dir, stem + ext)):
+                raise AssertionError(f"missing {stem}{ext} under {out_dir}")
+    if not all(math.isfinite(v) for v in results["accuracy"].values()):
+        raise AssertionError(f"non-finite ADD(-S) summary {results['accuracy']}")
+    errs = np.concatenate([v for v in evaluator._err_cache.values()])
+    if not np.isfinite(errs).all():
+        raise AssertionError("a non-finite ADD or ADD-S error")
+
+
+def phase_eval(report):
+    import tempfile
+
+    import torch
+    from scipy.integrate import simpson
+
+    from poet_tpu_torch.data.loader import PoseDataLoader
+    from poet_tpu_torch.engine.evaluate import bop_evaluate, pose_evaluate
+    from poet_tpu_torch.evaluation.pose_evaluator import _AUC_MAX, _DX, adi_errors
+    from poet_tpu_torch.flagship import EvalFixture, flagship_config
+    from poet_tpu_torch.models import build_model
+    from poet_tpu_torch.utils.init import init_weights
+
+    B = EVAL_B
+    cfg = flagship_config("bfloat16")
+    Q = cfg.model.num_queries
+    model = init_weights(build_model(cfg), seed=0)
+    data = EvalFixture(B * EVAL_BATCHES)
+    evaluator = data.evaluator()
+    loader = PoseDataLoader(data, B, Q, shuffle=False, drop_last=False)
+    tmp = tempfile.mkdtemp(prefix="poet_eval_")
+    # warm-up (cuDNN/cuBLAS init): one batch through the whole path
+    warm = EvalFixture(B, seed=1)
+    pose_evaluate(model, warm.evaluator(), PoseDataLoader(warm, B, Q, shuffle=False), cfg,
+                  "warmup", output_dir=tmp)
+    if next(model.parameters()).device.type != DEVICE:
+        raise AssertionError("pose_evaluate did not run the model on the card")
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    with EvalProbe(evaluator, loader) as probe:
+        results = pose_evaluate(model, evaluator, loader, cfg, "test", output_dir=tmp)
+    counts = [k.launches for k in kernels]
+    per_layer = cfg.model.enc_layers + cfg.model.dec_layers
+    n_adi = adi_launches(evaluator)
+    expect = [per_layer * EVAL_BATCHES, 0, 0, 0, 0, n_adi]
+    if counts != expect:
+        raise AssertionError(f"eval: launches fwd/d_value/d_loc/roi/stem/nn {counts} for "
+                             f"{EVAL_BATCHES} batches, expected {expect}")
+    per_pass = {name: n for name, (_, n) in probe.passes.items()}
+    if (per_pass["evaluate_pose_adi"], per_pass["evaluate_pose_adds"]) != (n_adi, 0):
+        raise AssertionError(f"eval: min-distance launches by pass {per_pass}, expected "
+                             f"{n_adi} in ADD-S and 0 in ADD(-S)")
+    out_dir = os.path.join(tmp, "eval_test_gt")
+    check_metric_files(out_dir, evaluator, results)
+    n_pairs = int(sum(evaluator.num.values()))
+    want_pairs = sum(min(len(t["labels"]), Q) for t in data.targets)
+    if n_pairs != want_pairs:
+        raise AssertionError(f"eval: {n_pairs} matched pairs, expected every one of the "
+                             f"{want_pairs} objects")
+    loop = probe.loop_end - probe.start
+    stats = {"img_s": B * EVAL_BATCHES / loop, "loop_s": loop,
+             "host_wait_share": probe.host["matcher"] / loop, "loop_host_s": probe.host,
+             "pairs": n_pairs,
+             "pass_s": {METRIC_PASSES[k]: v[0] for k, v in probe.passes.items()}}
+
+    # the BOP export over the same fixture: one CSV row per matched pair
+    for k in kernels:
+        k.launches = 0
+    csv = bop_evaluate(model, loader, cfg, "test", output_dir=tmp)
+    bop_counts = [k.launches for k in kernels]
+    if bop_counts != [per_layer * EVAL_BATCHES, 0, 0, 0, 0, 0]:
+        raise AssertionError(f"bop_evaluate: launches {bop_counts}")
+    with open(csv) as f:
+        rows = f.read().split("\n")
+    if rows[0] != "scene_id,im_id,obj_id,score,R,t,time" or len(rows) - 1 != n_pairs:
+        raise AssertionError(f"bop_evaluate: header {rows[0]!r}, {len(rows) - 1} rows for "
+                             f"{n_pairs} pairs")
+
+    # known answer: the same pairs with pred = gt score 100 at every
+    # threshold and the AUC of the curve [0, 1, 1, ...] (errors 0 < 0 fails)
+    exact = data.evaluator()
+    for idx, cls in enumerate(exact.classes, start=1):
+        for pose in evaluator.poses_gt[cls]:
+            exact.record(idx, pose[:, :3], pose[:, 3], pose[:, :3], pose[:, 3])
+    grid = np.arange(0, _AUC_MAX, _DX)
+    auc = simpson((grid > 0).astype(np.float64), dx=_DX) / _AUC_MAX * 100
+    ka_dir = os.path.join(tmp, "known_answer") + "/"
+    for name in ("evaluate_pose_add", "evaluate_pose_adi", "evaluate_pose_adds"):
+        res = getattr(exact, name)(ka_dir)
+        for cls in exact.classes:
+            acc = res[cls].get("accuracy")
+            if acc is None:
+                continue
+            if (any(acc[k] != 100.0 for k in ("0.02", "0.05", "0.10"))
+                    or abs(acc["auc"] - auc) > 1e-9):
+                raise AssertionError(f"known answer {name} {cls}: {acc}, expected 100 and "
+                                     f"AUC {auc}")
+
+    # the card (kernel) against the CPU port (plain) on every recorded pair,
+    # over every EVAL_THIN-th point of each cloud, with TF32 on: the clouds'
+    # transform must not follow the process-wide flag
+    worst = 0.0
+    with tf32(True):
+        for cls in evaluator.classes:
+            if not evaluator.poses_pred[cls]:
+                continue
+            pts = np.asarray(evaluator.models[cls]["pts"])[::EVAL_THIN]
+            pred = np.asarray(evaluator.poses_pred[cls], np.float64)
+            gt = np.asarray(evaluator.poses_gt[cls], np.float64)
+            card = adi_errors(pts, pred, gt, device=DEVICE)
+            cpu = adi_errors(pts, pred, gt, device="cpu")
+            worst = max(worst, float(np.abs(card - cpu).max()))
+    if not worst <= EVAL_ADDS_ATOL:
+        raise AssertionError(f"eval ADD-S card vs CPU: max |card - cpu| {worst} m > "
+                             f"{EVAL_ADDS_ATOL} m")
+    passes = ", ".join(f"{METRIC_PASSES[k]} {v[0]:.3f} s ({v[1]} nn)"
+                       for k, v in probe.passes.items())
+    log(f"eval: pose_evaluate paper config bf16 B={B} {data.H}x{data.W}, {EVAL_BATCHES} "
+        f"batches, {n_pairs} matched pairs over {sum(n > 0 for n in evaluator.num.values())} "
+        f"classes ({len(evaluator.models[evaluator.classes[0]]['pts'])}-point clouds): launches "
+        f"fwd/d_value/d_loc/roi/stem/nn {counts}; forward loop {loop:.3f} s, "
+        f"{stats['img_s']:.2f} img/s; in it (host clock) waiting for the loader "
+        f"{probe.host['loader']:.3f} s, pinned uploads {probe.host['upload']:.3f} s, eval "
+        f"forwards {probe.host['forward']:.3f} s of which the matcher's wait "
+        f"{probe.host['matcher']:.3f} s ({stats['host_wait_share'] * 100:.1f}% of the loop), "
+        f"pair extraction {probe.host['extract']:.3f} s; "
+        f"passes: {passes}; ADD(-S) mean accuracy {results['accuracy']}; bop_evaluate "
+        f"{len(rows) - 1} CSV rows; known answer (pred = gt): 100 at every threshold, AUC "
+        f"{auc:.6f}; ADD-S card vs CPU on every pair ({len(pts)} points per cloud, TF32 "
+        f"on): max "
+        f"|card - cpu| {worst:.3e} m (tol {EVAL_ADDS_ATOL} m)")
+    report["eval"] = stats
+    report["eval_launches"] = counts
+
+
+def phase_eval_backbone(report):
+    """pose_evaluate in bbox_mode='backbone' at phase 10's config, on targets
+    made of the detector's own top-Q detections of the same images (same
+    boxes and classes: every valid detection matches)."""
+    import tempfile
+
+    import torch
+
+    from poet_tpu_torch.data.loader import PoseDataLoader
+    from poet_tpu_torch.engine.evaluate import pose_evaluate
+    from poet_tpu_torch.flagship import EvalFixture, detect_pose_config, detect_pose_model
+
+    B, n_batches = EVAL_B, EVAL_BACKBONE_BATCHES
+    cfg = detect_pose_config("bfloat16")
+    Q = cfg.model.num_queries
+    model = detect_pose_model(cfg).to(DEVICE).to(memory_format=torch.channels_last)
+    drawn = EvalFixture(B * n_batches)
+    targets = []
+    with torch.inference_mode():
+        for s in range(0, len(drawn), B):
+            images = torch.from_numpy(np.stack([drawn.image(i) for i in range(s, s + B)]))
+            images = images.to(DEVICE)
+            dets = model.backbone(images, torch.zeros(images.shape[:3], dtype=torch.bool,
+                                                      device=DEVICE))[2]
+            boxes, labels, _, n_boxes, _ = model._select_detections(dets, Q, images.shape[1:3])
+            for b in range(B):
+                n = int(n_boxes[b])
+                t = dict(drawn.targets[s + b])
+                t["boxes"] = boxes[b, :n].float().cpu().numpy()
+                t["labels"] = labels[b, :n].cpu().numpy()
+                for k in ("relative_position", "relative_rotation", "intrinsics"):
+                    t[k] = np.resize(t[k], (n,) + t[k].shape[1:])
+                targets.append(t)
+    data = EvalFixture(B * n_batches, targets=targets)
+    want_pairs = sum(len(t["labels"]) for t in targets)
+    if want_pairs == 0:
+        raise AssertionError("eval backbone: the detector found nothing to match")
+    evaluator = data.evaluator()
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    results = pose_evaluate(model, evaluator, PoseDataLoader(data, B, Q, shuffle=False), cfg,
+                            "test", output_dir=tempfile.mkdtemp(prefix="poet_eval_bb_"))
+    wall = time.perf_counter() - t0
+    counts = [k.launches for k in kernels]
+    per_layer = cfg.model.enc_layers + cfg.model.dec_layers
+    expect = [per_layer * n_batches, 0, 0, n_batches, 0, adi_launches(evaluator)]
+    if counts != expect:
+        raise AssertionError(f"eval backbone: launches fwd/d_value/d_loc/roi/stem/nn {counts}, "
+                             f"expected {expect}")
+    n_pairs = int(sum(evaluator.num.values()))
+    if n_pairs != want_pairs:
+        raise AssertionError(f"eval backbone: {n_pairs} matched pairs, expected the "
+                             f"{want_pairs} valid detections (clamped to Q={Q})")
+    log(f"eval backbone: pose_evaluate detect+pose config bf16 B={B} {data.H}x{data.W}, "
+        f"{n_batches} batches, targets from the detector's own detections: {n_pairs} matched "
+        f"pairs = valid detections clamped to Q; launches fwd/d_value/d_loc/roi/stem/nn {counts}; "
+        f"ADD(-S) mean accuracy {results['accuracy']}; {wall:.3f} s with the metric passes")
+    report["eval_backbone_launches"] = counts
 
 
 def build_kernels():
@@ -1310,13 +1774,19 @@ def main() -> int:
     phase_yolo(report)
     phase_yolo_f32()
     t3 = time.perf_counter()
+    phase_nn(report)
+    phase_eval(report)
+    phase_eval_backbone(report)
+    t4 = time.perf_counter()
     log(f"phases 3-8 in {t1 - t0:.1f} s, phases 9-11 in {t2 - t1:.1f} s, phases 12-14 in "
-        f"{t3 - t2:.1f} s; the whole script {t3 - t_start:.1f} s on {card}")
+        f"{t3 - t2:.1f} s, phases 15-17 in {t4 - t3:.1f} s; the whole script "
+        f"{t4 - t_start:.1f} s on {card}")
 
     enc, adj = report["encoder"], report["adjoint_encoder"]["bf16"]
     paths = {"serve": report["launches"], "train": report["train_launches"],
-             "detect": report["detect"]["launches"], "yolo": report["yolo"]["launches"]}
-    roi = report["roi"]
+             "detect": report["detect"]["launches"], "yolo": report["yolo"]["launches"],
+             "eval": report["eval_launches"], "eval_backbone": report["eval_backbone_launches"]}
+    roi, nn = report["roi"], report["nn"]
     errs, bounds = report["adjoint_max_abs_err"], report["adjoint_bounds"]
     src, tpu = "poet_tpu_torch/csrc/", "poet_tpu/ops/deform_attn_pallas_v3.py:"
 
@@ -1369,6 +1839,18 @@ def main() -> int:
          "per_layer": {name: {k: t[k] for k in ("ms", "plain_ms", "library_ms", "f32_ms")}
                        | {"bound_ms": t["bound"][0], "f32_bound_ms": t["f32_bound"][0]}
                        for name, t in zip(STEM_PATH, stem)}},
+        {"name": "min_dist_sq_fwd", "route": "cuda", "source": src + "min_dist_sq_fwd.cu",
+         "replaces": "poet_tpu/ops/nn_pallas.py:35", **launched(5),
+         # f32 over every phase-15 case; relative: to each case's max |gt|^2
+         "max_abs_err": report["nn_max_err"][0], "max_rel_err": report["nn_max_err"][1],
+         "ms": nn["ms"], "plain_ms": nn["plain_ms"], "bound_ms": nn["bound"][0],
+         "bound_by": nn["bound"][1], "library_ms": nn["library_ms"],
+         "bound_is": "|g|^2 + |e|^2 - 2 g.e: the cross term 3xTF32 on the tensor cores, "
+                     "the epilogue 3 f32 flops per pair",
+         "f32_bound_ms": nn["f32_bound"][0],
+         "library_is": f"torch.cdist(gt, est).amin(-1).square(), chunks of {NN_LIBRARY_CHUNK} "
+                       f"poses, TF32 off",
+         "ms_are": "P=64, N=M=15000 (the BOP cloud size), f32"},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,8 @@ an explicit `device`, `torch.Generator` for random numbers.
 
 Every TPU kernel on a ported path is a hand-written CUDA kernel for sm_90a
 under `csrc/` (deformable-attention sampling and its adjoint, multi-scale
-RoIAlign, the small-C stem conv), built with nvcc at first use; on CPU
-tensors each entry runs its plain PyTorch version.
+RoIAlign, the small-C stem conv, the ADD-S min distance), built with nvcc
+at first use; on CPU tensors each entry runs its plain PyTorch version.
 
 This package never imports JAX or `poet_tpu`.
 """

@@ -1,5 +1,6 @@
 """Configuration for the port: the fields of `poet_tpu.config` that the
-serving paths and the train step read, with the same names and defaults.
+serving paths, the train step and evaluation read, with the same names and
+defaults.
 
 `poet_tpu.config` cannot be imported here (`poet_tpu/__init__.py` pulls in
 JAX), so the dataclasses are restated. Fields that only select TPU
@@ -103,6 +104,15 @@ class LossConfig:
 @dataclass
 class DataConfig:
     dataset: str = "ycbv"           # {ycbv, lmo}; lmo remaps the detector's ids
+    dataset_path: str = "/data"     # root the evaluator's asset paths join onto
+
+
+@dataclass
+class EvalConfig:
+    # the evaluator's assets, joined onto data.dataset_path (reference main.py:141-149)
+    class_info: str = "/annotations/classes.json"
+    models_path: str = "/models_eval/"
+    model_symmetry: str = "/annotations/symmetries.json"
 
 
 @dataclass
@@ -113,3 +123,4 @@ class PoETConfig:
     matcher: MatcherConfig = field(default_factory=MatcherConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)

@@ -262,3 +262,97 @@ def yolo_detect_pose_model(cfg: PoETConfig, seed: int = 0):
     body = model.backbone.body
     load_jax_params(body, darknet_state(body.sections))
     return model.eval()
+
+
+EVAL_POINTS = 15_000        # points per model cloud: BOP models_eval size
+BOP_SCENE = 48              # the first YCB-V test scene
+
+
+class EvalFixture:
+    """A seeded in-memory eval set with the `PoseDataset` interface
+    (`__len__`, `ids`, `file_name`, `__getitem__(i, rng=)`), a fixture like
+    `flagship_batch` and not a dataset reader.
+
+    Image i is 480x640 f32 uniform [0, 1] noise drawn from (seed, i). Its
+    targets hold 1-10 objects: normalized cxcywh boxes, a YCB-V class
+    (1-21), a random rotation, a translation ~1 m in front of the camera
+    and the intrinsics; `targets` replaces them (one dict per image). File
+    names follow the BOP layout, test/<scene>/rgb/<im>.png. `evaluator()`
+    builds the YCB-V `PoseEvaluator`: the 21 classes and symmetries of
+    `dataset_files/ycbv_{classes,symmetries}.json`, each class a seeded
+    15 000-point cloud on the surface of a cuboid of 4-24 cm sides, its
+    diameter (mm) the cloud's largest point distance."""
+
+    def __init__(self, n_images: int, H: int = 480, W: int = 640, seed: int = 0,
+                 targets=None):
+        import os
+
+        from poet_tpu_torch.evaluation.pose_evaluator import (
+            SHIPPED_ASSETS,
+            load_classes,
+            load_model_symmetry,
+        )
+
+        self.H, self.W, self.seed = H, W, seed
+        self.ids = list(range(n_images))
+        self.classes = load_classes(os.path.join(SHIPPED_ASSETS, "ycbv_classes.json"))
+        self.symmetries = load_model_symmetry(
+            os.path.join(SHIPPED_ASSETS, "ycbv_symmetries.json"), self.classes)
+        self.targets = targets if targets is not None else [
+            self._draw_targets(np.random.default_rng((seed, 0, i)), i) for i in self.ids]
+
+    def _draw_targets(self, rng, image_id):
+        n = int(rng.integers(1, 11))
+        boxes = np.concatenate([rng.uniform(0.2, 0.8, (n, 2)), rng.uniform(0.05, 0.3, (n, 2))],
+                               axis=1).astype(np.float32)
+        q, r = np.linalg.qr(rng.normal(size=(n, 3, 3)))
+        q *= np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
+        q[:, :, 0] *= np.linalg.det(q)[:, None]
+        t = np.concatenate([rng.normal(0.0, 0.15, (n, 2)), rng.uniform(0.6, 1.4, (n, 1))], axis=1)
+        K = np.array([1066.778, 0, 312.9869, 0, 1067.487, 241.3109, 0, 0, 1], np.float32)
+        return {"boxes": boxes, "labels": rng.integers(1, len(self.classes) + 1, n),
+                "relative_position": t.astype(np.float32),
+                "relative_rotation": q.astype(np.float32),
+                "intrinsics": np.tile(K, (n, 1)), "image_id": image_id}
+
+    def __len__(self):
+        return len(self.ids)
+
+    def file_name(self, image_id: int) -> str:
+        return f"test/{BOP_SCENE + image_id // 1000:06d}/rgb/{image_id % 1000 + 1:06d}.png"
+
+    def image(self, i: int) -> np.ndarray:
+        rng = np.random.default_rng((self.seed, 1, i))
+        return rng.uniform(size=(self.H, self.W, 3)).astype(np.float32)
+
+    def __getitem__(self, i: int, rng=None):
+        return self.image(self.ids[i]), dict(self.targets[i])
+
+    def evaluator(self, n_points: int = EVAL_POINTS):
+        from poet_tpu_torch.evaluation.pose_evaluator import PoseEvaluator
+
+        names = list(self.classes.values())
+        models, info = eval_model_clouds(names, n_points, self.seed)
+        return PoseEvaluator(models, names, info, self.symmetries)
+
+
+def eval_model_clouds(names, n_points: int, seed: int):
+    """(models {name: {"pts": (n, 3) m}}, models_info {name: {"diameter":
+    mm}}): per class a cloud on the surface of a cuboid with seeded half
+    sides of 2-12 cm; the diameter is the largest distance between two
+    points of the cloud (over its convex hull's vertices)."""
+    from scipy.spatial import ConvexHull
+
+    rng = np.random.default_rng(seed)
+    models, info = {}, {}
+    for name in names:
+        half = rng.uniform(0.02, 0.12, 3)
+        face = rng.integers(0, 6, n_points)
+        pts = rng.uniform(-1.0, 1.0, (n_points, 3))
+        pts[np.arange(n_points), face % 3] = np.where(face < 3, -1.0, 1.0)
+        pts *= half
+        hull = pts[ConvexHull(pts).vertices]
+        diameter = np.sqrt(((hull[:, None] - hull[None]) ** 2).sum(-1)).max()
+        models[name] = {"pts": pts}
+        info[name] = {"diameter": float(diameter * 1000.0)}
+    return models, info

@@ -123,7 +123,9 @@ ROI_LIB = CudaLibrary(CSRC / "roi_align_fwd.cu", {
     "poet_roi_align_fwd": [PTRS, INTS, I] + [P] * 6 + [I] * 7 + [P]})
 STEM_LIB = CudaLibrary(CSRC / "conv_stem_fwd.cu", {
     "poet_conv_stem_fwd": [P] * 4 + [I] * 17 + [P]})
-LIBRARIES = (FWD_LIB, BWD_LIB, ROI_LIB, STEM_LIB)
+NN_LIB = CudaLibrary(CSRC / "min_dist_sq_fwd.cu", {
+    "poet_min_dist_sq_fwd": [P] * 3 + [I] * 3 + [P]})
+LIBRARIES = (FWD_LIB, BWD_LIB, ROI_LIB, STEM_LIB, NN_LIB)
 
 
 def build_all() -> None:
