@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke check of the PyTorch port on one NVIDIA GPU (built for the H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only N,N,...]
 
+(--only runs phases 1, 2 and the listed ones, and prints no kernel report.)
 Phases, each raising on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the kernels (deformable attention, RoIAlign, the stem conv, the
-     min distance) from poet_tpu_torch/csrc with nvcc, one process per
-     source, in parallel;
+  2. build the kernels (deformable attention on its gather and dense routes,
+     RoIAlign, the stem conv, the min distance) from poet_tpu_torch/csrc with
+     nvcc, one process per source, in parallel;
   3. the forward kernel against its plain PyTorch version on the card:
      flagship encoder (Q=S=1600) and decoder (Q=10) shapes at B=16, edge
      level geometries, out-of-map and dummy-query locations; f32 and bf16;
@@ -85,16 +86,34 @@ Phases, each raising on failure:
      port (plain) on every pair; images/s, host-wait share, seconds per pass;
  17. evaluation in backbone mode at phase 10's config, 2 batches, on
      targets made of the detector's own detections: 1 RoIAlign and 10
-     forward launches per batch, matched pairs = valid detections.
-Phases 4, 7, 10, 13, 16 and 17 each set every kernel's launch count to 0
-before they drive their path and read them after. Every kernel's entry in
+     forward launches per batch, matched pairs = valid detections;
+ 18. the merged adjoint kernel against the plain adjoint and against the
+     pair of phase 6 (phase 6's geometries, f32 and bf16, NaN locations ->
+     0), autograd through the entry with adjoint='merged'; merged, pair and
+     plain ms and the bound;
+ 19. the dense one-hot forward and adjoint kernels ('pallas') against the
+     plain versions: phase 6's geometries and the YOLO pyramid (S=6380), f32
+     and bf16, NaN locations held to the plain version on the card (the
+     point adds nothing, no NaN anywhere), the
+     adjoint's outputs bit-identical over two runs, autograd through the
+     entry; dense, kernel 1, pair, merged and plain ms; the bounds on the
+     tensor cores and in the gather form;
+ 20. the paths of the new kernels at phase 4's and 7's config: 8 gt-serving
+     requests through `infer` with enc/dec_deform_impl='pallas' (10 dense
+     forward launches each and no other), 8 train steps with 'pallas' (10
+     dense forward + 10 dense adjoint per step and no other) and 8 with the
+     merged adjoint (10 forward + 10 merged per step and no other), each
+     beside phase 4's or 7's p50 and img/s; one f32 train step of each at
+     B=2 on the card against the CPU port, as phase 8.
+Phases 4, 7, 10, 13, 16, 17 and 20's paths each set every kernel's launch
+count to 0 before they drive their path and read them after. Every kernel's entry in
 the report carries its bound: the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and its
 operations over the peak rate for its type (67 TFLOP/s f32 for the
 gathers; for the contractions that the TPU kernels run on their matrix
-unit, 989 TFLOP/s bf16 for the stem and 495 TFLOP/s TF32, three products
-per f32 product, for the min distance's cross term; each with its f32
-bound beside it), for this run's inputs. The last two lines are the kernel report and
+unit, 989 TFLOP/s bf16 for the stem and the dense one-hot products and 495
+TFLOP/s TF32, three products per f32 product, for the min distance's cross
+term; each with its f32 bound beside it), for this run's inputs. The last two lines are the kernel report and
 {"ok": true, "device": ...}. Exits non-zero without a CUDA device, and
 imports no JAX.
 """
@@ -225,19 +244,35 @@ EVAL_ADDS_ATOL = 1e-6
 EVAL_THIN = 32
 
 
+KERNEL_KEYS = ("fwd", "d_value", "d_loc", "roi", "stem", "nn", "merged", "dense_fwd",
+               "dense_bwd")
+LAUNCH_NAMES = "/".join(KERNEL_KEYS)
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
 def all_kernels():
-    """Every kernel wrapper, in the report's order: forward, d_value, d_loc,
-    RoIAlign, stem, min distance."""
+    """Every kernel wrapper, in the report's order (KERNEL_KEYS): forward,
+    d_value, d_loc, RoIAlign, stem, min distance, merged adjoint, dense
+    forward, dense adjoint."""
+    from poet_tpu_torch.ops import deform_attn_cuda as gather
+    from poet_tpu_torch.ops import deform_attn_dense_cuda as dense
     from poet_tpu_torch.ops.conv_stem_cuda import CONV_STEM_FWD
-    from poet_tpu_torch.ops.deform_attn_cuda import KERNELS
     from poet_tpu_torch.ops.nn_cuda import MIN_DIST_SQ
     from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD
 
-    return list(KERNELS) + [ROI_ALIGN_FWD, CONV_STEM_FWD, MIN_DIST_SQ]
+    return [gather.MS_DEFORM_ATTN_FWD, gather.MS_DEFORM_ATTN_DVALUE, gather.MS_DEFORM_ATTN_DLOC,
+            ROI_ALIGN_FWD, CONV_STEM_FWD, MIN_DIST_SQ, gather.MS_DEFORM_ATTN_MERGED,
+            dense.MS_DEFORM_ATTN_DENSE_FWD, dense.MS_DEFORM_ATTN_DENSE_BWD]
+
+
+def expected(**counts):
+    """A launch vector in all_kernels()'s order: the named counts, 0 elsewhere."""
+    if set(counts) - set(KERNEL_KEYS):
+        raise KeyError(f"unknown kernels {set(counts) - set(KERNEL_KEYS)}")
+    return [counts.get(k, 0) for k in KERNEL_KEYS]
 
 
 @contextlib.contextmanager
@@ -392,16 +427,43 @@ def off_edges(locs, shapes):
     return (pix - pix.round()).abs() > BOUNDARY_PX
 
 
-def adjoint_err(got, ref, mask=None, bf16=False):
-    """Max |got - ref|, raising beyond ADJ_RTOL * max|ref| (plus one bf16
-    rounding, 2^-8 relative, for a bf16 result)."""
+def adjoint_err(got, ref, mask=None, bf16=False, roundings=1):
+    """Max |got - ref|, and whether it goes beyond ADJ_RTOL * max|ref| (plus
+    `roundings` bf16 roundings, 2^-8 relative each, for a bf16 result)."""
     scale = max(ref.abs().max().item(), 1e-30)
     err = (got.float() - ref).abs()
-    bound = ADJ_RTOL * scale + (BF16_RTOL * ref.abs() if bf16 else 0.0)
+    bound = ADJ_RTOL * scale + (roundings * BF16_RTOL * ref.abs() if bf16 else 0.0)
     bad = err > bound
     if mask is not None:
         err, bad = err[mask], bad[mask]
     return err.max().item() if err.numel() else 0.0, bool(bad.any())
+
+
+def adjoint_checks(name, got, ref, value, locs, Q, S_lv, pad, mask, bf16, roundings=1):
+    """Phase 6's checks of an adjoint's (d_value, d_loc, d_attn) against
+    `ref` (the plain adjoint, or another kernel's): dtype and shape, zero
+    rows past the levels, zero gradients of the dummy queries, and each
+    output within ADJ_RTOL x max|ref| (d_loc off cell edges, a bf16 d_value
+    plus `roundings` bf16 roundings: 2 against another kernel's bf16 d_value).
+    Returns the max errors by output."""
+    import torch
+
+    dt = torch.bfloat16 if bf16 else torch.float32
+    if got[0].dtype != dt or tuple(got[0].shape) != tuple(value.shape):
+        raise AssertionError(f"{name}: d_value {got[0].dtype} {tuple(got[0].shape)}")
+    if pad and not bool((got[0][:, S_lv:] == 0).all()):
+        raise AssertionError(f"{name}: d_value rows past the levels are not 0")
+    if Q >= 4 and not all(bool((t[:, -2:] == 0).all()) for t in got[1:]):
+        raise AssertionError(f"{name}: dummy queries (-1, -10) got a gradient")
+    errs = {}
+    for k, gt, rf, m, b16 in zip(("d_value", "d_loc", "d_attn"), got, ref, (None, mask, None),
+                                 (bf16, False, False)):
+        errs[k], bad = adjoint_err(gt, rf, m, b16, roundings)
+        if bad:
+            raise AssertionError(f"{name} {dt}: {k} max |kernel - ref| {errs[k]:.3e} beyond "
+                                 f"{ADJ_RTOL} x {rf.abs().max().item():.3e}"
+                                 + (f" + {roundings} x 2^-8 |ref|" if b16 else ""))
+    return errs
 
 
 def plain_adjoint_of(value, shapes, locs, attn, dout, wrt):
@@ -439,22 +501,10 @@ def phase_adjoint(report):
             ref = plain_bwd(v.float(), shapes, locs, attn, do.float())
             got = (KV(v, shapes, locs, attn, do),) + KL(v, shapes, locs, attn, do)
             torch.cuda.synchronize()
-            if got[0].dtype != dt or tuple(got[0].shape) != tuple(value.shape):
-                raise AssertionError(f"{name}: d_value {got[0].dtype} {tuple(got[0].shape)}")
-            if pad and not bool((got[0][:, S_lv:] == 0).all()):
-                raise AssertionError(f"{name}: d_value rows past the levels are not 0")
-            if Q >= 4 and not all(bool((t[:, -2:] == 0).all()) for t in got[1:]):
-                raise AssertionError(f"{name}: dummy queries (-1, -10) got a gradient")
-            errs = {}
-            for k, gt, rf, m, b16 in zip(worst, got, ref, (None, mask, None),
-                                         (dt == torch.bfloat16, False, False)):
-                errs[k], bad = adjoint_err(gt, rf, m, b16)
-                if bad:
-                    raise AssertionError(f"{name} {dt}: {k} max |kernel - plain| {errs[k]:.3e} "
-                                         f"beyond {ADJ_RTOL} x {rf.abs().max().item():.3e}"
-                                         + (" + 2^-8 |ref|" if b16 else ""))
-                if dt == torch.float32:
-                    worst[k] = max(worst[k], errs[k])
+            errs = adjoint_checks(name, got, ref, value, locs, Q, S_lv, pad, mask,
+                                  dt == torch.bfloat16)
+            if dt == torch.float32:
+                worst = {k: max(worst[k], errs[k]) for k in worst}
             line += (f" | {'f32' if dt == torch.float32 else 'bf16'} max_abs_err "
                      + " ".join(f"{k} {e:.2e}" for k, e in errs.items()))
         line += f" (d_loc off cell edges: {int(mask.sum())}/{mask.numel()})"
@@ -502,7 +552,10 @@ def rotations_ok(rot: np.ndarray) -> float:
     return max(orth, det)
 
 
-def phase_slice(report):
+def phase_slice(report, impl=None):
+    """Phase 4: gt serving on the gather kernels, through the pipelined
+    `stream`; with `impl` ('pallas', phase 20) the same requests through
+    `infer`, on the kernels the impl selects."""
     import torch
 
     from poet_tpu_torch.engine.serving import PoseServer
@@ -512,6 +565,9 @@ def phase_slice(report):
 
     B, (H, W) = 16, (480, 640)
     cfg = flagship_config("bfloat16")
+    if impl:
+        cfg.model.enc_deform_impl = cfg.model.dec_deform_impl = impl
+    route = "dense_fwd" if impl == "pallas" else "fwd"
     server = PoseServer(cfg, init_weights(build_model(cfg), seed=0), batch_size=B,
                         image_size=(H, W), device="cuda")
     images, _, targets = flagship_batch(B, H, W, seed=0)
@@ -524,13 +580,15 @@ def phase_slice(report):
     kernels = all_kernels()
     for k in kernels:
         k.launches = 0
-    results = list(server.stream((images for _ in range(REQUESTS)), lambda prev: boxes))
+    if impl:
+        results = [server.infer(images, *boxes) for _ in range(REQUESTS)]
+    else:
+        results = list(server.stream((images for _ in range(REQUESTS)), lambda prev: boxes))
     counts = [k.launches for k in kernels]
-    launches = counts[0]
-    if counts != [per_layer * REQUESTS, 0, 0, 0, 0, 0]:
-        raise AssertionError(f"launches fwd/d_value/d_loc/roi/stem/nn {counts} for {REQUESTS} "
-                             f"requests, expected {per_layer} forward per request, no adjoint, "
-                             f"no RoIAlign, no stem and no min-distance launch")
+    launches = counts[KERNEL_KEYS.index(route)]
+    if counts != expected(**{route: per_layer * REQUESTS}):
+        raise AssertionError(f"launches {LAUNCH_NAMES} {counts} for {REQUESTS} requests, "
+                             f"expected {per_layer} {route} per request and no other")
     if len(results) != REQUESTS:
         raise AssertionError(f"{len(results)} answers for {REQUESTS} requests")
     for res in results:
@@ -542,13 +600,15 @@ def phase_slice(report):
                 raise AssertionError(f"non-finite {k}")
         so3 = rotations_ok(res["rotation"])
     stats = server.latency_stats()
-    log(f"slice: PoseServer paper config bf16 B={B} {H}x{W}: {REQUESTS} requests, "
-        f"{launches} kernel launches ({per_layer}/request), finite, SO(3) err {so3:.2e}, "
+    log(f"slice{f' {impl}' if impl else ''}: PoseServer paper config bf16 B={B} {H}x{W}: "
+        f"{REQUESTS} requests via {'infer' if impl else 'stream'}, "
+        f"{launches} {route} launches ({per_layer}/request), finite, SO(3) err {so3:.2e}, "
         f"p50 {stats['p50_ms']:.3f} ms, p95 {stats['p95_ms']:.3f} ms, "
         f"{stats['fps']:.2f} img/s, peak mem "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    report["launches"] = counts
-    report["slice"] = stats
+    key = f"_{impl}" if impl else ""
+    report["launches" + key] = counts
+    report["slice" + key] = stats
 
 
 def phase_e2e_f32():
@@ -588,7 +648,28 @@ def phase_e2e_f32():
         f"max |card - cpu| / output scale = {worst:.3e} (tol {E2E_RTOL})")
 
 
-def phase_train(report):
+# the train step's deformable-attention variants: the ModelConfig fields set,
+# and the kernels each layer launches once per step
+TRAIN_VARIANTS = {
+    "pair": ({"merged_adjoint": False}, ("fwd", "d_value", "d_loc")),
+    "merged": ({"merged_adjoint": True}, ("fwd", "merged")),
+    "pallas": ({"enc_deform_impl": "pallas", "dec_deform_impl": "pallas"},
+               ("dense_fwd", "dense_bwd")),
+}
+
+
+def train_config(dtype, variant):
+    from poet_tpu_torch.flagship import flagship_config
+
+    cfg = flagship_config(dtype)
+    for k, v in TRAIN_VARIANTS[variant][0].items():
+        setattr(cfg.model, k, v)
+    return cfg
+
+
+def phase_train(report, variant="pair"):
+    """Phase 7 (the pair adjoint) or, with `variant` 'merged' / 'pallas',
+    phase 20's train steps."""
     import torch
 
     from poet_tpu_torch.engine.train import (
@@ -597,12 +678,12 @@ def phase_train(report):
         make_train_step,
         prepare_batch,
     )
-    from poet_tpu_torch.flagship import flagship_batch, flagship_config
+    from poet_tpu_torch.flagship import flagship_batch
     from poet_tpu_torch.models import build_model
     from poet_tpu_torch.utils.init import init_weights
 
     B, (H, W) = 16, FLAGSHIP_HW
-    cfg = flagship_config("bfloat16")                # dropout 0.1, AdamW, clip 0.1
+    cfg = train_config("bfloat16", variant)          # dropout 0.1, AdamW, clip 0.1
     model = init_weights(build_model(cfg), seed=0).to(DEVICE)
     frozen = {k: v.clone() for k, v in model.state_dict().items() if k.startswith("backbone.")}
     w_name = "transformer.encoder.layers.0.linear1.weight"
@@ -627,10 +708,11 @@ def phase_train(report):
         history.append(fetch_metrics(step(*batch, gen)))               # syncs on the metrics
         times.append(time.perf_counter() - t0)
     launches = [k.launches for k in kernels]
-    if launches != [per_step * TRAIN_STEPS] * 3 + [0, 0, 0]:
-        raise AssertionError(f"launches fwd/d_value/d_loc/roi/stem/nn {launches} for "
-                             f"{TRAIN_STEPS} steps, expected {per_step} deformable each per "
-                             f"step, no RoIAlign, no stem and no min-distance launch")
+    route = TRAIN_VARIANTS[variant][1]
+    if launches != expected(**dict.fromkeys(route, per_step * TRAIN_STEPS)):
+        raise AssertionError(f"train {variant}: launches {LAUNCH_NAMES} {launches} for "
+                             f"{TRAIN_STEPS} steps, expected {per_step} each of {route} per "
+                             f"step and no other")
     if not all(np.isfinite(list(m.values())).all() for m in history):
         raise AssertionError(f"non-finite training metrics: {history}")
     state = model.state_dict()
@@ -642,29 +724,30 @@ def phase_train(report):
     stats = {"p50_ms": float(np.percentile(ms, 50)), "p95_ms": float(np.percentile(ms, 95)),
              "img_s": float(B / ms.mean() * 1e3),
              "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    log(f"train: paper config bf16 B={B} {H}x{W}, dropout {cfg.model.dropout}, AdamW: "
-        f"{TRAIN_STEPS} steps, launches fwd/d_value/d_loc/roi/stem/nn {launches} ({per_step} "
-        f"deformable each per step), loss {history[0]['loss']:.4f} -> "
+    log(f"train {variant}: paper config bf16 B={B} {H}x{W}, dropout {cfg.model.dropout}, "
+        f"AdamW: {TRAIN_STEPS} steps, launches {LAUNCH_NAMES} {launches} ({per_step} "
+        f"each of {'/'.join(route)} per step), loss {history[0]['loss']:.4f} -> "
         f"{history[-1]['loss']:.4f}, grad_norm {history[-1]['grad_norm']:.4f}, backbone bit-identical ({len(frozen)} tensors), "
         f"{w_name} moved; step p50 {stats['p50_ms']:.3f} ms, p95 {stats['p95_ms']:.3f} ms, "
         f"{stats['img_s']:.2f} img/s, peak mem {stats['peak_gib']:.2f} GiB")
-    report["train_launches"] = launches
-    report["train"] = stats
+    key = "" if variant == "pair" else f"_{variant}"
+    report["train_launches" + key] = launches
+    report["train" + key] = stats
 
 
-def phase_train_f32():
+def phase_train_f32(variant="pair"):
+    """Phase 8 (the pair adjoint) or, with `variant`, phase 20's f32 step."""
     import copy
 
     import torch
 
     from poet_tpu_torch.engine.train import global_norm, make_loss_fn, match_targets
-    from poet_tpu_torch.flagship import flagship_batch, flagship_config
+    from poet_tpu_torch.flagship import flagship_batch
     from poet_tpu_torch.models import build_model
-    from poet_tpu_torch.ops.deform_attn_cuda import KERNELS
     from poet_tpu_torch.utils.init import init_weights
 
     B, (H, W) = 2, FLAGSHIP_HW
-    cfg = flagship_config("float32")
+    cfg = train_config("float32", variant)
     cfg.model.dropout = 0.0       # the CPU and card generators draw different masks
     model = init_weights(build_model(cfg), seed=0)
     # the paper's zero-init offset kernels put every encoder sampling point
@@ -693,15 +776,19 @@ def phase_train_f32():
         return ({k: float(v.detach()) for k, v in losses.items()},
                 {n: g.double().cpu() for n, g in grads.items()})
 
-    n0 = [k.launches for k in KERNELS]
+    kernels = all_kernels()
+    n0 = [k.launches for k in kernels]
     cpu_losses, cpu_grads = grads_on("cpu")
-    if [k.launches for k in KERNELS] != n0:
+    if [k.launches for k in kernels] != n0:
         raise AssertionError("the CPU run launched a CUDA kernel")
     with tf32_off():
         card_losses, card_grads = grads_on(DEVICE)
     per_step = cfg.model.enc_layers + cfg.model.dec_layers
-    if [k.launches - n for k, n in zip(KERNELS, n0)] != [per_step] * 3:
-        raise AssertionError("the card step did not go through the three kernels")
+    route = TRAIN_VARIANTS[variant][1]
+    if [k.launches - n for k, n in zip(kernels, n0)] != expected(
+            **dict.fromkeys(route, per_step)):
+        raise AssertionError(f"train f32 {variant}: the card step did not go through "
+                             f"{route} alone")
     loss_err = max(abs(card_losses[k] - v) / max(abs(v), 1e-12)
                    for k, v in cpu_losses.items() if k != "grad_norm")
     norm_err = abs(card_losses["grad_norm"] / cpu_losses["grad_norm"] - 1.0)
@@ -722,7 +809,8 @@ def phase_train_f32():
                                  f"max err / max |cpu| {mx:.3e}")
     l2, _, l2_name = max(rows)
     _, mx, mx_name = max(rows, key=lambda r: r[1])
-    log(f"train f32 card-vs-CPU (B={B}, {H}x{W}, dropout 0, TF32 off): losses max rel err "
+    log(f"train f32 {variant} card-vs-CPU (B={B}, {H}x{W}, dropout 0, TF32 off, kernels "
+        f"{'/'.join(route)}): losses max rel err "
         f"{loss_err:.3e} (tol {TRAIN_F32_LOSS_RTOL}), grad norm {norm_err:.3e}; "
         f"{len(rows)} gradients: worst relative L2 {l2:.3e} ({l2_name}, tol "
         f"{TRAIN_F32_L2_RTOL}), worst max/max {mx:.3e} ({mx_name}, tol {TRAIN_F32_MAX_RTOL})")
@@ -897,7 +985,7 @@ def phase_detect(report):
     torch.cuda.reset_peak_memory_stats()
     per_layer = cfg.model.enc_layers + cfg.model.dec_layers
     kernels = all_kernels()
-    expect = [per_layer * DETECT_REQUESTS, 0, 0, DETECT_REQUESTS, 0, 0]
+    expect = expected(fwd=per_layer * DETECT_REQUESTS, roi=DETECT_REQUESTS)
 
     def run(label, drive):
         for k in kernels:
@@ -909,7 +997,7 @@ def phase_detect(report):
         wall = time.perf_counter() - t0
         counts = [k.launches for k in kernels]
         if counts != expect:
-            raise AssertionError(f"{label}: launches fwd/d_value/d_loc/roi/stem/nn {counts} for "
+            raise AssertionError(f"{label}: launches {LAUNCH_NAMES} {counts} for "
                                  f"{DETECT_REQUESTS} requests, expected {expect}")
         if len(results) != DETECT_REQUESTS:
             raise AssertionError(f"{label}: {len(results)} answers")
@@ -959,7 +1047,7 @@ def phase_detect(report):
     log(f"detect+pose: PoseServer detector mode, paper config bf16 B={B} {H}x{W}, "
         f"{cfg.model.n_classes + 1} classes, {cfg.backbone.post_nms_top_n} proposals: "
         f"{DETECT_REQUESTS} requests via infer + {DETECT_REQUESTS} via stream, launches "
-        f"fwd/d_value/d_loc/roi/stem/nn {counts} per {DETECT_REQUESTS} requests; detector valid "
+        f"{LAUNCH_NAMES} {counts} per {DETECT_REQUESTS} requests; detector valid "
         f"detections per image {np.mean(det_infer) / B:.2f} (of "
         f"{cfg.backbone.max_detections}), selected queries per image mean "
         f"{n_boxes.mean():.2f} min {n_boxes.min()} max {n_boxes.max()} (of {Q}); finite, "
@@ -1195,7 +1283,7 @@ def phase_yolo(report):
     torch.cuda.reset_peak_memory_stats()
     per_layer = cfg.model.enc_layers + cfg.model.dec_layers
     kernels = all_kernels()
-    expect = [per_layer * YOLO_REQUESTS, 0, 0, 0, 3 * YOLO_REQUESTS, 0]
+    expect = expected(fwd=per_layer * YOLO_REQUESTS, stem=3 * YOLO_REQUESTS)
 
     def run(label, drive):
         for k in kernels:
@@ -1207,7 +1295,7 @@ def phase_yolo(report):
         wall = time.perf_counter() - t0
         counts = [k.launches for k in kernels]
         if counts != expect:
-            raise AssertionError(f"yolo {label}: launches fwd/d_value/d_loc/roi/stem/nn {counts} "
+            raise AssertionError(f"yolo {label}: launches {LAUNCH_NAMES} {counts} "
                                  f"for {YOLO_REQUESTS} requests, expected {expect}")
         if len(results) != YOLO_REQUESTS:
             raise AssertionError(f"yolo {label}: {len(results)} answers")
@@ -1236,7 +1324,7 @@ def phase_yolo(report):
         f"{H}x{W}, {tokens[-1]} tokens, conf "
         f"{cfg.backbone.conf_thresh}, {cfg.backbone.max_detections} detections: "
         f"{YOLO_REQUESTS} requests via infer + {YOLO_REQUESTS} via stream, launches "
-        f"fwd/d_value/d_loc/roi/stem/nn {counts} per {YOLO_REQUESTS} requests; valid detections "
+        f"{LAUNCH_NAMES} {counts} per {YOLO_REQUESTS} requests; valid detections "
         f"per image (first request) {det_infer[0].tolist()}, over all: min {det_infer.min()} "
         f"mean {det_infer.mean():.2f} max {det_infer.max()} (of "
         f"{cfg.backbone.max_detections}); selected queries per image mean {n_boxes.mean():.2f} "
@@ -1282,7 +1370,7 @@ def phase_yolo_f32():
             shared = {k: v.cpu().numpy() for k, v in model(*cargs, detections={
                 k: v.cuda() for k, v in cpu_dets.items()}).items()}
         per = cfg.model.enc_layers + cfg.model.dec_layers
-        if [k.launches - n for k, n in zip(kernels, n0)] != [2 * per, 0, 0, 0, 2 * 3, 0]:
+        if [k.launches - n for k, n in zip(kernels, n0)] != expected(fwd=2 * per, stem=2 * 3):
             raise AssertionError("the card runs did not go through the forward and stem kernels")
     if not np.array_equal(card["n_boxes"], cpu["n_boxes"]) or cpu["n_boxes"].min() == 0:
         raise AssertionError(f"n_boxes card {card['n_boxes']} vs CPU {cpu['n_boxes']}")
@@ -1566,9 +1654,9 @@ def phase_eval(report):
     counts = [k.launches for k in kernels]
     per_layer = cfg.model.enc_layers + cfg.model.dec_layers
     n_adi = adi_launches(evaluator)
-    expect = [per_layer * EVAL_BATCHES, 0, 0, 0, 0, n_adi]
+    expect = expected(fwd=per_layer * EVAL_BATCHES, nn=n_adi)
     if counts != expect:
-        raise AssertionError(f"eval: launches fwd/d_value/d_loc/roi/stem/nn {counts} for "
+        raise AssertionError(f"eval: launches {LAUNCH_NAMES} {counts} for "
                              f"{EVAL_BATCHES} batches, expected {expect}")
     per_pass = {name: n for name, (_, n) in probe.passes.items()}
     if (per_pass["evaluate_pose_adi"], per_pass["evaluate_pose_adds"]) != (n_adi, 0):
@@ -1592,7 +1680,7 @@ def phase_eval(report):
         k.launches = 0
     csv = bop_evaluate(model, loader, cfg, "test", output_dir=tmp)
     bop_counts = [k.launches for k in kernels]
-    if bop_counts != [per_layer * EVAL_BATCHES, 0, 0, 0, 0, 0]:
+    if bop_counts != expected(fwd=per_layer * EVAL_BATCHES):
         raise AssertionError(f"bop_evaluate: launches {bop_counts}")
     with open(csv) as f:
         rows = f.read().split("\n")
@@ -1642,7 +1730,7 @@ def phase_eval(report):
     log(f"eval: pose_evaluate paper config bf16 B={B} {data.H}x{data.W}, {EVAL_BATCHES} "
         f"batches, {n_pairs} matched pairs over {sum(n > 0 for n in evaluator.num.values())} "
         f"classes ({len(evaluator.models[evaluator.classes[0]]['pts'])}-point clouds): launches "
-        f"fwd/d_value/d_loc/roi/stem/nn {counts}; forward loop {loop:.3f} s, "
+        f"{LAUNCH_NAMES} {counts}; forward loop {loop:.3f} s, "
         f"{stats['img_s']:.2f} img/s; in it (host clock) waiting for the loader "
         f"{probe.host['loader']:.3f} s, pinned uploads {probe.host['upload']:.3f} s, eval "
         f"forwards {probe.host['forward']:.3f} s of which the matcher's wait "
@@ -1704,9 +1792,9 @@ def phase_eval_backbone(report):
     wall = time.perf_counter() - t0
     counts = [k.launches for k in kernels]
     per_layer = cfg.model.enc_layers + cfg.model.dec_layers
-    expect = [per_layer * n_batches, 0, 0, n_batches, 0, adi_launches(evaluator)]
+    expect = expected(fwd=per_layer * n_batches, roi=n_batches, nn=adi_launches(evaluator))
     if counts != expect:
-        raise AssertionError(f"eval backbone: launches fwd/d_value/d_loc/roi/stem/nn {counts}, "
+        raise AssertionError(f"eval backbone: launches {LAUNCH_NAMES} {counts}, "
                              f"expected {expect}")
     n_pairs = int(sum(evaluator.num.values()))
     if n_pairs != want_pairs:
@@ -1714,9 +1802,286 @@ def phase_eval_backbone(report):
                              f"{want_pairs} valid detections (clamped to Q={Q})")
     log(f"eval backbone: pose_evaluate detect+pose config bf16 B={B} {data.H}x{data.W}, "
         f"{n_batches} batches, targets from the detector's own detections: {n_pairs} matched "
-        f"pairs = valid detections clamped to Q; launches fwd/d_value/d_loc/roi/stem/nn {counts}; "
+        f"pairs = valid detections clamped to Q; launches {LAUNCH_NAMES} {counts}; "
         f"ADD(-S) mean accuracy {results['accuracy']}; {wall:.3f} s with the metric passes")
     report["eval_backbone_launches"] = counts
+
+
+def phase_merged(report):
+    """Phase 18: the merged adjoint kernel against the plain adjoint and
+    against the pair (d_value scatter + d_loc/d_attn gather), on phase 6's
+    geometries, f32 and bf16; NaN locations; times and the bound."""
+    import torch
+
+    from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch_backward as plain_bwd
+    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_DLOC as KL
+    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_DVALUE as KV
+    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_MERGED as KM
+    from poet_tpu_torch.ops.deform_attn_cuda import ms_deform_attn
+
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    worst = {"d_value": 0.0, "d_loc": 0.0, "d_attn": 0.0}
+    for name, B, Q, H, D, shapes, lo, hi, pad in ADJ_GEOMETRIES:
+        value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=lo, hi=hi, pad=pad)
+        dout = torch.randn((B, Q, H * D), generator=g, device=DEVICE)
+        S_lv = sum(h * w for h, w in shapes)
+        mask = off_edges(locs, shapes)
+        line = f"merged-vs-plain {name}: B={B} Q={Q} H={H} D={D} levels={shapes} S={S_lv + pad}"
+        for dt in (torch.float32, torch.bfloat16):
+            bf16 = dt == torch.bfloat16
+            v, do = value.to(dt), dout.to(dt)
+            ref = plain_bwd(v.float(), shapes, locs, attn, do.float())
+            got = KM(v, shapes, locs, attn, do)
+            pair = (KV(v, shapes, locs, attn, do),) + KL(v, shapes, locs, attn, do)
+            torch.cuda.synchronize()
+            errs = adjoint_checks(name, got, ref, value, locs, Q, S_lv, pad, mask, bf16)
+            # against the pair: the same coordinates, sums in other orders
+            pair_errs = adjoint_checks(name + " vs the pair", got,
+                                       [t.float() for t in pair], value, locs, Q, S_lv, pad,
+                                       None, bf16, roundings=2)
+            if not bf16:
+                worst = {k: max(worst[k], errs[k]) for k in worst}
+            line += (f" | {'bf16' if bf16 else 'f32'} max_abs_err "
+                     + " ".join(f"{k} {e:.2e}" for k, e in errs.items())
+                     + " (vs the pair " + " ".join(f"{e:.2e}" for e in pair_errs.values())
+                     + ")")
+        if name in ("encoder", "decoder"):
+            t = {}
+            for dt in (torch.float32, torch.bfloat16):
+                v, do = value.to(dt), dout.to(dt)
+                args = (v, shapes, locs, attn, do)
+                t["bf16" if dt == torch.bfloat16 else "f32"] = {
+                    "merged": cuda_ms(lambda: KM(*args)),
+                    "pair": cuda_ms(lambda: (KV(*args), KL(*args))),
+                    "plain": cuda_ms(lambda: plain_bwd(*args), iters=5)}
+            line += "".join(f" | ms {dt}: " + ", ".join(f"{k} {x:.4f}" for k, x in ms.items())
+                            for dt, ms in t.items())
+            report[f"merged_{name}"] = t
+            if name == "encoder":
+                v, do = value.bfloat16(), dout.bfloat16()
+                d_value, d_loc, d_attn = KM(v, shapes, locs, attn, do)
+                # dot and scatter: 4 corners x D channels x 4 operations per point
+                report["merged_bound"] = bound(
+                    nbytes(v, locs, attn, do, d_value, d_loc, d_attn),
+                    16.0 * D * deform_points_in_map(locs, shapes))
+                line += (f" | bound {report['merged_bound'][0]:.4f} ms "
+                         f"({report['merged_bound'][1]})")
+        log(line)
+
+    # NaN locations: the point gets exactly 0 and adds nothing, as in the pair
+    shapes = ((6, 9), (4, 5))
+    value, locs, attn = deform_inputs(g, 2, 5, 2, 8, shapes)
+    dout = torch.randn((2, 5, 16), generator=g, device=DEVICE)
+    locs[:, 0, :, 0, 1, 0] = float("nan")
+    d_value, d_loc, d_attn = KM(value, shapes, locs, attn, dout)
+    if not (bool(torch.isfinite(d_value).all()) and bool((d_loc[:, 0, :, 0, 1] == 0).all())
+            and bool((d_attn[:, 0, :, 0, 1] == 0).all())):
+        raise AssertionError("a NaN location leaked into the merged adjoint")
+    # autograd through the entry with adjoint='merged'
+    shapes = ((3, 4), (2, 2))
+    v, l, a = deform_inputs(g, 1, 6, 2, 8, shapes)
+    dout = torch.randn((1, 6, 16), generator=g, device=DEVICE)
+    leaves = [t.clone().requires_grad_() for t in (v, l, a)]
+    n0 = KM.launches
+    ms_deform_attn(leaves[0], shapes, *leaves[1:], adjoint="merged").backward(dout)
+    if KM.launches != n0 + 1:
+        raise AssertionError("adjoint='merged' did not launch the merged kernel")
+    want = plain_bwd(v, shapes, l, a, dout)
+    for name, t, ref in zip(("d_value", "d_loc", "d_attn"), leaves, want):
+        err = (t.grad - ref).abs().max().item()
+        if not err <= ADJ_RTOL * max(ref.abs().max().item(), 1.0):
+            raise AssertionError(f"autograd through the merged adjoint: {name} max err {err}")
+    report["merged_max_abs_err"] = worst
+    log(f"merged adjoint: f32 max |kernel - plain| {worst} over {len(ADJ_GEOMETRIES)} "
+        f"geometries (tol {ADJ_RTOL} x max|ref|; bf16 d_value + 2^-8 |ref|); agrees with the "
+        f"pair; NaN point -> 0; the entry's adjoint='merged' launches it")
+
+
+# the YOLOv4-CSP full pyramid at 480x640 (strides 8/16/32 + one extra level)
+YOLO_LEVELS = ((60, 80), (30, 40), (15, 20), (8, 10))
+DENSE_GEOMETRIES = ADJ_GEOMETRIES + [
+    ("yolo pyramid", 2, 6380, 16, 16, YOLO_LEVELS, 0.0, 1.0, 0),
+]
+
+
+def dense_bounds(value, locs, attn, tensors, shapes, products, gather_ops):
+    """(bound, f32 bound), each (ms, binds), of a dense one-hot kernel over
+    `value` that reads and writes `tensors`: its bytes against `products`
+    dense (B H Q S_pad D) products on the bf16 tensor cores (2 flops per
+    multiply-add), and, beside it, against the gather form's `gather_ops` per
+    in-map point and channel on the f32 pipes (rows 1-3's bound)."""
+    from poet_tpu_torch.ops.deform_attn_dense_cuda import padded_tokens
+
+    B, _, H, D = value.shape
+    Q = locs.shape[1]
+    t_bytes = nbytes(*tensors) / HBM_BYTES_PER_S
+    t_tc = products * 2.0 * B * H * Q * padded_tokens(shapes) * D / BF16_TC_FLOP_PER_S
+    tc = (max(t_bytes, t_tc) * 1e3, "bytes" if t_bytes >= t_tc else "operations")
+    return tc, bound(nbytes(*tensors), gather_ops * D * deform_points_in_map(locs, shapes))
+
+
+def nan_agrees(name, got, ref, tol):
+    """NaN exactly where `ref` has it, and within `tol` (an absolute bound
+    on |got - ref|, a number or a tensor like ref) elsewhere."""
+    import torch
+
+    nan = torch.isnan(ref)
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError(f"{name}: NaN at {int(torch.isnan(got).sum())} places, the plain "
+                             f"version at {int(nan.sum())}")
+    err = (got.float() - ref).abs()
+    if bool((err[~nan] > (tol[~nan] if torch.is_tensor(tol) else tol)).any()):
+        raise AssertionError(f"{name}: off NaN, max |kernel - plain| {err[~nan].max().item()}")
+    return int(nan.sum())
+
+
+def phase_dense(report):
+    """Phase 19: the dense one-hot forward and adjoint against the plain
+    versions (phase 6's geometries and the YOLO pyramid, f32 and bf16), NaN
+    locations held to the plain version, the adjoint's outputs bit-identical
+    over two runs; times against kernel 1, the pair, the merged adjoint and
+    the plain versions; the bounds."""
+    import torch
+
+    from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch as plain
+    from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch_backward as plain_bwd
+    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_DLOC as KL
+    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_DVALUE as KV
+    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_FWD as K1
+    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_MERGED as KM
+    from poet_tpu_torch.ops.deform_attn_dense_cuda import MS_DEFORM_ATTN_DENSE_BWD as DB
+    from poet_tpu_torch.ops.deform_attn_dense_cuda import MS_DEFORM_ATTN_DENSE_FWD as DF
+    from poet_tpu_torch.ops.deform_attn_dense_cuda import ms_deform_attn_dense
+
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    worst_fwd, worst = 0.0, {"d_value": 0.0, "d_loc": 0.0, "d_attn": 0.0}
+    for name, B, Q, H, D, shapes, lo, hi, pad in DENSE_GEOMETRIES:
+        value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=lo, hi=hi, pad=pad)
+        dout = torch.randn((B, Q, H * D), generator=g, device=DEVICE)
+        S_lv = sum(h * w for h, w in shapes)
+        mask = off_edges(locs, shapes)
+        line = f"dense-vs-plain {name}: B={B} Q={Q} H={H} D={D} levels={shapes} S={S_lv + pad}"
+        for dt in (torch.float32, torch.bfloat16):
+            bf16 = dt == torch.bfloat16
+            v, do = value.to(dt), dout.to(dt)
+            with torch.inference_mode():
+                ref = plain(v.float(), shapes, locs, attn)
+                out = DF(v, shapes, locs, attn)
+                torch.cuda.synchronize()
+            if out.dtype != dt:
+                raise AssertionError(f"dense {name}: forward returned {out.dtype}")
+            err = (out.float() - ref).abs()
+            tol = BF16_ATOL + BF16_RTOL * ref.abs() if bf16 else F32_ATOL
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"dense {name} {dt}: forward max |kernel - plain| "
+                                     f"{err.max().item():.3e}")
+            got = DB(v, shapes, locs, attn, do)
+            again = DB(v, shapes, locs, attn, do)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"dense {name} {dt}: the adjoint differs between two runs")
+            errs = adjoint_checks(name, got, plain_bwd(v.float(), shapes, locs, attn,
+                                                      do.float()),
+                                  value, locs, Q, S_lv, pad, mask, bf16)
+            if not bf16:
+                worst_fwd = max(worst_fwd, err.max().item())
+                worst = {k: max(worst[k], errs[k]) for k in worst}
+            line += (f" | {'bf16' if bf16 else 'f32'} forward {err.max().item():.2e}, "
+                     + " ".join(f"{k} {e:.2e}" for k, e in errs.items()))
+        line += " (adjoint bit-identical over two runs)"
+        if name in ("encoder", "decoder", "yolo pyramid"):
+            t = {}
+            for dt in (torch.float32, torch.bfloat16):
+                v, do = value.to(dt), dout.to(dt)
+                args = (v, shapes, locs, attn)
+                with torch.inference_mode():
+                    ms = {"dense_fwd": cuda_ms(lambda: DF(*args)),
+                          "kernel1": cuda_ms(lambda: K1(*args)),
+                          "plain_fwd": cuda_ms(lambda: plain(*args), iters=5)}
+                if name != "yolo pyramid":
+                    ms.update(dense_bwd=cuda_ms(lambda: DB(*args, do)),
+                              pair=cuda_ms(lambda: (KV(*args, do), KL(*args, do))),
+                              merged=cuda_ms(lambda: KM(*args, do)),
+                              plain_bwd=cuda_ms(lambda: plain_bwd(*args, do), iters=5))
+                t["bf16" if dt == torch.bfloat16 else "f32"] = ms
+            line += "".join(f" | ms {dt}: " + ", ".join(f"{k} {x:.4f}" for k, x in ms.items())
+                            for dt, ms in t.items())
+            v, do = value.bfloat16(), dout.bfloat16()
+            out, grads = DF(v, shapes, locs, attn), DB(v, shapes, locs, attn, do)
+            t["fwd_bounds"] = dense_bounds(v, locs, attn, (v, locs, attn, out), shapes, 1, 8)
+            # the TPU kernel's two products (W^T dout for d_value, dout Vpad^T
+            # for the corner dots) against the gather form's dot + scatter
+            t["bwd_bounds"] = dense_bounds(v, locs, attn, (v, locs, attn, do) + grads, shapes,
+                                           2, 16)
+            line += (f" | bounds (tensor cores; f32 gather form) forward "
+                     f"{t['fwd_bounds'][0][0]:.4f} ({t['fwd_bounds'][0][1]}); "
+                     f"{t['fwd_bounds'][1][0]:.4f} ({t['fwd_bounds'][1][1]}), adjoint "
+                     f"{t['bwd_bounds'][0][0]:.4f} ({t['bwd_bounds'][0][1]}); "
+                     f"{t['bwd_bounds'][1][0]:.4f} ({t['bwd_bounds'][1][1]})")
+            report[f"dense_{name}"] = t
+        log(line)
+
+    # NaN locations, held to the plain version on the card (F.grid_sample sends
+    # a non-finite coordinate out of range: the point adds nothing): NaN where
+    # it has NaN, within tolerance elsewhere
+    shapes = ((6, 9), (4, 5), (1, 1))
+    value, locs, attn = deform_inputs(g, 2, 5, 2, 8, shapes)
+    dout = torch.randn((2, 5, 16), generator=g, device=DEVICE)
+    locs[:, 0, :, 0, 1, 0] = float("nan")        # x of one level-0 point
+    locs[:, 1, :, 1, 2, :] = float("nan")        # both coordinates of a level-1 point
+    locs[1, 2, 0, 2, 0, 1] = float("nan")        # y of a point on the 1x1 level
+    with torch.inference_mode():
+        ref, out = plain(value, shapes, locs, attn), DF(value, shapes, locs, attn)
+    n_nan = [nan_agrees("dense forward, NaN", out, ref, F32_ATOL)]
+    ref = plain_bwd(value, shapes, locs, attn, dout)
+    got = DB(value, shapes, locs, attn, dout)
+    torch.cuda.synchronize()
+    mask = off_edges(locs, shapes) | torch.isnan(locs)
+    for k, a, b in zip(("d_value", "d_loc", "d_attn"), got, ref):
+        tol = ADJ_RTOL * torch.nan_to_num(b, nan=0.0).abs().max().item()
+        if k == "d_loc":
+            a, b = a[mask], b[mask]
+        n_nan.append(nan_agrees(f"dense adjoint, NaN: {k}", a, b, tol))
+    # autograd through the entry
+    shapes = ((3, 4), (2, 2))
+    v, l, a = deform_inputs(g, 1, 6, 2, 8, shapes)
+    dout = torch.randn((1, 6, 16), generator=g, device=DEVICE)
+    leaves = [t.clone().requires_grad_() for t in (v, l, a)]
+    n0 = (DF.launches, DB.launches)
+    ms_deform_attn_dense(leaves[0], shapes, *leaves[1:]).backward(dout)
+    if (DF.launches, DB.launches) != (n0[0] + 1, n0[1] + 1):
+        raise AssertionError("the dense entry did not launch its two kernels")
+    want = plain_bwd(v, shapes, l, a, dout)
+    for name, t, ref in zip(("d_value", "d_loc", "d_attn"), leaves, want):
+        err = (t.grad - ref).abs().max().item()
+        if not err <= ADJ_RTOL * max(ref.abs().max().item(), 1.0):
+            raise AssertionError(f"autograd through the dense kernels: {name} max err {err}")
+    report["dense_max_abs_err"] = {"forward": worst_fwd, **worst}
+    log(f"dense kernels: f32 max |kernel - plain| forward {worst_fwd:.3e} (tol {F32_ATOL}), "
+        f"adjoint {worst} over {len(DENSE_GEOMETRIES)} geometries (tol {ADJ_RTOL} x max|ref|; "
+        f"bf16 + 2^-8 |ref|); NaN locations: NaN in the same places as the plain version "
+        f"(forward, d_value, d_loc, d_attn: {n_nan}), agreeing elsewhere; autograd through "
+        f"ms_deform_attn_dense matches the plain adjoint")
+
+
+def phase_paths(report):
+    """Phase 20: the train step with the dense kernels ('pallas') and with
+    the merged adjoint, gt serving with 'pallas', and one f32 train step of
+    each new configuration on the card against the CPU port."""
+    phase_slice(report, impl="pallas")
+    phase_train(report, "pallas")
+    phase_train(report, "merged")
+    phase_train_f32("pallas")
+    phase_train_f32("merged")
+    for key, ref in (("slice_pallas", "slice"), ("train_pallas", "train"),
+                     ("train_merged", "train")):
+        if ref not in report:                        # a partial run without phases 4, 7
+            continue
+        new, old = report[key], report[ref]
+        fps = "fps" if "fps" in new else "img_s"
+        log(f"paths: {key} p50 {new['p50_ms']:.3f} ms, {new[fps]:.2f} img/s beside {ref} "
+            f"(phase {4 if ref == 'slice' else 7}) p50 {old['p50_ms']:.3f} ms, "
+            f"{old[fps]:.2f} img/s")
 
 
 def build_kernels():
@@ -1733,7 +2098,14 @@ def build_kernels():
                 log(f"    ptxas {ln.strip()}")
 
 
-def main() -> int:
+def main(argv) -> int:
+    only = None
+    if argv[:1] == ["--only"] and len(argv) == 2:
+        only = {int(n) for n in argv[1].split(",")}
+    elif argv:
+        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-20; 1-2 always run)",
+              file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -1758,37 +2130,42 @@ def main() -> int:
     build_kernels()
 
     report = {}
-    t0 = time.perf_counter()
-    phase_kernel(report)
-    phase_slice(report)
-    phase_e2e_f32()
-    phase_adjoint(report)
-    phase_train(report)
-    phase_train_f32()
-    t1 = time.perf_counter()
-    phase_roi(report)
-    phase_detect(report)
-    phase_detect_f32()
-    t2 = time.perf_counter()
-    phase_stem(report)
-    phase_yolo(report)
-    phase_yolo_f32()
-    t3 = time.perf_counter()
-    phase_nn(report)
-    phase_eval(report)
-    phase_eval_backbone(report)
-    t4 = time.perf_counter()
-    log(f"phases 3-8 in {t1 - t0:.1f} s, phases 9-11 in {t2 - t1:.1f} s, phases 12-14 in "
-        f"{t3 - t2:.1f} s, phases 15-17 in {t4 - t3:.1f} s; the whole script "
-        f"{t4 - t_start:.1f} s on {card}")
+    phases = {3: lambda: phase_kernel(report), 4: lambda: phase_slice(report),
+              5: phase_e2e_f32, 6: lambda: phase_adjoint(report),
+              7: lambda: phase_train(report), 8: phase_train_f32,
+              9: lambda: phase_roi(report), 10: lambda: phase_detect(report),
+              11: phase_detect_f32, 12: lambda: phase_stem(report),
+              13: lambda: phase_yolo(report), 14: phase_yolo_f32,
+              15: lambda: phase_nn(report), 16: lambda: phase_eval(report),
+              17: lambda: phase_eval_backbone(report), 18: lambda: phase_merged(report),
+              19: lambda: phase_dense(report), 20: lambda: phase_paths(report)}
+    spans = []
+    for first, last in ((3, 8), (9, 11), (12, 14), (15, 17), (18, 20)):
+        t0 = time.perf_counter()
+        for n in range(first, last + 1):
+            if only is None or n in only:
+                phases[n]()
+        spans.append(f"phases {first}-{last} in {time.perf_counter() - t0:.1f} s")
+    log(f"{', '.join(spans)}; the whole script {time.perf_counter() - t_start:.1f} s on {card}")
+    if only is not None:
+        log(f"partial run (phases 1, 2 and {sorted(only)}): no kernel report")
+        return 0
 
     enc, adj = report["encoder"], report["adjoint_encoder"]["bf16"]
     paths = {"serve": report["launches"], "train": report["train_launches"],
              "detect": report["detect"]["launches"], "yolo": report["yolo"]["launches"],
-             "eval": report["eval_launches"], "eval_backbone": report["eval_backbone_launches"]}
+             "eval": report["eval_launches"], "eval_backbone": report["eval_backbone_launches"],
+             "serve_pallas": report["launches_pallas"],
+             "train_pallas": report["train_launches_pallas"],
+             "train_merged": report["train_launches_merged"]}
     roi, nn = report["roi"], report["nn"]
     errs, bounds = report["adjoint_max_abs_err"], report["adjoint_bounds"]
     src, tpu = "poet_tpu_torch/csrc/", "poet_tpu/ops/deform_attn_pallas_v3.py:"
+    merged = report["merged_encoder"]["bf16"]
+    dense_enc = report["dense_encoder"]
+    dense = dense_enc["bf16"]
+    dense_src = src + "ms_deform_attn_dense.cu"
+    dense_tpu = "poet_tpu/ops/deform_attn_pallas.py:"
 
     def launched(i):
         """A kernel's launches on each path, and their sum."""
@@ -1851,6 +2228,30 @@ def main() -> int:
          "library_is": f"torch.cdist(gt, est).amin(-1).square(), chunks of {NN_LIBRARY_CHUNK} "
                        f"poses, TF32 off",
          "ms_are": "P=64, N=M=15000 (the BOP cloud size), f32"},
+        {"name": "ms_deform_attn_bwd_merged", "route": "cuda",
+         "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "341", **launched(6),
+         "max_abs_err": max(report["merged_max_abs_err"].values()),
+         **timed(merged["merged"], merged["plain"], report["merged_bound"]),
+         "pair_ms": merged["pair"],
+         "ms_are": "the encoder shape (B=16, Q=S=1600, H=16, D=16, L=P=4), bf16"},
+        {"name": "ms_deform_attn_dense_fwd", "route": "cuda", "source": dense_src,
+         "replaces": dense_tpu + "143", **launched(7),
+         "max_abs_err": report["dense_max_abs_err"]["forward"],
+         **timed(dense["dense_fwd"], dense["plain_fwd"], dense_enc["fwd_bounds"][0]),
+         "kernel1_ms": dense["kernel1"], "f32_bound_ms": dense_enc["fwd_bounds"][1][0],
+         "bound_is": "bytes against one dense (Q x S_pad) @ (S_pad x D) product per (b, h) "
+                     "on the bf16 tensor cores; f32_bound_ms: the gather form's on the f32 pipes",
+         "ms_are": "the encoder shape, bf16"},
+        {"name": "ms_deform_attn_dense_bwd", "route": "cuda", "source": dense_src,
+         "replaces": dense_tpu + "225", **launched(8),
+         "max_abs_err": max(v for k, v in report["dense_max_abs_err"].items()
+                            if k != "forward"),
+         **timed(dense["dense_bwd"], dense["plain_bwd"], dense_enc["bwd_bounds"][0]),
+         "pair_ms": dense["pair"], "merged_ms": dense["merged"],
+         "f32_bound_ms": dense_enc["bwd_bounds"][1][0],
+         "bound_is": "bytes against the TPU kernel's two dense products per (b, h) on the bf16 "
+                     "tensor cores; f32_bound_ms: the gather form's dot + scatter",
+         "ms_are": "the encoder shape, bf16"},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -1859,4 +2260,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -3,9 +3,22 @@ serving paths, the train step and evaluation read, with the same names and
 defaults.
 
 `poet_tpu.config` cannot be imported here (`poet_tpu/__init__.py` pulls in
-JAX), so the dataclasses are restated. Fields that only select TPU
-formulations (`enc_deform_impl`, `dec_deform_impl`, `enc_remat`) have no
-counterpart: the port runs one deformable-attention entry everywhere.
+JAX), so the dataclasses are restated.
+
+`enc_deform_impl` / `dec_deform_impl` take JAX's names and values, and
+`DEFORM_IMPLS` maps each onto one of the port's two routes of the
+deformable-attention core: 'pallas' onto the dense one-hot kernels
+(`ops/deform_attn_dense_cuda.py`, the counterparts of the TPU kernels that
+value selects), every other value onto the gather kernels
+(`ops/deform_attn_cuda.py`). The XLA formulations ('mxu', 'patch', 'sep',
+'sep_cv', 'gather') compute the same function and have no TPU kernel of
+their own; 'auto' and 'fused' are the gather kernels in both stacks (JAX's
+decoder 'auto' resolves by memory length, to 'mxu' at every length it
+measured). `merged_adjoint` is the counterpart of JAX's
+`POET_V3_MERGED_ADJOINT=1`: the gather route's backward in one kernel
+instead of two, the port's default (JAX's is the two-kernel adjoint).
+`enc_remat` has no counterpart: the port's autograd
+Functions save only their inputs, so there is nothing to rematerialize.
 Fields that nothing in the port reads are left out as well: the epoch and
 batch counts (the caller's loop owns them), the backbone-name keywords (the
 backbone is frozen by its module name), and the legacy matcher's type and
@@ -59,6 +72,19 @@ class BackboneConfig:
     anchor_sizes: Optional[Tuple[Tuple[int, ...], ...]] = None
 
 
+# enc_deform_impl / dec_deform_impl -> the port's route of the sampling core
+DEFORM_IMPLS = {"auto": "gather", "fused": "gather", "pallas": "dense", "mxu": "gather",
+                "patch": "gather", "sep": "gather", "sep_cv": "gather", "gather": "gather"}
+
+
+def deform_route(impl: str) -> str:
+    """'gather' or 'dense' for a JAX deformable-attention impl name; any
+    other value raises."""
+    if impl not in DEFORM_IMPLS:
+        raise ValueError(f"deformable-attention impl {impl!r} not in {tuple(DEFORM_IMPLS)}")
+    return DEFORM_IMPLS[impl]
+
+
 @dataclass
 class ModelConfig:
     bbox_mode: str = "gt"                 # {gt, backbone, jitter}
@@ -82,6 +108,19 @@ class ModelConfig:
     # transformer/backbone compute dtype; parameters stay f32 except where
     # utils/params.py casts them at rest for inference
     dtype: str = "float32"
+    # deformable-sampling core of the encoder and of the decoder's
+    # cross-attention, JAX's names (DEFORM_IMPLS): 'pallas' runs the dense
+    # one-hot kernels, every other value the gather kernels
+    enc_deform_impl: str = "auto"
+    dec_deform_impl: str = "auto"
+    # the gather route's backward: one merged kernel (True) or the d_value
+    # scatter + d_loc/d_attn gather pair (False). Merged: 3.84 against 4.34 ms
+    # of adjoint kernels per bf16 train step on an H100 (PERF.md, section 5)
+    merged_adjoint: bool = True
+
+    def __post_init__(self):
+        deform_route(self.enc_deform_impl)
+        deform_route(self.dec_deform_impl)
 
     @property
     def rot_dim(self) -> int:

@@ -109,7 +109,11 @@ class LayerNorm(nn.LayerNorm):
 
 
 class GroupNorm(nn.GroupNorm):
-    """flax `nn.GroupNorm(dtype=compute_dtype)` on NCHW: f32 statistics, eps 1e-6."""
+    """flax `nn.GroupNorm(dtype=compute_dtype)` on NCHW: f32 statistics, eps 1e-6,
+    and flax's formulas (`use_fast_variance`): var = max(0, E[x^2] - E[x]^2) and
+    y = (x - mean) * (rsqrt(var + eps) * scale) + bias. `F.group_norm`'s
+    two-pass variance parts from it where a group's spread is small against
+    its mean (one channel per group, as at hidden 32)."""
 
     def __init__(self, num_groups: int, num_channels: int,
                  compute_dtype: torch.dtype = torch.float32):
@@ -120,5 +124,14 @@ class GroupNorm(nn.GroupNorm):
         self.reset_parameters()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        B, C = x.shape[:2]
+        xf = x.float()
+        groups = xf.reshape(B, self.num_groups, -1)
+        mean = groups.mean(-1)
+        var = (groups.square().mean(-1) - mean.square()).clamp_min(0.0)
+        per_channel = C // self.num_groups
+        shape = (B, C) + (1,) * (x.dim() - 2)
+        mean = mean.repeat_interleave(per_channel, 1).view(shape)
+        mul = torch.rsqrt(var + self.eps).repeat_interleave(per_channel, 1) * self.weight
+        y = (xf - mean) * mul.view(shape) + self.bias.view((1, C) + shape[2:])
         return y.to(self.compute_dtype)

@@ -107,7 +107,9 @@ class PoET(nn.Module):
             d_model=C, nhead=cfg.nheads, num_encoder_layers=cfg.enc_layers,
             num_decoder_layers=cfg.dec_layers, dim_feedforward=cfg.dim_feedforward,
             num_feature_levels=cfg.num_feature_levels, dec_n_points=cfg.dec_n_points,
-            enc_n_points=cfg.enc_n_points, dtype=dt, dropout=cfg.dropout)
+            enc_n_points=cfg.enc_n_points, dtype=dt, dropout=cfg.dropout,
+            enc_impl=cfg.enc_deform_impl, dec_impl=cfg.dec_deform_impl,
+            merged_adjoint=cfg.merged_adjoint)
 
         n_classes = cfg.n_classes + 1           # +1 dummy/background
         class_mult = n_classes if cfg.class_mode == "specific" else 1

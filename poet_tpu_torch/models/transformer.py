@@ -1,11 +1,15 @@
 """Deformable transformer. Counterpart of `poet_tpu/models/transformer.py`.
 
-Tokens are channels-last (B, S, C) with static per-level shapes. One
-deformable-attention entry (`ops/deform_attn_cuda.py:ms_deform_attn`) serves
-the encoder's self-attention and the decoder's cross-attention: the JAX
-package's per-impl ladder (fused Pallas kernel in the encoder, one-hot
-matmuls in the decoder) and its token padding to the kernel's 128-query tile
-exist for the TPU only, so the port neither pads nor selects.
+Tokens are channels-last (B, S, C) with static per-level shapes. The
+sampling core of the encoder's self-attention and the decoder's
+cross-attention is chosen as in JAX, by `impl` (the config's
+`enc_deform_impl` / `dec_deform_impl`, JAX's names): 'pallas' selects the
+dense one-hot kernels (`ops/deform_attn_dense_cuda.py`), every other value
+the gather kernels (`ops/deform_attn_cuda.py`), whose backward
+`merged_adjoint` picks (`config.DEFORM_IMPLS`). Both routes compute the
+same function with the same parameters, so a JAX tree built with any impl
+loads unchanged. The port pads nothing: JAX's token and query padding to
+its kernels' 128-query tiles exists for the TPU only.
 
 Sampling offsets, attention logits, reference points and locations stay f32
 at any compute dtype. Dropout follows flax's (`poet_tpu/models/transformer.py:
@@ -26,8 +30,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from poet_tpu_torch.config import deform_route
 from poet_tpu_torch.models.layers import Dense, LayerNorm, variance_scaling_
 from poet_tpu_torch.ops.deform_attn_cuda import ms_deform_attn
+from poet_tpu_torch.ops.deform_attn_dense_cuda import ms_deform_attn_dense
 
 
 def _rounded(value: float, dtype: torch.dtype) -> float:
@@ -79,12 +85,17 @@ def _grid_init_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
 
 
 class MSDeformAttn(nn.Module):
-    """Multi-scale deformable attention: projections around the sampling core."""
+    """Multi-scale deformable attention: projections around the sampling core.
+    `impl` is JAX's name of the core ('pallas' -> the dense kernels, any other
+    -> the gather kernels, with the merged adjoint if `merged_adjoint`)."""
 
     def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8,
-                 n_points: int = 4, dtype: torch.dtype = torch.float32):
+                 n_points: int = 4, dtype: torch.dtype = torch.float32, impl: str = "mxu",
+                 merged_adjoint: bool = True):
         super().__init__()
         self.n_levels, self.n_heads, self.n_points = n_levels, n_heads, n_points
+        self.impl, self.route = impl, deform_route(impl)
+        self.adjoint = "merged" if merged_adjoint else "pair"
         H, L, P = n_heads, n_levels, n_points
         self.value_proj = Dense(d_model, d_model, dtype)
         self.sampling_offsets = Dense(d_model, H * L * P * 2, torch.float32,
@@ -126,8 +137,10 @@ class MSDeformAttn(nn.Module):
         wh = self._level_wh(tuple(spatial_shapes), query.device)
         locations = (reference_points.float()[:, :, None, :, None, :]
                      + offsets / wh[None, None, None, :, None, :])
-        out = ms_deform_attn(value.contiguous(), tuple(spatial_shapes),
-                             locations.contiguous(), attn.contiguous())
+        args = (value.contiguous(), tuple(spatial_shapes), locations.contiguous(),
+                attn.contiguous())
+        out = (ms_deform_attn_dense(*args) if self.route == "dense"
+               else ms_deform_attn(*args, adjoint=self.adjoint))
         return self.output_proj(out)
 
 
@@ -176,10 +189,12 @@ class MultiheadAttention(nn.Module):
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
-                 n_points: int, dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 n_points: int, dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 impl: str = "mxu", merged_adjoint: bool = True):
         super().__init__()
         self.drop = _Dropout(dropout)
-        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, dtype)
+        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, dtype, impl,
+                                      merged_adjoint)
         self.norm1 = LayerNorm(d_model, dtype)
         self.linear1 = Dense(d_model, d_ffn, dtype)
         self.linear2 = Dense(d_ffn, d_model, dtype)
@@ -198,12 +213,14 @@ class DecoderLayer(nn.Module):
     deformable cross-attention into the memory, then the FFN."""
 
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
-                 n_points: int, dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 n_points: int, dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 impl: str = "mxu", merged_adjoint: bool = True):
         super().__init__()
         self.drop = _Dropout(dropout)
         self.self_attn = MultiheadAttention(d_model, n_heads, dtype, dropout)
         self.norm2 = LayerNorm(d_model, dtype)
-        self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, dtype)
+        self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, dtype, impl,
+                                       merged_adjoint)
         self.norm1 = LayerNorm(d_model, dtype)
         self.linear1 = Dense(d_model, d_ffn, dtype)
         self.linear2 = Dense(d_ffn, d_model, dtype)
@@ -259,24 +276,28 @@ class _LayerStack(nn.Module):
 
 class DeformableTransformer(nn.Module):
     """Encoder over the flattened multi-scale tokens + decoder with stacked
-    intermediate states. Takes per-level maps channels-last."""
+    intermediate states. Takes per-level maps channels-last. `enc_impl` /
+    `dec_impl` pick each stack's sampling core by JAX's names (JAX's decoder
+    'auto' resolves by memory length to 'mxu'; here it is the gather route
+    too), `merged_adjoint` the gather route's backward."""
 
     def __init__(self, d_model: int = 256, nhead: int = 8, num_encoder_layers: int = 6,
                  num_decoder_layers: int = 6, dim_feedforward: int = 1024,
                  num_feature_levels: int = 4, dec_n_points: int = 4,
                  enc_n_points: int = 4, dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, enc_impl: str = "mxu", dec_impl: str = "auto",
+                 merged_adjoint: bool = True):
         super().__init__()
         self.d_model = d_model
         self.dtype = dtype
         self.level_embed = nn.Parameter(torch.empty(num_feature_levels, d_model))
         self.encoder = _LayerStack([
             EncoderLayer(d_model, dim_feedforward, num_feature_levels, nhead,
-                         enc_n_points, dtype, dropout)
+                         enc_n_points, dtype, dropout, enc_impl, merged_adjoint)
             for _ in range(num_encoder_layers)])
         self.decoder = _LayerStack([
             DecoderLayer(d_model, dim_feedforward, num_feature_levels, nhead,
-                         dec_n_points, dtype, dropout)
+                         dec_n_points, dtype, dropout, dec_impl, merged_adjoint)
             for _ in range(num_decoder_layers)])
 
     def seeded_init(self, g: torch.Generator) -> None:

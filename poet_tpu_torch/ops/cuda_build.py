@@ -118,14 +118,18 @@ FWD_LIB = CudaLibrary(CSRC / "ms_deform_attn_fwd.cu", {
     "poet_ms_deform_attn_fwd": [P] * 4 + [I] * 8 + [INTS, I, P]})
 BWD_LIB = CudaLibrary(CSRC / "ms_deform_attn_bwd.cu", {
     "poet_ms_deform_attn_bwd_dvalue": [P] * 4 + [I] * 8 + [INTS, I, P],
-    "poet_ms_deform_attn_bwd_dloc": [P] * 6 + [I] * 8 + [INTS, I, P]})
+    "poet_ms_deform_attn_bwd_dloc": [P] * 6 + [I] * 8 + [INTS, I, P],
+    "poet_ms_deform_attn_bwd_merged": [P] * 7 + [I] * 8 + [INTS, I, P]})
 ROI_LIB = CudaLibrary(CSRC / "roi_align_fwd.cu", {
     "poet_roi_align_fwd": [PTRS, INTS, I] + [P] * 6 + [I] * 7 + [P]})
 STEM_LIB = CudaLibrary(CSRC / "conv_stem_fwd.cu", {
     "poet_conv_stem_fwd": [P] * 4 + [I] * 17 + [P]})
 NN_LIB = CudaLibrary(CSRC / "min_dist_sq_fwd.cu", {
     "poet_min_dist_sq_fwd": [P] * 3 + [I] * 3 + [P]})
-LIBRARIES = (FWD_LIB, BWD_LIB, ROI_LIB, STEM_LIB, NN_LIB)
+DENSE_LIB = CudaLibrary(CSRC / "ms_deform_attn_dense.cu", {
+    "poet_ms_deform_attn_dense_fwd": [P] * 4 + [I] * 8 + [INTS, P],
+    "poet_ms_deform_attn_dense_bwd": [P] * 7 + [I] * 8 + [INTS, I, P]})
+LIBRARIES = (FWD_LIB, BWD_LIB, ROI_LIB, STEM_LIB, NN_LIB, DENSE_LIB)
 
 
 def build_all() -> None:

@@ -1,12 +1,16 @@
-"""The deformable-attention entry, its Hopper kernels' wrappers and its adjoint.
+"""The gather route of deformable attention: its entry, its Hopper kernels'
+wrappers and its adjoint.
 
-`ms_deform_attn` is the one entry the model calls (encoder self-attention
-and decoder cross-attention alike). It is a `torch.autograd.Function`:
+`ms_deform_attn` is the entry the model calls for every `enc_deform_impl` /
+`dec_deform_impl` but 'pallas' (that one is `ops/deform_attn_dense_cuda.py`;
+the table is `config.DEFORM_IMPLS`). It is a `torch.autograd.Function`:
   * CPU tensors run the plain PyTorch forward and backward
     (`ops/deform_attn.py`);
   * CUDA tensors launch the hand-written kernels — the forward
-    `csrc/ms_deform_attn_fwd.cu`, and in the backward the d_value scatter and
-    the d_loc/d_attn gather of `csrc/ms_deform_attn_bwd.cu` — or raise.
+    `csrc/ms_deform_attn_fwd.cu`, and in the backward, by its `adjoint`
+    argument, either the pair of `csrc/ms_deform_attn_bwd.cu` (the d_value
+    scatter and the d_loc/d_attn gather) or the merged kernel of the same
+    file (all three gradients in one pass) — or raise.
 There is no fallback from one to the other.
 
 The kernels are built by `ops/cuda_build.py` (nvcc at first use, loaded
@@ -166,19 +170,60 @@ class MSDeformAttnDLocAttn:
         return d_loc, d_attn
 
 
+class MSDeformAttnMergedAdjoint:
+    """Launches the merged adjoint kernel (`csrc/ms_deform_attn_bwd.cu`):
+    d_value, d_loc and d_attn in one pass over the sampling points.
+
+    Returns what `MSDeformAttnDValue` and `MSDeformAttnDLocAttn` return
+    together: (d_value (B, S, H, D) in value's dtype, summed in f32 with
+    float4 atomics, rows past sum(Hl * Wl) exactly 0; d_loc (B, Q, H, L, P,
+    2) f32 with respect to the normalized locations; d_attn (B, Q, H, L, P)
+    f32). `launches` counts launches.
+    """
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                 sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+                 dout: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        B, S, Q, H, D, L, P = _check_inputs(value, spatial_shapes, sampling_locations,
+                                            attention_weights, dout)
+        lib = BWD_LIB.build()
+        d_value = torch.zeros((B, S, H, D), dtype=torch.float32, device=value.device)
+        d_loc = torch.empty_like(sampling_locations)
+        d_attn = torch.empty_like(attention_weights)
+        # 4 channels per lane for both dtypes: one float4 atomic per corner
+        aligned = all(t.data_ptr() % (4 * t.element_size()) == 0 for t in (value, dout))
+        vec = 4 if D % 4 == 0 and aligned else 1
+        with torch.cuda.device(value.device):
+            rc = lib.poet_ms_deform_attn_bwd_merged(
+                value.data_ptr(), sampling_locations.data_ptr(),
+                attention_weights.data_ptr(), dout.data_ptr(), d_value.data_ptr(),
+                d_loc.data_ptr(), d_attn.data_ptr(), DTYPE_CODE[value.dtype],
+                B, S, Q, H, D, L, P, level_hw(spatial_shapes), vec, stream_of(value))
+        BWD_LIB.check(rc, "ms_deform_attn_bwd_merged")
+        self.launches += 1
+        return d_value.to(value.dtype), d_loc, d_attn
+
+
 MS_DEFORM_ATTN_FWD = MSDeformAttnForward()
 MS_DEFORM_ATTN_DVALUE = MSDeformAttnDValue()
 MS_DEFORM_ATTN_DLOC = MSDeformAttnDLocAttn()
-KERNELS = (MS_DEFORM_ATTN_FWD, MS_DEFORM_ATTN_DVALUE, MS_DEFORM_ATTN_DLOC)
+MS_DEFORM_ATTN_MERGED = MSDeformAttnMergedAdjoint()
+KERNELS = (MS_DEFORM_ATTN_FWD, MS_DEFORM_ATTN_DVALUE, MS_DEFORM_ATTN_DLOC,
+           MS_DEFORM_ATTN_MERGED)
+ADJOINTS = ("merged", "pair")
 
 
 class _MSDeformAttn(torch.autograd.Function):
     """Deformable sampling with its adjoint: CPU -> plain versions, CUDA ->
-    the three kernels."""
+    the forward kernel and the adjoint chosen by `adjoint` ('pair': the
+    d_value scatter and the d_loc/d_attn gather; 'merged': one kernel)."""
 
     @staticmethod
-    def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):
-        ctx.spatial_shapes = spatial_shapes
+    def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights, adjoint):
+        ctx.spatial_shapes, ctx.adjoint = spatial_shapes, adjoint
         ctx.save_for_backward(value, sampling_locations, attention_weights)
         if value.device.type == "cpu":
             return ms_deform_attn_torch(value, spatial_shapes, sampling_locations,
@@ -194,17 +239,24 @@ class _MSDeformAttn(torch.autograd.Function):
         if value.device.type == "cpu":
             d_value, d_loc, d_attn = ms_deform_attn_torch_backward(value, shapes, locs,
                                                                    attn, dout)
+        elif ctx.adjoint == "merged":
+            d_value, d_loc, d_attn = MS_DEFORM_ATTN_MERGED(value, shapes, locs, attn, dout)
         else:
             d_value = MS_DEFORM_ATTN_DVALUE(value, shapes, locs, attn, dout)
             d_loc, d_attn = MS_DEFORM_ATTN_DLOC(value, shapes, locs, attn, dout)
-        return d_value, None, d_loc, d_attn
+        return d_value, None, d_loc, d_attn, None
 
 
 def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
-                   sampling_locations: torch.Tensor,
-                   attention_weights: torch.Tensor) -> torch.Tensor:
-    """The model's deformable-attention entry (differentiable): CPU -> plain
-    version, CUDA -> the hand-written kernels (which raise on what they do
-    not take)."""
+                   sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+                   adjoint: str = "merged") -> torch.Tensor:
+    """The model's deformable-attention entry on the gather kernels
+    (differentiable): CPU -> plain version, CUDA -> the hand-written kernels
+    (which raise on what they do not take). `adjoint` picks the backward on
+    CUDA tensors: 'merged' (one kernel, the faster on the H100) or 'pair'
+    (d_value scatter + d_loc/d_attn gather); both compute the same
+    gradients."""
+    if adjoint not in ADJOINTS:
+        raise ValueError(f"adjoint {adjoint!r} not in {ADJOINTS}")
     return _MSDeformAttn.apply(value, tuple(spatial_shapes), sampling_locations,
-                               attention_weights)
+                               attention_weights, adjoint)

@@ -165,7 +165,8 @@ def test_entry_backward_on_cpu_builds_and_launches_nothing(rng):
     assert all(lib._lib is None for lib in dac.LIBRARIES)
 
 
-@pytest.mark.parametrize("kernel", ["MS_DEFORM_ATTN_DVALUE", "MS_DEFORM_ATTN_DLOC"])
+@pytest.mark.parametrize("kernel", ["MS_DEFORM_ATTN_DVALUE", "MS_DEFORM_ATTN_DLOC",
+                                    "MS_DEFORM_ATTN_MERGED"])
 def test_adjoint_kernel_wrappers_reject_cpu_tensors(rng, kernel):
     from poet_tpu_torch.ops import deform_attn_cuda as dac
 

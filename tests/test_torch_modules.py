@@ -264,3 +264,35 @@ def test_rotation_6d_to_matrix(rng):
     got = rotation_6d_to_matrix(t(x)).numpy()
     np.testing.assert_allclose(got, np.asarray(jrot(jnp.asarray(x))), atol=1e-6)
     np.testing.assert_allclose(np.linalg.det(got), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["ill_conditioned", "random"])
+def test_group_norm_matches_flax_fast_variance(rng, case):
+    """flax's GroupNorm takes var = E[x^2] - E[x]^2 (use_fast_variance). In a
+    group whose spread is small against its mean that differs from a
+    two-pass variance by far more than rounding: channel 0 below holds
+    1000 and 1000.0625 (exact in f32, so both frameworks round alike), where
+    flax's variance is exactly 0 (outputs +-31.25 at eps 1e-6) and the
+    two-pass one 2^-10 (outputs +-1)."""
+    import flax.linen as fnn
+
+    from poet_tpu_torch.models.layers import GroupNorm
+
+    if case == "ill_conditioned":
+        # NHWC (1, 1, 2, 2): channel 0 holds 1000 and 1000.0625, channel 1 -3 and 5
+        x = np.array([[1000.0, -3.0], [1000.0625, 5.0]], np.float32).reshape(1, 1, 2, 2)
+        groups = 2
+    else:
+        x = rng.normal(size=(2, 5, 4, 32)).astype(np.float32)
+        groups = 8
+    jm = fnn.GroupNorm(num_groups=groups, epsilon=1e-6)
+    params = random_tree(init_shapes(jm, jnp.asarray(x)), rng)
+    want = np.asarray(jm.apply(params, jnp.asarray(x)))
+    pm = load_jax_params(GroupNorm(groups, x.shape[-1]), params)
+    got = pm(t(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).detach().numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    if case == "ill_conditioned":
+        scale = np.asarray(params["params"]["scale"])[0]
+        bias = np.asarray(params["params"]["bias"])[0]
+        np.testing.assert_allclose(np.abs(want[0, 0, :, 0] - bias), 31.25 * abs(scale),
+                                   rtol=1e-6)
