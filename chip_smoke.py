@@ -7,8 +7,9 @@
 Phases, each raising on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the kernels (deformable attention on its gather and dense routes,
-     RoIAlign, the stem conv, the min distance) from poet_tpu_torch/csrc with
-     nvcc, one process per source, in parallel;
+     RoIAlign, the stem conv, the min distance, the v2 forward and the three
+     probes) from poet_tpu_torch/csrc with nvcc, one process per source, in
+     parallel;
   3. the forward kernel against its plain PyTorch version on the card:
      flagship encoder (Q=S=1600) and decoder (Q=10) shapes at B=16, edge
      level geometries, out-of-map and dummy-query locations; f32 and bf16;
@@ -104,9 +105,26 @@ Phases, each raising on failure:
      dense forward + 10 dense adjoint per step and no other) and 8 with the
      merged adjoint (10 forward + 10 merged per step and no other), each
      beside phase 4's or 7's p50 and img/s; one f32 train step of each at
-     B=2 on the card against the CPU port, as phase 8.
+     B=2 on the card against the CPU port, as phase 8;
+ 21. the v2 slab forward (`ms_deform_attn_v2`, on no model path) against the
+     plain version: phase 3's geometries, the YOLO pyramid (f32 in four row
+     bands, bf16 in two), small shapes at a band budget of one or two rows
+     (16 and 6 bands, scalar loads), NaN locations; the entry on CUDA tensors
+     and its refusal of inputs that require grad; v2, kernel 1 and plain ms
+     (and the whole slab in one band where the default takes two); the bound
+     of the TPU kernel's products on the tensor cores, the gather form's f32
+     bound beside it;
+ 22. the probes at reduced sizes: the chained mma.sync products against the
+     plain chain at R = 1, 2 for every K of the sweep, then ms and TFLOP/s
+     per K at R=64 G=66 with torch.matmul of one product; every variant of
+     the forward kernel against its plain definition at the encoder shape
+     (base bit-equal to kernel 1) with ms per variant; the four gather cases
+     exactly equal to the plain version, device ms from a CUDA-graph replay
+     beside torch.gather, and an index out of range that must raise.
 Phases 4, 7, 10, 13, 16, 17 and 20's paths each set every kernel's launch
-count to 0 before they drive their path and read them after. Every kernel's entry in
+count to 0 before they drive their path and read them after (the v2 kernel
+and the probes: 0 on every path; their entries add their phase's own
+launches). Every kernel's entry in
 the report carries its bound: the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and its
 operations over the peak rate for its type (67 TFLOP/s f32 for the
@@ -245,7 +263,7 @@ EVAL_THIN = 32
 
 
 KERNEL_KEYS = ("fwd", "d_value", "d_loc", "roi", "stem", "nn", "merged", "dense_fwd",
-               "dense_bwd")
+               "dense_bwd", "v2", "kpad", "variants", "gather")
 LAUNCH_NAMES = "/".join(KERNEL_KEYS)
 
 
@@ -256,16 +274,22 @@ def log(msg: str) -> None:
 def all_kernels():
     """Every kernel wrapper, in the report's order (KERNEL_KEYS): forward,
     d_value, d_loc, RoIAlign, stem, min distance, merged adjoint, dense
-    forward, dense adjoint."""
+    forward, dense adjoint, v2 forward, and the three probes (kpad, the
+    forward's variants, the dynamic gather)."""
     from poet_tpu_torch.ops import deform_attn_cuda as gather
     from poet_tpu_torch.ops import deform_attn_dense_cuda as dense
     from poet_tpu_torch.ops.conv_stem_cuda import CONV_STEM_FWD
+    from poet_tpu_torch.ops.deform_attn_v2_cuda import MS_DEFORM_ATTN_V2
     from poet_tpu_torch.ops.nn_cuda import MIN_DIST_SQ
     from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD
+    from poet_tpu_torch.tools.bench_kpad import KPAD_CHAIN
+    from poet_tpu_torch.tools.bench_v3_variants import MS_DEFORM_ATTN_VARIANT
+    from poet_tpu_torch.tools.dyn_gather import TAKE_ALONG_AXIS
 
     return [gather.MS_DEFORM_ATTN_FWD, gather.MS_DEFORM_ATTN_DVALUE, gather.MS_DEFORM_ATTN_DLOC,
             ROI_ALIGN_FWD, CONV_STEM_FWD, MIN_DIST_SQ, gather.MS_DEFORM_ATTN_MERGED,
-            dense.MS_DEFORM_ATTN_DENSE_FWD, dense.MS_DEFORM_ATTN_DENSE_BWD]
+            dense.MS_DEFORM_ATTN_DENSE_FWD, dense.MS_DEFORM_ATTN_DENSE_BWD, MS_DEFORM_ATTN_V2,
+            KPAD_CHAIN, MS_DEFORM_ATTN_VARIANT, TAKE_ALONG_AXIS]
 
 
 def expected(**counts):
@@ -293,19 +317,12 @@ def tf32_off():
     return tf32(False)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    import torch
+def cuda_ms(fn, **kwargs) -> float:
+    """ms per call of `fn`: `poet_tpu_torch.tools.timing.cuda_ms`, imported
+    once main() has put the repo on the path."""
+    from poet_tpu_torch.tools.timing import cuda_ms as timed
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return timed(fn, **kwargs)
 
 
 def bound(n_bytes: float, n_flops: float):
@@ -2084,6 +2101,260 @@ def phase_paths(report):
             f"{old[fps]:.2f} img/s")
 
 
+V2_GEOMETRIES = GEOMETRIES + [
+    ("yolo pyramid", 2, 6380, 16, 16, YOLO_LEVELS, 0.0, 1.0, 0),
+]
+# (name, B, Q, H, D, levels, loc range, band budget in widest padded rows):
+# a budget of one row's bytes forces a band per row or two
+V2_BAND_CASES = [
+    ("many bands, f32 D=8", 2, 37, 2, 8, ((6, 9), (4, 5), (2, 3)), -0.2, 1.2, 1),
+    ("many bands, D=6 (scalar loads)", 2, 9, 3, 6, ((5, 7), (3, 4)), -0.2, 1.2, 2),
+]
+
+
+def v2_bounds(value, locs, attn, out, shapes):
+    """(bound, TPU-form bound), each (ms, binds), of the v2 forward. The
+    bound is the function's own, as row 1's: its bytes against 8 D
+    operations per in-map point on the f32 pipes. Beside it, the TPU
+    formulation's: the bytes against its two one-hot products per (b, h,
+    level, point) on the bf16 tensor cores (the y-mix Q x Hp x Wp*D and the
+    x-mix reduction Q x Wp*D x D, 2 flops per multiply-add), which the slab
+    kernel does not do."""
+    B, _, H, D = value.shape
+    Q, P = locs.shape[1], locs.shape[4]
+    t_bytes = nbytes(value, locs, attn, out) / HBM_BYTES_PER_S
+    flops = sum(2.0 * Q * ((h + 2) * (w + 2) * D + (w + 2) * D * D) for h, w in shapes)
+    t_tc = flops * B * H * P / BF16_TC_FLOP_PER_S
+    tpu_form = (max(t_bytes, t_tc) * 1e3, "bytes" if t_bytes >= t_tc else "operations")
+    return deform_bound(locs, shapes, D, value, locs, attn, out), tpu_form
+
+
+def phase_v2(report):
+    """Phase 21: the v2 slab kernel against the plain version on the card:
+    phase 3's geometries, the YOLO pyramid (f32 in four bands, bf16 in two),
+    small shapes at a band budget of a row or two, NaN locations; times
+    against kernel 1 and the plain version; the bounds."""
+    import torch
+
+    from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch as plain
+    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_FWD as K1
+    from poet_tpu_torch.ops.deform_attn_v2_cuda import MS_DEFORM_ATTN_V2 as V2
+    from poet_tpu_torch.ops.deform_attn_v2_cuda import (
+        DEFAULT_SMEM_BUDGET,
+        SMEM_OPTIN_MAX,
+        ms_deform_attn_v2,
+        padded_rows,
+        plan_bands,
+    )
+
+    g = torch.Generator(device=DEVICE).manual_seed(21)
+    worst = 0.0
+    V2.launches = 0                                  # this phase's own launches
+    cases = [c + (None,) for c in V2_GEOMETRIES] + [c[:8] + (0, c[8]) for c in V2_BAND_CASES]
+    for name, B, Q, H, D, shapes, lo, hi, _, rows in cases:
+        value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=lo, hi=hi)
+        line = f"v2-vs-plain {name}: B={B} Q={Q} H={H} D={D} levels={shapes}"
+        for dt in (torch.float32, torch.bfloat16):
+            v = value.to(dt)
+            budget = (rows * max(padded_rows(shapes)) * D * v.element_size() if rows
+                      else DEFAULT_SMEM_BUDGET)
+            bands = len(plan_bands(shapes, D, v.element_size(), budget)) - 1
+            with torch.inference_mode():
+                ref = plain(v.float(), shapes, locs, attn)
+                out = V2(v, shapes, locs, attn, smem_budget=budget)
+                torch.cuda.synchronize()
+            if out.dtype != dt:
+                raise AssertionError(f"v2 {name}: returned {out.dtype} for {dt}")
+            err = (out.float() - ref).abs()
+            tol = BF16_ATOL + BF16_RTOL * ref.abs() if dt == torch.bfloat16 else F32_ATOL
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"v2 {name} {dt}: max |kernel - plain| "
+                                     f"{err.max().item():.3e} in {bands} bands")
+            if dt == torch.float32:
+                worst = max(worst, err.max().item())
+            line += (f" | {'f32' if dt == torch.float32 else 'bf16'} {bands} band(s) "
+                     f"max_abs_err {err.max().item():.2e}")
+        if name in ("encoder", "decoder", "yolo pyramid"):
+            t = {}
+            for dt in (torch.float32, torch.bfloat16):
+                v = value.to(dt)
+                args = (v, shapes, locs, attn)
+                n_default = len(plan_bands(shapes, D, v.element_size())) - 1
+                n_whole = len(plan_bands(shapes, D, v.element_size(), SMEM_OPTIN_MAX)) - 1
+                with torch.inference_mode():
+                    ms = {"v2": cuda_ms(lambda: V2(*args)), "kernel1": cuda_ms(lambda: K1(*args)),
+                          "plain": cuda_ms(lambda: plain(*args), iters=5)}
+                    if n_default > 1 and n_whole == 1:   # the whole slab in one band
+                        ms["v2_one_band"] = cuda_ms(lambda: V2(*args, smem_budget=SMEM_OPTIN_MAX))
+                t["bf16" if dt == torch.bfloat16 else "f32"] = ms
+            line += "".join(f" | ms {dt}: " + ", ".join(f"{k} {x:.4f}" for k, x in ms.items())
+                            for dt, ms in t.items())
+            v = value.bfloat16()
+            with torch.inference_mode():
+                t["bounds"] = v2_bounds(v, locs, attn, V2(v, shapes, locs, attn), shapes)
+            line += (f" | bound {t['bounds'][0][0]:.4f} ({t['bounds'][0][1]}); the TPU form's "
+                     f"products on the bf16 tensor cores {t['bounds'][1][0]:.4f} "
+                     f"({t['bounds'][1][1]})")
+            report[f"v2_{name}"] = t
+        log(line)
+
+    # NaN locations, held to the plain version on the card (F.grid_sample sends
+    # a non-finite coordinate out of range: the point adds nothing)
+    shapes = ((6, 9), (4, 5), (1, 1))
+    value, locs, attn = deform_inputs(g, 2, 5, 2, 8, shapes)
+    locs[:, 0, :, 0, 1, 0] = float("nan")
+    locs[:, 1, :, 1, 2, :] = float("nan")
+    locs[1, 2, 0, 2, 0, 1] = float("nan")
+    with torch.inference_mode():
+        n_nan = nan_agrees("v2, NaN", V2(value, shapes, locs, attn),
+                           plain(value, shapes, locs, attn), F32_ATOL)
+    # the entry: CUDA tensors launch the kernel; inputs that require grad raise
+    n0 = V2.launches
+    with torch.inference_mode():
+        ms_deform_attn_v2(value, shapes, locs.nan_to_num(0.5), attn)
+    if V2.launches != n0 + 1:
+        raise AssertionError("ms_deform_attn_v2 on CUDA tensors did not launch its kernel")
+    try:
+        ms_deform_attn_v2(value.clone().requires_grad_(), shapes, locs, attn)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("ms_deform_attn_v2 took a value that requires grad")
+    report["v2_max_abs_err"] = worst
+    report["v2_launches"] = V2.launches
+    log(f"v2 kernel: f32 max |kernel - plain| {worst:.3e} over {len(cases)} geometries (tol "
+        f"{F32_ATOL}; bf16 {BF16_ATOL} + 2^-8 |ref|); NaN locations: NaN at {n_nan} places "
+        f"as the plain version; the entry launches on CUDA tensors and refuses requires_grad")
+
+
+# the probes at reduced sizes (the tools run them at full size)
+# G = 66: 60 row strips x 66 = 3960 tasks, whole waves at 1 or 2 blocks per SM
+KPAD_M, KPAD_N, KPAD_R, KPAD_G = 960, 512, 64, 66
+KPAD_RTOL = 1e-5      # the chained products vs plain: f32 sums in another order, of scale
+
+
+def phase_probes(report):
+    """Phase 22: the three probes' kernels against their plain versions,
+    at reduced sizes: the chained mma products (R = 1 and 2, then a timed K
+    sweep at G = 66), every variant of the forward kernel at the encoder
+    shape (base bit-equal to kernel 1), the four gather cases, an index
+    out of range, and the launch count of a gather captured in a CUDA graph."""
+    import torch
+
+    from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch
+    from poet_tpu_torch.tools import bench_kpad as kp
+    from poet_tpu_torch.tools import bench_v3_variants as bv
+    from poet_tpu_torch.tools import dyn_gather as dg
+    from poet_tpu_torch.tools.timing import graph_ms
+
+    for k in (kp.KPAD_CHAIN, bv.MS_DEFORM_ATTN_VARIANT, dg.TAKE_ALONG_AXIS):
+        k.launches = 0                               # this phase's own launches
+    # a. kpad: kernel vs plain at R = 1, 2, then the sweep
+    sweep, worst, worst_abs = {}, 0.0, 0.0
+    with tf32_off():
+        for K in kp.KS:
+            a, b = kp.operands(K, KPAD_M, KPAD_N, device=DEVICE)
+            for R in (1, 2):
+                ref = kp.kpad_chain_torch(a, b, R)
+                got = kp.KPAD_CHAIN(a, b, R, 2)
+                torch.cuda.synchronize()
+                err_abs = (got - ref).abs().max().item()
+                err = err_abs / ref.abs().max().item()
+                if not err <= KPAD_RTOL:
+                    raise AssertionError(f"kpad K={K} R={R}: max |kernel - plain| / max|plain| "
+                                         f"{err:.3e} > {KPAD_RTOL}")
+                worst, worst_abs = max(worst, err), max(worst_abs, err_abs)
+            sweep[K] = kp.bench_k(K, KPAD_M, KPAD_N, KPAD_R, KPAD_G)
+        a, b = kp.operands(128, KPAD_M, KPAD_N, device=DEVICE)
+        plain_ms = cuda_ms(lambda: [kp.kpad_chain_torch(a, b, KPAD_R) for _ in range(KPAD_G)],
+                           iters=2, warmup=1)
+    log(f"kpad: M={KPAD_M} N={KPAD_N} bf16, kernel vs plain at R=1,2 max rel err {worst:.2e} "
+        f"(tol {KPAD_RTOL}); R={KPAD_R} G={KPAD_G}, ms and TFLOP/s at the true K / K padded "
+        f"to 16: " + ", ".join(
+            f"K={K} {r['ms']:.4f} {r['tflops']:.1f}/{r['tflops_pad16']:.1f} "
+            f"(matmul {r['matmul_ms']:.4f})" for K, r in sweep.items())
+        + f"; plain at K=128 {plain_ms:.3f} ms")
+    # the K=128 chain: its products on the bf16 tensor cores against its bytes
+    t_ops = sweep[128]["bound_ms"]
+    t_bytes = (nbytes(a, b) + KPAD_M * KPAD_N * 4) / HBM_BYTES_PER_S * 1e3
+    report["kpad"] = {"sweep": sweep, "plain_ms": plain_ms, "max_rel_err": worst,
+                      "max_abs_err": worst_abs,
+                      "bound": (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")}
+
+    # b. the variants at the encoder shape, bf16
+    g = torch.Generator(device=DEVICE).manual_seed(22)
+    name, B, Q, H, D, shapes, lo, hi, _ = GEOMETRIES[0]
+    value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=lo, hi=hi)
+    v16 = value.bfloat16()
+    args = (v16, shapes, locs, attn)
+    var = bv.time_variants(*args)
+    with torch.inference_mode():
+        for vname in bv.VARIANTS:
+            out = var[vname].pop("out")
+            # on the bf16 values in f32: the plain result unrounded (bf16y's
+            # plain definition sums in bf16 itself), as phase 3 holds kernel 1
+            ref = bv.plain_variant(v16.float(), shapes, locs, attn, vname)
+            err = (out.float() - ref).abs()
+            if vname == "bf16y":   # each step rounds to bf16; the plain one through f32
+                tol = 2.0 ** -7 * ref.abs().max().item()
+            else:
+                tol = BF16_ATOL + BF16_RTOL * ref.abs()
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"variant {vname}: max |kernel - plain| "
+                                     f"{err.max().item():.3e}")
+            if vname == "base" and not var[vname]["bit_equal_kernel1"]:
+                raise AssertionError("variant base is not bit-equal to kernel 1")
+            var[vname]["max_abs_err"] = err.max().item()
+        var["plain_ms"] = cuda_ms(lambda: ms_deform_attn_torch(*args), iters=5)
+    var["bound"] = deform_bound(locs, shapes, D, v16, locs, attn, out)   # out: kernel 1's shape
+    log(f"variants at the encoder shape (B={B} Q={Q} H={H} D={D} L=P=4, bf16), ms: "
+        + ", ".join(f"{k} {x['ms']:.4f} (err {x['max_abs_err']:.1e}"
+                    f"{', = kernel 1' if x['bit_equal_kernel1'] else ''})"
+                    for k, x in var.items() if isinstance(x, dict))
+        + f"; kernel 1 {var['kernel1_ms']:.4f}, plain {var['plain_ms']:.4f}")
+    report["variants"] = var
+
+    # c. the dynamic gather: the script's four cases, exact; out of range raises
+    gat = {}
+    for cname, T, R, dt in dg.CASES:
+        table, idx = dg.case_inputs(T, R, dt, device=DEVICE)
+        got, ref = dg.TAKE_ALONG_AXIS(table, idx), dg.take_along_axis_torch(table, idx)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"gather {cname}: kernel != plain")
+        distinct = torch.unique(idx.long() * table.shape[1]
+                                + torch.arange(table.shape[1], device=DEVICE)).numel()
+        # device time (replayed from a CUDA graph, the replays' launches
+        # counted) and time per call launched from the host, which at these
+        # sizes is the launch's
+        gat[cname] = dg.time_case(table, idx) | {
+            "bound": bound(nbytes(idx, got) + distinct * table.element_size(), 0.0)}
+    table, idx = dg.case_inputs(512, 64, torch.float32, device=DEVICE)
+    idx[3, 7] = 512
+    try:
+        dg.take_along_axis(table, idx)
+    except IndexError:
+        pass
+    else:
+        raise AssertionError("take_along_axis took an index out of range")
+    # a call captured into a CUDA graph launches nothing; the replays launch
+    idx[3, 7] = 0
+    n0 = dg.TAKE_ALONG_AXIS.launches
+    graph_ms(lambda: dg.TAKE_ALONG_AXIS(table, idx, False), iters=3, replays=2,
+             counted=dg.TAKE_ALONG_AXIS)
+    if dg.TAKE_ALONG_AXIS.launches - n0 != 1 + 3 * (2 + 1):
+        raise AssertionError(f"gather: {dg.TAKE_ALONG_AXIS.launches - n0} launches counted "
+                             f"over a warm-up call and 3 replays of 3 calls, not 10")
+    log("gather: kernel == plain on " + ", ".join(
+        f"{k} (device ms kernel {x['ms']:.4f}, plain {x['plain_ms']:.4f}, torch.gather "
+        f"{x['library_ms']:.4f}, bound {x['bound'][0]:.4f}; per host launch "
+        f"{x['host_ms']:.4f}, {x['plain_host_ms']:.4f}, {x['library_host_ms']:.4f})"
+        for k, x in gat.items()) + "; an index out of range raises")
+    report["gather"] = gat
+    report["probe_launches"] = {"kpad": kp.KPAD_CHAIN.launches,
+                                "variants": bv.MS_DEFORM_ATTN_VARIANT.launches,
+                                "gather": dg.TAKE_ALONG_AXIS.launches}
+
+
 def build_kernels():
     from poet_tpu_torch.ops.deform_attn_cuda import LIBRARIES, build_all
 
@@ -2103,7 +2374,7 @@ def main(argv) -> int:
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = {int(n) for n in argv[1].split(",")}
     elif argv:
-        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-20; 1-2 always run)",
+        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-22; 1-2 always run)",
               file=sys.stderr)
         return 2
     try:
@@ -2138,9 +2409,10 @@ def main(argv) -> int:
               13: lambda: phase_yolo(report), 14: phase_yolo_f32,
               15: lambda: phase_nn(report), 16: lambda: phase_eval(report),
               17: lambda: phase_eval_backbone(report), 18: lambda: phase_merged(report),
-              19: lambda: phase_dense(report), 20: lambda: phase_paths(report)}
+              19: lambda: phase_dense(report), 20: lambda: phase_paths(report),
+              21: lambda: phase_v2(report), 22: lambda: phase_probes(report)}
     spans = []
-    for first, last in ((3, 8), (9, 11), (12, 14), (15, 17), (18, 20)):
+    for first, last in ((3, 8), (9, 11), (12, 14), (15, 17), (18, 20), (21, 22)):
         t0 = time.perf_counter()
         for n in range(first, last + 1):
             if only is None or n in only:
@@ -2166,6 +2438,11 @@ def main(argv) -> int:
     dense = dense_enc["bf16"]
     dense_src = src + "ms_deform_attn_dense.cu"
     dense_tpu = "poet_tpu/ops/deform_attn_pallas.py:"
+    v2_enc = report["v2_encoder"]
+    v2 = v2_enc["bf16"]
+    kpad, var = report["kpad"], report["variants"]
+    gat = report["gather"]["4800-row table"]
+    probes = {"v2": report["v2_launches"], **report["probe_launches"]}
 
     def launched(i):
         """A kernel's launches on each path, and their sum."""
@@ -2252,6 +2529,51 @@ def main(argv) -> int:
          "bound_is": "bytes against the TPU kernel's two dense products per (b, h) on the bf16 "
                      "tensor cores; f32_bound_ms: the gather form's dot + scatter",
          "ms_are": "the encoder shape, bf16"},
+        {"name": "ms_deform_attn_v2_fwd", "route": "cuda", "source": src + "ms_deform_attn_v2.cu",
+         "replaces": "poet_tpu/ops/deform_attn_pallas_v2.py:54", **launched(9),
+         "phase_launches": probes["v2"], "max_abs_err": report["v2_max_abs_err"],
+         **timed(v2["v2"], v2["plain"], v2_enc["bounds"][0]),
+         "kernel1_ms": v2["kernel1"], "tpu_form_bound_ms": v2_enc["bounds"][1][0],
+         "yolo_ms": report["v2_yolo pyramid"]["bf16"]["v2"],
+         "yolo_kernel1_ms": report["v2_yolo pyramid"]["bf16"]["kernel1"],
+         "bound_is": "bytes against 8 D operations per in-map point on the f32 pipes; "
+                     "tpu_form_bound_ms: bytes against the TPU kernel's two one-hot products "
+                     "per point on the bf16 tensor cores, which this kernel does not do",
+         "ms_are": "the encoder shape, bf16 (yolo_ms: the YOLO pyramid at B=2)"},
+        {"name": "probe_kpad", "route": "cuda", "source": src + "probe_kpad.cu",
+         "replaces": "scripts/bench_kpad.py:33", **launched(10),
+         "phase_launches": probes["kpad"], "max_abs_err": kpad["max_abs_err"],
+         "max_rel_err": kpad["max_rel_err"],
+         "ms": kpad["sweep"][128]["ms"], "plain_ms": kpad["plain_ms"],
+         "bound_ms": kpad["bound"][0], "bound_by": kpad["bound"][1],
+         # no one call chains the products: torch.matmul of one of them beside it
+         "library_ms": None, "matmul_ms": kpad["sweep"][128]["matmul_ms"],
+         "matmul_is": "torch.matmul of one (M, K) @ (K, N) bf16 product, device time",
+         "tflops_by_k": {K: [r["tflops"], r["tflops_pad16"]] for K, r in kpad["sweep"].items()},
+         "ms_are": f"K=128, M={KPAD_M} N={KPAD_N} R={KPAD_R} G={KPAD_G}, bf16 -> f32; "
+                   f"max_rel_err relative to max |plain|; plain_ms: G plain chains"},
+        {"name": "ms_deform_attn_fwd_variants", "route": "cuda",
+         "source": src + "ms_deform_attn_fwd_variants.cu",
+         "replaces": "scripts/bench_v3_variants.py:44", **launched(11),
+         "phase_launches": probes["variants"],
+         # the exact variants against the plain version; each variant's own beside
+         "max_abs_err": max(var[k]["max_abs_err"] for k in ("base", "unroll", "qt256", "treey")),
+         "variant_max_abs_err": {k: x["max_abs_err"] for k, x in var.items()
+                                 if isinstance(x, dict)},
+         **timed(var["base"]["ms"], var["plain_ms"], var["bound"]),
+         "kernel1_ms": var["kernel1_ms"],
+         "variant_ms": {k: x["ms"] for k, x in var.items() if isinstance(x, dict)},
+         "ms_are": "variant base at the encoder shape, bf16"},
+        {"name": "take_along_axis", "route": "cuda", "source": src + "take_along_axis.cu",
+         "replaces": "scripts/test_dyn_gather.py:12", **launched(12),
+         "phase_launches": probes["gather"], "max_abs_err": 0.0,
+         "ms": gat["ms"], "plain_ms": gat["plain_ms"], "bound_ms": gat["bound"][0],
+         "bound_by": gat["bound"][1], "library_ms": gat["library_ms"],
+         "library_is": "torch.gather(table, 0, idx)",
+         "host_ms": gat["host_ms"], "plain_host_ms": gat["plain_host_ms"],
+         "library_host_ms": gat["library_host_ms"],
+         "ms_are": "the 4800-row f32 case, (4800, 128) table and index; device time, "
+                   "replayed from a CUDA graph (host_ms: per call launched from the host)"},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -129,7 +129,17 @@ NN_LIB = CudaLibrary(CSRC / "min_dist_sq_fwd.cu", {
 DENSE_LIB = CudaLibrary(CSRC / "ms_deform_attn_dense.cu", {
     "poet_ms_deform_attn_dense_fwd": [P] * 4 + [I] * 8 + [INTS, P],
     "poet_ms_deform_attn_dense_bwd": [P] * 7 + [I] * 8 + [INTS, I, P]})
-LIBRARIES = (FWD_LIB, BWD_LIB, ROI_LIB, STEM_LIB, NN_LIB, DENSE_LIB)
+V2_LIB = CudaLibrary(CSRC / "ms_deform_attn_v2.cu", {
+    "poet_ms_deform_attn_v2_fwd": [P] * 4 + [I] * 8 + [INTS, I, INTS, I, I, I, P]})
+# the probes (poet_tpu_torch/tools/)
+KPAD_LIB = CudaLibrary(CSRC / "probe_kpad.cu", {
+    "poet_probe_kpad": [P] * 3 + [I] * 5 + [P]})
+VARIANTS_LIB = CudaLibrary(CSRC / "ms_deform_attn_fwd_variants.cu", {
+    "poet_ms_deform_attn_fwd_variant": [P] * 4 + [I] * 8 + [INTS, P]})
+GATHER_LIB = CudaLibrary(CSRC / "take_along_axis.cu", {
+    "poet_take_along_axis": [P] * 3 + [I] * 4 + [P]})
+LIBRARIES = (FWD_LIB, BWD_LIB, ROI_LIB, STEM_LIB, NN_LIB, DENSE_LIB, V2_LIB, KPAD_LIB,
+             VARIANTS_LIB, GATHER_LIB)
 
 
 def build_all() -> None:

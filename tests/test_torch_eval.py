@@ -452,15 +452,17 @@ def test_loader_stopped_early_leaves_no_thread_behind():
     from poet_tpu_torch.data.loader import PoseDataLoader
     from poet_tpu_torch.flagship import EvalFixture
 
-    before = threading.active_count()
+    # the threads alive before, by identity: one left by an earlier test may
+    # end meanwhile, which a count would take for this loader's producer
+    before = set(threading.enumerate())
     it = PoseDataLoader(EvalFixture(12, H=6, W=8), 1, 10, prefetch=1, num_workers=1).epoch(0)
     next(it)
     time.sleep(0.2)                         # the producer fills the queue and blocks
     it.close()
     deadline = time.monotonic() + 20
-    while threading.active_count() > before and time.monotonic() < deadline:
+    while set(threading.enumerate()) - before and time.monotonic() < deadline:
         time.sleep(0.05)
-    assert threading.active_count() == before
+    assert not set(threading.enumerate()) - before
 
 
 # ---------------------------------------------------------------------------
