@@ -59,7 +59,9 @@ Phases, each raising on failure:
      and edge rows at B=2, 38x52 (asymmetric padding, 1x1, no bias, each
      activation, channel counts that take scalar loads and stores, more
      than 64 output channels); f32 (TF32 off) and bf16; kernel, plain and
-     cuDNN ms and the bounds at f32 and at bf16 tensor-core rate;
+     cuDNN ms, the kernel's time over cuDNN + act's per layer (the figure
+     comparable across calls) and the bounds at f32 and at bf16
+     tensor-core rate;
  13. YOLOv4-CSP detect+pose serving: PoseServer in detector mode at the
      `bench.py:bench_yolov4_detect_pose(encoder_min_stride=1)` config (bf16,
      batch 16, 480x640, the shipped cfg, conf 0.4, class NMS over the top
@@ -72,8 +74,10 @@ Phases, each raising on failure:
      the selected queries row for row, the poses on the CPU's detections;
  15. the min-distance (ADD-S) kernel against its plain version on the card:
      the BOP shape (P=64, N=M=15 000), P=N=M=1, N=257 M=1000, M << N,
-     M >> N, clouds ~1 m from the origin, exact duplicates (minimum 0), a
-     NaN est cloud and a NaN gt point (NaN as in the plain version);
+     M >> N, clouds ~1 m from the origin, exact duplicates (minimum 0),
+     near-duplicates within 1e-4 m and gt points midway between two est
+     points (a wrong winner would show), a NaN est cloud and a NaN gt point
+     (NaN as in the plain version);
      kernel, plain and torch.cdist ms, the bound of the matrix-unit form
      and the direct form's f32 bound;
  16. evaluation in gt mode: pose_evaluate at the paper config (bf16, B=16,
@@ -249,6 +253,8 @@ NN_CASES = [
     ("M >> N", 4, 9, 20000, "centred"),
     ("uncentred, ~1 m from the origin", 8, 3000, 3000, "uncentred"),
     ("exact duplicates", 4, 3000, 2000, "duplicates"),
+    ("near-duplicates (within 1e-4 m)", 4, 3000, 2000, "near"),
+    ("ties (two est points equidistant)", 4, 1000, 3000, "ties"),
     ("NaN", 4, 1000, 1500, "nan"),
 ]
 NN_LIBRARY_CHUNK = 8
@@ -1247,9 +1253,11 @@ def phase_stem(report):
                     t["plain_ms"] = cuda_ms(lambda: plain(x16, w16, b, **kwargs), iters=5)
                     t["f32_ms"] = cuda_ms(lambda: K(x, w, b, **kwargs))
             (b16, b32), flops, n_bytes = stem_bounds(x16, w16, b, got16, Fo, kh * kw * C)
-            t.update(bound=b16, f32_bound=b32, gflop=flops / 1e9, mbytes=n_bytes / 1e6)
+            t.update(bound=b16, f32_bound=b32, gflop=flops / 1e9, mbytes=n_bytes / 1e6,
+                     library_ratio=t["ms"] / t["library_ms"])
             line += (f" | bf16 ms kernel {t['ms']:.4f}, plain {t['plain_ms']:.4f}, cuDNN conv + "
-                     f"act {t['library_ms']:.4f}; f32 kernel {t['f32_ms']:.4f} | {flops / 1e9:.2f} "
+                     f"act {t['library_ms']:.4f} (kernel / cuDNN + act "
+                     f"{t['library_ratio']:.3f}); f32 kernel {t['f32_ms']:.4f} | {flops / 1e9:.2f} "
                      f"GFLOP, {n_bytes / 1e6:.1f} MB: bound {b16[0]:.4f} ms ({b16[1]}, bf16 "
                      f"tensor cores), {b32[0]:.4f} ms ({b32[1]}, f32 FMA)")
             per_layer[name] = t
@@ -1417,8 +1425,11 @@ def nn_inputs(g, P, N, M, kind):
     """(gt (P, N, 3), est (P, M, 3)) on the card: model-sized clouds (~0.1 m)
     centred on the origin; 'uncentred' moves both ~1 m away (what the
     evaluator's centring on the gt translation avoids); 'duplicates' makes
-    every other gt point an exact copy of an est point; 'nan' puts a NaN in
-    one est cloud and in one gt point."""
+    every other gt point an exact copy of an est point, 'near' puts it within
+    1e-4 m of one (a wrong winner would show at NN_RTOL); 'ties' puts every
+    other gt point midway between two est points 1e-3 m from it (the first
+    2N est points, in pairs); 'nan' puts a NaN in one est cloud and in one
+    gt point."""
     import torch
 
     gt = 0.05 * torch.randn((P, N, 3), generator=g, device=DEVICE)
@@ -1430,6 +1441,16 @@ def nn_inputs(g, P, N, M, kind):
         idx = torch.randint(0, M, (P, N), generator=g, device=DEVICE)
         copies = torch.gather(est, 1, idx[..., None].expand(P, N, 3))
         gt = torch.where((torch.arange(N, device=DEVICE) % 2 == 0)[None, :, None], copies, gt)
+    elif kind == "near":
+        idx = torch.randint(0, M, (P, N), generator=g, device=DEVICE)
+        near = torch.gather(est, 1, idx[..., None].expand(P, N, 3)) + 1e-4 * (
+            2 * torch.rand((P, N, 3), generator=g, device=DEVICE) - 1) / math.sqrt(3)
+        gt = torch.where((torch.arange(N, device=DEVICE) % 2 == 0)[None, :, None], near, gt)
+    elif kind == "ties":
+        half = 1e-3 * torch.nn.functional.normalize(
+            torch.randn((P, N // 2, 3), generator=g, device=DEVICE), dim=-1)
+        mid = gt[:, 0::2][:, :N // 2]
+        est[:, 0:N // 2 * 2:2], est[:, 1:N // 2 * 2:2] = mid + half, mid - half
     elif kind == "nan":
         est[1, M // 2, 2] = float("nan")
         gt[2, N // 3, 0] = float("nan")
@@ -1445,8 +1466,10 @@ def nn_bounds(gt, est, out):
     product: 18 flops per pair over 495 TFLOP/s), overlapped with its
     epilogue on the f32 pipes (one FMA and one add: 3 flops per pair over 67
     TFLOP/s); the min is counted in neither form. The f32 bound: the direct
-    difference form that the kernel runs (3 subtractions, 1 multiply, 2
-    FMAs: 8 flops per pair over 67 TFLOP/s)."""
+    difference form for every pair, as the earlier SIMT design ran it (3
+    subtractions, 1 multiply, 2 FMAs: 8 flops per pair over 67 TFLOP/s); the
+    kernel now ranks in the matrix-unit form and takes the direct form for
+    the winners only."""
     pairs = gt.shape[0] * gt.shape[1] * est.shape[1]
     n_bytes = nbytes(gt, est, out)
     t_bytes = n_bytes / HBM_BYTES_PER_S
@@ -2490,7 +2513,10 @@ def main(argv) -> int:
          "library_is": "cuDNN F.conv2d + the activation, two calls",
          "f32_bound_ms": sum(t["f32_bound"][0] for t in stem), "f32_ms": stem_total["f32_ms"],
          "ms_are": "sums over a YOLO request's three launches (L0, L1, L3), bf16",
-         "per_layer": {name: {k: t[k] for k in ("ms", "plain_ms", "library_ms", "f32_ms")}
+         # the figure comparable across calls: kernel ms / cuDNN + act ms, same call
+         "ms_over_library": stem_total["ms"] / stem_total["library_ms"],
+         "per_layer": {name: {k: t[k] for k in ("ms", "plain_ms", "library_ms", "f32_ms",
+                                                "library_ratio")}
                        | {"bound_ms": t["bound"][0], "f32_bound_ms": t["f32_bound"][0]}
                        for name, t in zip(STEM_PATH, stem)}},
         {"name": "min_dist_sq_fwd", "route": "cuda", "source": src + "min_dist_sq_fwd.cu",

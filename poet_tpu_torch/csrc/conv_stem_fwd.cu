@@ -1,4 +1,5 @@
-// Fused small-C "stem" convolution, forward — CUDA for Hopper (sm_90a).
+// Fused small-C "stem" convolution, forward — CUDA for Hopper (sm_90a),
+// an implicit GEMM on the tensor cores (mma.sync).
 //
 // Replaces the TPU kernel poet_tpu/ops/conv_stem_pallas.py:_kernel (reached
 // from conv_stem_pallas), the darknet body's entry convolutions on the
@@ -14,29 +15,63 @@
 //             + bias[f]), summed in f32, the activation in f32 (none, relu,
 //             the one-exp mish of models/yolov4.py, leaky 0.1), rounded once.
 //
-// The TPU kernel's stride-phase staging, (8, 128) paddings and per-row MXU
-// dot exist because XLA's lane layouts punish a small C; none of that is
-// carried over.
+// The GEMM: M = output pixels, N = output channels, K = kh*kw*C ordered
+// tap-major (ky, kx, c), as the HWIO weights lie in memory.
+//   * bf16: mma.sync m16n8k16 bf16 -> f32. The products are exact in f32.
+//   * f32: mma.sync m16n8k8 TF32 in the 3xTF32 split (hi = tf32(v), lo =
+//     tf32(v - hi) on both sides; hi*hi into one accumulator, hi*lo + lo*hi
+//     into an accumulator of their own, which the tensor cores would
+//     otherwise truncate away at the big sum's magnitude). Every dtype goes
+//     through the tensor cores; there is no SIMT body.
+// f32's two accumulators join an f32 total on the SIMT pipes (round to
+// nearest) after every tap (every 4 k-steps without the direct A path), so
+// the tensor cores' truncating adds act on a few steps, not on all of K;
+// bf16 sums all of K in the mma's accumulator (18 steps at most on the path:
+// the truncation stays under 18 x 2^-23 of the sum, well inside the bf16
+// output's rounding).
 //
-// What bounds it: operations, at f32 FMA rate. At B=16, 480x640 the 3x3/2
-// 32->64 layer is 45.3 GFLOP against 472 MB of input and output bf16 bytes:
-// 0.68 ms at 67 TFLOP/s f32, 0.14 ms at the memory rate, 0.05 ms at the bf16
-// tensor-core rate. This kernel runs its sums as f32 FMAs in the SIMT cores,
-// so the f32 rate is its own ceiling; the tensor cores (mma.sync / wgmma on
-// an im2col tile in shared memory) are later work. What the design does:
-//   * one block per tile of 8 x 16 output pixels of one image and a chunk of
-//     up to 64 output channels; the input tile and its halo
-//     ((8-1)*s + kh rows, (16-1)*s + kw columns, all C) are staged once in
-//     shared memory, zero outside the image, with 16-byte loads where C and
-//     the pointer allow and scalar loads otherwise (C = 3);
-//   * the chunk's folded weights (K = kh*kw*C rows of the chunk's channels,
-//     at most 288 x 64 bf16 = 36 KB on the path) sit in shared memory too;
-//   * a thread owns 8 consecutive output channels of 4 pixels: per tap it
-//     reads one 8-channel weight vector and 4 input values, 32 FMAs into
-//     registers; the epilogue (bias, activation, one rounding) stays in
-//     registers and each pixel's 8 channels go out in one 16-byte store
-//     (bf16; two for f32), the 8 threads of a pixel writing 128 contiguous
-//     bytes at F = 64.
+// What bounds it: bytes. The three YOLO launches at B=16 480x640 move 1052
+// MB of bf16 (each input read once, each output written once): 0.314 ms at
+// 3.35 TB/s, against 99 GFLOP, 0.10 ms at 989 TFLOP/s bf16. What the design
+// does about it:
+//   * blocks of 8 warps, each on one chunk of up to 64 output channels: on
+//     the direct path persistent, as many as are resident at once, walking
+//     the 8 x 16 output-pixel tiles; on the im2col path one per tile (its
+//     plain-load staging overlaps only other blocks). Warp w owns output
+//     row w of a tile (an m16 tile) and the whole chunk (NT = chunk / 8 n8
+//     tiles);
+//   * the chunk's folded weights (K x chunk, at most 288 x 64 bf16 = 36 KB
+//     on the path) are staged once per block, rows padded by 8 elements; B
+//     comes from them by ldmatrix.trans (bf16: 8 row addresses on 8 bank
+//     groups) or two 4-byte loads (TF32: the 32 lanes on 32 banks);
+//   * each tile's input and halo ((8-1)*s + kh rows, (16-1)*s + kw
+//     columns, all C) are staged once; where a second tile buffer fits
+//     without costing a resident block (L3, not L1: with two buffers L1 ran
+//     one block of 8 warps per SM and took 0.83 ms in phase 12, against
+//     0.61 with two blocks), the next tile's copy is issued before this
+//     tile's products, so it lands while they run;
+//   * the direct A path (C a multiple of the mma depth: 16 bf16 or 8 f32;
+//     L1 and L3): 16-byte cp.async copies whose zero-fill form (src-size 0)
+//     writes the padding outside the image. Columns are stored by stride
+//     phase (column ix at slot (ix % s) * ceil(cols / s) + ix / s), so that
+//     neighbouring output pixels are neighbouring slots at stride 2 too, and
+//     each pixel's channels are padded by 16 bytes: ldmatrix then reads the A
+//     fragment straight from the tile, one row address per pixel, the 8 of a
+//     matrix on 8 different 16-byte bank groups;
+//   * the im2col path (small C; L0: C = 3, K = 27): a warp stages a tile row
+//     as the contiguous span of x it is (element by element, zeros outside
+//     the image; C = 3 rows are not 16-byte vectors), then the block builds a
+//     128 x K tile in shared memory, K padded to the mma depth with zeros
+//     (27 -> 32), rows padded by 16 bytes, and ldmatrix reads that. The
+//     tile offset of (pixel, k) separates into base(pixel) + koff[k], koff
+//     a table of Kp ints, so the build divides by nothing per element;
+//   * the epilogue adds the bias and applies the activation in f32 on the
+//     accumulator fragments and rounds once to the output dtype. The
+//     weights' columns are staged in an order (channel_of_column) that gives
+//     each thread consecutive channels of its pixels, so they leave in
+//     16-byte stores (8 bytes for a group of 2 n8 tiles) straight from the
+//     registers, the 4 threads of a pixel on one contiguous run; ragged
+//     tiles, channels past F and F not a multiple of 8 are masked.
 // A shared-memory request above 48 KB is granted with cudaFuncSetAttribute;
 // one above the card's 227 KB is refused (the wrapper raises).
 
@@ -44,247 +79,353 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
-constexpr int TH = 8;              // output rows per tile
-constexpr int TW = 16;             // output columns per tile
-constexpr int SLOTS = 32;          // pixel slots of a block; a thread owns NP pixels
-constexpr int NP = TH * TW / SLOTS;
+using namespace mma_sm90;
+
+constexpr int TH = 8;              // output rows per tile (one warp each)
+constexpr int TW = 16;             // output columns per tile (one m16 tile)
+constexpr int THREADS = TH * 32;
+constexpr int MAX_CHUNK = 64;      // output channels per block
+constexpr int W_PAD = 8;           // elements added to each staged weight row (banks)
+constexpr int FLUSH_STEPS = 4;     // k-steps per join of the im2col path
 constexpr int MAX_SMEM = 232448;   // bytes a block may use on sm_90
 
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_MISH = 2, ACT_LEAKY = 3 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <int ACT>
-__device__ __forceinline__ float activate(float v) {
-  if (ACT == ACT_RELU) return fmaxf(v, 0.f);
-  if (ACT == ACT_LEAKY) return v > 0.f ? v : __fmul_rn(0.1f, v);
-  if (ACT == ACT_MISH) {
+__device__ __forceinline__ float activate(int act, float v) {
+  if (act == ACT_RELU) return fmaxf(v, 0.f);
+  if (act == ACT_LEAKY) return v > 0.f ? v : __fmul_rn(0.1f, v);
+  if (act == ACT_MISH) {
     // x * tanh(softplus(x)) as 1 - 2 / ((1 + e^x)^2 + 1), x clamped at 25,
     // each operation rounded on its own as in the plain version
     const float e = expf(fminf(v, 25.f));
     const float p = __fadd_rn(1.f, e);
-    const float t = __fsub_rn(1.f, __fdiv_rn(2.f, __fadd_rn(__fmul_rn(p, p), 1.f)));
+    // 2 / d as 2 * rcp_rn(d): scaling by 2 is exact, so this is the IEEE
+    // quotient, without the division's slow-path check
+    const float t = __fsub_rn(1.f, 2.f * __frcp_rn(__fadd_rn(__fmul_rn(p, p), 1.f)));
     return v > 25.f ? v : __fmul_rn(v, t);
   }
   return v;
 }
 
-// n consecutive elements between global and shared memory: one 16-byte move
-// for a full vector, element by element otherwise
-template <typename T, int N>
-__device__ __forceinline__ void copy_vec(T* dst, const T* src) {
-  if (N * sizeof(T) == 16) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-  } else if (N * sizeof(T) == 32) {
-    reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(src)[0];
-    reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(src)[1];
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j) dst[j] = src[j];
-  }
-}
-
-template <typename T, int N>
-__device__ __forceinline__ void zero_vec(T* dst) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) dst[j] = from_float<T>(0.f);
-}
-
-template <typename T, int N>
-__device__ __forceinline__ void load_float(const T* p, float* v) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) v[j] = to_float(p[j]);
-}
-
-template <>
-__device__ __forceinline__ void load_float<__nv_bfloat16, 8>(const __nv_bfloat16* p, float* v) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h2[j]);
-    v[2 * j] = f.x;
-    v[2 * j + 1] = f.y;
-  }
-}
-
-template <>
-__device__ __forceinline__ void load_float<float, 8>(const float* p, float* v) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-template <typename T, int N>
-__device__ __forceinline__ void store_vec(T* p, const float* v) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) p[j] = from_float<T>(v[j]);
-}
-
-template <>
-__device__ __forceinline__ void store_vec<__nv_bfloat16, 8>(__nv_bfloat16* p, const float* v) {
-  uint4 raw;
-  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) h2[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
-
-template <>
-__device__ __forceinline__ void store_vec<float, 8>(float* p, const float* v) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.f);
 }
 
 struct Geometry {
-  int B, H, W, C, F, kh, kw, s, pt, pl, Ho, Wo;
-  int chunk;        // output channels of a block (CH)
-  int n_chunks;
-  int rows_in, cols_in;
+  int B, H, W, C, F, kh, kw, s, pt, pl, Ho, Wo, act;
+  int chunk, n_chunks;            // output channels of a block (a multiple of 16)
+  int nty, ntx, n_tiles;          // 8 x 16 output tiles: per image row and column, in all
+  int rows_in, cols_in, colsp;    // the staged tile; colsp = ceil(cols_in / s)
+  int pitch;                      // staged pixels per tile row (s * colsp direct, cols_in im2col)
+  int cs;                         // elements per staged pixel (C, + 16 bytes on the direct path)
+  int K, Kp;                      // K = kh kw C; Kp = K padded to the mma depth (im2col path)
+  int as;                         // elements per im2col row (Kp + 16 bytes)
+  int ws;                         // elements per staged weight row (chunk + W_PAD)
+  int tile_bytes, n_buf;          // one staged tile; 2 buffers where both fit, else 1
+  int tile_off, a_off, koff_off;  // byte offsets of the tiles, the im2col tile, its k table
+  int vec_out, out_bf16;
 };
 
-// Block: SLOTS x (CH / FV) threads; thread t owns channel group t % (CH / FV)
-// (FV channels) of the NP pixels slot + SLOTS * p, slot = t / (CH / FV), of
-// the 8 x 16 tile. VIN = input elements per staging move (16 bytes, or 1).
-template <typename Tin, typename Tout, int FV, int VIN, int ACT>
-__global__ void __launch_bounds__(256)
-conv_stem_fwd_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
-                     const float* __restrict__ bias, Tout* __restrict__ out, Geometry g) {
+// Tile column ix -> its slot in a staged row of the direct path (stride
+// phase major; the im2col path stores columns in order).
+__device__ __forceinline__ int col_slot(int ix, int s, int colsp) {
+  return (ix % s) * colsp + ix / s;
+}
+
+// The output channel (within the chunk) of mma column j = 8 n + 2 t + c.
+// The chunk's words (channel pairs) of thread t are stored in groups of 4
+// n8 tiles: group q holds the wq = min(4, NT - 4q) tiles 4q.., and gives
+// thread t the 2 wq consecutive channels 32 q + 2 wq t .. , so that its
+// accumulators leave as whole 16-byte (or 8-byte) vectors and the 4 threads
+// of a row cover a contiguous run of the pixel's channels.
+__device__ __forceinline__ int channel_of_column(int j, int NT) {
+  const int n = j >> 3, t = (j >> 1) & 3, c = j & 1;
+  const int q = n >> 2, wq = min(4, NT - 4 * q);
+  return 32 * q + 2 * wq * t + 2 * (n - 4 * q) + c;
+}
+
+// A block walks the 8 x 16 output tiles t = blockIdx.x, + gridDim.x, ... of
+// channel chunk blockIdx.y (one tile each on the im2col path). T: the input
+// dtype; NT: n8 tiles per warp (chunk / 8); DIRECT: A from the staged tile
+// (C a multiple of the mma depth), else from an im2col tile.
+template <typename T, int NT, bool DIRECT>
+__global__ void __launch_bounds__(THREADS)
+conv_stem_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                     const float* __restrict__ bias, void* __restrict__ out, Geometry g) {
+  constexpr bool BF16 = sizeof(T) == 2;
+  constexpr int KSTEP = BF16 ? 16 : 8;       // the mma depth
+  constexpr int V = 16 / sizeof(T);          // elements per 16 bytes
   extern __shared__ __align__(16) unsigned char smem[];
+  T* w_s = reinterpret_cast<T*>(smem);                      // (Kp or K, ws)
+  T* a_tile = reinterpret_cast<T*>(smem + g.a_off);         // (128, as), im2col path
+  int* koff_tab = reinterpret_cast<int*>(smem + g.koff_off);  // (Kp,), im2col path
+
   const int C = g.C, F = g.F, s = g.s;
-  const int K = g.kh * g.kw * C;
-  const int b = blockIdx.z / g.n_chunks;
-  const int f0 = (blockIdx.z % g.n_chunks) * g.chunk;
-  const int CH = min(g.chunk, F - f0);             // this block's channels
-  const int oy0 = blockIdx.y * TH, ox0 = blockIdx.x * TW;
-  const int iy0 = oy0 * s - g.pt, ix0 = ox0 * s - g.pl;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int f0 = blockIdx.y * g.chunk;
+  const int krows = DIRECT ? g.K : g.Kp;
 
-  const int in_elems = g.rows_in * g.cols_in * C;
-  Tin* in_tile = reinterpret_cast<Tin*>(smem);
-  const size_t w_off = ((size_t)in_elems * sizeof(Tin) + 15) / 16 * 16;
-  Tin* w_tile = reinterpret_cast<Tin*>(smem + w_off);   // (K, g.chunk)
-
-  // stage the input tile and its halo, zero outside the image
-  const int cv = C / VIN;
-  const int n_in = g.rows_in * g.cols_in * cv;
-  const Tin* xb = x + (int64_t)b * g.H * g.W * C;
-  for (int e = threadIdx.x; e < n_in; e += blockDim.x) {
-    const int c = (e % cv) * VIN;
-    const int pix = e / cv;
-    const int col = pix % g.cols_in, row = pix / g.cols_in;
-    const int iy = iy0 + row, ix = ix0 + col;
-    Tin* dst = in_tile + (size_t)pix * C + c;
-    if (iy >= 0 && iy < g.H && ix >= 0 && ix < g.W) {
-      copy_vec<Tin, VIN>(dst, xb + ((int64_t)iy * g.W + ix) * C + c);
-    } else {
-      zero_vec<Tin, VIN>(dst);
+  // the chunk's weights, once per block, columns in channel_of_column's
+  // order, zero past F and (im2col path) past K
+  for (int e = threadIdx.x; e < krows * g.chunk; e += THREADS) {
+    const int k = e / g.chunk, j = e - k * g.chunk;
+    const int f = f0 + channel_of_column(j, NT);
+    w_s[k * g.ws + j] = k < g.K && f < F ? w[(int64_t)k * F + f] : zero<T>();
+  }
+  if (!DIRECT) {
+    // im2col: the tile offset of (pixel, k) is base(pixel) + koff[k], k = (ky, kx, c)
+    for (int k = threadIdx.x; k < g.Kp; k += THREADS) {
+      const int tap = k / C, ky = tap / g.kw;
+      koff_tab[k] = k < g.K ? (ky * g.cols_in + tap - ky * g.kw) * C + k - tap * C : -1;
     }
   }
-  // stage the chunk's weights, FV channels per move
-  const int gw = CH / FV;
-  for (int e = threadIdx.x; e < K * gw; e += blockDim.x) {
-    const int k = e / gw, j = (e % gw) * FV;
-    copy_vec<Tin, FV>(w_tile + (size_t)k * g.chunk + j, w + (int64_t)k * F + f0 + j);
-  }
-  __syncthreads();
 
-  const int groups = g.chunk / FV;
-  const int grp = threadIdx.x % groups;
-  const int slot = threadIdx.x / groups;
-  if (grp >= gw || slot >= SLOTS) return;
+  // stage output tile t's input tile and halo into buffer buf, zero outside the image
+  auto stage = [&](int t, int buf) {
+    T* tile = reinterpret_cast<T*>(smem + g.tile_off + buf * g.tile_bytes);
+    const int tx = t % g.ntx, ty = (t / g.ntx) % g.nty, b = t / (g.ntx * g.nty);
+    const int iy0 = ty * TH * s - g.pt, ix0 = tx * TW * s - g.pl;
+    const T* xb = x + (int64_t)b * g.H * g.W * C;
+    if (DIRECT) {                             // 16-byte cp.async, by stride phase, a row per warp
+      const int nv = C / V;
+      for (int row = warp; row < g.rows_in; row += TH) {
+        const int iy = iy0 + row;
+        const bool in_row = iy >= 0 && iy < g.H;
+        for (int j = lane; j < g.cols_in * nv; j += 32) {
+          const int col = j / nv, c = (j - col * nv) * V;
+          const int ix = ix0 + col;
+          const bool valid = in_row && ix >= 0 && ix < g.W;
+          T* dst = tile + (row * g.pitch + col_slot(col, s, g.colsp)) * g.cs + c;
+          cp_async16(dst, valid ? xb + ((int64_t)iy * g.W + ix) * C + c : x, valid);
+        }
+      }
+      cp_async_commit();
+    } else {                                  // element by element, a tile row per warp
+      const int span = g.cols_in * C;         // a tile row: contiguous in x
+      const int jlo = max(0, -ix0) * C, jhi = min(g.cols_in, g.W - ix0) * C;
+      for (int row = warp; row < g.rows_in; row += TH) {
+        const int iy = iy0 + row;
+        const bool in_row = iy >= 0 && iy < g.H;
+        const T* src = xb + ((int64_t)iy * g.W + ix0) * C;
+        for (int j = lane; j < span; j += 32)
+          tile[row * span + j] = in_row && j >= jlo && j < jhi ? src[j] : zero<T>();
+      }
+    }
+  };
 
-  int base[NP];                                    // tile offset of each pixel's window
-#pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    const int pix = slot + SLOTS * p;
-    base[p] = ((pix / TW) * s * g.cols_in + (pix % TW) * s) * C;
-  }
-  float acc[NP][FV];
-#pragma unroll
-  for (int p = 0; p < NP; ++p)
-#pragma unroll
-    for (int j = 0; j < FV; ++j) acc[p][j] = 0.f;
+  const uint32_t w_base = smem_addr(w_s);
+  const int px = lane & 15;                   // this lane's A row (ldmatrix address)
+  const int koff = (lane >> 4) * V;           // and its half of the k-step
+  int buf = 0;
+  if (blockIdx.x < g.n_tiles) stage(blockIdx.x, 0);
+  for (int t = blockIdx.x; t < g.n_tiles; t += gridDim.x) {
+    const int next = t + gridDim.x;
+    cp_async_wait_all();
+    __syncthreads();                          // tile t (and the weights) staged; the
+                                              // other buffer's readers are done
+    if (g.n_buf == 2 && next < g.n_tiles) stage(next, buf ^ 1);   // lands during tile t
+    const T* tile = reinterpret_cast<const T*>(smem + g.tile_off + buf * g.tile_bytes);
+    const int tx = t % g.ntx, ty = (t / g.ntx) % g.nty, b = t / (g.ntx * g.nty);
 
-  const Tin* wt = w_tile + grp * FV;
-  for (int ky = 0; ky < g.kh; ++ky) {
-    for (int kx = 0; kx < g.kw; ++kx) {
-      const int tap = (ky * g.cols_in + kx) * C;
-      const Tin* wk = wt + (size_t)(ky * g.kw + kx) * C * g.chunk;
-      for (int c = 0; c < C; ++c) {
-        float wv[FV];
-        load_float<Tin, FV>(wk + (size_t)c * g.chunk, wv);
+    if (!DIRECT) {
+      // im2col: row = output pixel of the tile, column k tap-major
+      for (int e = threadIdx.x; e < TH * TW * g.Kp; e += THREADS) {
+        const int k = e / (TH * TW), pix = e % (TH * TW);
+        const int off = koff_tab[k];
+        const int base = ((pix / TW) * s * g.cols_in + (pix % TW) * s) * C;
+        a_tile[pix * g.as + k] = off >= 0 ? tile[base + off] : zero<T>();
+      }
+      __syncthreads();
+    }
+
+    // bf16 sums in the mma accumulator itself (total); f32 joins its
+    // 3xTF32 accumulators (acc, sml) into total after every tap
+    float total[NT][4], acc[NT][4], sml[NT][4];
 #pragma unroll
-        for (int p = 0; p < NP; ++p) {
-          const float xv = to_float(in_tile[base[p] + tap + c]);
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-          for (int j = 0; j < FV; ++j) acc[p][j] = fmaf(xv, wv[j], acc[p][j]);
+      for (int i = 0; i < 4; ++i) total[n][i] = acc[n][i] = sml[n][i] = 0.f;
+
+    // one k-step: A at a_addr (this lane's row address), B rows k..k+KSTEP
+    auto step = [&](uint32_t a_addr, int k) {
+      uint32_t a[4];
+      ldsm_x4(a, a_addr);
+      if constexpr (BF16) {
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          uint32_t bq[4];
+          ldsm_x4_trans(bq, w_base + ((k + (lane & 15)) * g.ws + p * 16 + (lane >> 4) * 8) * 2);
+          mma_bf16_16816(total[2 * p], a, bq[0], bq[1]);
+          mma_bf16_16816(total[2 * p + 1], a, bq[2], bq[3]);
+        }
+      } else {
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
+        const float* wf = reinterpret_cast<const float*>(w_s);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(wf[(k + tq) * g.ws + n * 8 + gq], bh0, bl0);
+          split_tf32(wf[(k + tq + 4) * g.ws + n * 8 + gq], bh1, bl1);
+          mma_tf32_1688(sml[n], al, bh0, bh1);
+          mma_tf32_1688(sml[n], ah, bl0, bl1);
+          mma_tf32_1688(acc[n], ah, bh0, bh1);
+        }
+      }
+    };
+    auto join = [&]() {
+      if constexpr (!BF16) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            total[n][i] += acc[n][i] + sml[n][i];
+            acc[n][i] = sml[n][i] = 0.f;
+          }
+      }
+    };
+
+    if (DIRECT) {
+      const uint32_t tile_base = smem_addr(tile);
+      for (int ky = 0; ky < g.kh; ++ky) {
+        for (int kx = 0; kx < g.kw; ++kx) {
+          const int pix = (warp * s + ky) * g.pitch + col_slot(kx, s, g.colsp) + px;
+          const uint32_t a_addr = tile_base + (pix * g.cs + koff) * (int)sizeof(T);
+          const int k0 = (ky * g.kw + kx) * C;
+          for (int c0 = 0; c0 < C; c0 += KSTEP) step(a_addr + c0 * (int)sizeof(T), k0 + c0);
+          join();
+        }
+      }
+    } else {
+      const uint32_t a_addr =
+          smem_addr(a_tile) + ((warp * TW + px) * g.as + koff) * (int)sizeof(T);
+      const int steps = g.Kp / KSTEP;
+      for (int ks = 0; ks < steps; ++ks) {
+        step(a_addr + ks * KSTEP * (int)sizeof(T), ks * KSTEP);
+        if (ks % FLUSH_STEPS == FLUSH_STEPS - 1) join();
+      }
+      join();
+    }
+
+    // epilogue on the fragments: + bias, the activation, one rounding; each
+    // thread's channels of a pixel are consecutive (channel_of_column)
+    const int oy = ty * TH + warp;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ox = tx * TW + gq + 8 * h;
+      if (oy >= g.Ho || ox >= g.Wo) continue;           // the ragged last tiles
+      const int64_t pix_off = (((int64_t)b * g.Ho + oy) * g.Wo + ox) * F;
+#pragma unroll
+      for (int q = 0; q < (NT + 3) / 4; ++q) {
+        constexpr int kMaxW = 4;
+        const int wq = NT - 4 * q < kMaxW ? NT - 4 * q : kMaxW;
+        const int f = f0 + 32 * q + 2 * wq * tq;         // this thread's first channel
+        float v[2 * kMaxW] = {};
+#pragma unroll
+        for (int r = 0; r < kMaxW; ++r) {
+          if (r >= wq) break;
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int fc = f + 2 * r + c;
+            const float bv = bias && fc < F ? bias[fc] : 0.f;
+            v[2 * r + c] = activate(g.act, __fadd_rn(total[4 * q + r][2 * h + c], bv));
+          }
+        }
+        if (g.vec_out && f + 2 * wq <= F) {
+          if (g.out_bf16) {
+            uint32_t pk[kMaxW];
+#pragma unroll
+            for (int r = 0; r < kMaxW; ++r) {
+              __nv_bfloat162 h2 = __floats2bfloat162_rn(v[2 * r], v[2 * r + 1]);
+              pk[r] = *reinterpret_cast<uint32_t*>(&h2);
+            }
+            __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(out) + pix_off + f;
+            if (wq == 4) *reinterpret_cast<uint4*>(dst) = make_uint4(pk[0], pk[1], pk[2], pk[3]);
+            else *reinterpret_cast<uint2*>(dst) = make_uint2(pk[0], pk[1]);
+          } else {
+            float4* dst = reinterpret_cast<float4*>(static_cast<float*>(out) + pix_off + f);
+            dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+            if (wq == 4) dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+          }
+        } else {
+          for (int i = 0; i < 2 * wq && f + i < F; ++i) {
+            if (g.out_bf16) static_cast<__nv_bfloat16*>(out)[pix_off + f + i] = __float2bfloat16_rn(v[i]);
+            else static_cast<float*>(out)[pix_off + f + i] = v[i];
+          }
         }
       }
     }
-  }
 
-  float bv[FV];
-#pragma unroll
-  for (int j = 0; j < FV; ++j) bv[j] = bias ? bias[f0 + grp * FV + j] : 0.f;
-#pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    const int pix = slot + SLOTS * p;
-    const int oy = oy0 + pix / TW, ox = ox0 + pix % TW;
-    if (oy >= g.Ho || ox >= g.Wo) continue;        // the ragged last tiles
-    float v[FV];
-#pragma unroll
-    for (int j = 0; j < FV; ++j) v[j] = activate<ACT>(__fadd_rn(acc[p][j], bv[j]));
-    store_vec<Tout, FV>(out + (((int64_t)b * g.Ho + oy) * g.Wo + ox) * F + f0 + grp * FV, v);
+    if (g.n_buf == 1) {
+      __syncthreads();                        // the one buffer's readers are done
+      if (next < g.n_tiles) stage(next, 0);
+    }
+    buf ^= g.n_buf - 1;
   }
 }
 
-template <typename Tin, typename Tout, int FV, int VIN, int ACT>
+template <typename T, int NT, bool DIRECT>
 int launch(const void* x, const void* w, const float* bias, void* out, const Geometry& g,
            size_t smem, cudaStream_t stream) {
-  auto kernel = conv_stem_fwd_kernel<Tin, Tout, FV, VIN, ACT>;
+  auto kernel = conv_stem_mma_kernel<T, NT, DIRECT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((g.Wo + TW - 1) / TW, (g.Ho + TH - 1) / TH, g.B * g.n_chunks);
-  const int threads = SLOTS * (g.chunk / FV);
-  kernel<<<grid, threads, smem, stream>>>(static_cast<const Tin*>(x),
-                                          static_cast<const Tin*>(w), bias,
-                                          static_cast<Tout*>(out), g);
+  // a second tile buffer only where it costs no resident block
+  Geometry gl = g;
+  int per_sm = 0, per_sm1 = 0, dev = 0, sms = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) !=
+      cudaSuccess)
+    return (int)err;
+  if (g.n_buf == 2) {
+    const size_t smem1 = smem - g.tile_bytes;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm1, kernel, THREADS,
+                                                             smem1)) != cudaSuccess)
+      return (int)err;
+    if (per_sm1 > per_sm) {
+      gl.n_buf = 1;
+      gl.a_off -= g.tile_bytes;
+      gl.koff_off -= g.tile_bytes;
+      smem = smem1;
+      per_sm = per_sm1;
+    }
+  }
+  if (per_sm < 1) return -7;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  // the direct path's blocks are persistent, as many as are resident at once
+  // (shared by the chunks); the im2col path's stage their tiles with plain
+  // loads, which only other blocks overlap: a block per tile
+  const int resident = DIRECT ? (per_sm * sms + g.n_chunks - 1) / g.n_chunks : g.n_tiles;
+  const dim3 grid(g.n_tiles < resident ? g.n_tiles : resident, g.n_chunks);
+  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(w),
+                                          bias, out, gl);
   return (int)cudaGetLastError();
 }
 
-template <typename Tin, typename Tout, int FV, int VIN>
-int by_act(int act, const void* x, const void* w, const float* bias, void* out,
-           const Geometry& g, size_t smem, cudaStream_t st) {
-  switch (act) {
-    case ACT_NONE: return launch<Tin, Tout, FV, VIN, ACT_NONE>(x, w, bias, out, g, smem, st);
-    case ACT_RELU: return launch<Tin, Tout, FV, VIN, ACT_RELU>(x, w, bias, out, g, smem, st);
-    case ACT_MISH: return launch<Tin, Tout, FV, VIN, ACT_MISH>(x, w, bias, out, g, smem, st);
-    case ACT_LEAKY: return launch<Tin, Tout, FV, VIN, ACT_LEAKY>(x, w, bias, out, g, smem, st);
+template <typename T, bool DIRECT>
+int by_chunk(const void* x, const void* w, const float* bias, void* out, const Geometry& g,
+             size_t smem, cudaStream_t st) {
+  switch (g.chunk / 8) {
+    case 2: return launch<T, 2, DIRECT>(x, w, bias, out, g, smem, st);
+    case 4: return launch<T, 4, DIRECT>(x, w, bias, out, g, smem, st);
+    case 6: return launch<T, 6, DIRECT>(x, w, bias, out, g, smem, st);
+    case 8: return launch<T, 8, DIRECT>(x, w, bias, out, g, smem, st);
   }
-  return -6;
-}
-
-template <typename Tin, typename Tout>
-int by_vec(int fv, int vin, int act, const void* x, const void* w, const float* bias,
-           void* out, const Geometry& g, size_t smem, cudaStream_t st) {
-  constexpr int V16 = 16 / sizeof(Tin);
-  if (fv == 8 && vin == V16) return by_act<Tin, Tout, 8, V16>(act, x, w, bias, out, g, smem, st);
-  if (fv == 8 && vin == 1) return by_act<Tin, Tout, 8, 1>(act, x, w, bias, out, g, smem, st);
-  if (fv == 1 && vin == V16) return by_act<Tin, Tout, 1, V16>(act, x, w, bias, out, g, smem, st);
-  if (fv == 1 && vin == 1) return by_act<Tin, Tout, 1, 1>(act, x, w, bias, out, g, smem, st);
   return -5;
 }
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+size_t round16(size_t n) { return (n + 15) / 16 * 16; }
 
 }  // namespace
 
@@ -295,40 +436,60 @@ extern "C" {
 //   in_dtype, out_dtype: 0 = float32, 1 = bfloat16 (w is in_dtype)
 //   bias:   (F,) float32, or null
 //   act:    0 none, 1 relu, 2 mish, 3 leaky (slope 0.1)
-//   fv:     output channels per thread, 8 (F % 8 == 0, 16-byte aligned w and
-//           out) or 1
-//   vin:    input elements per staging move, the 16-byte width (C divisible
-//           by it, x 16-byte aligned) or 1
+// The A path, the channel chunk, the vector widths and the shared-memory
+// layout follow from the shapes and the pointers' alignment.
 int poet_conv_stem_fwd(const void* x, const void* w, const void* bias, void* out, int in_dtype,
                        int out_dtype, int B, int H, int W, int C, int F, int kh, int kw,
-                       int stride, int pt, int pl, int Ho, int Wo, int act, int fv, int vin,
-                       void* stream) {
+                       int stride, int pt, int pl, int Ho, int Wo, int act, void* stream) {
   if (B < 1 || H < 1 || W < 1 || C < 1 || F < 1 || kh < 1 || kw < 1) return -1;
   if (stride < 1 || pt < 0 || pl < 0 || Ho < 1 || Wo < 1) return -2;
-  if (fv != 1 && (fv != 8 || F % 8 != 0)) return -3;
-  if (vin != 1 && C % vin != 0) return -3;
+  if (act < ACT_NONE || act > ACT_LEAKY) return -6;
+  if ((in_dtype != 0 && in_dtype != 1) || (out_dtype != 0 && out_dtype != 1)) return -5;
+  const size_t elem = in_dtype == 0 ? 4 : 2;
+  const int kstep = in_dtype == 0 ? 8 : 16;
+  const int v = 16 / (int)elem;
+  const bool direct = C % kstep == 0 && aligned16(x);
   Geometry g;
   g.B = B; g.H = H; g.W = W; g.C = C; g.F = F; g.kh = kh; g.kw = kw; g.s = stride;
-  g.pt = pt; g.pl = pl; g.Ho = Ho; g.Wo = Wo;
-  g.chunk = fv == 8 ? (F < 64 ? F : 64) : (F < 8 ? F : 8);
+  g.pt = pt; g.pl = pl; g.Ho = Ho; g.Wo = Wo; g.act = act;
+  const int f16 = (F + 15) / 16 * 16;
+  g.chunk = f16 < MAX_CHUNK ? f16 : MAX_CHUNK;
   g.n_chunks = (F + g.chunk - 1) / g.chunk;
+  if (g.n_chunks > 65535) return -4;
+  g.nty = (Ho + TH - 1) / TH;
+  g.ntx = (Wo + TW - 1) / TW;
+  if ((int64_t)B * g.nty * g.ntx > 0x7fffffff) return -4;
+  g.n_tiles = B * g.nty * g.ntx;
   g.rows_in = (TH - 1) * stride + kh;
   g.cols_in = (TW - 1) * stride + kw;
-  if ((int64_t)B * g.n_chunks > 65535) return -4;
-  const size_t elem = in_dtype == 0 ? 4 : 2;
-  const size_t in_bytes = ((size_t)g.rows_in * g.cols_in * C * elem + 15) / 16 * 16;
-  const size_t smem = in_bytes + (size_t)kh * kw * C * g.chunk * elem;
+  g.colsp = (g.cols_in + stride - 1) / stride;
+  g.pitch = direct ? stride * g.colsp : g.cols_in;
+  g.cs = direct ? C + v : C;
+  g.K = kh * kw * C;
+  g.Kp = (g.K + kstep - 1) / kstep * kstep;
+  g.as = g.Kp + v;
+  g.ws = g.chunk + W_PAD;
+  const size_t w_bytes = round16((size_t)(direct ? g.K : g.Kp) * g.ws * elem);
+  const size_t tile_bytes = round16((size_t)g.rows_in * g.pitch * g.cs * elem);
+  const size_t a_bytes = direct ? 0 : (size_t)TH * TW * g.as * elem + (size_t)g.Kp * 4;
+  // two tile buffers where they fit (the next tile lands during this one)
+  g.n_buf = w_bytes + 2 * tile_bytes + a_bytes <= MAX_SMEM ? 2 : 1;
+  const size_t smem = w_bytes + g.n_buf * tile_bytes + a_bytes;
   if (smem > MAX_SMEM) return -7;   // the tile and the weights do not fit
+  g.tile_bytes = (int)tile_bytes;
+  g.tile_off = (int)w_bytes;
+  g.a_off = (int)(w_bytes + g.n_buf * tile_bytes);
+  g.koff_off = (int)(g.a_off + (size_t)TH * TW * g.as * elem);
+  g.out_bf16 = out_dtype == 1;
+  g.vec_out = F % 8 == 0 && aligned16(out);
   const float* bf = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 0 && out_dtype == 0) return by_vec<float, float>(fv, vin, act, x, w, bf, out, g, smem, st);
-  if (in_dtype == 0 && out_dtype == 1)
-    return by_vec<float, __nv_bfloat16>(fv, vin, act, x, w, bf, out, g, smem, st);
-  if (in_dtype == 1 && out_dtype == 0)
-    return by_vec<__nv_bfloat16, float>(fv, vin, act, x, w, bf, out, g, smem, st);
-  if (in_dtype == 1 && out_dtype == 1)
-    return by_vec<__nv_bfloat16, __nv_bfloat16>(fv, vin, act, x, w, bf, out, g, smem, st);
-  return -5;
+  if (in_dtype == 1) {
+    return direct ? by_chunk<__nv_bfloat16, true>(x, w, bf, out, g, smem, st)
+                  : by_chunk<__nv_bfloat16, false>(x, w, bf, out, g, smem, st);
+  }
+  return direct ? by_chunk<float, true>(x, w, bf, out, g, smem, st)
+                : by_chunk<float, false>(x, w, bf, out, g, smem, st);
 }
 
 const char* poet_cuda_error_string(int code) {

@@ -7,9 +7,11 @@ reference checkpoints map one to one. Convolutions run NCHW (channels-last
 memory on the card); `ResNetFPN` takes and returns NHWC like the JAX module.
 Raw [0, 1] images go in without ImageNet normalization, as in the reference.
 
-The stem is the plain convolution, the JAX package's default ('xla') stem;
-its Pallas stem kernel (`poet_tpu/ops/conv_stem_pallas.py`) is off by
-default there and not yet ported (ROADMAP queue B).
+The stem is the plain convolution, as in the JAX package, whose
+`resolve_stem_impl` resolves 'auto' to 'xla'. The port's stem kernel
+(`ops/conv_stem_cuda.py`, the counterpart of `conv_stem_pallas.py`) is
+held against this stem's function in `chip_smoke.py` phase 12, and serves
+the darknet body's entry convs.
 """
 
 from __future__ import annotations

@@ -12,9 +12,9 @@ There is no gradient: every caller is a frozen backbone's entry conv, and
 the JAX op raises under differentiation too, so an input that requires
 grad is refused on either device.
 
-The kernel replaces the TPU kernel `conv_stem_pallas.py:_kernel`. It is
-bound by its f32 FMAs (it does not use the tensor cores); the design note
-is in the source.
+The kernel replaces the TPU kernel `conv_stem_pallas.py:_kernel`. It is an
+implicit GEMM on the tensor cores for both dtypes (bf16 mma.sync; f32 as
+3xTF32), bound by the bytes it moves; the design note is in the source.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from poet_tpu_torch.ops.cuda_build import DTYPE_CODE, STEM_LIB, stream_of, vec_width
+from poet_tpu_torch.ops.cuda_build import DTYPE_CODE, STEM_LIB, stream_of
 
 Padding = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -117,14 +117,12 @@ class ConvStemForward:
         out_dt = out_dtype or x.dtype
         lib = STEM_LIB.build()
         out = torch.empty((B, Ho, Wo, Fo), dtype=out_dt, device=x.device)
-        fv = 8 if min(vec_width(t, Fo) for t in (w, out)) > 1 and Fo % 8 == 0 else 1
         (pt, _), (pl, _) = padding
         with torch.cuda.device(x.device):
             rc = lib.poet_conv_stem_fwd(
                 x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
                 out.data_ptr(), DTYPE_CODE[x.dtype], DTYPE_CODE[out_dt], B, H, W, C, Fo,
-                kh, kw, stride, pt, pl, Ho, Wo, ACT_CODE[activation], fv, vec_width(x, C),
-                stream_of(x))
+                kh, kw, stride, pt, pl, Ho, Wo, ACT_CODE[activation], stream_of(x))
         STEM_LIB.check(rc, "conv_stem_fwd")
         self.launches += 1
         return out

@@ -2,9 +2,10 @@
 
 Each source under `csrc/` is compiled at first use into
 `build/poet_tpu_torch/` under the repository root (keyed by a hash of the
-source and the flags), as a shared library with a plain C interface;
-`build_all()` starts one nvcc per source at once. Importing this module
-builds nothing and needs neither nvcc nor a GPU.
+flags, the source and the `#include "..."` headers it reads), as a shared
+library with a plain C interface; `build_all()` starts one nvcc per source
+at once. Importing this module builds nothing and needs neither nvcc nor a
+GPU.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -43,6 +45,24 @@ def _find_nvcc() -> str:
                        "the port's CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_includes(source: Path) -> list:
+    """`source` and every file it reads through `#include "..."`, directly
+    or through another such header, resolved beside the including file: the
+    files a library's key must cover, in a fixed order."""
+    seen, todo = [], [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo.extend((path.parent / m.decode()).resolve()
+                    for m in _INCLUDE.findall(path.read_bytes()))
+    return seen
+
+
 class CudaLibrary:
     """One CUDA source built into a shared library and loaded with ctypes.
 
@@ -58,9 +78,10 @@ class CudaLibrary:
         self._lib = None
 
     def library_path(self) -> Path:
-        key = hashlib.sha256(self.source.read_bytes()
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.source.stem}_{key}.so"
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in local_includes(self.source):
+            digest.update(path.name.encode() + b"\0" + path.read_bytes())
+        return BUILD_DIR / f"{self.source.stem}_{digest.hexdigest()[:16]}.so"
 
     def build(self):
         """Compile (if this source has not been built yet) and load."""
@@ -123,7 +144,7 @@ BWD_LIB = CudaLibrary(CSRC / "ms_deform_attn_bwd.cu", {
 ROI_LIB = CudaLibrary(CSRC / "roi_align_fwd.cu", {
     "poet_roi_align_fwd": [PTRS, INTS, I] + [P] * 6 + [I] * 7 + [P]})
 STEM_LIB = CudaLibrary(CSRC / "conv_stem_fwd.cu", {
-    "poet_conv_stem_fwd": [P] * 4 + [I] * 17 + [P]})
+    "poet_conv_stem_fwd": [P] * 4 + [I] * 15 + [P]})
 NN_LIB = CudaLibrary(CSRC / "min_dist_sq_fwd.cu", {
     "poet_min_dist_sq_fwd": [P] * 3 + [I] * 3 + [P]})
 DENSE_LIB = CudaLibrary(CSRC / "ms_deform_attn_dense.cu", {

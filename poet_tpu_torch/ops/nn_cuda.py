@@ -11,10 +11,11 @@ NaN, as `jnp.minimum` does:
     raise. There is no fallback from one to the other.
 There is no gradient: the metric is computed on fetched poses.
 
-The kernel replaces the TPU kernel `nn_pallas.py:_kernel`. It is held back
-by its f32 instructions (7 per pair, the direct difference form); the
-function's bound is lower (the cross term on the tensor cores). The
-design note is in the source.
+The kernel replaces the TPU kernel `nn_pallas.py:_kernel`. It ranks the
+est points by |e|^2 - 2 g.e on the tensor cores (mma.sync TF32 in the
+3xTF32 split) and returns the winner's direct difference distance, so a
+duplicate still scores exactly 0; NaN is carried by flags. The design note
+is in the source.
 """
 
 from __future__ import annotations
