@@ -10,15 +10,22 @@ Phases, each raising on failure:
      RoIAlign, the stem conv, the min distance, the v2 forward and the three
      probes) from poet_tpu_torch/csrc with nvcc, one process per source, in
      parallel;
-  3. the forward kernel against its plain PyTorch version on the card:
-     flagship encoder (Q=S=1600) and decoder (Q=10) shapes at B=16, edge
-     level geometries, out-of-map and dummy-query locations; f32 and bf16;
-     times; and autograd through the entry on CUDA tensors;
+  3. both routes of the forward kernel (direct: corners from the L2; slab:
+     a block per (b, h) on its value slab in shared memory) against the plain
+     PyTorch version and against each other (the same bits): flagship
+     encoder (Q=S=1600) and decoder (Q=10) shapes at B=16, edge level
+     geometries, out-of-map and dummy-query locations, trailing pad tokens,
+     the YOLO pyramid (S=6380, B=16; its f32 slab over the budget must be
+     refused); f32 and bf16; device ms per route from CUDA-graph replays and
+     plain ms; the direct/slab crossover over Q at S=1600; NaN locations
+     (output == the point in the map at weight 0, on each route); autograd
+     through the entry on every pair of routes the rules give (launches per
+     route checked);
   4. the serving slice: the port's PoseServer at the paper config, bf16,
      batch 16, 480x640, seeded weights, the flagship numpy batch; outputs
-     finite, rotations orthonormal with det +1, exactly 10 forward launches
-     (5 encoder + 5 decoder layers) and no adjoint or RoIAlign launch per
-     request; p50 ms and img/s;
+     finite, rotations orthonormal with det +1, exactly the route rule's
+     launches per request (5 slab forward for the encoder, 5 direct forward
+     for the decoder) and no adjoint or RoIAlign launch; p50 ms and img/s;
   5. f32 end to end: the same seeded model at B=2 on the card (kernel) against
      the port on the CPU (plain version), TF32 off;
   6. the two adjoint kernels (d_value scatter, d_loc/d_attn gather) against
@@ -26,14 +33,16 @@ Phases, each raising on failure:
      tokens; f32 and bf16; NaN locations; times of each kernel, of the plain
      adjoint of its own outputs (autograd with respect to those inputs
      alone) and of the whole plain adjoint;
-  7. the train slice: 8 steps of the paper config, bf16 over f32 master
-     weights, B=16, 480x640, seeded weights, the flagship batch, dropout 0.1,
-     AdamW with clipping; exactly 10 forward, 10 d_value and 10 d_loc
-     launches and no RoIAlign launch per step, finite losses and grad norm,
-     the frozen backbone bit-identical, the encoder moved; step p50 ms,
-     img/s, peak memory;
-  8. one f32 train step at B=2, 480x640, TF32 off: losses, grad norm and
-     every gradient on the card (kernels) against the CPU port (plain);
+  7. the train slice: 8 steps of the paper config (the merged adjoint, the
+     default), bf16 over f32 master weights, B=16, 480x640, seeded weights,
+     the flagship batch, dropout 0.1, AdamW with clipping; exactly the route
+     rule's launches per step (5 slab + 5 direct forward, 10 merged adjoint
+     on its slab route) and no other, finite losses and grad norm, the frozen
+     backbone bit-identical, the encoder moved; step p50 ms, img/s, peak
+     memory;
+  8. one f32 train step (the default config) at B=2, 480x640, TF32 off:
+     losses, grad norm and every gradient on the card (kernels) against the
+     CPU port (plain);
   9. the RoIAlign kernel against its plain version on the card: the
      detect+pose shape (levels (120,160)..(15,20) x 256, 16 x 1000
      proposals), edge boxes (under 1 px, slivers, outside the image,
@@ -92,10 +101,14 @@ Phases, each raising on failure:
  17. evaluation in backbone mode at phase 10's config, 2 batches, on
      targets made of the detector's own detections: 1 RoIAlign and 10
      forward launches per batch, matched pairs = valid detections;
- 18. the merged adjoint kernel against the plain adjoint and against the
-     pair of phase 6 (phase 6's geometries, f32 and bf16, NaN locations ->
-     0), autograd through the entry with adjoint='merged'; merged, pair and
-     plain ms and the bound;
+ 18. every route of the merged adjoint (slab, the value slab staged or read
+     from device memory; atomic) against the plain adjoint, against each
+     other and against the pair of phase 6 (phase 6's geometries and the
+     YOLO pyramid at B=16, where only the atomic route fits: the slab
+     wrapper must refuse; f32 and bf16; pad rows exactly 0; NaN locations
+     -> 0 on every route), autograd through the entry with adjoint='merged'
+     on the rule's route; device ms per route from CUDA-graph replays, pair
+     and plain ms, and the bound;
  19. the dense one-hot forward and adjoint kernels ('pallas') against the
      plain versions: phase 6's geometries and the YOLO pyramid (S=6380), f32
      and bf16, NaN locations held to the plain version on the card (the
@@ -103,13 +116,14 @@ Phases, each raising on failure:
      adjoint's outputs bit-identical over two runs, autograd through the
      entry; dense, kernel 1, pair, merged and plain ms; the bounds on the
      tensor cores and in the gather form;
- 20. the paths of the new kernels at phase 4's and 7's config: 8 gt-serving
-     requests through `infer` with enc/dec_deform_impl='pallas' (10 dense
-     forward launches each and no other), 8 train steps with 'pallas' (10
-     dense forward + 10 dense adjoint per step and no other) and 8 with the
-     merged adjoint (10 forward + 10 merged per step and no other), each
-     beside phase 4's or 7's p50 and img/s; one f32 train step of each at
-     B=2 on the card against the CPU port, as phase 8;
+ 20. the paths away from the defaults at phase 4's and 7's config: 8
+     gt-serving requests through `infer` with enc/dec_deform_impl='pallas'
+     (10 dense forward launches each and no other), 8 train steps with
+     'pallas' (10 dense forward + 10 dense adjoint per step and no other) and
+     8 with the pair adjoint (merged_adjoint=False: the forward's routes +
+     10 d_value + 10 d_loc per step and no other), each beside phase 4's or
+     7's p50 and img/s; one f32 train step of each at B=2 on the card against
+     the CPU port, as phase 8;
  21. the v2 slab forward (`ms_deform_attn_v2`, on no model path) against the
      plain version: phase 3's geometries, the YOLO pyramid (f32 in four row
      bands, bf16 in two), small shapes at a band budget of one or two rows
@@ -126,9 +140,10 @@ Phases, each raising on failure:
      exactly equal to the plain version, device ms from a CUDA-graph replay
      beside torch.gather, and an index out of range that must raise.
 Phases 4, 7, 10, 13, 16, 17 and 20's paths each set every kernel's launch
-count to 0 before they drive their path and read them after (the v2 kernel
-and the probes: 0 on every path; their entries add their phase's own
-launches). Every kernel's entry in
+count to 0 before they drive their path and read them after, and hold them
+to the wrappers' route rules (`path_launches`; the v2 kernel, the probes and
+the merged adjoint's atomic route: 0 on every path; the first two add their
+phase's own launches). Every kernel's entry in
 the report carries its bound: the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and its
 operations over the peak rate for its type (67 TFLOP/s f32 for the
@@ -197,6 +212,25 @@ GEOMETRIES = [
 ]
 ADJ_GEOMETRIES = GEOMETRIES + [
     ("S > levels (7 pad tokens)", 2, 9, 4, 8, ((4, 5), (2, 3)), -0.2, 1.2, 7),
+]
+# the YOLOv4-CSP full pyramid at 480x640 (strides 8/16/32 + one extra level)
+YOLO_LEVELS = ((60, 80), (30, 40), (15, 20), (8, 10))
+# phases 3 and 18: every route of the forward and of the merged adjoint on
+# phase 3's and 6's geometries and the YOLO pyramid at the path's batch
+ROUTE_GEOMETRIES = ADJ_GEOMETRIES + [
+    ("yolo pyramid", 16, 6380, 16, 16, YOLO_LEVELS, 0.0, 1.0, 0),
+]
+ROUTES_TIMED = ("encoder", "decoder", "yolo pyramid")
+# phase 3's crossover sweep: queries per (b, h) at the encoder's S = 1600
+CROSSOVER_Q = (10, 25, 50, 100, 200, 400, 800, 1600)
+# phase 3's autograd through the entry, one case per pair of routes:
+# (name, B, Q, levels, dtype)
+AUTOGRAD_CASES = [
+    ("encoder bf16", 2, 1600, FLAGSHIP_LEVELS, "bfloat16"),
+    ("encoder f32", 2, 1600, FLAGSHIP_LEVELS, "float32"),
+    ("decoder bf16", 2, 10, FLAGSHIP_LEVELS, "bfloat16"),
+    ("yolo pyramid bf16", 1, 6380, YOLO_LEVELS, "bfloat16"),
+    ("small", 1, 6, ((3, 4), (2, 2)), "float32"),
 ]
 # the card's published peaks (H100 SXM data sheet): the bounds in the report
 HBM_BYTES_PER_S = 3.35e12
@@ -269,7 +303,7 @@ EVAL_THIN = 32
 
 
 KERNEL_KEYS = ("fwd", "d_value", "d_loc", "roi", "stem", "nn", "merged", "dense_fwd",
-               "dense_bwd", "v2", "kpad", "variants", "gather")
+               "dense_bwd", "v2", "kpad", "variants", "gather", "fwd_slab", "merged_slab")
 LAUNCH_NAMES = "/".join(KERNEL_KEYS)
 
 
@@ -278,10 +312,11 @@ def log(msg: str) -> None:
 
 
 def all_kernels():
-    """Every kernel wrapper, in the report's order (KERNEL_KEYS): forward,
-    d_value, d_loc, RoIAlign, stem, min distance, merged adjoint, dense
-    forward, dense adjoint, v2 forward, and the three probes (kpad, the
-    forward's variants, the dynamic gather)."""
+    """Every kernel wrapper, in the report's order (KERNEL_KEYS): the
+    forward's direct route, d_value, d_loc, RoIAlign, stem, min distance, the
+    merged adjoint's atomic route, dense forward, dense adjoint, v2 forward,
+    the three probes (kpad, the forward's variants, the dynamic gather), then
+    the forward's and the merged adjoint's slab routes."""
     from poet_tpu_torch.ops import deform_attn_cuda as gather
     from poet_tpu_torch.ops import deform_attn_dense_cuda as dense
     from poet_tpu_torch.ops.conv_stem_cuda import CONV_STEM_FWD
@@ -295,7 +330,8 @@ def all_kernels():
     return [gather.MS_DEFORM_ATTN_FWD, gather.MS_DEFORM_ATTN_DVALUE, gather.MS_DEFORM_ATTN_DLOC,
             ROI_ALIGN_FWD, CONV_STEM_FWD, MIN_DIST_SQ, gather.MS_DEFORM_ATTN_MERGED,
             dense.MS_DEFORM_ATTN_DENSE_FWD, dense.MS_DEFORM_ATTN_DENSE_BWD, MS_DEFORM_ATTN_V2,
-            KPAD_CHAIN, MS_DEFORM_ATTN_VARIANT, TAKE_ALONG_AXIS]
+            KPAD_CHAIN, MS_DEFORM_ATTN_VARIANT, TAKE_ALONG_AXIS, gather.MS_DEFORM_ATTN_FWD_SLAB,
+            gather.MS_DEFORM_ATTN_MERGED_SLAB]
 
 
 def expected(**counts):
@@ -303,6 +339,41 @@ def expected(**counts):
     if set(counts) - set(KERNEL_KEYS):
         raise KeyError(f"unknown kernels {set(counts) - set(KERNEL_KEYS)}")
     return [counts.get(k, 0) for k in KERNEL_KEYS]
+
+
+# the token counts of the two pyramids at 480x640: Mask R-CNN's ResNet-FPN
+# levels (gt mode and detect+pose) and YOLOv4-CSP's full pyramid
+FLAGSHIP_S, YOLO_S = 1600, 6380
+
+
+def path_launches(cfg, S, n, train=False):
+    """The deformable-attention launches by kernel that n forwards (train:
+    n forward and backward passes) of the model at `cfg` over S encoder
+    tokens make, by the wrappers' written route rules
+    (ops/deform_attn_cuda.py: plan_forward, plan_merged): the encoder at Q =
+    S, the decoder at Q = num_queries, each layer once."""
+    import torch
+
+    from poet_tpu_torch.ops.deform_attn_cuda import plan_forward, plan_merged
+
+    m = cfg.model
+    dtype, D, L = getattr(torch, m.dtype), m.hidden_dim // m.nheads, m.num_feature_levels
+    counts = {}
+    for impl, Q, P, layers in ((m.enc_deform_impl, S, m.enc_n_points, m.enc_layers),
+                               (m.dec_deform_impl, m.num_queries, m.dec_n_points, m.dec_layers)):
+        if impl == "pallas":
+            keys = ("dense_fwd", "dense_bwd") if train else ("dense_fwd",)
+        else:
+            fwd = plan_forward(S, D, dtype, Q, L, P).route
+            keys = ("fwd_slab" if fwd == "slab" else "fwd",)
+            if train and m.merged_adjoint:
+                keys += ("merged_slab" if plan_merged(S, D, dtype, Q, L, P).route == "slab"
+                         else "merged",)
+            elif train:
+                keys += ("d_value", "d_loc")
+        for k in keys:
+            counts[k] = counts.get(k, 0) + layers * n
+    return counts
 
 
 @contextlib.contextmanager
@@ -373,70 +444,172 @@ def deform_inputs(g, B, Q, H, D, shapes, P=4, lo=-0.2, hi=1.2, dtype=None, pad=0
     return value.to(dtype or torch.float32), locs.contiguous(), attn.contiguous()
 
 
-def phase_kernel(report):
+def route_outputs(kernels, fits, *args):
+    """{route: output} of each route whose slab fits; the others must refuse."""
+    outs = {}
+    for route, kernel in kernels.items():
+        if fits[route]:
+            outs[route] = kernel(*args)
+        else:
+            try:
+                kernel(*args)
+            except ValueError:
+                continue
+            raise AssertionError(f"the {route} wrapper took a slab over the budget")
+    return outs
+
+
+def entry_autograd(g, name, B, Q, shapes, dtype):
+    """ms_deform_attn on CUDA leaves that require grad, forward and merged
+    adjoint: the routes the rules give (one launch each, no other), the
+    output and the three gradients against the plain versions. Returns the
+    two routes."""
     import torch
 
-    from poet_tpu_torch.ops.deform_attn import (
-        ms_deform_attn_torch,
-        ms_deform_attn_torch_backward,
-    )
-    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_FWD as K
-    from poet_tpu_torch.ops.deform_attn_cuda import ms_deform_attn
+    from poet_tpu_torch.ops import deform_attn_cuda as dac
+    from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch as plain
+    from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch_backward as plain_bwd
 
+    H, D, P = 16, 16, 4
+    dt = getattr(torch, dtype)
+    bf16 = dt == torch.bfloat16
+    value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=-0.1, hi=1.1)
+    value = value.to(dt)
+    dout = torch.randn((B, Q, H * D), generator=g, device=DEVICE).to(dt)
+    S = value.shape[1]
+    fwd = dac.plan_forward(S, D, dt, Q, len(shapes), P).route
+    bwd = dac.plan_merged(S, D, dt, Q, len(shapes), P).route
+    want = expected(**{"fwd_slab" if fwd == "slab" else "fwd": 1,
+                       "merged_slab" if bwd == "slab" else "merged": 1})
+    kernels = all_kernels()
+    n0 = [k.launches for k in kernels]
+    leaves = [t.clone().requires_grad_() for t in (value, locs, attn)]
+    out = dac.ms_deform_attn(leaves[0], shapes, *leaves[1:], adjoint="merged")
+    out.backward(dout)
+    torch.cuda.synchronize()
+    got = [k.launches - n for k, n in zip(kernels, n0)]
+    if got != want:
+        raise AssertionError(f"autograd {name}: launches {LAUNCH_NAMES} {got}, the rules give "
+                             f"{want} (forward {fwd}, merged {bwd})")
+    ref = plain(value.float(), shapes, locs, attn)
+    err = (out.detach().float() - ref).abs()
+    if not bool((err <= (BF16_ATOL + BF16_RTOL * ref.abs() if bf16 else F32_ATOL)).all()):
+        raise AssertionError(f"autograd {name}: forward max err {err.max().item()}")
+    adjoint_checks(f"autograd {name}", [t.grad for t in leaves],
+                   plain_bwd(value.float(), shapes, locs, attn, dout.float()), value, locs, Q,
+                   S, 0, off_edges(locs, shapes), bf16)
+    return fwd, bwd
+
+
+def phase_kernel(report):
+    """Phase 3: both routes of the forward kernel (direct, slab) against the
+    plain version and against each other (the same bits), on phase 3's and
+    6's geometries and the YOLO pyramid, f32 and bf16; NaN locations; ms per
+    route where the path runs it; the direct/slab crossover; autograd through
+    the entry on every pair of routes."""
+    import torch
+
+    from poet_tpu_torch.ops import deform_attn_cuda as dac
+    from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch
+    from poet_tpu_torch.tools.timing import graph_ms
+
+    routes = {"direct": dac.MS_DEFORM_ATTN_FWD, "slab": dac.MS_DEFORM_ATTN_FWD_SLAB}
     g = torch.Generator(device=DEVICE).manual_seed(0)
     max_err32 = 0.0
-    for name, B, Q, H, D, shapes, lo, hi, _ in GEOMETRIES:
-        value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=lo, hi=hi)
-        with torch.inference_mode():
-            plain = ms_deform_attn_torch(value, shapes, locs, attn)
-            got = K(value, shapes, locs, attn)
-            torch.cuda.synchronize()
-            err32 = (got - plain).abs().max().item()
-            if not err32 <= F32_ATOL:
-                raise AssertionError(f"{name} f32: max |kernel - plain| {err32} > {F32_ATOL}")
-            v16 = value.bfloat16()
-            plain16 = ms_deform_attn_torch(v16.float(), shapes, locs, attn)
-            got16 = K(v16, shapes, locs, attn)
-            torch.cuda.synchronize()
-            if got16.dtype != torch.bfloat16:
-                raise AssertionError(f"{name}: bf16 kernel returned {got16.dtype}")
-            err16 = (got16.float() - plain16).abs()
-            bound = BF16_ATOL + BF16_RTOL * plain16.abs()
-            if not bool((err16 <= bound).all()):
-                raise AssertionError(f"{name} bf16: max |kernel - plain| {err16.max().item()} "
-                                     f"beyond atol {BF16_ATOL} + rtol {BF16_RTOL}")
-        max_err32 = max(max_err32, err32)
-        line = (f"kernel-vs-plain {name}: B={B} Q={Q} H={H} D={D} levels={shapes} "
-                f"f32 max_abs_err={err32:.3e} (tol {F32_ATOL}) "
-                f"bf16 max_abs_err={err16.max().item():.3e} "
-                f"(tol {BF16_ATOL} + {BF16_RTOL:.5f}*|ref|)")
-        if name in ("encoder", "decoder"):
+    for name, B, Q, H, D, shapes, lo, hi, pad in ROUTE_GEOMETRIES:
+        value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=lo, hi=hi, pad=pad)
+        S, L, P = value.shape[1], len(shapes), locs.shape[4]
+        line = f"forward routes {name}: B={B} Q={Q} H={H} D={D} levels={shapes} S={S}"
+        t = {}
+        for dt in (torch.float32, torch.bfloat16):
+            bf16 = dt == torch.bfloat16
+            key = "bf16" if bf16 else "f32"
+            v = value.to(dt)
+            rule = dac.plan_forward(S, D, dt, Q, L, P).route
+            fits = {"direct": True, "slab": S * D * v.element_size() <= dac.SMEM_OPTIN_MAX}
             with torch.inference_mode():
-                t = {}
-                for dt, v in (("f32", value), ("bf16", v16)):
-                    t[dt] = (cuda_ms(lambda: K(v, shapes, locs, attn)),
-                             cuda_ms(lambda: ms_deform_attn_torch(v, shapes, locs, attn)))
-            line += (f" | ms kernel/plain: f32 {t['f32'][0]:.4f}/{t['f32'][1]:.4f}, "
-                     f"bf16 {t['bf16'][0]:.4f}/{t['bf16'][1]:.4f}")
-            report[name] = {"ms": t["bf16"][0], "plain_ms": t["bf16"][1],
-                            "f32_ms": t["f32"][0], "f32_plain_ms": t["f32"][1]}
-            if name == "encoder":
-                report[name]["bound"] = deform_bound(locs, shapes, D, v16, locs, attn, got16)
+                plain = ms_deform_attn_torch(v.float(), shapes, locs, attn)
+                outs = route_outputs(routes, fits, v, shapes, locs, attn)
+                torch.cuda.synchronize()
+            if rule not in outs:
+                raise AssertionError(f"{name} {key}: the rule picks {rule}, which refuses")
+            errs = {}
+            for route, out in outs.items():
+                if out.dtype != dt:
+                    raise AssertionError(f"{name}: {route} returned {out.dtype}")
+                err = (out.float() - plain).abs()
+                tol = BF16_ATOL + BF16_RTOL * plain.abs() if bf16 else F32_ATOL
+                if not bool((err <= tol).all()):
+                    raise AssertionError(f"{name} {key} {route}: max |kernel - plain| "
+                                         f"{err.max().item():.3e}")
+                errs[route] = err.max().item()
+                if not bf16:
+                    max_err32 = max(max_err32, errs[route])
+            if "slab" in outs and not torch.equal(outs["slab"], outs["direct"]):
+                raise AssertionError(f"{name} {key}: the slab route's output differs from the "
+                                     f"direct route's")
+            line += (f" | {key}: rule {rule}, max_abs_err "
+                     + ", ".join(f"{r} {e:.2e}" for r, e in errs.items())
+                     + (", slab == direct" if "slab" in outs else ", slab refused (over budget)"))
+            if name in ROUTES_TIMED:
+                with torch.inference_mode():   # the kernels' device time, from graph replays
+                    ms = {r: graph_ms(lambda: routes[r](v, shapes, locs, attn),
+                                      counted=routes[r]) for r in outs}
+                    ms["plain"] = cuda_ms(lambda: ms_deform_attn_torch(v, shapes, locs, attn),
+                                          iters=5)
+                ms["rule"] = rule
+                ms["bound"] = deform_bound(locs, shapes, D, v, locs, attn, outs["direct"])
+                t[key] = ms
+                line += " | ms " + ", ".join(f"{r} {ms[r]:.4f}" for r in (*outs, "plain"))
+        if t:
+            report[f"fwd_{name}"] = t
         log(line)
 
-    # CUDA tensors that require grad go through the entry and its adjoint
-    shapes = ((3, 4), (2, 2))
-    v, l, a = deform_inputs(g, 1, 6, 2, 8, shapes)
-    dout = torch.randn((1, 6, 16), generator=g, device=DEVICE)
-    leaves = [t.clone().requires_grad_() for t in (v, l, a)]
-    ms_deform_attn(leaves[0], shapes, *leaves[1:]).backward(dout)
-    want = ms_deform_attn_torch_backward(v, shapes, l, a, dout)
-    for name, t, ref in zip(("d_value", "d_loc", "d_attn"), leaves, want):
-        err = (t.grad - ref).abs().max().item()
-        if not err <= ADJ_RTOL * max(ref.abs().max().item(), 1.0):
-            raise AssertionError(f"autograd through the kernels: {name} max err {err}")
-    log("kernel entry with requires_grad: backward through the adjoint kernels "
-        "matches the plain adjoint")
+    # where staging pays: both routes at the encoder's levels, B=16, bf16
+    cross = {}
+    with torch.inference_mode():
+        for Q in CROSSOVER_Q:
+            value, locs, attn = deform_inputs(g, 16, Q, 16, 16, FLAGSHIP_LEVELS, lo=0.0, hi=1.0)
+            args = (value.bfloat16(), FLAGSHIP_LEVELS, locs, attn)
+            cross[Q] = {"reads": dac.corner_reads_per_token(FLAGSHIP_S, Q, 4, 4),
+                        "direct": graph_ms(lambda: routes["direct"](*args),
+                                           counted=routes["direct"]),
+                        "slab": graph_ms(lambda: routes["slab"](*args), counted=routes["slab"]),
+                        "rule": dac.plan_forward(FLAGSHIP_S, 16, torch.bfloat16, Q, 4, 4).route}
+    report["fwd_crossover"] = cross
+    log("forward crossover (B=16 H=16 D=16 S=1600 bf16; Q: corner reads per token, device ms "
+        "direct / slab, the rule's route): " + ", ".join(
+            f"{Q}: {c['reads']:.1f}, {c['direct']:.4f} / {c['slab']:.4f} {c['rule']}"
+            for Q, c in cross.items()))
+
+    # NaN locations: the point reads nothing on either route, so the output
+    # equals that of the same point in the map with attention weight 0
+    shapes = ((6, 9), (4, 5), (1, 1))
+    value, locs, attn = deform_inputs(g, 2, 40, 2, 8, shapes)
+    nan = torch.zeros(locs.shape[:-1], dtype=torch.bool, device=DEVICE)
+    nan[:, 0, :, 0, 1] = nan[:, 3, :, 1, 2] = nan[1, 5, 0, 2, 0] = True
+    locs_nan = locs.clone()
+    locs_nan[:, 0, :, 0, 1, 0] = float("nan")
+    locs_nan[:, 3, :, 1, 2, :] = float("nan")
+    locs_nan[1, 5, 0, 2, 0, 1] = float("nan")
+    twin_locs = torch.where(nan[..., None], 0.5, locs)
+    twin_attn = torch.where(nan, 0.0, attn)
+    with torch.inference_mode():
+        for dt in (torch.float32, torch.bfloat16):
+            v = value.to(dt)
+            for route, kernel in routes.items():
+                got = kernel(v, shapes, locs_nan, attn)
+                if not (bool(torch.isfinite(got).all())
+                        and torch.equal(got, kernel(v, shapes, twin_locs, twin_attn))):
+                    raise AssertionError(f"a NaN location leaked into the {route} forward")
+    log("NaN locations: both routes read nothing for the point (output == the point in "
+        "the map at weight 0, f32 and bf16)")
+
+    # CUDA tensors that require grad go through the entry and its adjoint,
+    # each pair of routes the rules give
+    pairs = {name: entry_autograd(g, name, *case) for name, *case in AUTOGRAD_CASES}
+    log("entry with requires_grad: forward and merged adjoint on the rules' routes match the "
+        "plain versions: " + ", ".join(f"{n} {f}/{b}" for n, (f, b) in pairs.items()))
     report["max_abs_err"] = max_err32
 
 
@@ -590,7 +763,6 @@ def phase_slice(report, impl=None):
     cfg = flagship_config("bfloat16")
     if impl:
         cfg.model.enc_deform_impl = cfg.model.dec_deform_impl = impl
-    route = "dense_fwd" if impl == "pallas" else "fwd"
     server = PoseServer(cfg, init_weights(build_model(cfg), seed=0), batch_size=B,
                         image_size=(H, W), device="cuda")
     images, _, targets = flagship_batch(B, H, W, seed=0)
@@ -608,10 +780,10 @@ def phase_slice(report, impl=None):
     else:
         results = list(server.stream((images for _ in range(REQUESTS)), lambda prev: boxes))
     counts = [k.launches for k in kernels]
-    launches = counts[KERNEL_KEYS.index(route)]
-    if counts != expected(**{route: per_layer * REQUESTS}):
+    routes = path_launches(cfg, FLAGSHIP_S, 1)
+    if counts != expected(**path_launches(cfg, FLAGSHIP_S, REQUESTS)):
         raise AssertionError(f"launches {LAUNCH_NAMES} {counts} for {REQUESTS} requests, "
-                             f"expected {per_layer} {route} per request and no other")
+                             f"expected {routes} per request and no other")
     if len(results) != REQUESTS:
         raise AssertionError(f"{len(results)} answers for {REQUESTS} requests")
     for res in results:
@@ -625,7 +797,7 @@ def phase_slice(report, impl=None):
     stats = server.latency_stats()
     log(f"slice{f' {impl}' if impl else ''}: PoseServer paper config bf16 B={B} {H}x{W}: "
         f"{REQUESTS} requests via {'infer' if impl else 'stream'}, "
-        f"{launches} {route} launches ({per_layer}/request), finite, SO(3) err {so3:.2e}, "
+        f"launches {routes} per request ({per_layer} layers), finite, SO(3) err {so3:.2e}, "
         f"p50 {stats['p50_ms']:.3f} ms, p95 {stats['p95_ms']:.3f} ms, "
         f"{stats['fps']:.2f} img/s, peak mem "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -639,7 +811,6 @@ def phase_e2e_f32():
 
     from poet_tpu_torch.flagship import flagship_batch, flagship_config
     from poet_tpu_torch.models import build_model
-    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_FWD as K
     from poet_tpu_torch.utils.init import init_weights
 
     B, (H, W) = 2, FLAGSHIP_HW
@@ -648,17 +819,19 @@ def phase_e2e_f32():
     images, pad_mask, targets = flagship_batch(B, H, W, seed=0)
     tg = {k: torch.from_numpy(targets[k]) for k in ("boxes", "labels", "n_boxes")}
     args = (torch.from_numpy(images), torch.from_numpy(pad_mask), tg)
+    kernels = all_kernels()
     with torch.inference_mode():
-        n0 = K.launches
+        n0 = [k.launches for k in kernels]
         cpu = model(*args)
-        if K.launches != n0:
-            raise AssertionError("the CPU run launched the CUDA kernel")
+        if [k.launches for k in kernels] != n0:
+            raise AssertionError("the CPU run launched a CUDA kernel")
         with tf32_off():
             model = model.cuda()
             card = model(args[0].cuda(), args[1].cuda(), {k: v.cuda() for k, v in tg.items()})
         card = {k: v.cpu() for k, v in card.items()}
-        if K.launches - n0 != cfg.model.enc_layers + cfg.model.dec_layers:
-            raise AssertionError("the card run did not go through the kernel")
+        if [k.launches - n for k, n in zip(kernels, n0)] != expected(
+                **path_launches(cfg, FLAGSHIP_S, 1)):
+            raise AssertionError("the card run did not go through the forward's routes")
     worst = 0.0
     for k in ("translations", "rotations"):
         ref, got = cpu[k].numpy(), card[k].numpy()
@@ -671,13 +844,13 @@ def phase_e2e_f32():
         f"max |card - cpu| / output scale = {worst:.3e} (tol {E2E_RTOL})")
 
 
-# the train step's deformable-attention variants: the ModelConfig fields set,
-# and the kernels each layer launches once per step
+# the train step's deformable-attention variants: the ModelConfig fields set
+# ('merged' is the default config; the kernels each takes come from
+# path_launches)
 TRAIN_VARIANTS = {
-    "pair": ({"merged_adjoint": False}, ("fwd", "d_value", "d_loc")),
-    "merged": ({"merged_adjoint": True}, ("fwd", "merged")),
-    "pallas": ({"enc_deform_impl": "pallas", "dec_deform_impl": "pallas"},
-               ("dense_fwd", "dense_bwd")),
+    "merged": {"merged_adjoint": True},
+    "pair": {"merged_adjoint": False},
+    "pallas": {"enc_deform_impl": "pallas", "dec_deform_impl": "pallas"},
 }
 
 
@@ -685,14 +858,14 @@ def train_config(dtype, variant):
     from poet_tpu_torch.flagship import flagship_config
 
     cfg = flagship_config(dtype)
-    for k, v in TRAIN_VARIANTS[variant][0].items():
+    for k, v in TRAIN_VARIANTS[variant].items():
         setattr(cfg.model, k, v)
     return cfg
 
 
-def phase_train(report, variant="pair"):
-    """Phase 7 (the pair adjoint) or, with `variant` 'merged' / 'pallas',
-    phase 20's train steps."""
+def phase_train(report, variant="merged"):
+    """Phase 7 (the default config: the merged adjoint) or, with `variant`
+    'pair' / 'pallas', phase 20's train steps."""
     import torch
 
     from poet_tpu_torch.engine.train import (
@@ -731,11 +904,10 @@ def phase_train(report, variant="pair"):
         history.append(fetch_metrics(step(*batch, gen)))               # syncs on the metrics
         times.append(time.perf_counter() - t0)
     launches = [k.launches for k in kernels]
-    route = TRAIN_VARIANTS[variant][1]
-    if launches != expected(**dict.fromkeys(route, per_step * TRAIN_STEPS)):
+    routes = path_launches(cfg, FLAGSHIP_S, 1, train=True)
+    if launches != expected(**path_launches(cfg, FLAGSHIP_S, TRAIN_STEPS, train=True)):
         raise AssertionError(f"train {variant}: launches {LAUNCH_NAMES} {launches} for "
-                             f"{TRAIN_STEPS} steps, expected {per_step} each of {route} per "
-                             f"step and no other")
+                             f"{TRAIN_STEPS} steps, expected {routes} per step and no other")
     if not all(np.isfinite(list(m.values())).all() for m in history):
         raise AssertionError(f"non-finite training metrics: {history}")
     state = model.state_dict()
@@ -748,18 +920,19 @@ def phase_train(report, variant="pair"):
              "img_s": float(B / ms.mean() * 1e3),
              "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     log(f"train {variant}: paper config bf16 B={B} {H}x{W}, dropout {cfg.model.dropout}, "
-        f"AdamW: {TRAIN_STEPS} steps, launches {LAUNCH_NAMES} {launches} ({per_step} "
-        f"each of {'/'.join(route)} per step), loss {history[0]['loss']:.4f} -> "
+        f"AdamW: {TRAIN_STEPS} steps, launches {LAUNCH_NAMES} {launches} ({routes} per "
+        f"step over {per_step} layers), loss {history[0]['loss']:.4f} -> "
         f"{history[-1]['loss']:.4f}, grad_norm {history[-1]['grad_norm']:.4f}, backbone bit-identical ({len(frozen)} tensors), "
         f"{w_name} moved; step p50 {stats['p50_ms']:.3f} ms, p95 {stats['p95_ms']:.3f} ms, "
         f"{stats['img_s']:.2f} img/s, peak mem {stats['peak_gib']:.2f} GiB")
-    key = "" if variant == "pair" else f"_{variant}"
+    key = "" if variant == "merged" else f"_{variant}"
     report["train_launches" + key] = launches
     report["train" + key] = stats
 
 
-def phase_train_f32(variant="pair"):
-    """Phase 8 (the pair adjoint) or, with `variant`, phase 20's f32 step."""
+def phase_train_f32(variant="merged"):
+    """Phase 8 (the default config: the merged adjoint) or, with `variant`,
+    phase 20's f32 step."""
     import copy
 
     import torch
@@ -806,12 +979,10 @@ def phase_train_f32(variant="pair"):
         raise AssertionError("the CPU run launched a CUDA kernel")
     with tf32_off():
         card_losses, card_grads = grads_on(DEVICE)
-    per_step = cfg.model.enc_layers + cfg.model.dec_layers
-    route = TRAIN_VARIANTS[variant][1]
-    if [k.launches - n for k, n in zip(kernels, n0)] != expected(
-            **dict.fromkeys(route, per_step)):
+    routes = path_launches(cfg, FLAGSHIP_S, 1, train=True)
+    if [k.launches - n for k, n in zip(kernels, n0)] != expected(**routes):
         raise AssertionError(f"train f32 {variant}: the card step did not go through "
-                             f"{route} alone")
+                             f"{routes} alone")
     loss_err = max(abs(card_losses[k] - v) / max(abs(v), 1e-12)
                    for k, v in cpu_losses.items() if k != "grad_norm")
     norm_err = abs(card_losses["grad_norm"] / cpu_losses["grad_norm"] - 1.0)
@@ -832,8 +1003,8 @@ def phase_train_f32(variant="pair"):
                                  f"max err / max |cpu| {mx:.3e}")
     l2, _, l2_name = max(rows)
     _, mx, mx_name = max(rows, key=lambda r: r[1])
-    log(f"train f32 {variant} card-vs-CPU (B={B}, {H}x{W}, dropout 0, TF32 off, kernels "
-        f"{'/'.join(route)}): losses max rel err "
+    log(f"train f32 {variant} card-vs-CPU (B={B}, {H}x{W}, dropout 0, TF32 off, launches "
+        f"{routes}): losses max rel err "
         f"{loss_err:.3e} (tol {TRAIN_F32_LOSS_RTOL}), grad norm {norm_err:.3e}; "
         f"{len(rows)} gradients: worst relative L2 {l2:.3e} ({l2_name}, tol "
         f"{TRAIN_F32_L2_RTOL}), worst max/max {mx:.3e} ({mx_name}, tol {TRAIN_F32_MAX_RTOL})")
@@ -1006,9 +1177,8 @@ def phase_detect(report):
     server.reset_latency_stats()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    per_layer = cfg.model.enc_layers + cfg.model.dec_layers
     kernels = all_kernels()
-    expect = expected(fwd=per_layer * DETECT_REQUESTS, roi=DETECT_REQUESTS)
+    expect = expected(**path_launches(cfg, FLAGSHIP_S, DETECT_REQUESTS), roi=DETECT_REQUESTS)
 
     def run(label, drive):
         for k in kernels:
@@ -1121,19 +1291,18 @@ def phase_detect_f32():
     import torch
 
     from poet_tpu_torch.flagship import detect_pose_batch, detect_pose_config, detect_pose_model
-    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_FWD as K
-    from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD as KR
 
     B, (H, W) = 2, FLAGSHIP_HW
     cfg = detect_pose_config("float32")
     model = detect_pose_model(cfg)
     images, pad_mask = detect_pose_batch(B, H, W, seed=0)
     args = (torch.from_numpy(images), torch.from_numpy(pad_mask))
+    kernels = all_kernels()
     with torch.inference_mode():
-        n0 = (K.launches, KR.launches)
+        n0 = [k.launches for k in kernels]
         cpu_dets = model.backbone(*args)[2]
         cpu = {k: v.numpy() for k, v in model(*args).items()}
-        if (K.launches, KR.launches) != n0:
+        if [k.launches for k in kernels] != n0:
             raise AssertionError("the CPU run launched a CUDA kernel")
         with tf32_off():
             model = model.cuda()
@@ -1141,8 +1310,8 @@ def phase_detect_f32():
             card = {k: v.cpu().numpy() for k, v in model(*cargs).items()}
             shared = {k: v.cpu().numpy() for k, v in model(*cargs, detections={
                 k: v.cuda() for k, v in cpu_dets.items()}).items()}
-        if (K.launches - n0[0], KR.launches - n0[1]) != (
-                2 * (cfg.model.enc_layers + cfg.model.dec_layers), 2):
+        if [k.launches - n for k, n in zip(kernels, n0)] != expected(
+                **path_launches(cfg, FLAGSHIP_S, 2), roi=2):
             raise AssertionError("the card runs did not go through the kernels")
     if not np.array_equal(card["n_boxes"], cpu["n_boxes"]) or cpu["n_boxes"].sum() == 0:
         raise AssertionError(f"n_boxes card {card['n_boxes']} vs CPU {cpu['n_boxes']}")
@@ -1306,9 +1475,8 @@ def phase_yolo(report):
     server.reset_latency_stats()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    per_layer = cfg.model.enc_layers + cfg.model.dec_layers
     kernels = all_kernels()
-    expect = expected(fwd=per_layer * YOLO_REQUESTS, stem=3 * YOLO_REQUESTS)
+    expect = expected(**path_launches(cfg, YOLO_S, YOLO_REQUESTS), stem=3 * YOLO_REQUESTS)
 
     def run(label, drive):
         for k in kernels:
@@ -1394,8 +1562,8 @@ def phase_yolo_f32():
             card = {k: v.cpu().numpy() for k, v in model(*cargs).items()}
             shared = {k: v.cpu().numpy() for k, v in model(*cargs, detections={
                 k: v.cuda() for k, v in cpu_dets.items()}).items()}
-        per = cfg.model.enc_layers + cfg.model.dec_layers
-        if [k.launches - n for k, n in zip(kernels, n0)] != expected(fwd=2 * per, stem=2 * 3):
+        if [k.launches - n for k, n in zip(kernels, n0)] != expected(
+                **path_launches(cfg, YOLO_S, 2), stem=2 * 3):
             raise AssertionError("the card runs did not go through the forward and stem kernels")
     if not np.array_equal(card["n_boxes"], cpu["n_boxes"]) or cpu["n_boxes"].min() == 0:
         raise AssertionError(f"n_boxes card {card['n_boxes']} vs CPU {cpu['n_boxes']}")
@@ -1692,9 +1860,8 @@ def phase_eval(report):
     with EvalProbe(evaluator, loader) as probe:
         results = pose_evaluate(model, evaluator, loader, cfg, "test", output_dir=tmp)
     counts = [k.launches for k in kernels]
-    per_layer = cfg.model.enc_layers + cfg.model.dec_layers
     n_adi = adi_launches(evaluator)
-    expect = expected(fwd=per_layer * EVAL_BATCHES, nn=n_adi)
+    expect = expected(**path_launches(cfg, FLAGSHIP_S, EVAL_BATCHES), nn=n_adi)
     if counts != expect:
         raise AssertionError(f"eval: launches {LAUNCH_NAMES} {counts} for "
                              f"{EVAL_BATCHES} batches, expected {expect}")
@@ -1720,7 +1887,7 @@ def phase_eval(report):
         k.launches = 0
     csv = bop_evaluate(model, loader, cfg, "test", output_dir=tmp)
     bop_counts = [k.launches for k in kernels]
-    if bop_counts != expected(fwd=per_layer * EVAL_BATCHES):
+    if bop_counts != expected(**path_launches(cfg, FLAGSHIP_S, EVAL_BATCHES)):
         raise AssertionError(f"bop_evaluate: launches {bop_counts}")
     with open(csv) as f:
         rows = f.read().split("\n")
@@ -1831,8 +1998,8 @@ def phase_eval_backbone(report):
                             "test", output_dir=tempfile.mkdtemp(prefix="poet_eval_bb_"))
     wall = time.perf_counter() - t0
     counts = [k.launches for k in kernels]
-    per_layer = cfg.model.enc_layers + cfg.model.dec_layers
-    expect = expected(fwd=per_layer * n_batches, roi=n_batches, nn=adi_launches(evaluator))
+    expect = expected(**path_launches(cfg, FLAGSHIP_S, n_batches), roi=n_batches,
+                      nn=adi_launches(evaluator))
     if counts != expect:
         raise AssertionError(f"eval backbone: launches {LAUNCH_NAMES} {counts}, "
                              f"expected {expect}")
@@ -1847,98 +2014,132 @@ def phase_eval_backbone(report):
     report["eval_backbone_launches"] = counts
 
 
+def merged_bound(v, locs, attn, do, grads, shapes):
+    """The merged adjoint's bound: its bytes against a dot and a scatter, 4
+    corners x D channels x 4 operations per point in the map."""
+    return bound(nbytes(v, locs, attn, do, *grads),
+                 16.0 * v.shape[-1] * deform_points_in_map(locs, shapes))
+
+
 def phase_merged(report):
-    """Phase 18: the merged adjoint kernel against the plain adjoint and
-    against the pair (d_value scatter + d_loc/d_attn gather), on phase 6's
-    geometries, f32 and bf16; NaN locations; times and the bound."""
+    """Phase 18: every route of the merged adjoint (the slab route with the
+    value slab staged and read from device memory, the atomic route) against
+    the plain adjoint, against each other (the two slab routes' d_loc and
+    d_attn the same bits) and against the pair (d_value scatter + d_loc/d_attn gather), on phase
+    6's geometries and the YOLO pyramid, f32 and bf16; NaN locations;
+    autograd through the entry; ms per route and the bound."""
     import torch
 
+    from poet_tpu_torch.ops import deform_attn_cuda as dac
     from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch_backward as plain_bwd
-    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_DLOC as KL
-    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_DVALUE as KV
-    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_MERGED as KM
-    from poet_tpu_torch.ops.deform_attn_cuda import ms_deform_attn
+    from poet_tpu_torch.tools.timing import graph_ms
 
+    KV, KL, KM, KMS = (dac.MS_DEFORM_ATTN_DVALUE, dac.MS_DEFORM_ATTN_DLOC,
+                       dac.MS_DEFORM_ATTN_MERGED, dac.MS_DEFORM_ATTN_MERGED_SLAB)
+    routes = {"atomic": KM,
+              "slab_staged": lambda *args: KMS(*args, stage=True),
+              "slab_unstaged": lambda *args: KMS(*args, stage=False)}
+    counted = {"atomic": KM, "slab_staged": KMS, "slab_unstaged": KMS}
     g = torch.Generator(device=DEVICE).manual_seed(5)
     worst = {"d_value": 0.0, "d_loc": 0.0, "d_attn": 0.0}
-    for name, B, Q, H, D, shapes, lo, hi, pad in ADJ_GEOMETRIES:
+    for name, B, Q, H, D, shapes, lo, hi, pad in ROUTE_GEOMETRIES:
         value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=lo, hi=hi, pad=pad)
         dout = torch.randn((B, Q, H * D), generator=g, device=DEVICE)
+        S, L, P = value.shape[1], len(shapes), locs.shape[4]
         S_lv = sum(h * w for h, w in shapes)
         mask = off_edges(locs, shapes)
-        line = f"merged-vs-plain {name}: B={B} Q={Q} H={H} D={D} levels={shapes} S={S_lv + pad}"
+        line = f"merged routes {name}: B={B} Q={Q} H={H} D={D} levels={shapes} S={S}"
+        t = {}
         for dt in (torch.float32, torch.bfloat16):
             bf16 = dt == torch.bfloat16
+            key = "bf16" if bf16 else "f32"
             v, do = value.to(dt), dout.to(dt)
+            args = (v, shapes, locs, attn, do)
+            plan = dac.plan_merged(S, D, dt, Q, L, P)
+            rule = "atomic" if plan.route == "atomic" else (
+                "slab_staged" if plan.stage else "slab_unstaged")
+            fits = {"atomic": True,
+                    "slab_staged": dac.merged_slab_bytes(S, D, dt, True) <= dac.SMEM_OPTIN_MAX,
+                    "slab_unstaged": dac.merged_slab_bytes(S, D, dt, False) <= dac.SMEM_OPTIN_MAX}
             ref = plain_bwd(v.float(), shapes, locs, attn, do.float())
-            got = KM(v, shapes, locs, attn, do)
-            pair = (KV(v, shapes, locs, attn, do),) + KL(v, shapes, locs, attn, do)
+            got = route_outputs(routes, fits, *args)
+            pair = (KV(*args),) + KL(*args)
             torch.cuda.synchronize()
-            errs = adjoint_checks(name, got, ref, value, locs, Q, S_lv, pad, mask, bf16)
+            if rule not in got:
+                raise AssertionError(f"{name} {key}: the rule picks {rule}, which refuses")
+            errs = {}
+            for r, gr in got.items():
+                errs[r] = adjoint_checks(f"{name} {r}", gr, ref, value, locs, Q, S_lv, pad, mask,
+                                         bf16)
+                if r != "atomic":
+                    adjoint_checks(f"{name} {r} vs atomic", gr,
+                                   [x.float() for x in got["atomic"]], value, locs, Q, S_lv,
+                                   pad, None, bf16, roundings=2)
+                if not bf16:
+                    worst = {k: max(worst[k], errs[r][k]) for k in worst}
+            # the two slab routes gather the same values in the same order
+            if len(got) == 3 and not all(torch.equal(got["slab_staged"][i],
+                                                     got["slab_unstaged"][i]) for i in (1, 2)):
+                raise AssertionError(f"{name} {key}: the slab routes' d_loc / d_attn differ")
             # against the pair: the same coordinates, sums in other orders
-            pair_errs = adjoint_checks(name + " vs the pair", got,
-                                       [t.float() for t in pair], value, locs, Q, S_lv, pad,
+            pair_errs = adjoint_checks(name + " vs the pair", got[rule],
+                                       [x.float() for x in pair], value, locs, Q, S_lv, pad,
                                        None, bf16, roundings=2)
-            if not bf16:
-                worst = {k: max(worst[k], errs[k]) for k in worst}
-            line += (f" | {'bf16' if bf16 else 'f32'} max_abs_err "
-                     + " ".join(f"{k} {e:.2e}" for k, e in errs.items())
-                     + " (vs the pair " + " ".join(f"{e:.2e}" for e in pair_errs.values())
-                     + ")")
-        if name in ("encoder", "decoder"):
-            t = {}
-            for dt in (torch.float32, torch.bfloat16):
-                v, do = value.to(dt), dout.to(dt)
-                args = (v, shapes, locs, attn, do)
-                t["bf16" if dt == torch.bfloat16 else "f32"] = {
-                    "merged": cuda_ms(lambda: KM(*args)),
-                    "pair": cuda_ms(lambda: (KV(*args), KL(*args))),
-                    "plain": cuda_ms(lambda: plain_bwd(*args), iters=5)}
-            line += "".join(f" | ms {dt}: " + ", ".join(f"{k} {x:.4f}" for k, x in ms.items())
-                            for dt, ms in t.items())
+            line += (f" | {key}: rule {rule}; max_abs_err "
+                     + "; ".join(f"{r} " + " ".join(f"{k} {e:.2e}" for k, e in es.items())
+                                 for r, es in errs.items())
+                     + " (rule vs the pair " + " ".join(f"{e:.2e}" for e in pair_errs.values())
+                     + ")" + "".join(f", {r} refused (over budget)" for r in routes
+                                     if r not in got))
+            if name in ROUTES_TIMED:
+                # each route's device time from graph replays (the atomic route's
+                # zeroed buffer and cast included); the pair's and the plain
+                # adjoint's per call launched from the host
+                ms = {r: graph_ms(lambda: routes[r](*args), counted=counted[r]) for r in got}
+                ms.update(pair=cuda_ms(lambda: (KV(*args), KL(*args))),
+                          plain=cuda_ms(lambda: plain_bwd(*args), iters=5))
+                ms["rule"] = rule
+                ms["bound"] = merged_bound(v, locs, attn, do, got[rule], shapes)
+                t[key] = ms
+                line += " | ms " + ", ".join(f"{r} {ms[r]:.4f}" for r in (*got, "pair", "plain"))
+        if t:
             report[f"merged_{name}"] = t
-            if name == "encoder":
-                v, do = value.bfloat16(), dout.bfloat16()
-                d_value, d_loc, d_attn = KM(v, shapes, locs, attn, do)
-                # dot and scatter: 4 corners x D channels x 4 operations per point
-                report["merged_bound"] = bound(
-                    nbytes(v, locs, attn, do, d_value, d_loc, d_attn),
-                    16.0 * D * deform_points_in_map(locs, shapes))
-                line += (f" | bound {report['merged_bound'][0]:.4f} ms "
-                         f"({report['merged_bound'][1]})")
         log(line)
 
-    # NaN locations: the point gets exactly 0 and adds nothing, as in the pair
+    # NaN locations: the point gets exactly 0 and adds nothing, on every route
     shapes = ((6, 9), (4, 5))
     value, locs, attn = deform_inputs(g, 2, 5, 2, 8, shapes)
     dout = torch.randn((2, 5, 16), generator=g, device=DEVICE)
     locs[:, 0, :, 0, 1, 0] = float("nan")
-    d_value, d_loc, d_attn = KM(value, shapes, locs, attn, dout)
-    if not (bool(torch.isfinite(d_value).all()) and bool((d_loc[:, 0, :, 0, 1] == 0).all())
-            and bool((d_attn[:, 0, :, 0, 1] == 0).all())):
-        raise AssertionError("a NaN location leaked into the merged adjoint")
-    # autograd through the entry with adjoint='merged'
+    for r, kernel in routes.items():
+        d_value, d_loc, d_attn = kernel(value, shapes, locs, attn, dout)
+        if not (bool(torch.isfinite(d_value).all()) and bool((d_loc[:, 0, :, 0, 1] == 0).all())
+                and bool((d_attn[:, 0, :, 0, 1] == 0).all())):
+            raise AssertionError(f"a NaN location leaked into the merged adjoint ({r})")
+    # autograd through the entry with adjoint='merged': the route the rule gives
     shapes = ((3, 4), (2, 2))
     v, l, a = deform_inputs(g, 1, 6, 2, 8, shapes)
     dout = torch.randn((1, 6, 16), generator=g, device=DEVICE)
     leaves = [t.clone().requires_grad_() for t in (v, l, a)]
-    n0 = KM.launches
-    ms_deform_attn(leaves[0], shapes, *leaves[1:], adjoint="merged").backward(dout)
-    if KM.launches != n0 + 1:
-        raise AssertionError("adjoint='merged' did not launch the merged kernel")
+    plan = dac.plan_merged(v.shape[1], 8, v.dtype, 6, 2, 4)
+    kernel = KMS if plan.route == "slab" else KM
+    n0 = (KM.launches, KMS.launches)
+    dac.ms_deform_attn(leaves[0], shapes, *leaves[1:], adjoint="merged").backward(dout)
+    if (KM.launches - n0[0], KMS.launches - n0[1]) != ((0, 1) if kernel is KMS else (1, 0)):
+        raise AssertionError(f"adjoint='merged' did not launch the {plan.route} route alone")
     want = plain_bwd(v, shapes, l, a, dout)
     for name, t, ref in zip(("d_value", "d_loc", "d_attn"), leaves, want):
         err = (t.grad - ref).abs().max().item()
         if not err <= ADJ_RTOL * max(ref.abs().max().item(), 1.0):
             raise AssertionError(f"autograd through the merged adjoint: {name} max err {err}")
     report["merged_max_abs_err"] = worst
-    log(f"merged adjoint: f32 max |kernel - plain| {worst} over {len(ADJ_GEOMETRIES)} "
-        f"geometries (tol {ADJ_RTOL} x max|ref|; bf16 d_value + 2^-8 |ref|); agrees with the "
-        f"pair; NaN point -> 0; the entry's adjoint='merged' launches it")
+    log(f"merged adjoint: f32 max |kernel - plain| {worst} over {len(ROUTE_GEOMETRIES)} "
+        f"geometries and every route that takes them (tol {ADJ_RTOL} x max|ref|; bf16 d_value "
+        f"+ 2^-8 |ref|); the two slab routes' d_loc / d_attn equal; agrees with "
+        f"the pair; NaN point -> 0 on every route; the entry's adjoint='merged' launches the "
+        f"{plan.route} route")
 
 
-# the YOLOv4-CSP full pyramid at 480x640 (strides 8/16/32 + one extra level)
-YOLO_LEVELS = ((60, 80), (30, 40), (15, 20), (8, 10))
 DENSE_GEOMETRIES = ADJ_GEOMETRIES + [
     ("yolo pyramid", 2, 6380, 16, 16, YOLO_LEVELS, 0.0, 1.0, 0),
 ]
@@ -2106,15 +2307,15 @@ def phase_dense(report):
 
 def phase_paths(report):
     """Phase 20: the train step with the dense kernels ('pallas') and with
-    the merged adjoint, gt serving with 'pallas', and one f32 train step of
-    each new configuration on the card against the CPU port."""
+    the pair adjoint (merged_adjoint=False), gt serving with 'pallas', and
+    one f32 train step of each of the two on the card against the CPU port."""
     phase_slice(report, impl="pallas")
     phase_train(report, "pallas")
-    phase_train(report, "merged")
+    phase_train(report, "pair")
     phase_train_f32("pallas")
-    phase_train_f32("merged")
+    phase_train_f32("pair")
     for key, ref in (("slice_pallas", "slice"), ("train_pallas", "train"),
-                     ("train_merged", "train")):
+                     ("train_pair", "train")):
         if ref not in report:                        # a partial run without phases 4, 7
             continue
         new, old = report[key], report[ref]
@@ -2446,17 +2647,20 @@ def main(argv) -> int:
         log(f"partial run (phases 1, 2 and {sorted(only)}): no kernel report")
         return 0
 
-    enc, adj = report["encoder"], report["adjoint_encoder"]["bf16"]
+    fwd_enc, fwd_dec = report["fwd_encoder"]["bf16"], report["fwd_decoder"]["bf16"]
+    fwd_yolo = report["fwd_yolo pyramid"]["bf16"]
+    adj = report["adjoint_encoder"]["bf16"]
+    m_enc, m_dec = report["merged_encoder"]["bf16"], report["merged_decoder"]["bf16"]
+    m_yolo = report["merged_yolo pyramid"]["bf16"]
     paths = {"serve": report["launches"], "train": report["train_launches"],
              "detect": report["detect"]["launches"], "yolo": report["yolo"]["launches"],
              "eval": report["eval_launches"], "eval_backbone": report["eval_backbone_launches"],
              "serve_pallas": report["launches_pallas"],
              "train_pallas": report["train_launches_pallas"],
-             "train_merged": report["train_launches_merged"]}
+             "train_pair": report["train_launches_pair"]}
     roi, nn = report["roi"], report["nn"]
     errs, bounds = report["adjoint_max_abs_err"], report["adjoint_bounds"]
     src, tpu = "poet_tpu_torch/csrc/", "poet_tpu/ops/deform_attn_pallas_v3.py:"
-    merged = report["merged_encoder"]["bf16"]
     dense_enc = report["dense_encoder"]
     dense = dense_enc["bf16"]
     dense_src = src + "ms_deform_attn_dense.cu"
@@ -2467,8 +2671,9 @@ def main(argv) -> int:
     gat = report["gather"]["4800-row table"]
     probes = {"v2": report["v2_launches"], **report["probe_launches"]}
 
-    def launched(i):
+    def launched(key):
         """A kernel's launches on each path, and their sum."""
+        i = KERNEL_KEYS.index(key)
         by = {name: counts[i] for name, counts in paths.items()}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
@@ -2484,25 +2689,29 @@ def main(argv) -> int:
     stem_total = {k: sum(t[k] for t in stem) for k in ("ms", "plain_ms", "library_ms", "f32_ms")}
     print(json.dumps({"kernels": [
         {"name": "ms_deform_attn_fwd", "route": "cuda", "source": src + "ms_deform_attn_fwd.cu",
-         "replaces": tpu + "221", **launched(0),
+         "replaces": tpu + "221", **launched("fwd"),
          "max_abs_err": report["max_abs_err"],
-         **timed(enc["ms"], enc["plain_ms"], enc["bound"])},
+         **timed(fwd_dec["direct"], fwd_dec["plain"], fwd_dec["bound"]),
+         "encoder_ms": fwd_enc["direct"],
+         "ms_are": "the direct route at its path's shape, the decoder (B=16, Q=10, S=1600, "
+                   "H=16, D=16, L=P=4), bf16; encoder_ms: the same route at the encoder "
+                   "shape, where the rule takes the slab route"},
         {"name": "ms_deform_attn_bwd_dvalue", "route": "cuda",
-         "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "434", **launched(1),
+         "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "434", **launched("d_value"),
          "max_abs_err": errs["d_value"],
          **timed(adj["dvalue"], adj["plain_dvalue"], bounds["dvalue"]),
          "plain_adjoint_ms": adj["plain"]},
         {"name": "ms_deform_attn_bwd_dloc", "route": "cuda",
-         "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "470", **launched(2),
+         "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "470", **launched("d_loc"),
          "max_abs_err": max(errs["d_loc"], errs["d_attn"]),
          **timed(adj["dloc"], adj["plain_dloc"], bounds["dloc"]),
          "plain_adjoint_ms": adj["plain"]},
         {"name": "roi_align_fwd", "route": "cuda", "source": src + "roi_align_fwd.cu",
-         "replaces": "poet_tpu/ops/roi_align_pallas.py:77", **launched(3),
+         "replaces": "poet_tpu/ops/roi_align_pallas.py:77", **launched("roi"),
          "max_abs_err": report["roi_max_abs_err"],
          **timed(roi["ms"], roi["plain_ms"], roi["bound"]), "wrapper_ms": roi["wrapper_ms"]},
         {"name": "conv_stem_fwd", "route": "cuda", "source": src + "conv_stem_fwd.cu",
-         "replaces": "poet_tpu/ops/conv_stem_pallas.py:66", **launched(4),
+         "replaces": "poet_tpu/ops/conv_stem_pallas.py:66", **launched("stem"),
          # f32 (TF32 off) over every phase-12 case; relative: to each case's max |plain|
          "max_abs_err": report["stem_max_err"][0], "max_rel_err": report["stem_max_err"][1],
          "ms": stem_total["ms"], "plain_ms": stem_total["plain_ms"],
@@ -2520,7 +2729,7 @@ def main(argv) -> int:
                        | {"bound_ms": t["bound"][0], "f32_bound_ms": t["f32_bound"][0]}
                        for name, t in zip(STEM_PATH, stem)}},
         {"name": "min_dist_sq_fwd", "route": "cuda", "source": src + "min_dist_sq_fwd.cu",
-         "replaces": "poet_tpu/ops/nn_pallas.py:35", **launched(5),
+         "replaces": "poet_tpu/ops/nn_pallas.py:35", **launched("nn"),
          # f32 over every phase-15 case; relative: to each case's max |gt|^2
          "max_abs_err": report["nn_max_err"][0], "max_rel_err": report["nn_max_err"][1],
          "ms": nn["ms"], "plain_ms": nn["plain_ms"], "bound_ms": nn["bound"][0],
@@ -2532,13 +2741,15 @@ def main(argv) -> int:
                        f"poses, TF32 off",
          "ms_are": "P=64, N=M=15000 (the BOP cloud size), f32"},
         {"name": "ms_deform_attn_bwd_merged", "route": "cuda",
-         "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "341", **launched(6),
+         "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "341", **launched("merged"),
          "max_abs_err": max(report["merged_max_abs_err"].values()),
-         **timed(merged["merged"], merged["plain"], report["merged_bound"]),
-         "pair_ms": merged["pair"],
-         "ms_are": "the encoder shape (B=16, Q=S=1600, H=16, D=16, L=P=4), bf16"},
+         **timed(m_yolo["atomic"], m_yolo["plain"], m_yolo["bound"]),
+         "encoder_ms": m_enc["atomic"], "pair_ms": m_enc["pair"],
+         "ms_are": "the atomic route at the one shape the rule sends it, the YOLO pyramid "
+                   "(B=16, Q=S=6380, H=16, D=16, L=P=4), bf16; encoder_ms, pair_ms: the "
+                   "encoder shape (B=16, Q=S=1600)"},
         {"name": "ms_deform_attn_dense_fwd", "route": "cuda", "source": dense_src,
-         "replaces": dense_tpu + "143", **launched(7),
+         "replaces": dense_tpu + "143", **launched("dense_fwd"),
          "max_abs_err": report["dense_max_abs_err"]["forward"],
          **timed(dense["dense_fwd"], dense["plain_fwd"], dense_enc["fwd_bounds"][0]),
          "kernel1_ms": dense["kernel1"], "f32_bound_ms": dense_enc["fwd_bounds"][1][0],
@@ -2546,7 +2757,7 @@ def main(argv) -> int:
                      "on the bf16 tensor cores; f32_bound_ms: the gather form's on the f32 pipes",
          "ms_are": "the encoder shape, bf16"},
         {"name": "ms_deform_attn_dense_bwd", "route": "cuda", "source": dense_src,
-         "replaces": dense_tpu + "225", **launched(8),
+         "replaces": dense_tpu + "225", **launched("dense_bwd"),
          "max_abs_err": max(v for k, v in report["dense_max_abs_err"].items()
                             if k != "forward"),
          **timed(dense["dense_bwd"], dense["plain_bwd"], dense_enc["bwd_bounds"][0]),
@@ -2556,7 +2767,7 @@ def main(argv) -> int:
                      "tensor cores; f32_bound_ms: the gather form's dot + scatter",
          "ms_are": "the encoder shape, bf16"},
         {"name": "ms_deform_attn_v2_fwd", "route": "cuda", "source": src + "ms_deform_attn_v2.cu",
-         "replaces": "poet_tpu/ops/deform_attn_pallas_v2.py:54", **launched(9),
+         "replaces": "poet_tpu/ops/deform_attn_pallas_v2.py:54", **launched("v2"),
          "phase_launches": probes["v2"], "max_abs_err": report["v2_max_abs_err"],
          **timed(v2["v2"], v2["plain"], v2_enc["bounds"][0]),
          "kernel1_ms": v2["kernel1"], "tpu_form_bound_ms": v2_enc["bounds"][1][0],
@@ -2567,7 +2778,7 @@ def main(argv) -> int:
                      "per point on the bf16 tensor cores, which this kernel does not do",
          "ms_are": "the encoder shape, bf16 (yolo_ms: the YOLO pyramid at B=2)"},
         {"name": "probe_kpad", "route": "cuda", "source": src + "probe_kpad.cu",
-         "replaces": "scripts/bench_kpad.py:33", **launched(10),
+         "replaces": "scripts/bench_kpad.py:33", **launched("kpad"),
          "phase_launches": probes["kpad"], "max_abs_err": kpad["max_abs_err"],
          "max_rel_err": kpad["max_rel_err"],
          "ms": kpad["sweep"][128]["ms"], "plain_ms": kpad["plain_ms"],
@@ -2580,7 +2791,7 @@ def main(argv) -> int:
                    f"max_rel_err relative to max |plain|; plain_ms: G plain chains"},
         {"name": "ms_deform_attn_fwd_variants", "route": "cuda",
          "source": src + "ms_deform_attn_fwd_variants.cu",
-         "replaces": "scripts/bench_v3_variants.py:44", **launched(11),
+         "replaces": "scripts/bench_v3_variants.py:44", **launched("variants"),
          "phase_launches": probes["variants"],
          # the exact variants against the plain version; each variant's own beside
          "max_abs_err": max(var[k]["max_abs_err"] for k in ("base", "unroll", "qt256", "treey")),
@@ -2591,7 +2802,7 @@ def main(argv) -> int:
          "variant_ms": {k: x["ms"] for k, x in var.items() if isinstance(x, dict)},
          "ms_are": "variant base at the encoder shape, bf16"},
         {"name": "take_along_axis", "route": "cuda", "source": src + "take_along_axis.cu",
-         "replaces": "scripts/test_dyn_gather.py:12", **launched(12),
+         "replaces": "scripts/test_dyn_gather.py:12", **launched("gather"),
          "phase_launches": probes["gather"], "max_abs_err": 0.0,
          "ms": gat["ms"], "plain_ms": gat["plain_ms"], "bound_ms": gat["bound"][0],
          "bound_by": gat["bound"][1], "library_ms": gat["library_ms"],
@@ -2600,6 +2811,27 @@ def main(argv) -> int:
          "library_host_ms": gat["library_host_ms"],
          "ms_are": "the 4800-row f32 case, (4800, 128) table and index; device time, "
                    "replayed from a CUDA graph (host_ms: per call launched from the host)"},
+        {"name": "ms_deform_attn_fwd_slab", "route": "cuda",
+         "source": src + "ms_deform_attn_fwd.cu", "replaces": tpu + "221",
+         **launched("fwd_slab"), "max_abs_err": report["max_abs_err"],
+         **timed(fwd_enc["slab"], fwd_enc["plain"], fwd_enc["bound"]),
+         "direct_ms": fwd_enc["direct"], "yolo_ms": fwd_yolo.get("slab"),
+         "yolo_direct_ms": fwd_yolo["direct"],
+         "crossover_ms": {q: [c["direct"], c["slab"]] for q, c in
+                          report["fwd_crossover"].items()},
+         "ms_are": "the encoder shape (B=16, Q=S=1600, H=16, D=16, L=P=4), bf16; direct_ms: "
+                   "the direct route there, same call; yolo: B=16, Q=S=6380; crossover_ms: "
+                   "[direct, slab] by Q at S=1600"},
+        {"name": "ms_deform_attn_bwd_merged_slab", "route": "cuda",
+         "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "341",
+         **launched("merged_slab"), "max_abs_err": max(report["merged_max_abs_err"].values()),
+         **timed(m_enc[m_enc["rule"]], m_enc["plain"], m_enc["bound"]),
+         "atomic_ms": m_enc["atomic"], "pair_ms": m_enc["pair"],
+         "unstaged_ms": m_enc.get("slab_unstaged"),
+         "decoder_ms": m_dec[m_dec["rule"]], "decoder_atomic_ms": m_dec["atomic"],
+         "ms_are": f"the encoder shape (B=16, Q=S=1600, H=16, D=16, L=P=4), bf16, the rule's "
+                   f"{m_enc['rule']}; atomic_ms: the atomic route there, same call; decoder: "
+                   f"Q=10, the rule's {m_dec['rule']}"},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

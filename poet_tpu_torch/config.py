@@ -114,7 +114,7 @@ class ModelConfig:
     enc_deform_impl: str = "auto"
     dec_deform_impl: str = "auto"
     # the gather route's backward: one merged kernel (True) or the d_value
-    # scatter + d_loc/d_attn gather pair (False). Merged: 3.84 against 4.34 ms
+    # scatter + d_loc/d_attn gather pair (False). Merged: 3.24 against 4.50 ms
     # of adjoint kernels per bf16 train step on an H100 (PERF.md, section 5)
     merged_adjoint: bool = True
 

@@ -1,83 +1,96 @@
 // Multi-scale deformable attention, adjoint — CUDA for Hopper (sm_90a).
 //
-// Three kernels, replacing the TPU's two adjoints in
+// Four kernels, replacing the TPU's two adjoints in
 // poet_tpu/ops/deform_attn_pallas_v3.py:
 //   * ms_deform_attn_dvalue_kernel  replaces _bwd_dval_kernel (d_value) and
 //   * ms_deform_attn_dloc_kernel    replaces _bwd_dloc_kernel (d_loc, d_attn),
 //     the two-kernel adjoint _bwd_twokernel_core;
-//   * ms_deform_attn_merged_kernel  replaces _bwd_kernel, the merged adjoint
+//   * ms_deform_attn_merged_slab_kernel (the SLAB route) and
+//   * ms_deform_attn_merged_kernel (the ATOMIC route, for slabs over the
+//     shared-memory budget) replace _bwd_kernel, the merged adjoint
 //     _v3_bwd_impl_merged (all three gradients in one pass).
 // Like the forward (ms_deform_attn_fwd.cu) they hold the contract of
 // poet_tpu/ops/deform_attn.py:ms_deform_attn_xla and its gradient, not the
 // TPU layouts (transposed locT/attnT, 128-query padding, one-hot mixes):
 //
-//   value  (B, S, H, D)        f32 or bf16            (d_loc kernel input)
+//   value  (B, S, H, D)        f32 or bf16
 //   loc    (B, Q, H, L, P, 2)  f32, normalized, (x, y)
 //   attn   (B, Q, H, L, P)     f32
 //   dout   (B, Q, H * D)       value dtype, read and converted to f32
-//   d_value (B, S, H, D)       f32, accumulated here; the caller zeroes it
-//                              and casts it to the value dtype
+//   d_value (B, S, H, D)       f32 from the scatter and the atomic route
+//                              (the caller zeroes it and casts it to the
+//                              value dtype); the value dtype from the slab
+//                              route, which writes every row
 //   d_loc  (B, Q, H, L, P, 2)  f32, w.r.t. the NORMALIZED locations
 //   d_attn (B, Q, H, L, P)     f32
 //
-// Sampling is the forward's: pixel = loc * size - 0.5, bilinear, zero
-// padding. A point whose 2x2 footprint misses the map (or is NaN, or sits at
-// the dummy -1 / -10 conventions) adds nothing to d_value and gets exactly 0
-// in d_loc and d_attn. floor() has zero derivative, as under autodiff.
+// Sampling is the forward's (csrc/ms_deform_attn_point.cuh): pixel = loc *
+// size - 0.5, bilinear, zero padding. A point whose 2x2 footprint misses the
+// map (or is NaN, or sits at the dummy -1 / -10 conventions) adds nothing to
+// d_value and gets exactly 0 in d_loc and d_attn. floor() has zero
+// derivative, as under autodiff. Trailing tokens past the levels get 0.
 //
-// d_value is a scatter. The TPU kernel carries the sum over its sequential
-// query grid in a VMEM accumulator; Hopper's blocks run in no order, so each
-// thread adds its corner contributions with atomics into an f32 buffer. At
-// the flagship encoder shape (B=16, Q=S=1600, H=16, D=16, L=P=4) that is
-// 6.55 M points x 4 corners x 16 channels = 419 M f32 adds per call into a
-// 26 MB buffer that stays in the 50 MB L2: the bound is atomic throughput,
-// not bytes. Hopper's 16-byte vector atomicAdd (float4, global memory) cuts
-// the atomic count 4x (measured 3.8x faster than scalar atomics there); it
-// takes every 4-channel slice, and D % 4 != 0 falls back to scalar atomics.
-// The order of the sum changes from run to run.
+// d_value is a scatter. The scatter kernel and the atomic route add each
+// corner's contribution into an f32 buffer in device memory with Hopper's
+// 16-byte vector atomicAdd (float4; scalar where D % 4 != 0). At the flagship
+// encoder shape (B=16, Q=S=1600, H=16, D=16, L=P=4) that is 6.55 M points x
+// 4 corners x 4 slices = 105 M vector atomics per call into a 26 MB buffer
+// resolved in the 50 MB L2: the bound is atomic throughput, not bytes.
 //
-// d_loc / d_attn is a gather, with the forward's four vector corner loads.
-// Per point, each thread forms four partial dot products e_c = sum_d dout_d *
-// v_c,d over its channels, the threads of one head reduce them with warp
+// The SLAB route does what the TPU kernel does with its VMEM scratch. The
+// TPU kernel's grid is (B, H // Hg, n_qt) and carries d_value of its (b,
+// head group) in an f32 accumulator across the sequential query axis,
+// writing it once. Here one block owns one (b, h) and walks all Q queries of
+// the pair in a loop (the sequential axis): d_value[b, :, h, :] lives in
+// shared memory as an f32 (S, D) slab (102 400 B at S = 1600, D = 16), is
+// zeroed by the block, filled with red.shared.add.f32 (no global atomic),
+// and written once to device memory in the value dtype with 16-byte stores:
+// an f32 sum rounded once, as before, with no zeroed f32 buffer and no cast
+// around the kernel. Where each staged token is read often enough (the
+// encoder: 4 L P Q / S = 64 corner reads per token), the value slab of the
+// pair is staged into shared memory too, by 16-byte cp.async issued before
+// the accumulator is zeroed (51 200 B bf16 / 102 400 B f32: 153 600 B or
+// 204 800 B in all, under the 232 448 B a block may opt into; one block per
+// SM, 256 blocks in two waves at the flagship shape); at decoder size (Q =
+// 10) value is read from the L2 directly. The route and the staging are the
+// wrapper's rule (ops/deform_attn_cuda.py:plan_merged), from the budget.
+//
+// d_loc / d_attn is a gather, with the forward's four corner loads. Per
+// point, each lane forms four partial dot products e_c = sum_d dout_d *
+// v_c,d over its channels, the lanes of one (b, q, h) reduce them with warp
 // shuffles, and the first of them writes
 //   d_attn = w00 e00 + w01 e01 + w10 e10 + w11 e11
 //   d_x    = a * W_l * [(1-ty)(e01 - e00) + ty (e11 - e10)]
 //   d_y    = a * H_l * [(1-tx)(e10 - e00) + tx (e11 - e01)]
 // (corner cy,cx: 00 = (y0,x0), 01 = (y0,x0+1), 10 = (y0+1,x0), 11 = both+1;
-// a corner outside the map counts as value 0). Nothing but the outputs is
-// written to device memory.
+// a corner outside the map counts as value 0).
 //
-// The merged kernel does both in one pass over the sampling points, with the
-// d_loc kernel's thread layout: per point it computes the pixel coordinates,
-// the corners and the bilinear weights once, gathers the four value corners
-// for e_c, and adds corner_weight * a * dout into the f32 d_value buffer with
-// the same float4 atomics. Value, dout and the coordinates are each read
-// once (the pair reads dout and the coordinates twice, and computes the
-// corner weights twice). Its d_value sum is unordered, like the scatter's.
+// The merged kernels (both routes) do both in one pass over the sampling
+// points, with the d_loc kernel's lane layout: per point the coordinates,
+// the corners and the bilinear weights once, the in-map value corners
+// gathered once for e_c, and corner_weight * a * dout added into d_value.
+// The two routes read the same value bits in the same order, so their d_loc
+// and d_attn are equal bit for bit; d_value's sum is unordered on both.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define POET_MAX_LEVELS 8
+#include "ms_deform_attn_point.cuh"
 
 namespace {
 
-struct Levels {
-  int h[POET_MAX_LEVELS];
-  int w[POET_MAX_LEVELS];
-  int start[POET_MAX_LEVELS];
-};
+using deform_point::Footprint;
+using deform_point::Levels;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int kMergedSlabThreads = 1024;
 
-// dst[0:VEC] = float(p[0:VEC]); one 16-byte load where VEC fills 16 bytes
+// dst[0:VEC] = float(p[0:VEC]); one vector load where VEC allows
 template <typename T, int VEC>
 struct Load {
   static __device__ __forceinline__ void f32(const T* p, float* dst) {
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) dst[j] = to_float(p[j]);
+    for (int j = 0; j < VEC; ++j) dst[j] = deform_point::to_float(p[j]);
   }
 };
 
@@ -103,6 +116,14 @@ struct Load<__nv_bfloat16, 8> {
       dst[2 * j] = f.x;
       dst[2 * j + 1] = f.y;
     }
+  }
+};
+
+template <>
+struct Load<float, 8> {
+  static __device__ __forceinline__ void f32(const float* p, float* dst) {
+    Load<float, 4>::f32(p, dst);
+    Load<float, 4>::f32(p + 4, dst + 4);
   }
 };
 
@@ -142,20 +163,26 @@ __device__ __forceinline__ void scatter(float* p, float w, const float* g) {
   }
 }
 
-// Pixel coordinates of one point. False when the 2x2 footprint misses the
-// map entirely (also for NaN); otherwise x0, y0 in [-1, size - 1].
-__device__ __forceinline__ bool point_coords(const float* loc2, int Hl, int Wl, int* x0,
-                                             int* y0, float* tx, float* ty) {
-  const float x = loc2[0] * (float)Wl - 0.5f;
-  const float y = loc2[1] * (float)Hl - 0.5f;
-  if (!(x > -1.f && x < (float)Wl && y > -1.f && y < (float)Hl)) return false;
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  *tx = x - x0f;
-  *ty = y - y0f;
-  *x0 = (int)x0f;
-  *y0 = (int)y0f;
-  return true;
+// g[0:VEC] rotated left by rot (0 <= rot < VEC, VEC a power of two):
+// gr[j] = g[(j + rot) % VEC], by a barrel of selects (no indexed registers)
+template <int VEC>
+__device__ __forceinline__ void rotate(const float* g, int rot, float* gr) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) gr[j] = g[j];
+#pragma unroll
+  for (int s = 1; s < VEC; s <<= 1) {
+    const bool on = (rot & s) != 0;
+    float t[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) t[j] = on ? gr[(j + s) & (VEC - 1)] : gr[j];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) gr[j] = t[j];
+  }
+}
+
+// the mask of the G-lane group (G a power of two <= 32) that holds `lane`
+__device__ __forceinline__ unsigned group_mask_of(int lane, int G) {
+  return (G == 32 ? 0xffffffffu : ((1u << G) - 1u)) << (lane & ~(G - 1));
 }
 
 // ---------------------------------------------------------------- d_value
@@ -168,7 +195,8 @@ template <typename T, int VEC>
 __global__ void __launch_bounds__(256)
 ms_deform_attn_dvalue_kernel(const float* __restrict__ loc, const float* __restrict__ attn,
                              const T* __restrict__ dout, float* __restrict__ dvalue, int S,
-                             int Q, int H, int D, int L, int P, Levels lv, int64_t n_items) {
+                             int Q, int H, int D, int L, int P, const __grid_constant__ Levels lv,
+                             int64_t n_items) {
   const int chunks = D / VEC;
   const int64_t row = (int64_t)H * D;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_items;
@@ -190,22 +218,11 @@ ms_deform_attn_dvalue_kernel(const float* __restrict__ loc, const float* __restr
       float* dv_l = dv_bh + (int64_t)lv.start[l] * row;
       for (int p = 0; p < P; ++p) {
         const int k = l * P + p;
-        int x0, y0;
-        float tx, ty;
-        if (!point_coords(loc_p + 2 * k, Hl, Wl, &x0, &y0, &tx, &ty)) continue;
-        const float a = att_p[k];
-        const float wy0 = (1.f - ty) * a;
-        const float wy1 = ty * a;
-        if (y0 >= 0) {
-          float* r = dv_l + (int64_t)y0 * Wl * row;
-          if (x0 >= 0) scatter<VEC>(r + (int64_t)x0 * row, (1.f - tx) * wy0, g);
-          if (x0 + 1 < Wl) scatter<VEC>(r + (int64_t)(x0 + 1) * row, tx * wy0, g);
-        }
-        if (y0 + 1 < Hl) {
-          float* r = dv_l + (int64_t)(y0 + 1) * Wl * row;
-          if (x0 >= 0) scatter<VEC>(r + (int64_t)x0 * row, (1.f - tx) * wy1, g);
-          if (x0 + 1 < Wl) scatter<VEC>(r + (int64_t)(x0 + 1) * row, tx * wy1, g);
-        }
+        Footprint f;
+        if (!deform_point::footprint(loc_p[2 * k], loc_p[2 * k + 1], Hl, Wl, &f)) continue;
+        deform_point::for_each_corner(f, Wl, att_p[k], [&](int, int t, float w) {
+          scatter<VEC>(dv_l + (int64_t)t * row, w, g);
+        });
       }
     }
   }
@@ -221,12 +238,11 @@ __global__ void __launch_bounds__(256)
 ms_deform_attn_dloc_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                            const float* __restrict__ attn, const T* __restrict__ dout,
                            float* __restrict__ dloc, float* __restrict__ dattn, int S, int Q,
-                           int H, int D, int L, int P, int G, Levels lv, int64_t n_items) {
+                           int H, int D, int L, int P, int G, const __grid_constant__ Levels lv,
+                           int64_t n_items) {
   const int chunks = D / VEC;
   const int64_t row = (int64_t)H * D;
-  const int lane = threadIdx.x & 31;
-  const unsigned group_mask =
-      (G == 32 ? 0xffffffffu : ((1u << G) - 1u)) << (lane & ~(G - 1));
+  const unsigned group_mask = group_mask_of(threadIdx.x & 31, G);
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_items;
        i += (int64_t)gridDim.x * blockDim.x) {
     const int r = (int)(i % G);
@@ -244,9 +260,8 @@ ms_deform_attn_dloc_kernel(const T* __restrict__ value, const float* __restrict_
       const T* v_l = v_bh + (int64_t)lv.start[l] * row;
       for (int p = 0; p < P; ++p) {
         const int k = l * P + p;
-        int x0, y0;
-        float tx, ty;
-        if (!point_coords(loc_p + 2 * k, Hl, Wl, &x0, &y0, &tx, &ty)) {
+        Footprint f;
+        if (!deform_point::footprint(loc_p[2 * k], loc_p[2 * k + 1], Hl, Wl, &f)) {
           if (r == 0) {
             dattn[bqh * L * P + k] = 0.f;
             dloc[(bqh * L * P + k) * 2] = 0.f;
@@ -254,50 +269,24 @@ ms_deform_attn_dloc_kernel(const T* __restrict__ value, const float* __restrict_
           }
           continue;
         }
-        const bool in_y0 = y0 >= 0, in_y1 = y0 + 1 < Hl;
-        const bool in_x0 = x0 >= 0, in_x1 = x0 + 1 < Wl;
-        const T* r0 = v_l + (int64_t)y0 * Wl * row;
-        const T* r1 = v_l + (int64_t)(y0 + 1) * Wl * row;
-        float e00 = 0.f, e01 = 0.f, e10 = 0.f, e11 = 0.f;
+        float e[4] = {0.f, 0.f, 0.f, 0.f};
         for (int c = r; c < chunks; c += G) {
-          float g[VEC], v[VEC];
+          float g[VEC];
           Load<T, VEC>::f32(do_p + c * VEC, g);
-          const int64_t off = c * VEC;
-          if (in_y0 && in_x0) {
-            Load<T, VEC>::f32(r0 + (int64_t)x0 * row + off, v);
+          deform_point::for_each_corner(f, Wl, 1.f, [&](int cc, int t, float) {
+            float v[VEC];
+            Load<T, VEC>::f32(v_l + (int64_t)t * row + c * VEC, v);
 #pragma unroll
-            for (int j = 0; j < VEC; ++j) e00 += g[j] * v[j];
-          }
-          if (in_y0 && in_x1) {
-            Load<T, VEC>::f32(r0 + (int64_t)(x0 + 1) * row + off, v);
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) e01 += g[j] * v[j];
-          }
-          if (in_y1 && in_x0) {
-            Load<T, VEC>::f32(r1 + (int64_t)x0 * row + off, v);
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) e10 += g[j] * v[j];
-          }
-          if (in_y1 && in_x1) {
-            Load<T, VEC>::f32(r1 + (int64_t)(x0 + 1) * row + off, v);
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) e11 += g[j] * v[j];
-          }
+            for (int j = 0; j < VEC; ++j) e[cc] += g[j] * v[j];
+          });
         }
         for (int s = G >> 1; s > 0; s >>= 1) {
-          e00 += __shfl_xor_sync(group_mask, e00, s);
-          e01 += __shfl_xor_sync(group_mask, e01, s);
-          e10 += __shfl_xor_sync(group_mask, e10, s);
-          e11 += __shfl_xor_sync(group_mask, e11, s);
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) e[cc] += __shfl_xor_sync(group_mask, e[cc], s);
         }
         if (r == 0) {
-          const float a = att_p[k];
-          dattn[bqh * L * P + k] = (1.f - ty) * ((1.f - tx) * e00 + tx * e01) +
-                                   ty * ((1.f - tx) * e10 + tx * e11);
-          dloc[(bqh * L * P + k) * 2] =
-              a * (float)Wl * ((1.f - ty) * (e01 - e00) + ty * (e11 - e10));
-          dloc[(bqh * L * P + k) * 2 + 1] =
-              a * (float)Hl * ((1.f - tx) * (e10 - e00) + tx * (e11 - e01));
+          float* dl = dloc + (bqh * L * P + k) * 2;
+          deform_point::point_grads(f, att_p[k], Hl, Wl, e, dattn + bqh * L * P + k, dl, dl + 1);
         }
       }
     }
@@ -305,105 +294,172 @@ ms_deform_attn_dloc_kernel(const T* __restrict__ value, const float* __restrict_
 }
 
 // ------------------------------------------------ merged: all three at once
-// The d_loc kernel's layout (G lanes per (b, q, h), lane r takes the channel
-// slices r, r + G, ...), with VEC = 4 channels per slice for both dtypes: a
-// 16-byte slice of the f32 d_value buffer, one float4 atomic per corner (as
-// the scatter). Per point and slice the lane loads dout and the in-map value
-// corners once, adds w_c * a * dout into d_value and dout . v_c into e_c.
+// One sampling point k = l * P + p of one (b, q, h) (loc_p, att_p, dloc_p,
+// dattn_p at the query's first point), lane r of its G-lane group (the
+// d_loc kernel's layout; VEC channels per slice). Per slice the lane loads
+// dout and the in-map value corners once (v: token 0's channels, tokens
+// `vstride` elements apart), adds dout . v_c into e_c and hands
+// corner_weight * a * dout, its channels rotated left by `rot` (see
+// slab_add), to add(token, channel offset, weight, rotated dout); the
+// group's first lane writes d_attn and d_loc (exactly 0 for a point off the
+// map).
+template <typename T, int VEC, typename Add>
+__device__ __forceinline__ void merged_point(const T* v, int64_t vstride, const T* do_p,
+                                             const float* loc_p, const float* att_p,
+                                             float* dloc_p, float* dattn_p, int k, int Hl,
+                                             int Wl, int lvl, int chunks, int r, int G,
+                                             unsigned group_mask, int rot, Add&& add) {
+  Footprint f;
+  if (!deform_point::footprint(loc_p[2 * k], loc_p[2 * k + 1], Hl, Wl, &f)) {
+    if (r == 0) {
+      dattn_p[k] = 0.f;
+      dloc_p[2 * k] = 0.f;
+      dloc_p[2 * k + 1] = 0.f;
+    }
+    return;
+  }
+  const float a = att_p[k];
+  float e[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int c = r; c < chunks; c += G) {
+    const int off = c * VEC;
+    float g[VEC], gr[VEC];
+    Load<T, VEC>::f32(do_p + off, g);
+    rotate<VEC>(g, rot, gr);
+    deform_point::for_each_corner(f, Wl, a, [&](int cc, int t, float w) {
+      const int64_t tok = lvl + t;
+      float vv[VEC];
+      Load<T, VEC>::f32(v + tok * vstride + off, vv);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) e[cc] += g[j] * vv[j];
+      add(tok, off, w, gr);
+    });
+  }
+  for (int s = G >> 1; s > 0; s >>= 1) {
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) e[cc] += __shfl_xor_sync(group_mask, e[cc], s);
+  }
+  if (r == 0) deform_point::point_grads(f, a, Hl, Wl, e, dattn_p + k, dloc_p + 2 * k,
+                                        dloc_p + 2 * k + 1);
+}
+
+// ATOMIC route: G lanes per (b, q, h) over the whole grid, d_value added
+// into the caller's zeroed f32 buffer with float4 atomics (the scatter's).
 template <typename T, int VEC>
 __global__ void __launch_bounds__(256)
 ms_deform_attn_merged_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                              const float* __restrict__ attn, const T* __restrict__ dout,
                              float* __restrict__ dvalue, float* __restrict__ dloc,
                              float* __restrict__ dattn, int S, int Q, int H, int D, int L,
-                             int P, int G, Levels lv, int64_t n_items) {
+                             int P, int G, const __grid_constant__ Levels lv, int64_t n_items) {
   const int chunks = D / VEC;
   const int64_t row = (int64_t)H * D;
-  const int lane = threadIdx.x & 31;
-  const unsigned group_mask =
-      (G == 32 ? 0xffffffffu : ((1u << G) - 1u)) << (lane & ~(G - 1));
+  const unsigned group_mask = group_mask_of(threadIdx.x & 31, G);
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_items;
        i += (int64_t)gridDim.x * blockDim.x) {
     const int r = (int)(i % G);
     const int64_t bqh = i / G;
     const int h = (int)(bqh % H);
     const int64_t b = bqh / ((int64_t)Q * H);
-    const float* loc_p = loc + bqh * L * P * 2;
-    const float* att_p = attn + bqh * L * P;
     const T* v_bh = value + b * S * row + (int64_t)h * D;
     float* dv_bh = dvalue + b * S * row + (int64_t)h * D;
-    const T* do_p = dout + bqh * D;
-
     for (int l = 0; l < L; ++l) {
-      const int Hl = lv.h[l];
-      const int Wl = lv.w[l];
-      const int64_t lvl = (int64_t)lv.start[l] * row;
       for (int p = 0; p < P; ++p) {
-        const int k = l * P + p;
-        int x0, y0;
-        float tx, ty;
-        if (!point_coords(loc_p + 2 * k, Hl, Wl, &x0, &y0, &tx, &ty)) {
-          if (r == 0) {
-            dattn[bqh * L * P + k] = 0.f;
-            dloc[(bqh * L * P + k) * 2] = 0.f;
-            dloc[(bqh * L * P + k) * 2 + 1] = 0.f;
-          }
-          continue;
-        }
-        const float a = att_p[k];
-        const float wy0 = (1.f - ty) * a;
-        const float wy1 = ty * a;
-        const bool in_y0 = y0 >= 0, in_y1 = y0 + 1 < Hl;
-        const bool in_x0 = x0 >= 0, in_x1 = x0 + 1 < Wl;
-        const int64_t o00 = lvl + ((int64_t)y0 * Wl + x0) * row;  // corner (y0, x0)
-        const int64_t o01 = o00 + row;
-        const int64_t o10 = o00 + (int64_t)Wl * row;
-        const int64_t o11 = o10 + row;
-        float e00 = 0.f, e01 = 0.f, e10 = 0.f, e11 = 0.f;
-        for (int c = r; c < chunks; c += G) {
-          const int64_t off = c * VEC;
-          float g[VEC], v[VEC];
-          Load<T, VEC>::f32(do_p + off, g);
-          if (in_y0 && in_x0) {
-            Load<T, VEC>::f32(v_bh + o00 + off, v);
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) e00 += g[j] * v[j];
-            scatter<VEC>(dv_bh + o00 + off, (1.f - tx) * wy0, g);
-          }
-          if (in_y0 && in_x1) {
-            Load<T, VEC>::f32(v_bh + o01 + off, v);
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) e01 += g[j] * v[j];
-            scatter<VEC>(dv_bh + o01 + off, tx * wy0, g);
-          }
-          if (in_y1 && in_x0) {
-            Load<T, VEC>::f32(v_bh + o10 + off, v);
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) e10 += g[j] * v[j];
-            scatter<VEC>(dv_bh + o10 + off, (1.f - tx) * wy1, g);
-          }
-          if (in_y1 && in_x1) {
-            Load<T, VEC>::f32(v_bh + o11 + off, v);
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) e11 += g[j] * v[j];
-            scatter<VEC>(dv_bh + o11 + off, tx * wy1, g);
-          }
-        }
-        for (int s = G >> 1; s > 0; s >>= 1) {
-          e00 += __shfl_xor_sync(group_mask, e00, s);
-          e01 += __shfl_xor_sync(group_mask, e01, s);
-          e10 += __shfl_xor_sync(group_mask, e10, s);
-          e11 += __shfl_xor_sync(group_mask, e11, s);
-        }
-        if (r == 0) {
-          dattn[bqh * L * P + k] = (1.f - ty) * ((1.f - tx) * e00 + tx * e01) +
-                                   ty * ((1.f - tx) * e10 + tx * e11);
-          dloc[(bqh * L * P + k) * 2] =
-              a * (float)Wl * ((1.f - ty) * (e01 - e00) + ty * (e11 - e10));
-          dloc[(bqh * L * P + k) * 2 + 1] =
-              a * (float)Hl * ((1.f - tx) * (e10 - e00) + tx * (e11 - e01));
-        }
+        merged_point<T, VEC>(v_bh, row, dout + bqh * D, loc + bqh * L * P * 2,
+                             attn + bqh * L * P, dloc + bqh * L * P * 2, dattn + bqh * L * P,
+                             l * P + p, lv.h[l], lv.w[l], lv.start[l], chunks, r, G, group_mask,
+                             0, [&](int64_t tok, int off, float w, const float* g) {
+                               scatter<VEC>(dv_bh + tok * row + off, w, g);
+                             });
       }
+    }
+  }
+}
+
+// The slab route's d_value add: p[0:VEC] += w * g[0:VEC] into the f32 slab
+// in shared memory, one f32 atomicAdd per channel (sm_90 has no shared f32
+// add instruction: each compiles to a compare-and-swap loop). gr is dout
+// rotated left by `rot`, and channel (j + rot) % VEC is added at step j: a
+// warp's lanes at step j then hit different channels, and banks. Without
+// the rotation the G-lane groups of a warp all add channel j of their
+// tokens at once, and a D=16 f32 token spans 16 of the 32 banks, so the 32
+// lanes meet on 2 G of them (at G = 2, 8 or more lanes to the busiest
+// bank); with rot = the group's index in the warp mod VEC, two lanes at
+// most share a bank (tests/test_torch_deform_attn_slab.py).
+template <int VEC>
+__device__ __forceinline__ void slab_add(float* p, float w, const float* gr, int rot) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) atomicAdd(p + ((j + rot) & (VEC - 1)), w * gr[j]);
+}
+
+// SLAB route: one block per (b, h) (blockIdx.x = b * H + h), its G-lane
+// groups walking the pair's Q x L x P sampling points, point after point of
+// one query, then the next query (a point per group at a time: at decoder
+// size, Q = 10, the 160 points keep 320 lanes busy, where a group per query
+// walked its 16 points one after another). VEC = 8 channels per lane where
+// D allows (G = 2 at D = 16: half the lanes per point, so half the
+// coordinate math and shuffles, of VEC = 4).
+// Shared memory: the f32 d_value slab (S * D floats), then, with STAGE, the
+// value slab (S * D values) at the next 16-byte boundary.
+template <typename T, int VEC, bool STAGE>
+__global__ void __launch_bounds__(kMergedSlabThreads)
+ms_deform_attn_merged_slab_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                                  const float* __restrict__ attn, const T* __restrict__ dout,
+                                  T* __restrict__ dvalue, float* __restrict__ dloc,
+                                  float* __restrict__ dattn, int S, int Q, int H, int D, int L,
+                                  int P, int G, const __grid_constant__ Levels lv, bool async16,
+                                  bool store16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* acc = reinterpret_cast<float*>(smem);
+  const int h = (int)(blockIdx.x % H);
+  const int64_t b = blockIdx.x / H;
+  const int64_t row = (int64_t)H * D;
+  const T* v_bh = value + b * S * row + (int64_t)h * D;
+  const int n = S * D;
+  T* slab = reinterpret_cast<T*>(smem + (((size_t)n * sizeof(float) + 15) & ~(size_t)15));
+  if (STAGE) deform_point::stage_slab<T>(v_bh, slab, S, D, row, async16);  // lands while
+  for (int i = threadIdx.x; i < n / 4; i += blockDim.x)                   // acc is zeroed
+    reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = (n / 4) * 4 + threadIdx.x; i < n; i += blockDim.x) acc[i] = 0.f;
+  if (STAGE && async16) mma_sm90::cp_async_wait_all();
+  __syncthreads();
+
+  const int chunks = D / VEC;
+  const int r = threadIdx.x % G;
+  const unsigned group_mask = group_mask_of(threadIdx.x & 31, G);
+  const int rot = ((threadIdx.x & 31) / G) & (VEC - 1);
+  const int LP = L * P;
+  for (int it = threadIdx.x / G; it < Q * LP; it += blockDim.x / G) {
+    const int q = it / LP;
+    const int k = it - q * LP;
+    const int l = k / P;
+    const int64_t bqh = (b * Q + q) * H + h;
+    merged_point<T, VEC>(STAGE ? slab : v_bh, STAGE ? (int64_t)D : row, dout + bqh * D,
+                         loc + bqh * LP * 2, attn + bqh * LP, dloc + bqh * LP * 2,
+                         dattn + bqh * LP, k, lv.h[l], lv.w[l], lv.start[l], chunks, r, G,
+                         group_mask, rot, [&](int64_t tok, int off, float w, const float* gr) {
+                           slab_add<VEC>(acc + tok * D + off, w, gr, rot);
+                         });
+  }
+  __syncthreads();
+
+  // d_value[b, :, h, :] once, in T: every row, the trailing pad tokens' 0 too
+  T* dv_bh = dvalue + b * S * row + (int64_t)h * D;
+  if (store16) {  // D * sizeof(T) a multiple of 16: 16 bytes (E values) per store
+    constexpr int E = 16 / sizeof(T);
+    const int per = D / E;
+    for (int i = threadIdx.x; i < S * per; i += blockDim.x) {
+      const int t = i / per;
+      const float* a = acc + (int64_t)i * E;
+      __align__(16) T vals[E];
+#pragma unroll
+      for (int j = 0; j < E; ++j) vals[j] = deform_point::from_float<T>(a[j]);
+      *reinterpret_cast<uint4*>(dv_bh + (int64_t)t * row + (i - t * per) * E) =
+          *reinterpret_cast<const uint4*>(vals);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int t = i / D;
+      dv_bh[(int64_t)t * row + (i - t * D)] = deform_point::from_float<T>(acc[i]);
     }
   }
 }
@@ -411,6 +467,13 @@ ms_deform_attn_merged_kernel(const T* __restrict__ value, const float* __restric
 int64_t grid_for(int64_t n_items, int threads) {
   int64_t blocks = (n_items + threads - 1) / threads;
   return blocks > ((int64_t)1 << 20) ? ((int64_t)1 << 20) : blocks;  // grid-stride beyond
+}
+
+// lanes per (b, q, h): the power of two >= D / VEC, at most 32
+int group_lanes(int chunks) {
+  int G = 1;
+  while (G < chunks && G < 32) G <<= 1;
+  return G;
 }
 
 template <typename T, int VEC>
@@ -427,9 +490,7 @@ template <typename T, int VEC>
 void launch_dloc(const void* value, const float* loc, const float* attn, const void* dout,
                  float* dloc, float* dattn, int B, int S, int Q, int H, int D, int L, int P,
                  const Levels& lv, cudaStream_t stream) {
-  const int chunks = D / VEC;
-  int G = 1;
-  while (G < chunks && G < 32) G <<= 1;
+  const int G = group_lanes(D / VEC);
   const int64_t n_items = (int64_t)B * Q * H * G;
   if (n_items == 0) return;
   ms_deform_attn_dloc_kernel<T, VEC><<<(unsigned)grid_for(n_items, 256), 256, 0, stream>>>(
@@ -441,9 +502,7 @@ template <typename T, int VEC>
 void launch_merged(const void* value, const float* loc, const float* attn, const void* dout,
                    float* dvalue, float* dloc, float* dattn, int B, int S, int Q, int H, int D,
                    int L, int P, const Levels& lv, cudaStream_t stream) {
-  const int chunks = D / VEC;
-  int G = 1;
-  while (G < chunks && G < 32) G <<= 1;
+  const int G = group_lanes(D / VEC);
   const int64_t n_items = (int64_t)B * Q * H * G;
   if (n_items == 0) return;
   ms_deform_attn_merged_kernel<T, VEC><<<(unsigned)grid_for(n_items, 256), 256, 0, stream>>>(
@@ -451,18 +510,31 @@ void launch_merged(const void* value, const float* loc, const float* attn, const
       dattn, S, Q, H, D, L, P, G, lv, n_items);
 }
 
-// level table from host (H_l, W_l) pairs; 0 or a negative argument code
-int make_levels(const int* level_hw, int L, int S, Levels* lv) {
-  if (L < 1 || L > POET_MAX_LEVELS) return -1;
-  int start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv->h[l] = level_hw[2 * l];
-    lv->w[l] = level_hw[2 * l + 1];
-    if (lv->h[l] < 1 || lv->w[l] < 1) return -3;
-    lv->start[l] = start;
-    start += lv->h[l] * lv->w[l];
-  }
-  return start > S ? -4 : 0;
+// the slab route's shared memory: the f32 accumulator, then (stage) the
+// value slab at the next 16-byte boundary
+size_t merged_slab_bytes(int S, int D, size_t value_size, bool stage) {
+  const size_t acc = ((size_t)S * D * sizeof(float) + 15) & ~(size_t)15;
+  return stage ? acc + (size_t)S * D * value_size : (size_t)S * D * sizeof(float);
+}
+
+template <typename T, int VEC, bool STAGE>
+int launch_merged_slab(const void* value, const float* loc, const float* attn, const void* dout,
+                       void* dvalue, float* dloc, float* dattn, int B, int S, int Q, int H,
+                       int D, int L, int P, const Levels& lv, cudaStream_t stream) {
+  if ((int64_t)B * H == 0) return 0;
+  const size_t smem = merged_slab_bytes(S, D, sizeof(T), STAGE);
+  auto kernel = ms_deform_attn_merged_slab_kernel<T, VEC, STAGE>;
+  static size_t granted[deform_point::kMaxDevices];  // per instantiation
+  const int rc = deform_point::grant_smem(kernel, smem, granted);
+  if (rc != 0) return rc;
+  const bool size16 = (D * sizeof(T)) % 16 == 0;
+  const bool async16 = size16 && reinterpret_cast<uintptr_t>(value) % 16 == 0;
+  const bool store16 = size16 && reinterpret_cast<uintptr_t>(dvalue) % 16 == 0;
+  kernel<<<(unsigned)(B * H), kMergedSlabThreads, smem, stream>>>(
+      static_cast<const T*>(value), loc, attn, static_cast<const T*>(dout),
+      static_cast<T*>(dvalue), dloc, dattn, S, Q, H, D, L, P, group_lanes(D / VEC), lv, async16,
+      store16);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -473,17 +545,16 @@ extern "C" {
 // not take, or the cudaError_t of the launch (cudaGetLastError) otherwise.
 //   dtype: 0 = float32, 1 = bfloat16 (of value and dout)
 //   level_hw: host array of 2*L ints, (H_l, W_l) per level
-//   vec: channels per thread, 1 or 4 for d_value and the merged kernel (a
-//        16-byte f32 slice of the accumulator, one float4 atomic per corner,
-//        for either dtype); 1 or the 16-byte width of the value (4 f32, 8
-//        bf16) for d_loc
+//   vec: channels per thread, 1 or 4 for d_value and the merged kernels (a
+//        16-byte f32 slice of the accumulator, for either dtype); 1 or the
+//        16-byte width of the value (4 f32, 8 bf16) for d_loc
 
 // d_value += adjoint of the sampling (d_value zeroed by the caller, f32).
 int poet_ms_deform_attn_bwd_dvalue(const void* loc, const void* attn, const void* dout,
                                    void* dvalue, int dtype, int B, int S, int Q, int H, int D,
                                    int L, int P, const int* level_hw, int vec, void* stream) {
   Levels lv;
-  const int rc = make_levels(level_hw, L, S, &lv);
+  const int rc = deform_point::make_levels(level_hw, L, S, &lv);
   if (rc != 0) return rc;
   if (vec < 1 || D % vec != 0) return -2;
   const float* locf = static_cast<const float*>(loc);
@@ -510,7 +581,7 @@ int poet_ms_deform_attn_bwd_dloc(const void* value, const void* loc, const void*
                                  int S, int Q, int H, int D, int L, int P, const int* level_hw,
                                  int vec, void* stream) {
   Levels lv;
-  const int rc = make_levels(level_hw, L, S, &lv);
+  const int rc = deform_point::make_levels(level_hw, L, S, &lv);
   if (rc != 0) return rc;
   if (vec < 1 || D % vec != 0) return -2;
   const float* locf = static_cast<const float*>(loc);
@@ -532,14 +603,14 @@ int poet_ms_deform_attn_bwd_dloc(const void* value, const void* loc, const void*
   return (int)cudaGetLastError();
 }
 
-// The merged adjoint: d_value += (zeroed by the caller, f32), and every
-// element of d_loc and d_attn written. vec: 1 or 4 channels per slice.
+// The merged adjoint's atomic route: d_value += (zeroed by the caller, f32),
+// and every element of d_loc and d_attn written. vec: 1 or 4.
 int poet_ms_deform_attn_bwd_merged(const void* value, const void* loc, const void* attn,
                                    const void* dout, void* dvalue, void* dloc, void* dattn,
                                    int dtype, int B, int S, int Q, int H, int D, int L, int P,
                                    const int* level_hw, int vec, void* stream) {
   Levels lv;
-  const int rc = make_levels(level_hw, L, S, &lv);
+  const int rc = deform_point::make_levels(level_hw, L, S, &lv);
   if (rc != 0) return rc;
   if (vec < 1 || D % vec != 0) return -2;
   const float* locf = static_cast<const float*>(loc);
@@ -562,6 +633,46 @@ int poet_ms_deform_attn_bwd_merged(const void* value, const void* loc, const voi
     return -5;
   }
   return (int)cudaGetLastError();
+}
+
+// The merged adjoint's slab route: every element of d_value (in the value
+// dtype, rows past the levels 0), d_loc and d_attn written. vec: 1, 4 or 8;
+// stage: 1 to stage the value slab in shared memory, 0 to read it from
+// device memory. -7 when the slab exceeds the device's opt-in limit.
+int poet_ms_deform_attn_bwd_merged_slab(const void* value, const void* loc, const void* attn,
+                                        const void* dout, void* dvalue, void* dloc, void* dattn,
+                                        int dtype, int B, int S, int Q, int H, int D, int L,
+                                        int P, const int* level_hw, int vec, int stage,
+                                        void* stream) {
+  Levels lv;
+  const int rc = deform_point::make_levels(level_hw, L, S, &lv);
+  if (rc != 0) return rc;
+  if (vec < 1 || D % vec != 0) return -2;
+  const float* locf = static_cast<const float*>(loc);
+  const float* attf = static_cast<const float*>(attn);
+  float* dl = static_cast<float*>(dloc);
+  float* da = static_cast<float*>(dattn);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define POET_MERGED_SLAB(T, V)                                                                \
+  return stage ? launch_merged_slab<T, V, true>(value, locf, attf, dout, dvalue, dl, da, B, S, \
+                                                Q, H, D, L, P, lv, s)                          \
+               : launch_merged_slab<T, V, false>(value, locf, attf, dout, dvalue, dl, da, B,  \
+                                                 S, Q, H, D, L, P, lv, s)
+  if (dtype == 0 && vec == 8) {
+    POET_MERGED_SLAB(float, 8);
+  } else if (dtype == 0 && vec == 4) {
+    POET_MERGED_SLAB(float, 4);
+  } else if (dtype == 0 && vec == 1) {
+    POET_MERGED_SLAB(float, 1);
+  } else if (dtype == 1 && vec == 8) {
+    POET_MERGED_SLAB(__nv_bfloat16, 8);
+  } else if (dtype == 1 && vec == 4) {
+    POET_MERGED_SLAB(__nv_bfloat16, 4);
+  } else if (dtype == 1 && vec == 1) {
+    POET_MERGED_SLAB(__nv_bfloat16, 1);
+  }
+#undef POET_MERGED_SLAB
+  return -5;
 }
 
 const char* poet_cuda_error_string(int code) {

@@ -14,7 +14,8 @@
 //   attn   (B, Q, H, L, P)     f32, already softmaxed over (L, P)
 //   out    (B, Q, H * D)       value dtype, accumulated in f32
 //
-// Sampling: pixel = loc * size - 0.5 (grid_sample, align_corners=False),
+// Sampling (csrc/ms_deform_attn_point.cuh, shared with the adjoints and the
+// variants): pixel = loc * size - 0.5 (grid_sample, align_corners=False),
 // bilinear, zero padding outside the map. Each corner is bounds-checked on
 // its own, and a point whose whole 2x2 footprint lies outside the map
 // (including NaN coordinates and the dummy-query convention that puts
@@ -23,52 +24,52 @@
 // What bounds it: gather bytes. Per (b, q, h, l, p) the kernel reads 4
 // corners x D values; at the flagship encoder shape (B=16, Q=S=1600,
 // H=16, D=16, L=P=4) that is 16*1600*16*16*4*16*2 B = 0.84 GB of bf16
-// corner reads per call against 13 MB of value (it lives in the 50 MB L2),
-// so the traffic is L2 -> SM, not HBM. What the design does about it:
-//   * one thread owns a 16-byte slice of one head's D channels (8 bf16 or
-//     4 f32), so every corner read is one 16-byte vector load and the two
-//     threads of a D=16 bf16 head together read one full 32-byte sector;
-//   * the coordinate math and the attention weight are computed once per
-//     (thread, point) in registers and folded into the 4 corner weights;
-//     nothing is staged through device memory;
-//   * the f32 accumulator stays in registers and is stored once, converted
-//     to the value dtype in the same vector width.
-// Making it fast (corner reuse across heads in shared memory, TMA, fusing
-// the offset/softmax prologue) is later work.
+// corner reads per call against 13 MB of value, so the traffic is from the
+// L2 (or shared memory) to the SMs, not HBM. Two routes, chosen by the
+// wrapper's rule on (S, D, dtype, Q) (ops/deform_attn_cuda.py:plan_forward):
+//   * DIRECT (ms_deform_attn_fwd_kernel): every corner read is a 16-byte
+//     load from the L2. One thread owns a 16-byte slice of one head's D
+//     channels (8 bf16 or 4 f32), so the two threads of a D=16 bf16 head
+//     together read one full 32-byte sector. Where a (b, h) serves few
+//     queries (the decoder, Q = 10: each token is read 0.4 times) nothing
+//     would pay for staging.
+//   * SLAB (ms_deform_attn_fwd_slab_kernel): one block owns one (b, h),
+//     stages its (S, D) value slab into shared memory once with 16-byte
+//     cp.async (51 200 B bf16 / 102 400 B f32 at S = 1600, D = 16: two
+//     blocks fit an SM, 256 blocks one wave at the flagship shape), then
+//     walks all Q queries of the pair; every corner read is a 16-byte
+//     shared-memory load. At the encoder shape each staged token is read
+//     4 L P Q / S = 64 times: the TPU kernel keeps the same slab resident in
+//     VMEM across its query grid (its index map ignores q).
+// Both routes do the same arithmetic in the same order (the thread layout
+// stays: a 16-byte channel slice per thread, the f32 accumulator in
+// registers, stored once in the value dtype), so their outputs are equal
+// bit for bit. The level table is a __grid_constant__ parameter on both,
+// read from the parameter bank and not from a stack frame.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define POET_MAX_LEVELS 8
+#include "ms_deform_attn_point.cuh"
 
 namespace {
 
-struct Levels {
-  int h[POET_MAX_LEVELS];
-  int w[POET_MAX_LEVELS];
-  int start[POET_MAX_LEVELS];
-};
+using deform_point::Footprint;
+using deform_point::Levels;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int kSlabThreads = 512;
 
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// acc[0:VEC] += w * p[0:VEC]
+// acc[0:VEC] += w * p[0:VEC]; p in device or shared memory
 template <typename T, int VEC>
 struct Corner {
   static __device__ __forceinline__ void fma(const T* p, float w, float* acc) {
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[j] += w * to_float(p[j]);
+    for (int j = 0; j < VEC; ++j) acc[j] += w * deform_point::to_float(p[j]);
   }
   static __device__ __forceinline__ void store(T* p, const float* acc) {
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) p[j] = from_float<T>(acc[j]);
+    for (int j = 0; j < VEC; ++j) p[j] = deform_point::from_float<T>(acc[j]);
   }
 };
 
@@ -107,14 +108,37 @@ struct Corner<__nv_bfloat16, 8> {
   }
 };
 
-// One thread per (b, q, h, c): c indexes a VEC-wide slice of the D channels.
-// Consecutive threads walk c, then h, so a warp covers the D channels of
-// neighbouring heads of one query.
+// One (b, q, h) and channel slice: the sum over its L x P points into acc.
+// v: the slice's channels of token 0, tokens `stride` elements apart (H D in
+// device memory, D in a slab).
+template <typename T, int VEC>
+__device__ __forceinline__ void sample_query(const T* v, int64_t stride, const float* loc_p,
+                                             const float* att_p, int L, int P, const Levels& lv,
+                                             float* acc) {
+  for (int l = 0; l < L; ++l) {
+    const int Hl = lv.h[l];
+    const int Wl = lv.w[l];
+    const T* v_l = v + (int64_t)lv.start[l] * stride;
+    for (int p = 0; p < P; ++p) {
+      const int k = l * P + p;
+      Footprint f;
+      if (!deform_point::footprint(loc_p[2 * k], loc_p[2 * k + 1], Hl, Wl, &f)) continue;
+      deform_point::for_each_corner(f, Wl, att_p[k], [&](int, int t, float w) {
+        Corner<T, VEC>::fma(v_l + (int64_t)t * stride, w, acc);
+      });
+    }
+  }
+}
+
+// DIRECT: one thread per (b, q, h, c), c a VEC-wide slice of the D
+// channels. Consecutive threads walk c, then h, so a warp covers the D
+// channels of neighbouring heads of one query.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(256)
 ms_deform_attn_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                           const float* __restrict__ attn, T* __restrict__ out, int S, int Q,
-                          int H, int D, int L, int P, Levels lv, int64_t n_items) {
+                          int H, int D, int L, int P, const __grid_constant__ Levels lv,
+                          int64_t n_items) {
   const int chunks = D / VEC;
   const int64_t row = (int64_t)H * D;  // elements between neighbouring tokens
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_items;
@@ -123,45 +147,43 @@ ms_deform_attn_fwd_kernel(const T* __restrict__ value, const float* __restrict__
     const int64_t bqh = i / chunks;  // ((b * Q + q) * H + h)
     const int h = (int)(bqh % H);
     const int64_t b = bqh / ((int64_t)Q * H);
-    const float* loc_p = loc + bqh * L * P * 2;
-    const float* att_p = attn + bqh * L * P;
-    const T* v_bh = value + b * S * row + (int64_t)h * D + c * VEC;
-
     float acc[VEC];
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+    sample_query<T, VEC>(value + b * S * row + (int64_t)h * D + c * VEC, row,
+                         loc + bqh * L * P * 2, attn + bqh * L * P, L, P, lv, acc);
+    Corner<T, VEC>::store(out + bqh * D + c * VEC, acc);
+  }
+}
 
-    for (int l = 0; l < L; ++l) {
-      const int Hl = lv.h[l];
-      const int Wl = lv.w[l];
-      const T* v_l = v_bh + (int64_t)lv.start[l] * row;
-      for (int p = 0; p < P; ++p) {
-        const int k = l * P + p;
-        const float x = loc_p[2 * k] * (float)Wl - 0.5f;
-        const float y = loc_p[2 * k + 1] * (float)Hl - 0.5f;
-        // the 2x2 footprint misses the map entirely (also false for NaN)
-        if (!(x > -1.f && x < (float)Wl && y > -1.f && y < (float)Hl)) continue;
-        const float a = att_p[k];
-        const float x0f = floorf(x);
-        const float y0f = floorf(y);
-        const float tx = x - x0f;
-        const float ty = y - y0f;
-        const int x0 = (int)x0f;  // in [-1, Wl - 1] after the check above
-        const int y0 = (int)y0f;
-        const float wy0 = (1.f - ty) * a;
-        const float wy1 = ty * a;
-        if (y0 >= 0) {
-          const T* r = v_l + (int64_t)y0 * Wl * row;
-          if (x0 >= 0) Corner<T, VEC>::fma(r + (int64_t)x0 * row, (1.f - tx) * wy0, acc);
-          if (x0 + 1 < Wl) Corner<T, VEC>::fma(r + (int64_t)(x0 + 1) * row, tx * wy0, acc);
-        }
-        if (y0 + 1 < Hl) {
-          const T* r = v_l + (int64_t)(y0 + 1) * Wl * row;
-          if (x0 >= 0) Corner<T, VEC>::fma(r + (int64_t)x0 * row, (1.f - tx) * wy1, acc);
-          if (x0 + 1 < Wl) Corner<T, VEC>::fma(r + (int64_t)(x0 + 1) * row, tx * wy1, acc);
-        }
-      }
-    }
+// SLAB: one block per (b, h) (blockIdx.x = b * H + h). The block stages the
+// pair's value slab, then its threads walk (q, c) items, c fastest, as the
+// direct kernel's threads do.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kSlabThreads)
+ms_deform_attn_fwd_slab_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                               const float* __restrict__ attn, T* __restrict__ out, int S,
+                               int Q, int H, int D, int L, int P,
+                               const __grid_constant__ Levels lv, bool async16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* slab = reinterpret_cast<T*>(smem);
+  const int h = (int)(blockIdx.x % H);
+  const int64_t b = blockIdx.x / H;
+  const int64_t row = (int64_t)H * D;
+  deform_point::stage_slab<T>(value + b * S * row + (int64_t)h * D, slab, S, D, row, async16);
+  if (async16) mma_sm90::cp_async_wait_all();
+  __syncthreads();
+
+  const int chunks = D / VEC;
+  for (int i = threadIdx.x; i < Q * chunks; i += blockDim.x) {
+    const int q = i / chunks;
+    const int c = i - q * chunks;
+    const int64_t bqh = (b * Q + q) * H + h;
+    float acc[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+    sample_query<T, VEC>(slab + c * VEC, D, loc + bqh * L * P * 2, attn + bqh * L * P, L, P,
+                         lv, acc);
     Corner<T, VEC>::store(out + bqh * D + c * VEC, acc);
   }
 }
@@ -179,30 +201,40 @@ void launch(const void* value, const float* loc, const float* attn, void* out, i
       n_items);
 }
 
+template <typename T, int VEC>
+int launch_slab(const void* value, const float* loc, const float* attn, void* out, int B, int S,
+                int Q, int H, int D, int L, int P, const Levels& lv, cudaStream_t stream) {
+  if ((int64_t)B * Q * H == 0) return 0;
+  const size_t smem = (size_t)S * D * sizeof(T);
+  auto kernel = ms_deform_attn_fwd_slab_kernel<T, VEC>;
+  static size_t granted[deform_point::kMaxDevices];  // per instantiation
+  const int rc = deform_point::grant_smem(kernel, smem, granted);
+  if (rc != 0) return rc;
+  const bool async16 = (D * sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(value) % 16 == 0;
+  kernel<<<(unsigned)(B * H), kSlabThreads, smem, stream>>>(
+      static_cast<const T*>(value), loc, attn, static_cast<T*>(out), S, Q, H, D, L, P, lv,
+      async16);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns 0 on success, a negative code for arguments the kernel does not
-// take, or the cudaError_t of the launch (cudaGetLastError) otherwise.
+// Each returns 0 on success, a negative code for arguments the kernel does
+// not take, or the cudaError_t of the launch (cudaGetLastError) otherwise.
 //   dtype: 0 = float32, 1 = bfloat16
 //   level_hw: host array of 2*L ints, (H_l, W_l) per level
 //   vec: channels per thread, 1 or the 16-byte width (4 for f32, 8 for bf16)
+
+// The direct route: corners gathered from device memory.
 int poet_ms_deform_attn_fwd(const void* value, const void* loc, const void* attn, void* out,
                             int dtype, int B, int S, int Q, int H, int D, int L, int P,
                             const int* level_hw, int vec, void* stream) {
-  if (L < 1 || L > POET_MAX_LEVELS) return -1;
-  if (vec < 1 || D % vec != 0) return -2;
   Levels lv;
-  int start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = level_hw[2 * l];
-    lv.w[l] = level_hw[2 * l + 1];
-    if (lv.h[l] < 1 || lv.w[l] < 1) return -3;
-    lv.start[l] = start;
-    start += lv.h[l] * lv.w[l];
-  }
-  if (start > S) return -4;
+  const int rc = deform_point::make_levels(level_hw, L, S, &lv);
+  if (rc != 0) return rc;
+  if (vec < 1 || D % vec != 0) return -2;
   const float* locf = static_cast<const float*>(loc);
   const float* attf = static_cast<const float*>(attn);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -218,6 +250,31 @@ int poet_ms_deform_attn_fwd(const void* value, const void* loc, const void* attn
     return -5;
   }
   return (int)cudaGetLastError();
+}
+
+// The slab route: a block per (b, h) on its value slab in shared memory
+// (S * D * sizeof(value) bytes; -7 when that exceeds the device's opt-in
+// limit per block).
+int poet_ms_deform_attn_fwd_slab(const void* value, const void* loc, const void* attn,
+                                 void* out, int dtype, int B, int S, int Q, int H, int D, int L,
+                                 int P, const int* level_hw, int vec, void* stream) {
+  Levels lv;
+  const int rc = deform_point::make_levels(level_hw, L, S, &lv);
+  if (rc != 0) return rc;
+  if (vec < 1 || D % vec != 0) return -2;
+  const float* locf = static_cast<const float*>(loc);
+  const float* attf = static_cast<const float*>(attn);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && vec == 4) {
+    return launch_slab<float, 4>(value, locf, attf, out, B, S, Q, H, D, L, P, lv, s);
+  } else if (dtype == 0 && vec == 1) {
+    return launch_slab<float, 1>(value, locf, attf, out, B, S, Q, H, D, L, P, lv, s);
+  } else if (dtype == 1 && vec == 8) {
+    return launch_slab<__nv_bfloat16, 8>(value, locf, attf, out, B, S, Q, H, D, L, P, lv, s);
+  } else if (dtype == 1 && vec == 1) {
+    return launch_slab<__nv_bfloat16, 1>(value, locf, attf, out, B, S, Q, H, D, L, P, lv, s);
+  }
+  return -5;
 }
 
 const char* poet_cuda_error_string(int code) {

@@ -3,11 +3,15 @@
 //
 // Replaces the TPU probe scripts/bench_v3_variants.py:build_variant (its
 // `fwd_kernel`), which ablated the TPU forward kernel (base, unroll, qt256,
-// noy, nox, bf16y, treey). This file copies the body of the port's forward
-// kernel, csrc/ms_deform_attn_fwd.cu (the bf16, 8-channel path), and maps
-// each TPU ablation onto the gather design with one template parameter:
+// noy, nox, bf16y, treey). It takes the per-point body of the port's forward
+// kernel from the header both include, csrc/ms_deform_attn_point.cuh (the
+// coordinates, the footprint test, the corners and their weights), and
+// kernel 1's direct-route layout (csrc/ms_deform_attn_fwd.cu, the bf16,
+// 8-channel path), and maps each TPU ablation onto the gather design with
+// one template parameter:
 //
-//   BASE    the forward kernel's arithmetic: its output is bit-identical;
+//   BASE    the forward kernel's arithmetic: its output is bit-identical to
+//           kernel 1's direct route;
 //   UNROLL  L = P = 4 as constants, the level and point loops unrolled
 //           (the TPU version unrolled its head loop);
 //   QT256   two queries per thread, half the threads (the TPU version
@@ -24,9 +28,10 @@
 // BASE, UNROLL and QT256 do the same arithmetic per query as the forward
 // kernel; TREEY sums in another order. Their plain version is the forward
 // kernel's (ops/deform_attn.py:ms_deform_attn_torch); NOY, NOX and BF16Y
-// have plain definitions of their own (tools/bench_v3_variants.py). Keep
-// the per-query code below in step with csrc/ms_deform_attn_fwd.cu: a drift
-// makes the ablations measure another kernel.
+// have plain definitions of their own (tools/bench_v3_variants.py). Because
+// the body is the header's, the ablations measure the live kernel. Like
+// kernel 1, the kernel takes its level table as a __grid_constant__
+// parameter (UNROLL no longer differs from BASE in where the table lives).
 //
 // value (B, S, H, D) bf16 with D % 8 == 0 and 16-byte rows; loc (B, Q, H,
 // L, P, 2) f32; attn (B, Q, H, L, P) f32; out (B, Q, H * D) bf16.
@@ -35,20 +40,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define POET_MAX_LEVELS 8
+#include "ms_deform_attn_point.cuh"
 
 namespace {
+
+using deform_point::Footprint;
+using deform_point::Levels;
 
 typedef __nv_bfloat16 T;
 constexpr int VEC = 8;
 
 enum Variant { BASE = 0, UNROLL = 1, QT256 = 2, TREEY = 3, BF16Y = 4, NOY = 5, NOX = 6 };
-
-struct Levels {
-  int h[POET_MAX_LEVELS];
-  int w[POET_MAX_LEVELS];
-  int start[POET_MAX_LEVELS];
-};
 
 // acc[0:8] += w * p[0:8] (the forward kernel's Corner<__nv_bfloat16, 8>)
 __device__ __forceinline__ void corner_fma(const T* p, float w, float* acc) {
@@ -78,59 +80,24 @@ __device__ __forceinline__ void store8(T* p, const float* acc) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
-// The corners of one point into an accumulator: the forward kernel's body
-// for BASE / UNROLL / QT256 / TREEY; the ablations change the marked lines.
+// The corners of one point into an accumulator: the header's body for BASE
+// / UNROLL / QT256 / TREEY; the ablations change what each corner adds.
 template <int V, typename Acc>
 __device__ __forceinline__ void sample_point(const T* v_l, int64_t row, int Hl, int Wl, float lx,
                                              float ly, float a, Acc* acc) {
-  const float x = lx * (float)Wl - 0.5f;
-  const float y = ly * (float)Hl - 0.5f;
-  // the 2x2 footprint misses the map entirely (also false for NaN)
-  if (!(x > -1.f && x < (float)Wl && y > -1.f && y < (float)Hl)) return;
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  const float tx = x - x0f;
-  const float ty = y - y0f;
-  const int x0 = (int)x0f;  // in [-1, Wl - 1] after the check above
-  const int y0 = (int)y0f;
-  if constexpr (V == NOY) {  // no weight arithmetic: the attention weight alone
-    if (y0 >= 0) {
-      const T* r = v_l + (int64_t)y0 * Wl * row;
-      if (x0 >= 0) corner_fma(r + (int64_t)x0 * row, a, acc);
-      if (x0 + 1 < Wl) corner_fma(r + (int64_t)(x0 + 1) * row, a, acc);
+  Footprint f;
+  if (!deform_point::footprint(lx, ly, Hl, Wl, &f)) return;
+  deform_point::for_each_corner(f, Wl, a, [&](int, int t, float w) {
+    if constexpr (V == NOY) {         // no weight arithmetic: the attention weight alone
+      corner_fma(v_l + (int64_t)t * row, a, acc);
+    } else if constexpr (V == NOX) {  // no gather: the level's token 0
+      corner_fma(v_l, w, acc);
+    } else if constexpr (V == BF16Y) {
+      corner_hfma2(v_l + (int64_t)t * row, w, acc);
+    } else {
+      corner_fma(v_l + (int64_t)t * row, w, acc);
     }
-    if (y0 + 1 < Hl) {
-      const T* r = v_l + (int64_t)(y0 + 1) * Wl * row;
-      if (x0 >= 0) corner_fma(r + (int64_t)x0 * row, a, acc);
-      if (x0 + 1 < Wl) corner_fma(r + (int64_t)(x0 + 1) * row, a, acc);
-    }
-  } else {
-    const float wy0 = (1.f - ty) * a;
-    const float wy1 = ty * a;
-    // NOX: every corner reads token 0 of the level
-    const int64_t ys = V == NOX ? 0 : (int64_t)Wl * row;
-    const int64_t xs = V == NOX ? 0 : row;
-    if (y0 >= 0) {
-      const T* r = v_l + (int64_t)y0 * ys;
-      if constexpr (V == BF16Y) {
-        if (x0 >= 0) corner_hfma2(r + (int64_t)x0 * xs, (1.f - tx) * wy0, acc);
-        if (x0 + 1 < Wl) corner_hfma2(r + (int64_t)(x0 + 1) * xs, tx * wy0, acc);
-      } else {
-        if (x0 >= 0) corner_fma(r + (int64_t)x0 * xs, (1.f - tx) * wy0, acc);
-        if (x0 + 1 < Wl) corner_fma(r + (int64_t)(x0 + 1) * xs, tx * wy0, acc);
-      }
-    }
-    if (y0 + 1 < Hl) {
-      const T* r = v_l + (int64_t)(y0 + 1) * ys;
-      if constexpr (V == BF16Y) {
-        if (x0 >= 0) corner_hfma2(r + (int64_t)x0 * xs, (1.f - tx) * wy1, acc);
-        if (x0 + 1 < Wl) corner_hfma2(r + (int64_t)(x0 + 1) * xs, tx * wy1, acc);
-      } else {
-        if (x0 >= 0) corner_fma(r + (int64_t)x0 * xs, (1.f - tx) * wy1, acc);
-        if (x0 + 1 < Wl) corner_fma(r + (int64_t)(x0 + 1) * xs, tx * wy1, acc);
-      }
-    }
-  }
+  });
 }
 
 // One query's 8 channels of one head: the forward kernel's level and point
@@ -216,7 +183,8 @@ template <int V>
 __global__ void __launch_bounds__(256)
 ms_deform_attn_fwd_variant_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                                   const float* __restrict__ attn, T* __restrict__ out, int S,
-                                  int Q, int H, int D, int L, int P, Levels lv, int64_t n_items) {
+                                  int Q, int H, int D, int L, int P,
+                                  const __grid_constant__ Levels lv, int64_t n_items) {
   constexpr int QPT = V == QT256 ? 2 : 1;
   const int chunks = D / VEC;
   const int QG = (Q + QPT - 1) / QPT;  // query groups
@@ -265,19 +233,11 @@ extern "C" {
 int poet_ms_deform_attn_fwd_variant(const void* value, const void* loc, const void* attn,
                                     void* out, int variant, int B, int S, int Q, int H, int D,
                                     int L, int P, const int* level_hw, void* stream) {
-  if (L < 1 || L > POET_MAX_LEVELS) return -1;
+  Levels lv;
+  const int rc = deform_point::make_levels(level_hw, L, S, &lv);
+  if (rc != 0) return rc;
   if (D % VEC != 0) return -2;
   if (variant == UNROLL && (L != 4 || P != 4)) return -6;
-  Levels lv;
-  int start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = level_hw[2 * l];
-    lv.w[l] = level_hw[2 * l + 1];
-    if (lv.h[l] < 1 || lv.w[l] < 1) return -3;
-    lv.start[l] = start;
-    start += lv.h[l] * lv.w[l];
-  }
-  if (start > S) return -4;
   const float* lf = static_cast<const float*>(loc);
   const float* af = static_cast<const float*>(attn);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

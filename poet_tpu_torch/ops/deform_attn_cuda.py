@@ -9,9 +9,26 @@ the table is `config.DEFORM_IMPLS`). It is a `torch.autograd.Function`:
   * CUDA tensors launch the hand-written kernels — the forward
     `csrc/ms_deform_attn_fwd.cu`, and in the backward, by its `adjoint`
     argument, either the pair of `csrc/ms_deform_attn_bwd.cu` (the d_value
-    scatter and the d_loc/d_attn gather) or the merged kernel of the same
+    scatter and the d_loc/d_attn gather) or the merged adjoint of the same
     file (all three gradients in one pass) — or raise.
 There is no fallback from one to the other.
+
+The forward and the merged adjoint each have two routes, each its own
+kernel and wrapper with its own launch count, chosen by a written rule on
+(S, D, dtype, Q) and the points per query (L, P) from the shared-memory
+budget of one block, `SMEM_OPTIN_MAX` (never by catching a failure):
+  * `plan_forward`: the SLAB route (`MS_DEFORM_ATTN_FWD_SLAB`, one block
+    per (b, h) on its value slab staged in shared memory) where the slab
+    fits and each staged token is read at least `SLAB_MIN_READS` times
+    (4 L P Q / S: 64 in the encoder), else the DIRECT route
+    (`MS_DEFORM_ATTN_FWD`, corners gathered from the L2; the decoder, Q=10,
+    reads each token 0.4 times). The two give the same bits.
+  * `plan_merged`: the SLAB route (`MS_DEFORM_ATTN_MERGED_SLAB`, d_value
+    summed in an f32 slab in shared memory and written once in the value
+    dtype; the value slab staged beside it by the same reads rule where
+    both fit) wherever the f32 d_value slab fits, else the ATOMIC route
+    (`MS_DEFORM_ATTN_MERGED`, float4 atomics into a zeroed f32 buffer in
+    device memory, cast after): the YOLO pyramid, S = 6380.
 
 The kernels are built by `ops/cuda_build.py` (nvcc at first use, loaded
 with ctypes); this module re-exports its `CudaLibrary`, `build_all`,
@@ -21,7 +38,7 @@ and needs neither nvcc nor a GPU.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,6 +61,64 @@ from poet_tpu_torch.ops.deform_attn import (
 )
 
 _MAX_LEVELS = 8                     # POET_MAX_LEVELS in the sources
+SMEM_OPTIN_MAX = 232448             # shared memory one block may opt into on the H100
+# staging a value slab pays where each staged token is read at least this
+# many times (corner reads 4 L P Q over S tokens); 64 in the encoder at the
+# flagship shape, 0.4 in its decoder (Q = 10)
+SLAB_MIN_READS = 8.0
+
+
+class Plan(NamedTuple):
+    """A route of the forward ('slab' or 'direct') or of the merged adjoint
+    ('slab' or 'atomic'), whether it stages the value slab in shared memory,
+    and the dynamic shared memory one block of it takes (bytes)."""
+    route: str
+    stage: bool
+    smem_bytes: int
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.finfo(dtype).bits // 8
+
+
+def corner_reads_per_token(S: int, Q: int, L: int, P: int) -> float:
+    """How often each of a (b, h)'s S tokens is read, on average: 4 corners
+    of L x P points for each of its Q queries."""
+    return 4.0 * L * P * Q / S
+
+
+def merged_slab_bytes(S: int, D: int, dtype: torch.dtype, stage: bool) -> int:
+    """Shared memory of the merged adjoint's slab route: the f32 d_value slab
+    (S, D) and, with `stage`, the value slab after it at the next 16 bytes."""
+    acc = S * D * 4
+    return -(-acc // 16) * 16 + S * D * _itemsize(dtype) if stage else acc
+
+
+def plan_forward(S: int, D: int, dtype: torch.dtype, Q: int, L: int, P: int) -> Plan:
+    """The forward's route: 'slab' where the (S, D) value slab fits one
+    block's shared memory and each token is read at least SLAB_MIN_READS
+    times, else 'direct'."""
+    slab = S * D * _itemsize(dtype)
+    if slab <= SMEM_OPTIN_MAX and corner_reads_per_token(S, Q, L, P) >= SLAB_MIN_READS:
+        return Plan("slab", True, slab)
+    return Plan("direct", False, 0)
+
+
+def plan_merged(S: int, D: int, dtype: torch.dtype, Q: int, L: int, P: int) -> Plan:
+    """The merged adjoint's route: 'slab' where the f32 d_value slab fits one
+    block's shared memory, staging the value slab too where both fit and
+    each token is read at least SLAB_MIN_READS times; else 'atomic'."""
+    if merged_slab_bytes(S, D, dtype, False) > SMEM_OPTIN_MAX:
+        return Plan("atomic", False, 0)
+    staged = merged_slab_bytes(S, D, dtype, True)
+    if staged <= SMEM_OPTIN_MAX and corner_reads_per_token(S, Q, L, P) >= SLAB_MIN_READS:
+        return Plan("slab", True, staged)
+    return Plan("slab", False, merged_slab_bytes(S, D, dtype, False))
+
+
+def _plan_of(plan, value, locs) -> Plan:
+    _, S, _, D = value.shape
+    return plan(S, D, value.dtype, locs.shape[1], locs.shape[3], locs.shape[4])
 
 
 def _check_inputs(value, spatial_shapes, locs, attn, dout=None):
@@ -80,7 +155,8 @@ def _check_inputs(value, spatial_shapes, locs, attn, dout=None):
 
 
 class MSDeformAttnForward:
-    """Launches the forward kernel (`csrc/ms_deform_attn_fwd.cu`).
+    """Launches the forward kernel's direct route (`csrc/ms_deform_attn_fwd.cu`,
+    `ms_deform_attn_fwd_kernel`: corners gathered from device memory).
 
     `launches` counts kernel launches made through `__call__`, and nothing
     else: a run that reads it before and after a forward learns how many
@@ -105,7 +181,42 @@ class MSDeformAttnForward:
                 B, S, Q, H, D, L, P, level_hw(spatial_shapes), vec_width(value, D),
                 stream_of(value))
         FWD_LIB.check(rc, "ms_deform_attn_fwd")
-        self.launches += 1
+        if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+            self.launches += 1
+        return out
+
+
+class MSDeformAttnForwardSlab:
+    """Launches the forward kernel's slab route (`csrc/ms_deform_attn_fwd.cu`,
+    `ms_deform_attn_fwd_slab_kernel`): one block per (b, h) stages its (S, D)
+    value slab in shared memory and walks all Q queries of the pair. Its
+    output equals the direct route's bit for bit. Raises where the slab
+    exceeds SMEM_OPTIN_MAX. `launches` counts launches.
+    """
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                 sampling_locations: torch.Tensor,
+                 attention_weights: torch.Tensor) -> torch.Tensor:
+        """Same contract as `ms_deform_attn_torch`; CUDA tensors only."""
+        B, S, Q, H, D, L, P = _check_inputs(value, spatial_shapes, sampling_locations,
+                                            attention_weights)
+        if S * D * value.element_size() > SMEM_OPTIN_MAX:
+            raise ValueError(f"a value slab of S={S} x D={D} {value.dtype} exceeds the "
+                             f"{SMEM_OPTIN_MAX} B of shared memory a block may use")
+        lib = FWD_LIB.build()
+        out = torch.empty((B, Q, H * D), dtype=value.dtype, device=value.device)
+        with torch.cuda.device(value.device):
+            rc = lib.poet_ms_deform_attn_fwd_slab(
+                value.data_ptr(), sampling_locations.data_ptr(),
+                attention_weights.data_ptr(), out.data_ptr(), DTYPE_CODE[value.dtype],
+                B, S, Q, H, D, L, P, level_hw(spatial_shapes), vec_width(value, D),
+                stream_of(value))
+        FWD_LIB.check(rc, "ms_deform_attn_fwd_slab")
+        if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+            self.launches += 1
         return out
 
 
@@ -171,8 +282,9 @@ class MSDeformAttnDLocAttn:
 
 
 class MSDeformAttnMergedAdjoint:
-    """Launches the merged adjoint kernel (`csrc/ms_deform_attn_bwd.cu`):
-    d_value, d_loc and d_attn in one pass over the sampling points.
+    """Launches the merged adjoint's atomic route (`csrc/ms_deform_attn_bwd.cu`,
+    `ms_deform_attn_merged_kernel`): d_value, d_loc and d_attn in one pass
+    over the sampling points, d_value added into device memory.
 
     Returns what `MSDeformAttnDValue` and `MSDeformAttnDLocAttn` return
     together: (d_value (B, S, H, D) in value's dtype, summed in f32 with
@@ -203,23 +315,90 @@ class MSDeformAttnMergedAdjoint:
                 d_loc.data_ptr(), d_attn.data_ptr(), DTYPE_CODE[value.dtype],
                 B, S, Q, H, D, L, P, level_hw(spatial_shapes), vec, stream_of(value))
         BWD_LIB.check(rc, "ms_deform_attn_bwd_merged")
-        self.launches += 1
+        if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+            self.launches += 1
         return d_value.to(value.dtype), d_loc, d_attn
 
 
+class MSDeformAttnMergedSlab:
+    """Launches the merged adjoint's slab route (`csrc/ms_deform_attn_bwd.cu`,
+    `ms_deform_attn_merged_slab_kernel`): one block per (b, h) walks the
+    pair's queries, sums d_value in an f32 slab in shared memory (no global
+    atomics) and writes it once, in the value's dtype, every row (rows past
+    sum(Hl * Wl) exactly 0). `stage` (default: `plan_merged`'s) also stages
+    the value slab in shared memory; False reads it from device memory.
+
+    Returns what `MSDeformAttnMergedAdjoint` returns. Raises where the slab
+    exceeds SMEM_OPTIN_MAX. `launches` counts launches.
+    """
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                 sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+                 dout: torch.Tensor, stage: Optional[bool] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        B, S, Q, H, D, L, P = _check_inputs(value, spatial_shapes, sampling_locations,
+                                            attention_weights, dout)
+        if stage is None:
+            stage = plan_merged(S, D, value.dtype, Q, L, P).stage
+        smem = merged_slab_bytes(S, D, value.dtype, stage)
+        if smem > SMEM_OPTIN_MAX:
+            raise ValueError(f"the merged adjoint's slab of S={S} x D={D} ({value.dtype}, "
+                             f"stage={stage}) takes {smem} B, over the {SMEM_OPTIN_MAX} B "
+                             f"a block may use")
+        lib = BWD_LIB.build()
+        d_value = torch.empty_like(value)         # every row written by the kernel
+        d_loc = torch.empty_like(sampling_locations)
+        d_attn = torch.empty_like(attention_weights)
+        # 8 channels per lane where D and the pointers allow (2 lanes per point
+        # at D = 16), else 4, else 1
+        vec = next(n for n in (8, 4, 1) if D % n == 0 and all(
+            t.data_ptr() % (n * t.element_size()) == 0 for t in (value, dout)))
+        with torch.cuda.device(value.device):
+            rc = lib.poet_ms_deform_attn_bwd_merged_slab(
+                value.data_ptr(), sampling_locations.data_ptr(),
+                attention_weights.data_ptr(), dout.data_ptr(), d_value.data_ptr(),
+                d_loc.data_ptr(), d_attn.data_ptr(), DTYPE_CODE[value.dtype],
+                B, S, Q, H, D, L, P, level_hw(spatial_shapes), vec, int(stage),
+                stream_of(value))
+        BWD_LIB.check(rc, "ms_deform_attn_bwd_merged_slab")
+        if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+            self.launches += 1
+        return d_value, d_loc, d_attn
+
+
 MS_DEFORM_ATTN_FWD = MSDeformAttnForward()
+MS_DEFORM_ATTN_FWD_SLAB = MSDeformAttnForwardSlab()
 MS_DEFORM_ATTN_DVALUE = MSDeformAttnDValue()
 MS_DEFORM_ATTN_DLOC = MSDeformAttnDLocAttn()
 MS_DEFORM_ATTN_MERGED = MSDeformAttnMergedAdjoint()
+MS_DEFORM_ATTN_MERGED_SLAB = MSDeformAttnMergedSlab()
 KERNELS = (MS_DEFORM_ATTN_FWD, MS_DEFORM_ATTN_DVALUE, MS_DEFORM_ATTN_DLOC,
-           MS_DEFORM_ATTN_MERGED)
+           MS_DEFORM_ATTN_MERGED, MS_DEFORM_ATTN_FWD_SLAB, MS_DEFORM_ATTN_MERGED_SLAB)
 ADJOINTS = ("merged", "pair")
+
+
+def forward_kernel(value, locs):
+    """The forward route's wrapper for these operands (`plan_forward`)."""
+    slab = _plan_of(plan_forward, value, locs).route == "slab"
+    return MS_DEFORM_ATTN_FWD_SLAB if slab else MS_DEFORM_ATTN_FWD
+
+
+def merged_adjoint(value, spatial_shapes, locs, attn, dout):
+    """The merged adjoint on the route `plan_merged` gives these operands."""
+    plan = _plan_of(plan_merged, value, locs)
+    if plan.route == "slab":
+        return MS_DEFORM_ATTN_MERGED_SLAB(value, spatial_shapes, locs, attn, dout, plan.stage)
+    return MS_DEFORM_ATTN_MERGED(value, spatial_shapes, locs, attn, dout)
 
 
 class _MSDeformAttn(torch.autograd.Function):
     """Deformable sampling with its adjoint: CPU -> plain versions, CUDA ->
-    the forward kernel and the adjoint chosen by `adjoint` ('pair': the
-    d_value scatter and the d_loc/d_attn gather; 'merged': one kernel)."""
+    the forward on its route and the adjoint chosen by `adjoint` ('pair':
+    the d_value scatter and the d_loc/d_attn gather; 'merged': one kernel,
+    on its route)."""
 
     @staticmethod
     def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights, adjoint):
@@ -228,8 +407,8 @@ class _MSDeformAttn(torch.autograd.Function):
         if value.device.type == "cpu":
             return ms_deform_attn_torch(value, spatial_shapes, sampling_locations,
                                         attention_weights)
-        return MS_DEFORM_ATTN_FWD(value, spatial_shapes, sampling_locations,
-                                  attention_weights)
+        return forward_kernel(value, sampling_locations)(value, spatial_shapes,
+                                                         sampling_locations, attention_weights)
 
     @staticmethod
     def backward(ctx, dout):
@@ -240,7 +419,7 @@ class _MSDeformAttn(torch.autograd.Function):
             d_value, d_loc, d_attn = ms_deform_attn_torch_backward(value, shapes, locs,
                                                                    attn, dout)
         elif ctx.adjoint == "merged":
-            d_value, d_loc, d_attn = MS_DEFORM_ATTN_MERGED(value, shapes, locs, attn, dout)
+            d_value, d_loc, d_attn = merged_adjoint(value, shapes, locs, attn, dout)
         else:
             d_value = MS_DEFORM_ATTN_DVALUE(value, shapes, locs, attn, dout)
             d_loc, d_attn = MS_DEFORM_ATTN_DLOC(value, shapes, locs, attn, dout)
@@ -252,7 +431,8 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
                    adjoint: str = "merged") -> torch.Tensor:
     """The model's deformable-attention entry on the gather kernels
     (differentiable): CPU -> plain version, CUDA -> the hand-written kernels
-    (which raise on what they do not take). `adjoint` picks the backward on
+    on the routes `plan_forward` and `plan_merged` give (which raise on what
+    they do not take). `adjoint` picks the backward on
     CUDA tensors: 'merged' (one kernel, the faster on the H100) or 'pair'
     (d_value scatter + d_loc/d_attn gather); both compute the same
     gradients."""

@@ -4,12 +4,14 @@
         [--variants base,unroll,qt256,treey,bf16y,noy,nox] [--iters 20]
 
 The Hopper counterpart of `scripts/bench_v3_variants.py`. Its kernels
-(`csrc/ms_deform_attn_fwd_variants.cu`) copy the body of the forward kernel
-(`csrc/ms_deform_attn_fwd.cu`, bf16, 8 channels per thread) with one
-template parameter per variant, mapping the TPU ablations onto the gather
-design:
+(`csrc/ms_deform_attn_fwd_variants.cu`) take the per-point body of the
+forward kernel from the header both include (`csrc/ms_deform_attn_point.cuh`)
+and the direct route's layout (`csrc/ms_deform_attn_fwd.cu`, bf16, 8
+channels per thread), with one template parameter per variant, mapping the
+TPU ablations onto the gather design:
 
-  base    the forward kernel's arithmetic (bit-identical output);
+  base    the forward kernel's arithmetic (its direct route's output, bit
+          for bit);
   unroll  L = P = 4 as constants, loops unrolled;
   qt256   two queries per thread;
   treey   one partial sum per level, added pairwise at the end;
@@ -21,7 +23,7 @@ design:
 It prints ms per layer call for each variant at B=16, H=16, D=16, L=P=4,
 bf16, Q = S, over the rcnn pyramid (30,40),(15,20),(8,10),(4,5) (S=1600) or
 `--shapes yolo` (60,80),(30,40),(15,20),(8,10) (S=6380), with kernel 1's
-time in the same call. Needs one CUDA device.
+direct route's time in the same call. Needs one CUDA device.
 
 `ms_deform_attn_variant` is the entry: CPU tensors run the variant's plain
 definition (`plain_variant`), CUDA tensors the kernel, or raise.

@@ -34,10 +34,12 @@ from typing import Dict, Iterable, List, Tuple
 
 # first match wins; the pattern is searched in the kernel's name
 KERNEL_CLASSES: Tuple[Tuple[str, str], ...] = (
-    ("forward kernel", r"ms_deform_attn_fwd_kernel"),
+    ("forward kernel (direct)", r"ms_deform_attn_fwd_kernel"),
+    ("forward kernel (slab)", r"ms_deform_attn_fwd_slab_kernel"),
     ("d_value kernel", r"ms_deform_attn_dvalue_kernel"),
     ("d_loc/d_attn kernel", r"ms_deform_attn_dloc_kernel"),
-    ("merged adjoint kernel", r"ms_deform_attn_merged_kernel"),
+    ("merged adjoint kernel (atomic)", r"ms_deform_attn_merged_kernel"),
+    ("merged adjoint kernel (slab)", r"ms_deform_attn_merged_slab_kernel"),
     ("dense forward kernel", r"ms_deform_attn_dense_fwd_kernel"),
     ("dense adjoint kernel", r"ms_deform_attn_dense_bwd_kernel"),
     ("RoIAlign kernel", r"roi_align_fwd_kernel"),
