@@ -28,11 +28,17 @@ Phases, each raising on failure:
      for the decoder) and no adjoint or RoIAlign launch; p50 ms and img/s;
   5. f32 end to end: the same seeded model at B=2 on the card (kernel) against
      the port on the CPU (plain version), TF32 off;
-  6. the two adjoint kernels (d_value scatter, d_loc/d_attn gather) against
-     the plain adjoint on the card: phase 3's geometries plus trailing pad
-     tokens; f32 and bf16; NaN locations; times of each kernel, of the plain
-     adjoint of its own outputs (autograd with respect to those inputs
-     alone) and of the whole plain adjoint;
+  6. the pair's adjoint kernels against the plain adjoint on the card: d_value
+     on both routes (the atomic scatter; the slab route, a block per (b, h,
+     channel group) on an f32 slab in shared memory, written once in the
+     value dtype) and the d_loc/d_attn gather; phase 3's geometries plus
+     trailing pad tokens; f32 and bf16; NaN locations; device ms of each
+     route from CUDA-graph replays, of the plain adjoint of its own outputs
+     (autograd with respect to those inputs alone) and of the whole plain
+     adjoint; at the encoder in bf16 the slab route over channel groups and
+     threads per block (the figures behind plan_dvalue); both routes at the
+     encoder shape at a model's sampling locations (each query at its
+     pixel centre, the grid initialisation's offsets), with device ms;
   7. the train slice: 8 steps of the paper config (the merged adjoint, the
      default), bf16 over f32 master weights, B=16, 480x640, seeded weights,
      the flagship batch, dropout 0.1, AdamW with clipping; exactly the route
@@ -43,18 +49,23 @@ Phases, each raising on failure:
   8. one f32 train step (the default config) at B=2, 480x640, TF32 off:
      losses, grad norm and every gradient on the card (kernels) against the
      CPU port (plain);
-  9. the RoIAlign kernel against its plain version on the card: the
-     detect+pose shape (levels (120,160)..(15,20) x 256, 16 x 1000
-     proposals), edge boxes (under 1 px, slivers, outside the image,
+  9. both routes of the RoIAlign kernel (tiles: a block per box stages its
+     distinct footprint cells in shared memory chunk by chunk and blends
+     separably; gather: corners from the L2) against the plain version on
+     the card: the detect+pose shape (levels (120,160)..(15,20) x 256, 16 x
+     1000 proposals), edge boxes (under 1 px, slivers, outside the image,
      oversized, NaN) and a pyramid ending in a 2x2 level with C=6 (scalar
-     loads); f32 and bf16; kernel and plain ms;
+     loads); f32 and bf16; each route's ms alone and with its geometry,
+     plain ms, the tiles route over chunks and threads (the same bits for
+     each: the figures behind plan_roi), the bytes it stages and the bound;
  10. detect+pose serving: PoseServer in detector mode at the
      `bench.py:bench_maskrcnn_detect_pose` config (bbox_mode='backbone',
      bf16, batch 16, 480x640, 22 detector classes, 1000 proposals, 100
      detections), seeded weights with well-conditioned detector heads: 8
      requests through `infer`, then 8 through the pipelined `stream`;
      exactly 1 RoIAlign and 10 forward launches per request and no adjoint
-     launch; outputs finite, rotations in SO(3), n_boxes <= Q, boxes inside
+     launch (the RoIAlign launch on the route plan_roi gives: tiles);
+     outputs finite, rotations in SO(3), n_boxes <= Q, boxes inside
      the image; valid detections per image, p50/p95, img/s, peak memory;
      then one request through the final NMS's exact fallback (the whole
      batch's per-class suppression, nms_prune_k=0): the pruned path's rows,
@@ -108,7 +119,9 @@ Phases, each raising on failure:
      wrapper must refuse; f32 and bf16; pad rows exactly 0; NaN locations
      -> 0 on every route), autograd through the entry with adjoint='merged'
      on the rule's route; device ms per route from CUDA-graph replays, pair
-     and plain ms, and the bound;
+     and plain ms, and the bound; at the YOLO pyramid the pair's d_value on
+     the rule's atomic scatter and on the slab splits that fit (8 and 4
+     channels a block) against the plain adjoint, with device ms;
  19. the dense one-hot forward and adjoint kernels ('pallas') against the
      plain versions: phase 6's geometries and the YOLO pyramid (S=6380), f32
      and bf16, NaN locations held to the plain version on the card (the
@@ -121,7 +134,8 @@ Phases, each raising on failure:
      (10 dense forward launches each and no other), 8 train steps with
      'pallas' (10 dense forward + 10 dense adjoint per step and no other) and
      8 with the pair adjoint (merged_adjoint=False: the forward's routes +
-     10 d_value + 10 d_loc per step and no other), each beside phase 4's or
+     10 d_value by its rule (5 scatter in the encoder, 5 slab in the
+     decoder) + 10 d_loc per step and no other), each beside phase 4's or
      7's p50 and img/s; one f32 train step of each at B=2 on the card against
      the CPU port, as phase 8;
  21. the v2 slab forward (`ms_deform_attn_v2`, on no model path) against the
@@ -141,9 +155,9 @@ Phases, each raising on failure:
      beside torch.gather, and an index out of range that must raise.
 Phases 4, 7, 10, 13, 16, 17 and 20's paths each set every kernel's launch
 count to 0 before they drive their path and read them after, and hold them
-to the wrappers' route rules (`path_launches`; the v2 kernel, the probes and
-the merged adjoint's atomic route: 0 on every path; the first two add their
-phase's own launches). Every kernel's entry in
+to the wrappers' route rules (`path_launches`, `roi_launches`; the v2
+kernel, the probes, the merged adjoint's atomic route and RoIAlign's gather
+route: 0 on every path; the first two add their phase's own launches). Every kernel's entry in
 the report carries its bound: the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and its
 operations over the peak rate for its type (67 TFLOP/s f32 for the
@@ -303,7 +317,8 @@ EVAL_THIN = 32
 
 
 KERNEL_KEYS = ("fwd", "d_value", "d_loc", "roi", "stem", "nn", "merged", "dense_fwd",
-               "dense_bwd", "v2", "kpad", "variants", "gather", "fwd_slab", "merged_slab")
+               "dense_bwd", "v2", "kpad", "variants", "gather", "fwd_slab", "merged_slab",
+               "d_value_slab", "roi_tiles")
 LAUNCH_NAMES = "/".join(KERNEL_KEYS)
 
 
@@ -316,13 +331,14 @@ def all_kernels():
     forward's direct route, d_value, d_loc, RoIAlign, stem, min distance, the
     merged adjoint's atomic route, dense forward, dense adjoint, v2 forward,
     the three probes (kpad, the forward's variants, the dynamic gather), then
-    the forward's and the merged adjoint's slab routes."""
+    the forward's and the merged adjoint's slab routes, the pair's d_value
+    slab route and RoIAlign's tiles route."""
     from poet_tpu_torch.ops import deform_attn_cuda as gather
     from poet_tpu_torch.ops import deform_attn_dense_cuda as dense
     from poet_tpu_torch.ops.conv_stem_cuda import CONV_STEM_FWD
     from poet_tpu_torch.ops.deform_attn_v2_cuda import MS_DEFORM_ATTN_V2
     from poet_tpu_torch.ops.nn_cuda import MIN_DIST_SQ
-    from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD
+    from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD, ROI_ALIGN_TILES
     from poet_tpu_torch.tools.bench_kpad import KPAD_CHAIN
     from poet_tpu_torch.tools.bench_v3_variants import MS_DEFORM_ATTN_VARIANT
     from poet_tpu_torch.tools.dyn_gather import TAKE_ALONG_AXIS
@@ -331,7 +347,7 @@ def all_kernels():
             ROI_ALIGN_FWD, CONV_STEM_FWD, MIN_DIST_SQ, gather.MS_DEFORM_ATTN_MERGED,
             dense.MS_DEFORM_ATTN_DENSE_FWD, dense.MS_DEFORM_ATTN_DENSE_BWD, MS_DEFORM_ATTN_V2,
             KPAD_CHAIN, MS_DEFORM_ATTN_VARIANT, TAKE_ALONG_AXIS, gather.MS_DEFORM_ATTN_FWD_SLAB,
-            gather.MS_DEFORM_ATTN_MERGED_SLAB]
+            gather.MS_DEFORM_ATTN_MERGED_SLAB, gather.MS_DEFORM_ATTN_DVALUE_SLAB, ROI_ALIGN_TILES]
 
 
 def expected(**counts):
@@ -350,11 +366,11 @@ def path_launches(cfg, S, n, train=False):
     """The deformable-attention launches by kernel that n forwards (train:
     n forward and backward passes) of the model at `cfg` over S encoder
     tokens make, by the wrappers' written route rules
-    (ops/deform_attn_cuda.py: plan_forward, plan_merged): the encoder at Q =
-    S, the decoder at Q = num_queries, each layer once."""
+    (ops/deform_attn_cuda.py: plan_forward, plan_merged, plan_dvalue): the
+    encoder at Q = S, the decoder at Q = num_queries, each layer once."""
     import torch
 
-    from poet_tpu_torch.ops.deform_attn_cuda import plan_forward, plan_merged
+    from poet_tpu_torch.ops.deform_attn_cuda import plan_dvalue, plan_forward, plan_merged
 
     m = cfg.model
     dtype, D, L = getattr(torch, m.dtype), m.hidden_dim // m.nheads, m.num_feature_levels
@@ -370,10 +386,26 @@ def path_launches(cfg, S, n, train=False):
                 keys += ("merged_slab" if plan_merged(S, D, dtype, Q, L, P).route == "slab"
                          else "merged",)
             elif train:
-                keys += ("d_value", "d_loc")
+                keys += ("d_value_slab" if plan_dvalue(S, D, dtype, Q, L, P).route == "slab"
+                         else "d_value", "d_loc")
         for k in keys:
             counts[k] = counts.get(k, 0) + layers * n
     return counts
+
+
+# the detector's FPN channels (RoIAlign's C on the detect+pose path)
+DETECT_C = 256
+
+
+def roi_launches(cfg, n):
+    """The RoIAlign launches of n detect+pose forwards at `cfg`: one per
+    forward, on the route ops/roi_align_cuda.py:plan_roi gives."""
+    import torch
+
+    from poet_tpu_torch.ops.roi_align_cuda import plan_roi
+
+    tiles = plan_roi(DETECT_C, getattr(torch, cfg.model.dtype)).route == "tiles"
+    return {"roi_tiles" if tiles else "roi": n}
 
 
 @contextlib.contextmanager
@@ -442,6 +474,30 @@ def deform_inputs(g, B, Q, H, D, shapes, P=4, lo=-0.2, hi=1.2, dtype=None, pad=0
         locs[:, -1] = -10.0
         locs[:, -2] = -1.0
     return value.to(dtype or torch.float32), locs.contiguous(), attn.contiguous()
+
+
+def grid_locations(g, B, H, shapes, P=4, noise_px=0.25):
+    """(B, Q, H, L, P, 2) encoder sampling locations as a model places them:
+    each of the Q = sum(H_l W_l) queries at its own token's pixel centre,
+    head h's points at 1..P pixels along the direction 2 pi h / H on every
+    level (Deformable DETR's grid initialisation), plus N(0, noise_px)
+    pixels. Neighbouring queries sample neighbouring tokens."""
+    import torch
+
+    refs = []
+    for h, w in shapes:
+        ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+        refs.append(torch.stack([(xs + 0.5) / w, (ys + 0.5) / h], -1).reshape(-1, 2))
+    ref = torch.cat(refs).to(DEVICE)
+    theta = torch.arange(H, device=DEVICE) * (2 * math.pi / H)
+    d = torch.stack([theta.cos(), theta.sin()], -1)
+    d = d / d.abs().max(-1, keepdim=True).values
+    off = d[:, None, :] * torch.arange(1, P + 1, device=DEVICE)[None, :, None]    # (H, P, 2)
+    L, Q = len(shapes), ref.shape[0]
+    noise = noise_px * torch.randn((B, Q, H, L, P, 2), generator=g, device=DEVICE)
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device=DEVICE)
+    locs = ref[None, :, None, None, None] + (off[None, None, :, None] + noise) / wh[:, None]
+    return locs.contiguous()
 
 
 def route_outputs(kernels, fits, *args):
@@ -677,66 +733,158 @@ def plain_adjoint_of(value, shapes, locs, attn, dout, wrt):
         return torch.autograd.grad(out, [ins[i] for i in wrt], dout)
 
 
+DVALUE_SWEEP_GROUPS = (4, 8, 16)
+# phase 6's d_value crossover: queries per (b, h) at the encoder's S = 1600
+DVALUE_CROSSOVER_Q = (10, 25, 50, 100, 200, 400, 800, 1600)
+DVALUE_SWEEP_THREADS = (256, 512, 1024)
+
+
 def phase_adjoint(report):
+    """Phase 6: the pair's kernels against the plain adjoint: d_value on both
+    routes (the atomic scatter; the slab route with the rule's channel
+    group) and the d_loc/d_attn gather, on phase 3's geometries plus pad
+    tokens, f32 and bf16; NaN locations; device ms of each route, the plain
+    adjoint of its own outputs and the whole plain adjoint at the encoder and
+    decoder shapes; at the encoder in bf16 the slab route over channel
+    groups and threads per block (the figures behind plan_dvalue)."""
     import torch
 
+    from poet_tpu_torch.ops import deform_attn_cuda as dac
     from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch_backward as plain_bwd
-    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_DLOC as KL
-    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_DVALUE as KV
+    from poet_tpu_torch.tools.timing import graph_ms
 
+    KV, KVS, KL = dac.MS_DEFORM_ATTN_DVALUE, dac.MS_DEFORM_ATTN_DVALUE_SLAB, dac.MS_DEFORM_ATTN_DLOC
     g = torch.Generator(device=DEVICE).manual_seed(1)
     worst = {"d_value": 0.0, "d_loc": 0.0, "d_attn": 0.0}
+    worst_slab = 0.0
     for name, B, Q, H, D, shapes, lo, hi, pad in ADJ_GEOMETRIES:
         value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=lo, hi=hi, pad=pad)
         dout = torch.randn((B, Q, H * D), generator=g, device=DEVICE)
         S_lv = sum(h * w for h, w in shapes)
+        S, L, P = value.shape[1], len(shapes), locs.shape[4]
         mask = off_edges(locs, shapes)
         line = f"adjoint-vs-plain {name}: B={B} Q={Q} H={H} D={D} levels={shapes} S={S_lv + pad}"
         for dt in (torch.float32, torch.bfloat16):
+            bf16 = dt == torch.bfloat16
             v, do = value.to(dt), dout.to(dt)
+            slab_group = dac.dvalue_slab_shape(S, D, Q, L, P).group
             ref = plain_bwd(v.float(), shapes, locs, attn, do.float())
-            got = (KV(v, shapes, locs, attn, do),) + KL(v, shapes, locs, attn, do)
+            d_loc_attn = KL(v, shapes, locs, attn, do)
+            got = (KV(v, shapes, locs, attn, do),) + d_loc_attn
+            slab = (KVS(v, shapes, locs, attn, do),) + d_loc_attn
             torch.cuda.synchronize()
-            errs = adjoint_checks(name, got, ref, value, locs, Q, S_lv, pad, mask,
-                                  dt == torch.bfloat16)
-            if dt == torch.float32:
+            errs = adjoint_checks(name, got, ref, value, locs, Q, S_lv, pad, mask, bf16)
+            slab_err = adjoint_checks(f"{name} d_value slab (group {slab_group})", slab, ref,
+                                      value, locs, Q, S_lv, pad, mask, bf16)["d_value"]
+            adjoint_checks(f"{name} d_value slab vs scatter", slab,
+                           [x.float() for x in got], value, locs, Q, S_lv, pad, None, bf16,
+                           roundings=2)
+            if not bf16:
                 worst = {k: max(worst[k], errs[k]) for k in worst}
-            line += (f" | {'f32' if dt == torch.float32 else 'bf16'} max_abs_err "
-                     + " ".join(f"{k} {e:.2e}" for k, e in errs.items()))
+                worst_slab = max(worst_slab, slab_err)
+            line += (f" | {'bf16' if bf16 else 'f32'} max_abs_err "
+                     + " ".join(f"{k} {e:.2e}" for k, e in errs.items())
+                     + f" d_value slab (group {slab_group}) {slab_err:.2e}")
         line += f" (d_loc off cell edges: {int(mask.sum())}/{mask.numel()})"
         if name in ("encoder", "decoder"):
             t = {}
             for dt in (torch.float32, torch.bfloat16):
                 v, do = value.to(dt), dout.to(dt)
                 args = (v, shapes, locs, attn, do)
-                ms = {"dvalue": cuda_ms(lambda: KV(*args)),
+                plan = dac.plan_dvalue(S, D, dt, Q, L, P)
+                # device ms of each route from graph replays (the scatter's
+                # zeroed buffer and cast included); the plain versions per
+                # call launched from the host
+                ms = {"dvalue": graph_ms(lambda: KV(*args), counted=KV),
+                      "dvalue_slab": graph_ms(lambda: KVS(*args), counted=KVS),
                       "plain_dvalue": cuda_ms(lambda: plain_adjoint_of(*args, (0,)), iters=5),
-                      "dloc": cuda_ms(lambda: KL(*args)),
+                      "dloc": graph_ms(lambda: KL(*args), counted=KL),
                       "plain_dloc": cuda_ms(lambda: plain_adjoint_of(*args, (1, 2)), iters=5),
                       "plain": cuda_ms(lambda: plain_bwd(*args), iters=5)}
+                shape = dac.dvalue_slab_shape(S, D, Q, L, P)
+                ms["rule"] = {"route": plan.route, "group": shape.group,
+                              "threads": shape.threads}
                 t["f32" if dt == torch.float32 else "bf16"] = ms
-            line += "".join(f" | ms {dt}: " + ", ".join(f"{k} {x:.4f}" for k, x in ms.items())
+            line += "".join(f" | ms {dt}: " + ", ".join(f"{k} {x:.4f}" for k, x in ms.items()
+                                                         if k != "rule")
+                            + f" (rule: {ms['rule']['route']}; slab group "
+                              f"{ms['rule']['group']}, {ms['rule']['threads']} threads)"
                             for dt, ms in t.items())
             report[f"adjoint_{name}"] = t
+            v, do = value.bfloat16(), dout.bfloat16()
+            report[f"dvalue_bound_{name}"] = deform_bound(locs, shapes, D, locs, attn, do, v)
             if name == "encoder":
                 v, do = value.bfloat16(), dout.bfloat16()
                 report["adjoint_bounds"] = {
                     "dvalue": deform_bound(locs, shapes, D, locs, attn, do, v),
                     "dloc": deform_bound(locs, shapes, D, v, locs, attn, do, locs, attn)}
+                args = (v, shapes, locs, attn, do)
+                sweep = {f"{gr}x{th}": graph_ms(lambda: KVS(*args, group=gr, threads=th),
+                                                counted=KVS)
+                         for gr in DVALUE_SWEEP_GROUPS for th in DVALUE_SWEEP_THREADS}
+                report["dvalue_sweep"] = sweep
+                line += (" | d_value slab bf16 ms by channels x threads per block: "
+                         + ", ".join(f"{k} {x:.4f}" for k, x in sweep.items()))
         log(line)
 
-    # NaN locations: the point gets exactly 0 and adds nothing
+    # the encoder shape at a model's sampling locations (grid_locations):
+    # both d_value routes against the plain adjoint, with device ms
+    B, H, D, shapes = 16, 16, 16, FLAGSHIP_LEVELS
+    value, _, attn = deform_inputs(g, B, FLAGSHIP_S, H, D, shapes)
+    locs = grid_locations(g, B, H, shapes)
+    locs[:, -1] = -10.0                              # the dummy-query conventions
+    locs[:, -2] = -1.0
+    dout = torch.randn((B, FLAGSHIP_S, H * D), generator=g, device=DEVICE)
+    t, line = {}, "adjoint-vs-plain encoder at grid-init locations:"
+    for dt in (torch.float32, torch.bfloat16):
+        key = "bf16" if dt == torch.bfloat16 else "f32"
+        args = (value.to(dt), shapes, locs, attn, dout.to(dt))
+        ref = plain_bwd(args[0].float(), shapes, locs, attn, args[4].float())
+        d_loc_attn = KL(*args)
+        for r, kernel in (("scatter", KV), ("slab", KVS)):
+            e = adjoint_checks(f"grid-init d_value {r}", (kernel(*args),) + d_loc_attn, ref,
+                               value, locs, FLAGSHIP_S, FLAGSHIP_S, 0, off_edges(locs, shapes),
+                               dt == torch.bfloat16)["d_value"]
+            line += f" | {key} {r} max_abs_err {e:.2e}"
+        t[key] = {"dvalue": graph_ms(lambda: KV(*args), counted=KV),
+                  "dvalue_slab": graph_ms(lambda: KVS(*args), counted=KVS)}
+        line += f" | ms {key}: " + ", ".join(f"{k} {x:.4f}" for k, x in t[key].items())
+    # the crossover over Q (the first Q queries, a model's locations) at S = 1600, bf16
+    args = (value.bfloat16(), shapes, locs, attn, dout.bfloat16())
+    t["crossover"] = {}
+    for Q in DVALUE_CROSSOVER_Q:
+        sub = (args[0], shapes) + tuple(x[:, :Q].contiguous() for x in args[2:])
+        t["crossover"][Q] = {
+            "reads_per_token": dac.corner_reads_per_token(FLAGSHIP_S, Q, len(shapes), 4),
+            "dvalue": graph_ms(lambda: KV(*sub), counted=KV),
+            "dvalue_slab": graph_ms(lambda: KVS(*sub, group=16, threads=512), counted=KVS)}
+    line += " | bf16 crossover over Q (reads per token; scatter, slab ms): " + ", ".join(
+        f"{Q} ({c['reads_per_token']:g}; {c['dvalue']:.4f}, {c['dvalue_slab']:.4f})"
+        for Q, c in t["crossover"].items())
+    report["adjoint_grid"] = t
+    log(line)
+
+    # NaN locations: the point gets exactly 0 and adds nothing, on both routes
     value, locs, attn = deform_inputs(g, 2, 5, 2, 8, ((6, 9), (4, 5)))
     dout = torch.randn((2, 5, 16), generator=g, device=DEVICE)
     locs[:, 0, :, 0, 1, 0] = float("nan")
-    d_value = KV(value, ((6, 9), (4, 5)), locs, attn, dout)
-    d_loc, d_attn = KL(value, ((6, 9), (4, 5)), locs, attn, dout)
-    if not (bool(torch.isfinite(d_value).all()) and bool((d_loc[:, 0, :, 0, 1] == 0).all())
-            and bool((d_attn[:, 0, :, 0, 1] == 0).all())):
+    args = (value, ((6, 9), (4, 5)), locs, attn, dout)
+    d_loc, d_attn = KL(*args)
+    clean = locs.clone()
+    clean[:, 0, :, 0, 1] = -10.0                     # the same point off the map
+    for kernel in (KV, KVS):
+        d_value = kernel(*args)
+        off_map = kernel(value, ((6, 9), (4, 5)), clean, attn, dout)
+        _, bad = adjoint_err(d_value, off_map.float())
+        if bad or not bool(torch.isfinite(d_value).all()):
+            raise AssertionError(f"a NaN location leaked into d_value ({type(kernel).__name__})")
+    if not (bool((d_loc[:, 0, :, 0, 1] == 0).all()) and bool((d_attn[:, 0, :, 0, 1] == 0).all())):
         raise AssertionError("a NaN location leaked into the adjoint")
     report["adjoint_max_abs_err"] = worst
-    log(f"adjoint kernels: f32 max |kernel - plain| {worst} over {len(ADJ_GEOMETRIES)} "
-        f"geometries (tol {ADJ_RTOL} x max|ref|; bf16 d_value + 2^-8 |ref|); NaN point -> 0")
+    report["dvalue_slab_max_abs_err"] = worst_slab
+    log(f"adjoint kernels: f32 max |kernel - plain| {worst}, d_value slab {worst_slab:.3e}, "
+        f"over {len(ADJ_GEOMETRIES)} geometries (tol {ADJ_RTOL} x max|ref|; bf16 d_value + "
+        f"2^-8 |ref|); NaN point -> 0 (d_value as with the point off the map, both routes)")
 
 
 def rotations_ok(rot: np.ndarray) -> float:
@@ -1071,67 +1219,122 @@ def roi_bound(shapes, boxes, feats, out):
     return bound(n_bytes, 8.0 * C * pairs + out.numel())
 
 
+# phase 9's sweep of the tiles route: (channels per chunk, threads per block)
+ROI_SWEEP = {"bf16": ((8, 128), (16, 64), (16, 128), (16, 256), (32, 128)),
+             "f32": ((8, 64), (8, 128), (8, 256), (16, 128))}
+
+
+def roi_staged_bytes(shapes, boxes, C, itemsize):
+    """The bytes the tiles route stages: per box its distinct rows times its
+    distinct columns (each in-map sample's lower and upper line), C
+    channels each."""
+    import torch
+
+    from poet_tpu_torch.ops.detection import roi_geometry
+
+    geo = roi_geometry(shapes, ROI_STRIDES, boxes)
+
+    def distinct(lo, w):
+        big = torch.iinfo(torch.int32).max
+        lines = torch.stack([lo, lo + 1], -1).flatten(1)
+        inside = (w.abs().sum(-1) > 0).repeat_interleave(2, 1)
+        lines = torch.where(inside, lines, torch.full_like(lines, big)).sort(1).values
+        first = (lines[:, 1:] != lines[:, :-1]) & (lines[:, 1:] < big)
+        return (lines[:, 0] < big).long() + first.sum(1)
+
+    cells = distinct(geo.ylo, geo.yw) * distinct(geo.xlo, geo.xw)
+    return int(cells.sum()) * C * itemsize
+
+
 def phase_roi(report):
+    """Phase 9: both routes of the RoIAlign kernel (tiles: a block per (box,
+    channel chunk) on the box's footprint staged in shared memory; gather:
+    corners from the L2) against the plain version on ROI_GEOMETRIES, f32
+    and bf16, NaN boxes pooling zeros; at the detect+pose shape each route's
+    ms alone and the tiles route with its geometry, the plain version's, the
+    tiles route over channel chunks (the same bits for every chunk: the
+    figures behind plan_roi) and the bound."""
     import torch
 
     from poet_tpu_torch.ops.detection import multiscale_roi_align_torch as plain
     from poet_tpu_torch.ops.detection import roi_geometry
     from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD as K
+    from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_TILES as KT
+    from poet_tpu_torch.ops.roi_align_cuda import plan_roi
 
     g = torch.Generator(device=DEVICE).manual_seed(2)
-    worst = 0.0
+    worst = {"gather": 0.0, "tiles": 0.0}
     for name, B, R, C, (H, W), kind in ROI_GEOMETRIES:
         shapes = [(H // s, W // s) for s in ROI_STRIDES]
         feats = [torch.randn((B, h, w, C), generator=g, device=DEVICE) for h, w in shapes]
         boxes = roi_boxes(g, B, R, H, W, kind)
         tol = ROI_F32_RTOL * max(f.abs().max().item() for f in feats)
+        f16 = [f.bfloat16() for f in feats]
+        line = f"roi-vs-plain {name}: B={B} R={R} C={C} levels={shapes}"
         with torch.inference_mode():
             ref = plain(feats, ROI_STRIDES, boxes)
-            got = K(feats, ROI_STRIDES, boxes)
-            torch.cuda.synchronize()
-            err32 = (got - ref).abs().max().item()
-            if not err32 <= tol:
-                raise AssertionError(f"roi {name} f32: max |kernel - plain| {err32} > {tol}")
-            f16 = [f.bfloat16() for f in feats]
             ref16 = plain([f.float() for f in f16], ROI_STRIDES, boxes)
-            got16 = K(f16, ROI_STRIDES, boxes)
-            torch.cuda.synchronize()
-            if got16.dtype != torch.bfloat16 or tuple(got16.shape) != (B, R, 7, 7, C):
-                raise AssertionError(f"roi {name}: kernel returned {got16.dtype} "
-                                     f"{tuple(got16.shape)}")
-            err16 = (got16.float() - ref16).abs()
-            if not bool((err16 <= tol + BF16_RTOL * ref16.abs()).all()):
-                raise AssertionError(f"roi {name} bf16: max |kernel - plain| "
-                                     f"{err16.max().item()} beyond {tol} + 2^-8 |ref|")
-            if kind == "edges" and not (bool((got[:, 7] == 0).all())
-                                        and bool((got16[:, 7] == 0).all())):
-                raise AssertionError(f"roi {name}: a NaN box pooled non-zero values")
-        worst = max(worst, err32)
-        line = (f"roi-vs-plain {name}: B={B} R={R} C={C} levels={shapes} f32 max_abs_err="
-                f"{err32:.3e} (tol {tol:.2e}) bf16 max_abs_err={err16.max().item():.3e} "
-                f"(tol {tol:.2e} + 2^-8 |ref|)")
+            for route, kernel in (("gather", K), ("tiles", KT)):
+                got = kernel(feats, ROI_STRIDES, boxes)
+                got16 = kernel(f16, ROI_STRIDES, boxes)
+                torch.cuda.synchronize()
+                err32 = (got - ref).abs().max().item()
+                if not err32 <= tol:
+                    raise AssertionError(f"roi {name} {route} f32: max |kernel - plain| {err32} "
+                                         f"> {tol}")
+                if got16.dtype != torch.bfloat16 or tuple(got16.shape) != (B, R, 7, 7, C):
+                    raise AssertionError(f"roi {name} {route}: kernel returned {got16.dtype} "
+                                         f"{tuple(got16.shape)}")
+                err16 = (got16.float() - ref16).abs()
+                if not bool((err16 <= tol + BF16_RTOL * ref16.abs()).all()):
+                    raise AssertionError(f"roi {name} {route} bf16: max |kernel - plain| "
+                                         f"{err16.max().item()} beyond {tol} + 2^-8 |ref|")
+                if kind == "edges" and not (bool((got[:, 7] == 0).all())
+                                            and bool((got16[:, 7] == 0).all())):
+                    raise AssertionError(f"roi {name} {route}: a NaN box pooled non-zero values")
+                worst[route] = max(worst[route], err32)
+                line += (f" | {route}: f32 max_abs_err={err32:.3e} bf16 max_abs_err="
+                         f"{err16.max().item():.3e}")
+        line += (f" (tol {tol:.2e}, bf16 + 2^-8 |ref|; tiles chunk bf16 "
+                 f"{plan_roi(C, torch.bfloat16).chunk}, f32 {plan_roi(C, torch.float32).chunk})")
         if kind == "proposals":
             with torch.inference_mode():
                 geo = roi_geometry(shapes, ROI_STRIDES, boxes)
-                t = {dt: (cuda_ms(lambda: K.launch(fs, boxes, geo)),
-                          cuda_ms(lambda: K(fs, ROI_STRIDES, boxes)),
-                          cuda_ms(lambda: plain(fs, ROI_STRIDES, boxes), iters=5, warmup=1))
+                t = {dt: {"tiles": cuda_ms(lambda: KT.launch(fs, boxes, geo)),
+                          "gather": cuda_ms(lambda: K.launch(fs, boxes, geo)),
+                          "tiles_with_geometry": cuda_ms(lambda: KT(fs, ROI_STRIDES, boxes)),
+                          "gather_with_geometry": cuda_ms(lambda: K(fs, ROI_STRIDES, boxes)),
+                          "plain": cuda_ms(lambda: plain(fs, ROI_STRIDES, boxes), iters=5,
+                                           warmup=1)}
                      for dt, fs in (("f32", feats), ("bf16", f16))}
+                sweep = {}
+                for dt, fs in (("f32", feats), ("bf16", f16)):
+                    want = KT.launch(fs, boxes, geo)
+                    for chunk, th in ROI_SWEEP[dt]:
+                        if not torch.equal(KT.launch(fs, boxes, geo, chunk=chunk, threads=th),
+                                           want):
+                            raise AssertionError(f"roi tiles {dt}: chunk {chunk}, {th} threads "
+                                                 f"changed the bits")
+                        sweep[f"{dt} {chunk}x{th}"] = cuda_ms(
+                            lambda: KT.launch(fs, boxes, geo, chunk=chunk, threads=th))
                 bms, by = roi_bound(shapes, boxes, f16, got16)
-            line += "".join(f" | ms {dt}: kernel {k:.4f}, with its geometry {w:.4f}, plain "
-                            f"{p:.4f}" for dt, (k, w, p) in t.items())
-            line += f" | bound {bms:.4f} ms ({by})"
-            report["roi"] = {"ms": t["bf16"][0], "wrapper_ms": t["bf16"][1],
-                             "plain_ms": t["bf16"][2], "f32_ms": t["f32"][0],
-                             "f32_plain_ms": t["f32"][2], "bound": (bms, by)}
+                staged = roi_staged_bytes(shapes, boxes, C, 2)
+            for dt, ms in t.items():
+                line += f" | ms {dt}: " + ", ".join(f"{k} {x:.4f}" for k, x in ms.items())
+            line += (" | tiles ms by chunk x threads: "
+                     + ", ".join(f"{k} {x:.4f}" for k, x in sweep.items())
+                     + f" | bound {bms:.4f} ms ({by}) | bf16 staged {staged / 1e9:.3f} GB, "
+                       f"{staged / t['bf16']['tiles'] / 1e9:.3f} TB/s over the tiles ms")
+            report["roi"] = {**t, "sweep": sweep, "bound": (bms, by), "staged_bytes": staged}
         log(line)
     # a CUDA input that requires grad is refused: the op has no gradient
-    try:
-        K([f.requires_grad_() for f in feats], ROI_STRIDES, boxes)
-    except RuntimeError:
-        pass
-    else:
-        raise AssertionError("the RoIAlign kernel accepted an input that requires grad")
+    for kernel in (K, KT):
+        try:
+            kernel([f.requires_grad_() for f in feats], ROI_STRIDES, boxes)
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("the RoIAlign kernel accepted an input that requires grad")
     report["roi_max_abs_err"] = worst
 
 
@@ -1178,7 +1381,8 @@ def phase_detect(report):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = all_kernels()
-    expect = expected(**path_launches(cfg, FLAGSHIP_S, DETECT_REQUESTS), roi=DETECT_REQUESTS)
+    expect = expected(**path_launches(cfg, FLAGSHIP_S, DETECT_REQUESTS),
+                      **roi_launches(cfg, DETECT_REQUESTS))
 
     def run(label, drive):
         for k in kernels:
@@ -1311,7 +1515,7 @@ def phase_detect_f32():
             shared = {k: v.cpu().numpy() for k, v in model(*cargs, detections={
                 k: v.cuda() for k, v in cpu_dets.items()}).items()}
         if [k.launches - n for k, n in zip(kernels, n0)] != expected(
-                **path_launches(cfg, FLAGSHIP_S, 2), roi=2):
+                **path_launches(cfg, FLAGSHIP_S, 2), **roi_launches(cfg, 2)):
             raise AssertionError("the card runs did not go through the kernels")
     if not np.array_equal(card["n_boxes"], cpu["n_boxes"]) or cpu["n_boxes"].sum() == 0:
         raise AssertionError(f"n_boxes card {card['n_boxes']} vs CPU {cpu['n_boxes']}")
@@ -1998,8 +2202,8 @@ def phase_eval_backbone(report):
                             "test", output_dir=tempfile.mkdtemp(prefix="poet_eval_bb_"))
     wall = time.perf_counter() - t0
     counts = [k.launches for k in kernels]
-    expect = expected(**path_launches(cfg, FLAGSHIP_S, n_batches), roi=n_batches,
-                      nn=adi_launches(evaluator))
+    expect = expected(**path_launches(cfg, FLAGSHIP_S, n_batches),
+                      **roi_launches(cfg, n_batches), nn=adi_launches(evaluator))
     if counts != expect:
         raise AssertionError(f"eval backbone: launches {LAUNCH_NAMES} {counts}, "
                              f"expected {expect}")
@@ -2014,6 +2218,11 @@ def phase_eval_backbone(report):
     report["eval_backbone_launches"] = counts
 
 
+# phase 18's d_value slab splits at the YOLO pyramid, where at most 8
+# channels' slab fits and the rule takes the scatter: (channels, threads)
+YOLO_DVALUE_SWEEP = ((4, 512), (4, 1024), (8, 512), (8, 1024))
+
+
 def merged_bound(v, locs, attn, do, grads, shapes):
     """The merged adjoint's bound: its bytes against a dot and a scatter, 4
     corners x D channels x 4 operations per point in the map."""
@@ -2025,17 +2234,20 @@ def phase_merged(report):
     """Phase 18: every route of the merged adjoint (the slab route with the
     value slab staged and read from device memory, the atomic route) against
     the plain adjoint, against each other (the two slab routes' d_loc and
-    d_attn the same bits) and against the pair (d_value scatter + d_loc/d_attn gather), on phase
-    6's geometries and the YOLO pyramid, f32 and bf16; NaN locations;
-    autograd through the entry; ms per route and the bound."""
+    d_attn the same bits) and against the pair (d_value on its route + the
+    d_loc/d_attn gather), on phase 6's geometries and the YOLO pyramid, f32
+    and bf16; at the YOLO pyramid the pair's d_value on both routes (slab,
+    atomic scatter) against the plain adjoint, with device ms; NaN
+    locations; autograd through the entry; ms per route and the bound."""
     import torch
 
     from poet_tpu_torch.ops import deform_attn_cuda as dac
     from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch_backward as plain_bwd
     from poet_tpu_torch.tools.timing import graph_ms
 
-    KV, KL, KM, KMS = (dac.MS_DEFORM_ATTN_DVALUE, dac.MS_DEFORM_ATTN_DLOC,
-                       dac.MS_DEFORM_ATTN_MERGED, dac.MS_DEFORM_ATTN_MERGED_SLAB)
+    KV, KVS, KL, KM, KMS = (dac.MS_DEFORM_ATTN_DVALUE, dac.MS_DEFORM_ATTN_DVALUE_SLAB,
+                            dac.MS_DEFORM_ATTN_DLOC, dac.MS_DEFORM_ATTN_MERGED,
+                            dac.MS_DEFORM_ATTN_MERGED_SLAB)
     routes = {"atomic": KM,
               "slab_staged": lambda *args: KMS(*args, stage=True),
               "slab_unstaged": lambda *args: KMS(*args, stage=False)}
@@ -2063,8 +2275,25 @@ def phase_merged(report):
                     "slab_unstaged": dac.merged_slab_bytes(S, D, dt, False) <= dac.SMEM_OPTIN_MAX}
             ref = plain_bwd(v.float(), shapes, locs, attn, do.float())
             got = route_outputs(routes, fits, *args)
-            pair = (KV(*args),) + KL(*args)
+            pair = (dac.dvalue_adjoint(*args),) + KL(*args)
             torch.cuda.synchronize()
+            if name == "yolo pyramid":
+                # the pair's d_value: the rule's atomic scatter (the 16-channel
+                # slab does not fit) and the narrower slab splits that do
+                if dac.plan_dvalue(S, D, dt, Q, L, P).route != "atomic":
+                    raise AssertionError(f"{name} {key}: plan_dvalue takes the slab route")
+                dv = {"scatter": graph_ms(lambda: KV(*args), counted=KV),
+                      "bound": deform_bound(locs, shapes, D, locs, attn, do, v), "sweep": {}}
+                line += f" | {key} d_value ms: scatter (the rule) {dv['scatter']:.4f}, slab"
+                for gr, th in YOLO_DVALUE_SWEEP:
+                    e = adjoint_checks(f"{name} d_value slab {gr}x{th}",
+                                       (KVS(*args, group=gr, threads=th),) + pair[1:], ref,
+                                       value, locs, Q, S_lv, pad, mask, bf16)["d_value"]
+                    dv["sweep"][f"{gr}x{th}"] = graph_ms(
+                        lambda: KVS(*args, group=gr, threads=th), counted=KVS)
+                    line += f" {gr}x{th} {dv['sweep'][f'{gr}x{th}']:.4f} (err {e:.2e})"
+                line += f", bound {dv['bound'][0]:.4f}"
+                t.setdefault("d_value", {})[key] = dv
             if rule not in got:
                 raise AssertionError(f"{name} {key}: the rule picks {rule}, which refuses")
             errs = {}
@@ -2096,7 +2325,7 @@ def phase_merged(report):
                 # zeroed buffer and cast included); the pair's and the plain
                 # adjoint's per call launched from the host
                 ms = {r: graph_ms(lambda: routes[r](*args), counted=counted[r]) for r in got}
-                ms.update(pair=cuda_ms(lambda: (KV(*args), KL(*args))),
+                ms.update(pair=cuda_ms(lambda: (dac.dvalue_adjoint(*args), KL(*args))),
                           plain=cuda_ms(lambda: plain_bwd(*args), iters=5))
                 ms["rule"] = rule
                 ms["bound"] = merged_bound(v, locs, attn, do, got[rule], shapes)
@@ -2649,7 +2878,9 @@ def main(argv) -> int:
 
     fwd_enc, fwd_dec = report["fwd_encoder"]["bf16"], report["fwd_decoder"]["bf16"]
     fwd_yolo = report["fwd_yolo pyramid"]["bf16"]
-    adj = report["adjoint_encoder"]["bf16"]
+    adj, adj_f32 = report["adjoint_encoder"]["bf16"], report["adjoint_encoder"]["f32"]
+    adj_dec, adj_dec_f32 = report["adjoint_decoder"]["bf16"], report["adjoint_decoder"]["f32"]
+    d_yolo = report["merged_yolo pyramid"]["d_value"]["bf16"]
     m_enc, m_dec = report["merged_encoder"]["bf16"], report["merged_decoder"]["bf16"]
     m_yolo = report["merged_yolo pyramid"]["bf16"]
     paths = {"serve": report["launches"], "train": report["train_launches"],
@@ -2700,7 +2931,13 @@ def main(argv) -> int:
          "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "434", **launched("d_value"),
          "max_abs_err": errs["d_value"],
          **timed(adj["dvalue"], adj["plain_dvalue"], bounds["dvalue"]),
-         "plain_adjoint_ms": adj["plain"]},
+         "plain_adjoint_ms": adj["plain"], "slab_ms": adj["dvalue_slab"],
+         "grid_init_ms": report["adjoint_grid"]["bf16"]["dvalue"],
+         "grid_init_slab_ms": report["adjoint_grid"]["bf16"]["dvalue_slab"],
+         "ms_are": "the atomic scatter at the encoder shape (B=16, Q=S=1600, H=16, D=16, "
+                   "L=P=4), where the rule takes it, bf16, device time from graph replays, its "
+                   "zeroed buffer and cast included; slab_ms: the slab route there, same call; "
+                   "grid_init: at a model's sampling locations (grid_locations)"},
         {"name": "ms_deform_attn_bwd_dloc", "route": "cuda",
          "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "470", **launched("d_loc"),
          "max_abs_err": max(errs["d_loc"], errs["d_attn"]),
@@ -2708,8 +2945,12 @@ def main(argv) -> int:
          "plain_adjoint_ms": adj["plain"]},
         {"name": "roi_align_fwd", "route": "cuda", "source": src + "roi_align_fwd.cu",
          "replaces": "poet_tpu/ops/roi_align_pallas.py:77", **launched("roi"),
-         "max_abs_err": report["roi_max_abs_err"],
-         **timed(roi["ms"], roi["plain_ms"], roi["bound"]), "wrapper_ms": roi["wrapper_ms"]},
+         "max_abs_err": report["roi_max_abs_err"]["gather"],
+         **timed(roi["bf16"]["gather"], roi["bf16"]["plain"], roi["bound"]),
+         "wrapper_ms": roi["bf16"]["gather_with_geometry"], "tiles_ms": roi["bf16"]["tiles"],
+         "ms_are": "the gather route at the detect+pose shape (B=16 x 1000 proposals, C=256), "
+                   "bf16, where the rule takes the tiles route; tiles_ms: the tiles route "
+                   "there, same call"},
         {"name": "conv_stem_fwd", "route": "cuda", "source": src + "conv_stem_fwd.cu",
          "replaces": "poet_tpu/ops/conv_stem_pallas.py:66", **launched("stem"),
          # f32 (TF32 off) over every phase-12 case; relative: to each case's max |plain|
@@ -2832,6 +3073,37 @@ def main(argv) -> int:
          "ms_are": f"the encoder shape (B=16, Q=S=1600, H=16, D=16, L=P=4), bf16, the rule's "
                    f"{m_enc['rule']}; atomic_ms: the atomic route there, same call; decoder: "
                    f"Q=10, the rule's {m_dec['rule']}"},
+        {"name": "ms_deform_attn_bwd_dvalue_slab", "route": "cuda",
+         "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "434",
+         **launched("d_value_slab"), "max_abs_err": report["dvalue_slab_max_abs_err"],
+         **timed(adj_dec["dvalue_slab"], adj_dec["plain_dvalue"],
+                 report["dvalue_bound_decoder"]),
+         "atomic_ms": adj_dec["dvalue"], "f32_ms": adj_dec_f32["dvalue_slab"],
+         "f32_atomic_ms": adj_dec_f32["dvalue"], "encoder_ms": adj["dvalue_slab"],
+         "encoder_atomic_ms": adj["dvalue"],
+         "grid_init_encoder_ms": report["adjoint_grid"]["bf16"]["dvalue_slab"],
+         "grid_init_encoder_atomic_ms": report["adjoint_grid"]["bf16"]["dvalue"],
+         "crossover_ms": {Q: [c["dvalue"], c["dvalue_slab"]]
+                          for Q, c in report["adjoint_grid"]["crossover"].items()},
+         "ms_by_group_x_threads": report["dvalue_sweep"],
+         "yolo_atomic_ms": d_yolo["scatter"], "yolo_ms_by_group_x_threads": d_yolo["sweep"],
+         "ms_are": "the decoder shape (B=16, Q=10, S=1600, H=16, D=16, L=P=4), where the rule "
+                   "takes the slab route, bf16, device time from graph replays; atomic_ms: "
+                   "the scatter there, same call (its zeroed buffer and cast included); "
+                   "encoder: Q=S=1600, uniform locations; grid_init_encoder: the encoder at a "
+                   "model's sampling locations (grid_locations), where the rule takes the "
+                   "scatter; crossover_ms: [scatter, slab] by Q at S=1600 there; yolo: B=16, "
+                   "Q=S=6380, the slab splits that fit"},
+        {"name": "roi_align_tiles", "route": "cuda", "source": src + "roi_align_fwd.cu",
+         "replaces": "poet_tpu/ops/roi_align_pallas.py:77", **launched("roi_tiles"),
+         "max_abs_err": report["roi_max_abs_err"]["tiles"],
+         **timed(roi["bf16"]["tiles"], roi["bf16"]["plain"], roi["bound"]),
+         "wrapper_ms": roi["bf16"]["tiles_with_geometry"], "gather_ms": roi["bf16"]["gather"],
+         "f32_ms": roi["f32"]["tiles"], "f32_gather_ms": roi["f32"]["gather"],
+         "ms_by_chunk": roi["sweep"],
+         "ms_are": "the detect+pose shape (B=16 x 1000 proposals, C=256, levels (120,160).."
+                   "(15,20)), bf16, the kernel alone; wrapper_ms: with its geometry; gather_ms: "
+                   "the gather route, same call"},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 // Multi-scale deformable attention, adjoint — CUDA for Hopper (sm_90a).
 //
-// Four kernels, replacing the TPU's two adjoints in
+// Five kernels, replacing the TPU's two adjoints in
 // poet_tpu/ops/deform_attn_pallas_v3.py:
-//   * ms_deform_attn_dvalue_kernel  replaces _bwd_dval_kernel (d_value) and
+//   * ms_deform_attn_dvalue_kernel (the ATOMIC scatter) and
+//     ms_deform_attn_dvalue_slab_kernel (the SLAB route, for few corner adds
+//     per token: the decoder) replace _bwd_dval_kernel (d_value), and
 //   * ms_deform_attn_dloc_kernel    replaces _bwd_dloc_kernel (d_loc, d_attn),
 //     the two-kernel adjoint _bwd_twokernel_core;
 //   * ms_deform_attn_merged_slab_kernel (the SLAB route) and
@@ -464,6 +466,95 @@ ms_deform_attn_merged_slab_kernel(const T* __restrict__ value, const float* __re
   }
 }
 
+// SLAB route of d_value: one block per (b, h, channel group), blockIdx.x =
+// (b * H + h) * groups + gi, the group's DG channels gi DG .. gi DG + DG - 1.
+// Its f32 d_value slab (S, DG) lives in shared memory (102 400 B at S =
+// 1600, DG = 16: two blocks per SM), zeroed by the block; its G-lane groups
+// (G = DG / VEC rounded up to a power of two) walk the pair's Q x L x P
+// sampling points, a point per group at a time, and add corner_weight * a *
+// dout into the slab with slab_add's rotated channel order (a corner of
+// weight exactly 0 adds nothing and is skipped: each add is a compare-and-
+// swap loop); then the block writes every row of its (b, h, group) once in
+// the value dtype, 16 bytes a store where DG allows: no zeroed buffer, no
+// cast. d_value needs no value slab and no cross-channel reduction, so the
+// channels split freely. What bounds it is the shared adds' compare-and-swap
+// loops: where each token takes many corner adds (the encoder, 64) the
+// scatter's L2 atomics, which neighbouring queries' shared lines help,
+// measured faster at a model's sampling locations, and the wrapper's rule
+// (ops/deform_attn_cuda.py:plan_dvalue) keeps the slab for few adds per
+// token (the decoder, 0.4), where the scatter's zeroed 26 MB buffer and
+// cast cost more than its adds.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(1024)
+ms_deform_attn_dvalue_slab_kernel(const float* __restrict__ loc, const float* __restrict__ attn,
+                                  const T* __restrict__ dout, T* __restrict__ dvalue, int S,
+                                  int Q, int H, int D, int DG, int L, int P, int G,
+                                  const __grid_constant__ Levels lv, bool store16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* acc = reinterpret_cast<float*>(smem);
+  const int groups = D / DG;
+  const int gi = (int)(blockIdx.x % groups);
+  const int64_t bh = blockIdx.x / groups;
+  const int h = (int)(bh % H);
+  const int64_t b = bh / H;
+  const int n = S * DG;
+  for (int i = threadIdx.x; i < n / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = (n / 4) * 4 + threadIdx.x; i < n; i += blockDim.x) acc[i] = 0.f;
+  __syncthreads();
+
+  const int chunks = DG / VEC;
+  const int r = threadIdx.x % G;
+  const int rot = ((threadIdx.x & 31) / G) & (VEC - 1);
+  const int LP = L * P;
+  for (int it = threadIdx.x / G; it < Q * LP; it += blockDim.x / G) {
+    if (r >= chunks) continue;                   // the group's idle lanes (G > chunks)
+    const int q = it / LP;
+    const int k = it - q * LP;
+    const int l = k / P;
+    const int64_t bqh = (b * Q + q) * H + h;
+    Footprint f;
+    const int Wl = lv.w[l];
+    if (!deform_point::footprint(loc[(bqh * LP + k) * 2], loc[(bqh * LP + k) * 2 + 1], lv.h[l],
+                                 Wl, &f))
+      continue;
+    const float a = attn[bqh * LP + k];
+    float* acc_l = acc + (int64_t)lv.start[l] * DG;
+    for (int c = r; c < chunks; c += G) {
+      const int off = c * VEC;
+      float g[VEC], gr[VEC];
+      Load<T, VEC>::f32(dout + bqh * D + gi * DG + off, g);
+      rotate<VEC>(g, rot, gr);
+      deform_point::for_each_corner(f, Wl, a, [&](int, int t, float w) {
+        if (w != 0.f) slab_add<VEC>(acc_l + (int64_t)t * DG + off, w, gr, rot);
+      });
+    }
+  }
+  __syncthreads();
+
+  // d_value[b, :, h, group] once, in T: every row, the trailing pad tokens' 0 too
+  const int64_t row = (int64_t)H * D;
+  T* dv = dvalue + b * S * row + (int64_t)h * D + gi * DG;
+  if (store16) {  // DG * sizeof(T) a multiple of 16: 16 bytes (E values) per store
+    constexpr int E = 16 / sizeof(T);
+    const int per = DG / E;
+    for (int i = threadIdx.x; i < S * per; i += blockDim.x) {
+      const int t = i / per;
+      const float* a = acc + (int64_t)i * E;
+      __align__(16) T vals[E];
+#pragma unroll
+      for (int j = 0; j < E; ++j) vals[j] = deform_point::from_float<T>(a[j]);
+      *reinterpret_cast<uint4*>(dv + (int64_t)t * row + (i - t * per) * E) =
+          *reinterpret_cast<const uint4*>(vals);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int t = i / DG;
+      dv[(int64_t)t * row + (i - t * DG)] = deform_point::from_float<T>(acc[i]);
+    }
+  }
+}
+
 int64_t grid_for(int64_t n_items, int threads) {
   int64_t blocks = (n_items + threads - 1) / threads;
   return blocks > ((int64_t)1 << 20) ? ((int64_t)1 << 20) : blocks;  // grid-stride beyond
@@ -484,6 +575,25 @@ void launch_dvalue(const float* loc, const float* attn, const void* dout, float*
   if (n_items == 0) return;
   ms_deform_attn_dvalue_kernel<T, VEC><<<(unsigned)grid_for(n_items, 256), 256, 0, stream>>>(
       loc, attn, static_cast<const T*>(dout), dvalue, S, Q, H, D, L, P, lv, n_items);
+}
+
+template <typename T, int VEC>
+int launch_dvalue_slab(const float* loc, const float* attn, const void* dout, void* dvalue, int B,
+                       int S, int Q, int H, int D, int DG, int L, int P, int threads,
+                       const Levels& lv, cudaStream_t stream) {
+  const int64_t blocks = (int64_t)B * H * (D / DG);
+  if (blocks == 0) return 0;
+  const size_t smem = (size_t)S * DG * sizeof(float);
+  auto kernel = ms_deform_attn_dvalue_slab_kernel<T, VEC>;
+  static size_t granted[deform_point::kMaxDevices];  // per instantiation
+  const int rc = deform_point::grant_smem(kernel, smem, granted);
+  if (rc != 0) return rc;
+  const bool store16 = (DG * sizeof(T)) % 16 == 0 && (D * sizeof(T)) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(dvalue) % 16 == 0;
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(
+      loc, attn, static_cast<const T*>(dout), static_cast<T*>(dvalue), S, Q, H, D, DG, L, P,
+      group_lanes(DG / VEC), lv, store16);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int VEC>
@@ -573,6 +683,43 @@ int poet_ms_deform_attn_bwd_dvalue(const void* loc, const void* attn, const void
     return -5;
   }
   return (int)cudaGetLastError();
+}
+
+// d_value on its slab route: every row of d_value written in the value dtype
+// (rows past the levels 0); `group` channels per block (D % group == 0),
+// vec channels per lane (1, 4 or 8, group % vec == 0), `threads` per block
+// (a multiple of 32, at most 1024). -7 when the (S, group) f32 slab exceeds
+// the device's opt-in limit.
+int poet_ms_deform_attn_bwd_dvalue_slab(const void* loc, const void* attn, const void* dout,
+                                        void* dvalue, int dtype, int B, int S, int Q, int H,
+                                        int D, int L, int P, const int* level_hw, int vec,
+                                        int group, int threads, void* stream) {
+  Levels lv;
+  const int rc = deform_point::make_levels(level_hw, L, S, &lv);
+  if (rc != 0) return rc;
+  if (group < 1 || D % group != 0 || vec < 1 || group % vec != 0) return -2;
+  if (threads < 32 || threads > 1024 || threads % 32 != 0) return -3;
+  const float* locf = static_cast<const float*>(loc);
+  const float* attf = static_cast<const float*>(attn);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define POET_DVALUE_SLAB(T, V)                                                                 \
+  return launch_dvalue_slab<T, V>(locf, attf, dout, dvalue, B, S, Q, H, D, group, L, P, threads, \
+                                  lv, s)
+  if (dtype == 0 && vec == 8) {
+    POET_DVALUE_SLAB(float, 8);
+  } else if (dtype == 0 && vec == 4) {
+    POET_DVALUE_SLAB(float, 4);
+  } else if (dtype == 0 && vec == 1) {
+    POET_DVALUE_SLAB(float, 1);
+  } else if (dtype == 1 && vec == 8) {
+    POET_DVALUE_SLAB(__nv_bfloat16, 8);
+  } else if (dtype == 1 && vec == 4) {
+    POET_DVALUE_SLAB(__nv_bfloat16, 4);
+  } else if (dtype == 1 && vec == 1) {
+    POET_DVALUE_SLAB(__nv_bfloat16, 1);
+  }
+#undef POET_DVALUE_SLAB
+  return -5;
 }
 
 // d_loc (w.r.t. normalized locations) and d_attn, every element written.

@@ -140,11 +140,13 @@ FWD_LIB = CudaLibrary(CSRC / "ms_deform_attn_fwd.cu", {
     "poet_ms_deform_attn_fwd_slab": [P] * 4 + [I] * 8 + [INTS, I, P]})
 BWD_LIB = CudaLibrary(CSRC / "ms_deform_attn_bwd.cu", {
     "poet_ms_deform_attn_bwd_dvalue": [P] * 4 + [I] * 8 + [INTS, I, P],
+    "poet_ms_deform_attn_bwd_dvalue_slab": [P] * 4 + [I] * 8 + [INTS, I, I, I, P],
     "poet_ms_deform_attn_bwd_dloc": [P] * 6 + [I] * 8 + [INTS, I, P],
     "poet_ms_deform_attn_bwd_merged": [P] * 7 + [I] * 8 + [INTS, I, P],
     "poet_ms_deform_attn_bwd_merged_slab": [P] * 7 + [I] * 8 + [INTS, I, I, P]})
 ROI_LIB = CudaLibrary(CSRC / "roi_align_fwd.cu", {
-    "poet_roi_align_fwd": [PTRS, INTS, I] + [P] * 6 + [I] * 7 + [P]})
+    "poet_roi_align_fwd": [PTRS, INTS, I] + [P] * 6 + [I] * 7 + [P],
+    "poet_roi_align_tiles": [PTRS, INTS, I] + [P] * 6 + [I] * 9 + [P]})
 STEM_LIB = CudaLibrary(CSRC / "conv_stem_fwd.cu", {
     "poet_conv_stem_fwd": [P] * 4 + [I] * 15 + [P]})
 NN_LIB = CudaLibrary(CSRC / "min_dist_sq_fwd.cu", {

@@ -8,8 +8,8 @@ the table is `config.DEFORM_IMPLS`). It is a `torch.autograd.Function`:
     (`ops/deform_attn.py`);
   * CUDA tensors launch the hand-written kernels — the forward
     `csrc/ms_deform_attn_fwd.cu`, and in the backward, by its `adjoint`
-    argument, either the pair of `csrc/ms_deform_attn_bwd.cu` (the d_value
-    scatter and the d_loc/d_attn gather) or the merged adjoint of the same
+    argument, either the pair of `csrc/ms_deform_attn_bwd.cu` (d_value on
+    its route and the d_loc/d_attn gather) or the merged adjoint of the same
     file (all three gradients in one pass) — or raise.
 There is no fallback from one to the other.
 
@@ -29,6 +29,16 @@ budget of one block, `SMEM_OPTIN_MAX` (never by catching a failure):
     both fit) wherever the f32 d_value slab fits, else the ATOMIC route
     (`MS_DEFORM_ATTN_MERGED`, float4 atomics into a zeroed f32 buffer in
     device memory, cast after): the YOLO pyramid, S = 6380.
+The pair's d_value has two routes too:
+  * `plan_dvalue`: the SLAB route (`MS_DEFORM_ATTN_DVALUE_SLAB`, a block per
+    (b, h, channel group of up to `DVALUE_GROUP_MAX`) sums its (S, group)
+    f32 slab in shared memory and writes it once in the value dtype: no
+    zeroed buffer, no cast) where that slab fits and each token takes at
+    most `DVALUE_SLAB_MAX_READS` corner adds (the decoder, Q = 10), else
+    the ATOMIC scatter (`MS_DEFORM_ATTN_DVALUE`, float4 atomics into a
+    zeroed f32 buffer, cast after): the encoder, where the L2's atomics
+    outrun the shared adds' compare-and-swap loops at a model's sampling
+    locations, and the YOLO pyramid, whose 16-channel slab does not fit.
 
 The kernels are built by `ops/cuda_build.py` (nvcc at first use, loaded
 with ctypes); this module re-exports its `CudaLibrary`, `build_all`,
@@ -66,6 +76,22 @@ SMEM_OPTIN_MAX = 232448             # shared memory one block may opt into on th
 # many times (corner reads 4 L P Q over S tokens); 64 in the encoder at the
 # flagship shape, 0.4 in its decoder (Q = 10)
 SLAB_MIN_READS = 8.0
+# the pair's d_value slab route (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py
+# phases 6 and 18). Channels per block: the largest divisor of D up to
+# DVALUE_GROUP_MAX; at the flagship encoder (S = 1600) 16 channels x 512
+# threads (two 102 400 B slabs per SM) ran 0.5625 ms on uniform locations,
+# 8 channels (four slabs per SM, each repeating the points' coordinate math,
+# up to four lanes on a bank) 0.8095; at the YOLO pyramid (S = 6380), where
+# only 8 channels fit, the best split ran 3.2310 ms against the scatter's
+# 2.6075. Corner adds per token: at a model's sampling locations
+# (chip_smoke.grid_locations, bf16, S = 1600) the slab beat the scatter up
+# to 16 per token (Q = 400: 0.1431 against 0.1471 ms; Q = 10: 0.0124
+# against 0.0259) and lost from 32 (Q = 800: 0.2871 against 0.2743; Q =
+# 1600: 0.5426 against 0.5005): neighbouring queries' corners share L2
+# lines for the atomics and contend in the shared adds.
+DVALUE_GROUP_MAX = 16
+DVALUE_THREADS = 512
+DVALUE_SLAB_MAX_READS = 16.0
 
 
 class Plan(NamedTuple):
@@ -114,6 +140,53 @@ def plan_merged(S: int, D: int, dtype: torch.dtype, Q: int, L: int, P: int) -> P
     if staged <= SMEM_OPTIN_MAX and corner_reads_per_token(S, Q, L, P) >= SLAB_MIN_READS:
         return Plan("slab", True, staged)
     return Plan("slab", False, merged_slab_bytes(S, D, dtype, False))
+
+
+class DValuePlan(NamedTuple):
+    """The pair's d_value route ('slab' or 'atomic'), the channels and
+    threads of one slab block, and its dynamic shared memory (bytes)."""
+    route: str
+    group: int
+    threads: int
+    smem_bytes: int
+
+
+def _slab_vec(n: int) -> int:
+    """Channels per lane of the slab kernels where the pointers allow."""
+    return next(v for v in (8, 4, 1) if n % v == 0)
+
+
+def dvalue_slab_shape(S: int, D: int, Q: int, L: int, P: int) -> DValuePlan:
+    """The slab route's block for these operands, whichever route the rule
+    takes: the channel group (the largest divisor of D up to
+    DVALUE_GROUP_MAX), DVALUE_THREADS threads, fewer where the Q L P points
+    cannot keep them busy (a warp multiple, at least 128), and the (S,
+    group) f32 slab's bytes."""
+    group = max(g for g in range(1, min(D, DVALUE_GROUP_MAX) + 1) if D % g == 0)
+    lanes = Q * L * P * _group_lanes(group // _slab_vec(group))
+    threads = min(DVALUE_THREADS, max(128, -(-lanes // 32) * 32))
+    return DValuePlan("slab", group, threads, S * group * 4)
+
+
+def plan_dvalue(S: int, D: int, dtype: torch.dtype, Q: int, L: int, P: int) -> DValuePlan:
+    """The pair's d_value route: 'slab' (`dvalue_slab_shape`'s block) where
+    its slab fits one block's shared memory and each token takes at most
+    DVALUE_SLAB_MAX_READS corner adds, else 'atomic'. The value dtype does
+    not change the slab (f32 either way)."""
+    slab = dvalue_slab_shape(S, D, Q, L, P)
+    if (slab.smem_bytes > SMEM_OPTIN_MAX
+            or corner_reads_per_token(S, Q, L, P) > DVALUE_SLAB_MAX_READS):
+        return DValuePlan("atomic", 0, 0, 0)
+    return slab
+
+
+def _group_lanes(chunks: int) -> int:
+    """Lanes per sampling point (`group_lanes` in the source): the power of
+    two >= chunks, at most 32."""
+    G = 1
+    while G < chunks and G < 32:
+        G <<= 1
+    return G
 
 
 def _plan_of(plan, value, locs) -> Plan:
@@ -247,8 +320,52 @@ class MSDeformAttnDValue:
                 dout.data_ptr(), d_value.data_ptr(), DTYPE_CODE[value.dtype],
                 B, S, Q, H, D, L, P, level_hw(spatial_shapes), vec, stream_of(value))
         BWD_LIB.check(rc, "ms_deform_attn_bwd_dvalue")
-        self.launches += 1
+        if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+            self.launches += 1
         return d_value.to(value.dtype)
+
+
+class MSDeformAttnDValueSlab:
+    """Launches the d_value kernel's slab route (`csrc/ms_deform_attn_bwd.cu`,
+    `ms_deform_attn_dvalue_slab_kernel`): one block per (b, h, channel group)
+    sums its (S, group) f32 slab in shared memory and writes every row once
+    in the value's dtype (rows past sum(Hl * Wl) exactly 0): no zeroed
+    buffer, no cast. `group` and `threads` default to `dvalue_slab_shape`'s.
+
+    Returns what `MSDeformAttnDValue` returns. Raises where the slab exceeds
+    SMEM_OPTIN_MAX. `launches` counts launches.
+    """
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                 sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+                 dout: torch.Tensor, group: Optional[int] = None,
+                 threads: Optional[int] = None) -> torch.Tensor:
+        B, S, Q, H, D, L, P = _check_inputs(value, spatial_shapes, sampling_locations,
+                                            attention_weights, dout)
+        shape = dvalue_slab_shape(S, D, Q, L, P)
+        group = shape.group if group is None else group
+        threads = shape.threads if threads is None else threads
+        if not group or D % group or S * group * 4 > SMEM_OPTIN_MAX:
+            raise ValueError(f"the d_value slab route does not take S={S} x D={D} in groups "
+                             f"of {group} channels within the {SMEM_OPTIN_MAX} B a block "
+                             f"may use")
+        lib = BWD_LIB.build()
+        d_value = torch.empty_like(value)         # every row written by the kernel
+        vec = next(n for n in (8, 4, 1) if group % n == 0
+                   and dout.data_ptr() % (n * dout.element_size()) == 0)
+        with torch.cuda.device(value.device):
+            rc = lib.poet_ms_deform_attn_bwd_dvalue_slab(
+                sampling_locations.data_ptr(), attention_weights.data_ptr(),
+                dout.data_ptr(), d_value.data_ptr(), DTYPE_CODE[value.dtype],
+                B, S, Q, H, D, L, P, level_hw(spatial_shapes), vec, group, threads,
+                stream_of(value))
+        BWD_LIB.check(rc, "ms_deform_attn_bwd_dvalue_slab")
+        if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+            self.launches += 1
+        return d_value
 
 
 class MSDeformAttnDLocAttn:
@@ -277,7 +394,8 @@ class MSDeformAttnDLocAttn:
                 d_attn.data_ptr(), DTYPE_CODE[value.dtype], B, S, Q, H, D, L, P,
                 level_hw(spatial_shapes), vec, stream_of(value))
         BWD_LIB.check(rc, "ms_deform_attn_bwd_dloc")
-        self.launches += 1
+        if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+            self.launches += 1
         return d_loc, d_attn
 
 
@@ -375,8 +493,10 @@ MS_DEFORM_ATTN_DVALUE = MSDeformAttnDValue()
 MS_DEFORM_ATTN_DLOC = MSDeformAttnDLocAttn()
 MS_DEFORM_ATTN_MERGED = MSDeformAttnMergedAdjoint()
 MS_DEFORM_ATTN_MERGED_SLAB = MSDeformAttnMergedSlab()
+MS_DEFORM_ATTN_DVALUE_SLAB = MSDeformAttnDValueSlab()
 KERNELS = (MS_DEFORM_ATTN_FWD, MS_DEFORM_ATTN_DVALUE, MS_DEFORM_ATTN_DLOC,
-           MS_DEFORM_ATTN_MERGED, MS_DEFORM_ATTN_FWD_SLAB, MS_DEFORM_ATTN_MERGED_SLAB)
+           MS_DEFORM_ATTN_MERGED, MS_DEFORM_ATTN_FWD_SLAB, MS_DEFORM_ATTN_MERGED_SLAB,
+           MS_DEFORM_ATTN_DVALUE_SLAB)
 ADJOINTS = ("merged", "pair")
 
 
@@ -394,10 +514,19 @@ def merged_adjoint(value, spatial_shapes, locs, attn, dout):
     return MS_DEFORM_ATTN_MERGED(value, spatial_shapes, locs, attn, dout)
 
 
+def dvalue_adjoint(value, spatial_shapes, locs, attn, dout):
+    """The pair's d_value on the route `plan_dvalue` gives these operands."""
+    plan = _plan_of(plan_dvalue, value, locs)
+    if plan.route == "slab":
+        return MS_DEFORM_ATTN_DVALUE_SLAB(value, spatial_shapes, locs, attn, dout, plan.group,
+                                          plan.threads)
+    return MS_DEFORM_ATTN_DVALUE(value, spatial_shapes, locs, attn, dout)
+
+
 class _MSDeformAttn(torch.autograd.Function):
     """Deformable sampling with its adjoint: CPU -> plain versions, CUDA ->
     the forward on its route and the adjoint chosen by `adjoint` ('pair':
-    the d_value scatter and the d_loc/d_attn gather; 'merged': one kernel,
+    d_value on its route and the d_loc/d_attn gather; 'merged': one kernel,
     on its route)."""
 
     @staticmethod
@@ -421,7 +550,7 @@ class _MSDeformAttn(torch.autograd.Function):
         elif ctx.adjoint == "merged":
             d_value, d_loc, d_attn = merged_adjoint(value, shapes, locs, attn, dout)
         else:
-            d_value = MS_DEFORM_ATTN_DVALUE(value, shapes, locs, attn, dout)
+            d_value = dvalue_adjoint(value, shapes, locs, attn, dout)
             d_loc, d_attn = MS_DEFORM_ATTN_DLOC(value, shapes, locs, attn, dout)
         return d_value, None, d_loc, d_attn, None
 
@@ -431,10 +560,10 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
                    adjoint: str = "merged") -> torch.Tensor:
     """The model's deformable-attention entry on the gather kernels
     (differentiable): CPU -> plain version, CUDA -> the hand-written kernels
-    on the routes `plan_forward` and `plan_merged` give (which raise on what
-    they do not take). `adjoint` picks the backward on
+    on the routes `plan_forward`, `plan_merged` and `plan_dvalue` give
+    (which raise on what they do not take). `adjoint` picks the backward on
     CUDA tensors: 'merged' (one kernel, the faster on the H100) or 'pair'
-    (d_value scatter + d_loc/d_attn gather); both compute the same
+    (d_value on its route + the d_loc/d_attn gather); both compute the same
     gradients."""
     if adjoint not in ADJOINTS:
         raise ValueError(f"adjoint {adjoint!r} not in {ADJOINTS}")

@@ -37,12 +37,14 @@ KERNEL_CLASSES: Tuple[Tuple[str, str], ...] = (
     ("forward kernel (direct)", r"ms_deform_attn_fwd_kernel"),
     ("forward kernel (slab)", r"ms_deform_attn_fwd_slab_kernel"),
     ("d_value kernel", r"ms_deform_attn_dvalue_kernel"),
+    ("d_value kernel (slab)", r"ms_deform_attn_dvalue_slab_kernel"),
     ("d_loc/d_attn kernel", r"ms_deform_attn_dloc_kernel"),
     ("merged adjoint kernel (atomic)", r"ms_deform_attn_merged_kernel"),
     ("merged adjoint kernel (slab)", r"ms_deform_attn_merged_slab_kernel"),
     ("dense forward kernel", r"ms_deform_attn_dense_fwd_kernel"),
     ("dense adjoint kernel", r"ms_deform_attn_dense_bwd_kernel"),
     ("RoIAlign kernel", r"roi_align_fwd_kernel"),
+    ("RoIAlign kernel (tiles)", r"roi_align_tiles_kernel"),
     ("stem kernel", r"conv_stem_fwd_kernel"),
     ("memcpy / memset", r"^Mem(cpy|set)"),
     ("conv (cuDNN)", r"cudnn|conv|fprop|dgrad|wgrad"),
