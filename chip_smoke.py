@@ -18,7 +18,8 @@ Phases, each raising on failure:
      the YOLO pyramid (S=6380, B=16; its f32 slab over the budget must be
      refused); f32 and bf16; device ms per route from CUDA-graph replays and
      plain ms; the direct/slab crossover over Q at S=1600; NaN locations
-     (output == the point in the map at weight 0, on each route); autograd
+     (the C1 rule: the point's output row NaN, every other row == the point
+     in the map at weight 0, on each route); autograd
      through the entry on every pair of routes the rules give (launches per
      route checked);
   4. the serving slice: the port's PoseServer at the paper config, bf16,
@@ -32,7 +33,8 @@ Phases, each raising on failure:
      on both routes (the atomic scatter; the slab route, a block per (b, h,
      channel group) on an f32 slab in shared memory, written once in the
      value dtype) and the d_loc/d_attn gather; phase 3's geometries plus
-     trailing pad tokens; f32 and bf16; NaN locations; device ms of each
+     trailing pad tokens; f32 and bf16; NaN locations (C1: NaN d_loc in
+     both coordinates and d_attn, nothing to d_value); device ms of each
      route from CUDA-graph replays, of the plain adjoint of its own outputs
      (autograd with respect to those inputs alone) and of the whole plain
      adjoint; at the encoder in bf16 the slab route over channel groups and
@@ -117,15 +119,15 @@ Phases, each raising on failure:
      other and against the pair of phase 6 (phase 6's geometries and the
      YOLO pyramid at B=16, where only the atomic route fits: the slab
      wrapper must refuse; f32 and bf16; pad rows exactly 0; NaN locations
-     -> 0 on every route), autograd through the entry with adjoint='merged'
+     -> NaN d_loc / d_attn and nothing to d_value on every route), autograd through the entry with adjoint='merged'
      on the rule's route; device ms per route from CUDA-graph replays, pair
      and plain ms, and the bound; at the YOLO pyramid the pair's d_value on
      the rule's atomic scatter and on the slab splits that fit (8 and 4
      channels a block) against the plain adjoint, with device ms;
  19. the dense one-hot forward and adjoint kernels ('pallas') against the
      plain versions: phase 6's geometries and the YOLO pyramid (S=6380), f32
-     and bf16, NaN locations held to the plain version on the card (the
-     point adds nothing, no NaN anywhere), the
+     and bf16, NaN locations held to the plain version on the card (the C1
+     rule: NaN output row, d_attn and d_loc, nothing to d_value), the
      adjoint's outputs bit-identical over two runs, autograd through the
      entry; dense, kernel 1, pair, merged and plain ms; the bounds on the
      tensor cores and in the gather form;
@@ -153,7 +155,26 @@ Phases, each raising on failure:
      (base bit-equal to kernel 1) with ms per variant; the four gather cases
      exactly equal to the plain version, device ms from a CUDA-graph replay
      beside torch.gather, and an index out of range that must raise.
-Phases 4, 7, 10, 13, 16, 17 and 20's paths each set every kernel's launch
+ 23. the CLI path (`poet_tpu_torch.cli`, in process, JAX's flag names) on PNG
+     files: a PoET-format dataset of 48 train and 16 test 480x640 PNGs
+     written by this script's zlib encoder (all five row filters, several
+     IDAT chunks; a seeded smooth field plus noise), YCB-V classes and
+     symmetries, models_eval PLY clouds; every file decoded back byte for
+     byte, the decoder's images/s on one thread and on four; training at the
+     paper config (bf16, gt mode, B=16, --rgb_augmentation --grayscale) for
+     one epoch (3 steps), then --resume for a second: finite losses, log.txt
+     epochs 0 and 1, the resumed parameters and AdamW state equal to the
+     saved ones bit for bit, step p50 (host clock) and the loader wait per
+     step, forward and merged-adjoint launches per step; --eval and
+     --eval_bop from the checkpoint (metric files, one CSV row per object,
+     min-distance launches); --inference on the test PNGs with Mask R-CNN
+     and --backbone_weights of `flagship.detector_state_dict` (a
+     results.json row per image, RoIAlign tiles launches); and the NaN gate:
+     a resume from a checkpoint whose sampling-offsets bias holds a NaN
+     stops with exit 1 and JAX's message before the rolling checkpoint is
+     overwritten (C1, end to end). Each CLI path's launches are held to the
+     route rules and reported as cli_train, cli_eval and cli_inference.
+Phases 4, 7, 10, 13, 16, 17, 20 and 23's paths each set every kernel's launch
 count to 0 before they drive their path and read them after, and hold them
 to the wrappers' route rules (`path_launches`, `roi_launches`; the v2
 kernel, the probes, the merged adjoint's atomic route and RoIAlign's gather
@@ -638,8 +659,9 @@ def phase_kernel(report):
             f"{Q}: {c['reads']:.1f}, {c['direct']:.4f} / {c['slab']:.4f} {c['rule']}"
             for Q, c in cross.items()))
 
-    # NaN locations: the point reads nothing on either route, so the output
-    # equals that of the same point in the map with attention weight 0
+    # NaN locations (the C1 rule, csrc/ms_deform_attn_point.cuh): the point
+    # reads nothing on either route and its (b, q, h) output row is NaN; every
+    # other row equals that of the same point in the map at attention weight 0
     shapes = ((6, 9), (4, 5), (1, 1))
     value, locs, attn = deform_inputs(g, 2, 40, 2, 8, shapes)
     nan = torch.zeros(locs.shape[:-1], dtype=torch.bool, device=DEVICE)
@@ -650,16 +672,18 @@ def phase_kernel(report):
     locs_nan[1, 5, 0, 2, 0, 1] = float("nan")
     twin_locs = torch.where(nan[..., None], 0.5, locs)
     twin_attn = torch.where(nan, 0.0, attn)
+    rows = nan.flatten(-2).any(-1)[..., None].expand(-1, -1, -1, 8).reshape(2, 40, 16)
     with torch.inference_mode():
         for dt in (torch.float32, torch.bfloat16):
             v = value.to(dt)
             for route, kernel in routes.items():
                 got = kernel(v, shapes, locs_nan, attn)
-                if not (bool(torch.isfinite(got).all())
-                        and torch.equal(got, kernel(v, shapes, twin_locs, twin_attn))):
-                    raise AssertionError(f"a NaN location leaked into the {route} forward")
-    log("NaN locations: both routes read nothing for the point (output == the point in "
-        "the map at weight 0, f32 and bf16)")
+                twin = kernel(v, shapes, twin_locs, twin_attn)
+                if not (torch.equal(torch.isnan(got), rows)
+                        and torch.equal(got[~rows], twin[~rows])):
+                    raise AssertionError(f"the {route} forward breaks the NaN-location rule")
+    log(f"NaN locations: both routes give the point's row NaN ({int(rows.sum()) // 8} rows) "
+        f"and every other row == the point in the map at weight 0 (f32 and bf16)")
 
     # CUDA tensors that require grad go through the entry and its adjoint,
     # each pair of routes the rules give
@@ -689,6 +713,25 @@ def adjoint_err(got, ref, mask=None, bf16=False, roundings=1):
     if mask is not None:
         err, bad = err[mask], bad[mask]
     return err.max().item() if err.numel() else 0.0, bool(bad.any())
+
+
+def check_nan_point(name, got, ref, point):
+    """The C1 rule's gradients: (d_loc, d_attn) NaN at `point` (an index of
+    the (B, Q, H, L, P) grid; both d_loc coordinates) and nowhere else, and
+    within ADJ_RTOL x max|ref| of `ref` (the same point off the map)
+    elsewhere."""
+    import torch
+
+    for what, a, b in zip(("d_loc", "d_attn"), got, ref):
+        want = torch.zeros(a.shape, dtype=torch.bool, device=a.device)
+        want[point] = True
+        if not torch.equal(torch.isnan(a), want):
+            raise AssertionError(f"{name}: {what} is NaN at {int(torch.isnan(a).sum())} entries, "
+                                 f"the rule at {int(want.sum())}")
+        tol = ADJ_RTOL * max(b[~want].abs().max().item(), 1.0)
+        if not (a[~want] - b[~want]).abs().max().item() <= tol:
+            raise AssertionError(f"{name}: {what} off the NaN point differs from the point "
+                                 f"off the map")
 
 
 def adjoint_checks(name, got, ref, value, locs, Q, S_lv, pad, mask, bf16, roundings=1):
@@ -864,7 +907,9 @@ def phase_adjoint(report):
     report["adjoint_grid"] = t
     log(line)
 
-    # NaN locations: the point gets exactly 0 and adds nothing, on both routes
+    # NaN locations (the C1 rule): the point adds nothing to d_value, on both
+    # routes, and gets NaN in d_attn and in both d_loc coordinates; every other
+    # entry is that of the same point off the map
     value, locs, attn = deform_inputs(g, 2, 5, 2, 8, ((6, 9), (4, 5)))
     dout = torch.randn((2, 5, 16), generator=g, device=DEVICE)
     locs[:, 0, :, 0, 1, 0] = float("nan")
@@ -878,13 +923,15 @@ def phase_adjoint(report):
         _, bad = adjoint_err(d_value, off_map.float())
         if bad or not bool(torch.isfinite(d_value).all()):
             raise AssertionError(f"a NaN location leaked into d_value ({type(kernel).__name__})")
-    if not (bool((d_loc[:, 0, :, 0, 1] == 0).all()) and bool((d_attn[:, 0, :, 0, 1] == 0).all())):
-        raise AssertionError("a NaN location leaked into the adjoint")
+    check_nan_point("d_loc/d_attn gather", (d_loc, d_attn),
+                    KL(value, ((6, 9), (4, 5)), clean, attn, dout), (slice(None), 0, slice(None),
+                                                                    0, 1))
     report["adjoint_max_abs_err"] = worst
     report["dvalue_slab_max_abs_err"] = worst_slab
     log(f"adjoint kernels: f32 max |kernel - plain| {worst}, d_value slab {worst_slab:.3e}, "
         f"over {len(ADJ_GEOMETRIES)} geometries (tol {ADJ_RTOL} x max|ref|; bf16 d_value + "
-        f"2^-8 |ref|); NaN point -> 0 (d_value as with the point off the map, both routes)")
+        f"2^-8 |ref|); NaN point: NaN d_loc (both coordinates) and d_attn, d_value as with "
+        f"the point off the map (both routes)")
 
 
 def rotations_ok(rot: np.ndarray) -> float:
@@ -2335,16 +2382,23 @@ def phase_merged(report):
             report[f"merged_{name}"] = t
         log(line)
 
-    # NaN locations: the point gets exactly 0 and adds nothing, on every route
+    # NaN locations (the C1 rule): the point adds nothing to d_value and gets
+    # NaN in d_attn and both d_loc coordinates, on every route; every other
+    # entry is that of the same point off the map
     shapes = ((6, 9), (4, 5))
     value, locs, attn = deform_inputs(g, 2, 5, 2, 8, shapes)
     dout = torch.randn((2, 5, 16), generator=g, device=DEVICE)
     locs[:, 0, :, 0, 1, 0] = float("nan")
+    clean = locs.clone()
+    clean[:, 0, :, 0, 1] = -10.0
     for r, kernel in routes.items():
         d_value, d_loc, d_attn = kernel(value, shapes, locs, attn, dout)
-        if not (bool(torch.isfinite(d_value).all()) and bool((d_loc[:, 0, :, 0, 1] == 0).all())
-                and bool((d_attn[:, 0, :, 0, 1] == 0).all())):
-            raise AssertionError(f"a NaN location leaked into the merged adjoint ({r})")
+        ref_value, ref_loc, ref_attn = kernel(value, shapes, clean, attn, dout)
+        _, bad = adjoint_err(d_value.float(), ref_value.float())
+        if bad or not bool(torch.isfinite(d_value).all()):
+            raise AssertionError(f"a NaN location leaked into the merged adjoint's d_value ({r})")
+        check_nan_point(f"merged adjoint ({r})", (d_loc, d_attn), (ref_loc, ref_attn),
+                        (slice(None), 0, slice(None), 0, 1))
     # autograd through the entry with adjoint='merged': the route the rule gives
     shapes = ((3, 4), (2, 2))
     v, l, a = deform_inputs(g, 1, 6, 2, 8, shapes)
@@ -2365,7 +2419,8 @@ def phase_merged(report):
     log(f"merged adjoint: f32 max |kernel - plain| {worst} over {len(ROUTE_GEOMETRIES)} "
         f"geometries and every route that takes them (tol {ADJ_RTOL} x max|ref|; bf16 d_value "
         f"+ 2^-8 |ref|); the two slab routes' d_loc / d_attn equal; agrees with "
-        f"the pair; NaN point -> 0 on every route; the entry's adjoint='merged' launches the "
+        f"the pair; NaN point -> NaN d_loc / d_attn, nothing to d_value, on every route; "
+        f"the entry's adjoint='merged' launches the "
         f"{plan.route} route")
 
 
@@ -2491,9 +2546,9 @@ def phase_dense(report):
             report[f"dense_{name}"] = t
         log(line)
 
-    # NaN locations, held to the plain version on the card (F.grid_sample sends
-    # a non-finite coordinate out of range: the point adds nothing): NaN where
-    # it has NaN, within tolerance elsewhere
+    # NaN locations, held to the plain version on the card, which carries the
+    # C1 rule by an explicit mask: NaN where it has NaN (the point's output
+    # row, d_attn and both d_loc coordinates), within tolerance elsewhere
     shapes = ((6, 9), (4, 5), (1, 1))
     value, locs, attn = deform_inputs(g, 2, 5, 2, 8, shapes)
     dout = torch.randn((2, 5, 16), generator=g, device=DEVICE)
@@ -2506,7 +2561,7 @@ def phase_dense(report):
     ref = plain_bwd(value, shapes, locs, attn, dout)
     got = DB(value, shapes, locs, attn, dout)
     torch.cuda.synchronize()
-    mask = off_edges(locs, shapes) | torch.isnan(locs)
+    mask = off_edges(locs, shapes) | torch.isnan(locs).any(-1, keepdim=True)
     for k, a, b in zip(("d_value", "d_loc", "d_attn"), got, ref):
         tol = ADJ_RTOL * torch.nan_to_num(b, nan=0.0).abs().max().item()
         if k == "d_loc":
@@ -2651,8 +2706,8 @@ def phase_v2(report):
             report[f"v2_{name}"] = t
         log(line)
 
-    # NaN locations, held to the plain version on the card (F.grid_sample sends
-    # a non-finite coordinate out of range: the point adds nothing)
+    # NaN locations, held to the plain version on the card (the C1 rule: the
+    # point's output row NaN)
     shapes = ((6, 9), (4, 5), (1, 1))
     value, locs, attn = deform_inputs(g, 2, 5, 2, 8, shapes)
     locs[:, 0, :, 0, 1, 0] = float("nan")
@@ -2808,6 +2863,462 @@ def phase_probes(report):
                                 "gather": dg.TAKE_ALONG_AXIS.launches}
 
 
+# ---------------------------------------------------------------- phase 23
+def encode_png(pixels: np.ndarray, depth: int = 8, color: int = None, chunk: int = 0,
+               palette=None, trns: bytes = None) -> bytes:
+    """A PNG file of `pixels` ((H, W) gray or palette indices, (H, W, 2)
+    gray + alpha, (H, W, 3) RGB, (H, W, 4) RGBA; uint8, or uint16 at
+    depth 16), row r filtered with filter type r % 5 (None, Sub, Up,
+    Average, Paeth: every filter on every fifth row), its IDAT data split
+    into chunks of `chunk` bytes (0: one chunk). The card's machine has no
+    PIL: phase 23 writes its dataset with this."""
+    import struct
+    import zlib
+
+    a = np.asarray(pixels)
+    if color is None:
+        color = {2: 0, 3: {2: 4, 3: 2, 4: 6}.get(a.shape[-1], 0)}[a.ndim]
+    samples = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    h, w = a.shape[:2]
+    if depth == 16:
+        rows = a.astype(">u2").reshape(h, -1).view(np.uint8)
+    elif depth < 8:     # pack the samples, most significant first
+        per = 8 // depth
+        v = np.zeros((h, -(-w // per) * per), np.uint8)
+        v[:, :w] = a.reshape(h, w)
+        v = v.reshape(h, -1, per) << (depth * np.arange(per - 1, -1, -1)).astype(np.uint8)
+        rows = np.bitwise_or.reduce(v, axis=-1).astype(np.uint8)
+    else:
+        rows = a.reshape(h, -1).astype(np.uint8)
+    bpp = max(1, samples * depth // 8)
+    cur = rows.astype(np.int32)
+    prev = np.vstack([np.zeros((1, cur.shape[1]), np.int32), cur[:-1]])
+    left = np.hstack([np.zeros((h, bpp), np.int32), cur[:, :-bpp]])
+    upleft = np.hstack([np.zeros((h, bpp), np.int32), prev[:, :-bpp]])
+    p = left + prev - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+    preds = (np.zeros_like(cur), left, prev, (left + prev) >> 1, paeth)
+    raw = bytearray()
+    for r in range(h):
+        f = r % 5
+        raw.append(f)
+        raw += ((cur[r] - preds[f][r]) & 0xFF).astype(np.uint8).tobytes()
+    data = zlib.compress(bytes(raw), 6)
+
+    def chunk_of(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    out = [b"\x89PNG\r\n\x1a\n",
+           chunk_of(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0))]
+    if palette is not None:
+        out.append(chunk_of(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
+    if trns is not None:
+        out.append(chunk_of(b"tRNS", trns))
+    step = chunk or len(data)
+    out += [chunk_of(b"IDAT", data[i:i + step]) for i in range(0, len(data), step)]
+    out.append(chunk_of(b"IEND", b""))
+    return b"".join(out)
+
+
+CLI_TRAIN_IMAGES, CLI_TEST_IMAGES = 48, 16     # 3 train steps of 16 an epoch, 1 eval batch
+CLI_SEED = 23
+CLI_PAPER = ["--enc_layers", "5", "--dec_layers", "5", "--nheads", "16", "--hidden_dim", "256",
+             "--num_queries", "10", "--dtype", "bfloat16", "--batch_size", "16",
+             "--eval_batch_size", "16", "--num_workers", "4", "--seed", "0"]
+
+
+def cli_image(rng, H: int, W: int) -> np.ndarray:
+    """(H, W, 3) uint8: a seeded smooth field (a coarse random grid
+    interpolated bilinearly) plus noise, so inflate has real work."""
+    coarse = rng.uniform(40.0, 215.0, (H // 32 + 2, W // 32 + 2, 3))
+    ys, xs = np.linspace(0, coarse.shape[0] - 1, H), np.linspace(0, coarse.shape[1] - 1, W)
+    y0, x0 = np.floor(ys).astype(int).clip(0, coarse.shape[0] - 2), \
+        np.floor(xs).astype(int).clip(0, coarse.shape[1] - 2)
+    ty, tx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
+    top = coarse[y0][:, x0] * (1 - tx) + coarse[y0][:, x0 + 1] * tx
+    bottom = coarse[y0 + 1][:, x0] * (1 - tx) + coarse[y0 + 1][:, x0 + 1] * tx
+    field = top * (1 - ty) + bottom * ty + rng.normal(0.0, 6.0, (H, W, 3))
+    return np.clip(field, 0, 255).astype(np.uint8)
+
+
+def write_cli_dataset(root: str):
+    """A PoET-format dataset under `root`: CLI_TRAIN_IMAGES train and
+    CLI_TEST_IMAGES test 480x640 PNGs (encode_png: all five filters, IDAT
+    in 64 KiB chunks), 1-5 objects an image with boxes, YCB-V classes,
+    poses and intrinsics, the YCB-V classes.json and symmetries.json of
+    dataset_files/, and a models_eval PLY cloud per class drawn as
+    `flagship.EvalFixture` draws them. Returns ({relative path: pixels},
+    {class id: test objects})."""
+    import shutil
+
+    from poet_tpu_torch.flagship import EVAL_POINTS, eval_model_clouds
+
+    rng = np.random.default_rng(CLI_SEED)
+    H, W = FLAGSHIP_HW
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    os.makedirs(os.path.join(root, "models_eval"), exist_ok=True)
+    for kind in ("classes", "symmetries"):
+        shutil.copy(os.path.join(ROOT, "dataset_files", f"ycbv_{kind}.json"),
+                    os.path.join(root, "annotations", f"{kind}.json"))
+    with open(os.path.join(root, "annotations", "classes.json")) as f:
+        classes = json.load(f)
+    models, info = eval_model_clouds(list(classes.values()), EVAL_POINTS, CLI_SEED)
+    for cid, name in classes.items():
+        pts = (models[name]["pts"] * 1000.0).astype("<f4")        # mm, as BOP ships them
+        with open(os.path.join(root, "models_eval", f"obj_{int(cid):06d}.ply"), "wb") as f:
+            f.write(b"ply\nformat binary_little_endian 1.0\n"
+                    + f"element vertex {len(pts)}\n".encode()
+                    + b"property float x\nproperty float y\nproperty float z\nend_header\n")
+            f.write(pts.tobytes())
+    with open(os.path.join(root, "models_eval", "models_info.json"), "w") as f:
+        json.dump({cid: info[name] for cid, name in classes.items()}, f)
+
+    K = [1066.778, 0.0, 312.9869, 0.0, 1067.487, 241.3109, 0.0, 0.0, 1.0]
+    pixels, test_objects = {}, {}
+    for split, n, folder in (("train", CLI_TRAIN_IMAGES, "train"),
+                             ("test", CLI_TEST_IMAGES, "test_all")):
+        os.makedirs(os.path.join(root, folder, "000001", "rgb"), exist_ok=True)
+        images, anns = [], []
+        for i in range(n):
+            name = f"000001/rgb/{i:06d}.png"
+            arr = cli_image(rng, H, W)
+            with open(os.path.join(root, folder, name), "wb") as f:
+                f.write(encode_png(arr, chunk=1 << 16))
+            pixels[f"{folder}/{name}"] = arr
+            images.append({"id": i, "file_name": name, "width": W, "height": H,
+                           "intrinsics": K, "type": "real"})
+            for _ in range(int(rng.integers(1, 6))):
+                w, h = W * rng.uniform(1 / 16, 5 / 16), H * rng.uniform(1 / 12, 5 / 12)
+                x, y = rng.uniform(0, W - w), rng.uniform(0, H - h)
+                q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+                q *= np.sign(np.diag(r))
+                q[:, 0] *= np.linalg.det(q)
+                cid = int(rng.integers(1, len(classes) + 1))
+                anns.append({"id": len(anns), "image_id": i, "bbox": [x, y, w, h],
+                             "area": w * h, "iscrowd": 0, "category_id": cid,
+                             "relative_pose": {
+                                 "position": [float(rng.normal(0, 0.15)),
+                                              float(rng.normal(0, 0.15)),
+                                              float(rng.uniform(0.6, 1.4))],
+                                 "rotation": q.reshape(-1).tolist()}})
+                if split == "test":
+                    test_objects[cid] = test_objects.get(cid, 0) + 1
+        cats = [{"supercategory": "background", "id": 0, "name": "background"}] + [
+            {"supercategory": v, "id": int(k), "name": v} for k, v in classes.items()]
+        with open(os.path.join(root, "annotations", f"{split}.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns, "categories": cats}, f)
+    return pixels, test_objects
+
+
+class Tee:
+    """stdout into the terminal and a buffer (the NaN gate's message)."""
+
+    def __init__(self, stream):
+        import io
+
+        self.stream, self.buffer = stream, io.StringIO()
+
+    def write(self, text):
+        self.buffer.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+class CliProbe:
+    """Host clocks around the CLI's train loop: the wait for each batch from
+    the loader, and the interval between the starts of successive train
+    steps (the loop's period: enqueue, the one-step-deep metrics read,
+    logging), patched into `engine.train.make_train_step` and
+    `PoseDataLoader.epoch`, which `cli.main` looks up at each call."""
+
+    def __init__(self):
+        self.waits, self.starts = [], []
+
+    def __enter__(self):
+        from poet_tpu_torch.data import loader as loader_mod
+        from poet_tpu_torch.engine import train as train_mod
+
+        self.saved = (train_mod.make_train_step, loader_mod.PoseDataLoader.epoch)
+        make_step, epoch = self.saved
+        probe = self
+
+        def timed_make_train_step(*args, **kwargs):
+            step = make_step(*args, **kwargs)
+
+            def timed(*a, **k):
+                probe.starts.append(time.perf_counter())
+                return step(*a, **k)
+            return timed
+
+        def timed_epoch(loader, n):
+            it = epoch(loader, n)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                if loader.shuffle:                    # the train loader
+                    probe.waits.append(time.perf_counter() - t0)
+                yield batch
+
+        train_mod.make_train_step = timed_make_train_step
+        loader_mod.PoseDataLoader.epoch = timed_epoch
+        return self
+
+    def __exit__(self, *exc):
+        from poet_tpu_torch.data import loader as loader_mod
+        from poet_tpu_torch.engine import train as train_mod
+
+        train_mod.make_train_step, loader_mod.PoseDataLoader.epoch = self.saved
+
+
+def phase_cli(report):
+    """Phase 23: the CLI path, `cli.run` in process with JAX's flag names, at
+    the paper config on PNG files (see the module docstring), in a temporary
+    directory removed afterwards."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="poet_cli_") as tmp:
+        _phase_cli(report, tmp)
+
+
+def _phase_cli(report, tmp):
+    import contextlib
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from poet_tpu_torch import cli
+    from poet_tpu_torch.engine.checkpoint import load_checkpoint
+    from poet_tpu_torch.evaluation.pose_evaluator import POSE_CHUNK
+    from poet_tpu_torch.flagship import detector_state_dict
+    from poet_tpu_torch import native
+    from poet_tpu_torch.native import decode_image
+
+    kernels = all_kernels()
+
+    def zero():
+        for k in kernels:
+            k.launches = 0
+
+    def counts():
+        return [k.launches for k in kernels]
+
+    def add(*dicts):
+        out = {}
+        for d in dicts:
+            for k, v in d.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    t_phase = time.perf_counter()
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    t0 = time.perf_counter()
+    pixels, test_objects = write_cli_dataset(data)
+    t_write = time.perf_counter() - t0
+    H, W = FLAGSHIP_HW
+    blobs = {}
+    for rel in pixels:
+        with open(os.path.join(data, rel), "rb") as f:
+            blobs[rel] = f.read()
+    t0 = time.perf_counter()
+    if not native.probe():
+        raise AssertionError("cli: the native image library does not build (g++)")
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = {rel: decode_image(b) for rel, b in blobs.items()}
+    one = len(blobs) / (time.perf_counter() - t0)
+    for rel, arr in decoded.items():
+        if not np.array_equal(arr, pixels[rel]):
+            raise AssertionError(f"cli: {rel} decodes to other pixels than were written")
+    with ThreadPoolExecutor(4) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(decode_image, blobs.values()))
+        four = len(blobs) / (time.perf_counter() - t0)
+    mb = sum(len(b) for b in blobs.values()) / len(blobs) / 2 ** 20
+    log(f"cli dataset: {CLI_TRAIN_IMAGES} train + {CLI_TEST_IMAGES} test {H}x{W} PNGs "
+        f"({mb:.2f} MiB each) written in {t_write:.1f} s; the native library built in "
+        f"{t_build:.2f} s; every one decodes to the written pixels byte for byte; decode "
+        f"{one:.1f} images/s on one thread, {four:.1f} on 4")
+
+    cfg = cli.parse_config(["--dataset_path", data] + CLI_PAPER)
+    S, steps = FLAGSHIP_S, CLI_TRAIN_IMAGES // 16
+    eval_fwd = path_launches(cfg, S, CLI_TEST_IMAGES // 16)
+    n_adi = sum(-(-n // POSE_CHUNK) for n in test_objects.values())
+    base = ["--dataset_path", data, "--output_dir", out] + CLI_PAPER
+    train_args = base + ["--rgb_augmentation", "--grayscale"]
+
+    # train one epoch, then resume for a second: the loop, checkpoints, log.txt
+    by_path = {}
+    zero()
+    with CliProbe() as probe:
+        t0 = time.perf_counter()
+        cli.run(train_args + ["--epochs", "1"])
+        t_train1 = time.perf_counter() - t0
+        first = os.path.join(tmp, "checkpoint_epoch0.pth")
+        with open(os.path.join(out, "checkpoint.pth"), "rb") as f, open(first, "wb") as g:
+            g.write(f.read())
+        t0 = time.perf_counter()
+        cli.run(train_args + ["--epochs", "2", "--resume", os.path.join(out, "checkpoint.pth")])
+        t_train2 = time.perf_counter() - t0
+    got = counts()
+    # per run: its steps, the epoch-0 eval (run 1) and the final eval, each one
+    # batch of forwards and one ADD-S pass
+    want = add(path_launches(cfg, S, 2 * steps, train=True),
+               *[eval_fwd] * 3, {"nn": 3 * n_adi})
+    if got != expected(**want):
+        raise AssertionError(f"cli train: launches {LAUNCH_NAMES} {got}, expected "
+                             f"{expected(**want)}")
+    by_path["cli_train"] = got
+    with open(os.path.join(out, "log.txt")) as f:
+        lines = [json.loads(ln) for ln in f]
+    if [ln["epoch"] for ln in lines] != [0, 1]:
+        raise AssertionError(f"cli: log.txt epochs {[ln['epoch'] for ln in lines]}, not [0, 1]")
+    for ln in lines:
+        if not all(math.isfinite(v) for k, v in ln.items() if k.startswith("train_")):
+            raise AssertionError(f"cli: a non-finite train metric in log.txt: {ln}")
+    if len(probe.starts) != 2 * steps or len(probe.waits) != 2 * steps:
+        raise AssertionError(f"cli: {len(probe.starts)} train steps and {len(probe.waits)} "
+                             f"loader waits, not {2 * steps}")
+    periods = np.diff(probe.starts[:steps]).tolist() + np.diff(probe.starts[steps:]).tolist()
+    i_fwd, i_fwd_direct, i_merged = (KERNEL_KEYS.index(k) for k in ("fwd_slab", "fwd",
+                                                                    "merged_slab"))
+    eval_fwd_total = 3 * (eval_fwd.get("fwd_slab", 0) + eval_fwd.get("fwd", 0))
+    fwd_per_step = (got[i_fwd] + got[i_fwd_direct] - eval_fwd_total) / (2 * steps)
+    merged_per_step = (got[i_merged] + got[KERNEL_KEYS.index("merged")]) / (2 * steps)
+
+    # the resumed state equals the saved one, bit for bit: a resume with no
+    # epoch left to run returns what it restored
+    resumed = cli.run(base + ["--epochs", "1", "--resume", first])
+    saved, _ = load_checkpoint(first)
+    for name, t in resumed["model"].state_dict().items():
+        if not torch.equal(t.detach().cpu(), saved["model"][name]):
+            raise AssertionError(f"cli: resumed parameter {name} differs from the saved one")
+    opt, opt_saved = resumed["optimizer"].state_dict(), saved["optimizer"]
+    if (opt["updates"], opt["micro_step"]) != (opt_saved["updates"], opt_saved["micro_step"]):
+        raise AssertionError("cli: the resumed optimizer's counts differ from the saved ones")
+    for i, st in opt["torch"]["state"].items():
+        for k, v in st.items():
+            if not torch.equal(v.cpu(), opt_saved["torch"]["state"][i][k].cpu()):
+                raise AssertionError(f"cli: resumed AdamW state {i}.{k} differs from the saved")
+
+    # eval and the BOP export from the trained checkpoint
+    ckpt = os.path.join(out, "checkpoint.pth")
+    zero()
+    t0 = time.perf_counter()
+    results = cli.run(base + ["--eval", "--resume", ckpt])
+    t_eval = time.perf_counter() - t0
+    got = counts()
+    if got != expected(**add(eval_fwd, {"nn": n_adi})):
+        raise AssertionError(f"cli --eval: launches {LAUNCH_NAMES} {got}")
+    by_path["cli_eval"] = got
+    for stem in METRIC_FILES:
+        if not os.path.isfile(os.path.join(out, "eval_test_gt", stem + ".json")):
+            raise AssertionError(f"cli --eval wrote no {stem}.json")
+    if not all(math.isfinite(v) for v in results["accuracy"].values()):
+        raise AssertionError(f"cli --eval: non-finite ADD(-S) {results['accuracy']}")
+    zero()
+    t0 = time.perf_counter()
+    csv_path = cli.run(base + ["--eval_bop", "--resume", ckpt])
+    t_bop = time.perf_counter() - t0
+    got = counts()
+    if got != expected(**eval_fwd):
+        raise AssertionError(f"cli --eval_bop: launches {LAUNCH_NAMES} {got}")
+    by_path["cli_eval"] = [a + b for a, b in zip(by_path["cli_eval"], got)]
+    with open(csv_path) as f:
+        csv_rows = f.read().splitlines()
+    if csv_rows[0] != "scene_id,im_id,obj_id,score,R,t,time" or \
+            len(csv_rows) - 1 != sum(test_objects.values()):
+        raise AssertionError(f"cli --eval_bop: {len(csv_rows) - 1} CSV rows for "
+                             f"{sum(test_objects.values())} objects")
+
+    # inference on the test PNGs with the Mask R-CNN detector's weights
+    det = os.path.join(tmp, "detector.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in detector_state_dict(22).items()}, det)
+    inf_out = os.path.join(tmp, "inference")
+    zero()
+    t0 = time.perf_counter()
+    res = cli.run(base + ["--inference", "--inference_path",
+                          os.path.join(data, "test_all", "000001", "rgb"),
+                          "--inference_output", inf_out, "--backbone_weights", det])
+    t_inf = time.perf_counter() - t0
+    got = counts()
+    icfg = cli.parse_config(["--dataset_path", data, "--inference"] + CLI_PAPER)
+    want = add(path_launches(icfg, S, CLI_TEST_IMAGES), roi_launches(icfg, CLI_TEST_IMAGES))
+    if got != expected(**want):
+        raise AssertionError(f"cli --inference: launches {LAUNCH_NAMES} {got}, expected "
+                             f"{expected(**want)}")
+    by_path["cli_inference"] = got
+    with open(os.path.join(inf_out, "results.json")) as f:
+        rows = json.load(f)
+    if len(rows) != CLI_TEST_IMAGES:
+        raise AssertionError(f"cli --inference: results.json has {len(rows)} rows")
+    n_det = sum(len(r) for r in rows.values())
+    for r in rows.values():
+        for d in r.values():
+            if not all(math.isfinite(x) for x in d["t"] + sum(d["rot"], []) + d["box"]):
+                raise AssertionError("cli --inference: a non-finite pose or box")
+
+    # the NaN gate: a sampling-offsets bias with a NaN (C1, end to end)
+    payload = torch.load(ckpt, map_location="cpu", weights_only=True)
+    payload["model"]["transformer.encoder.layers.0.self_attn.sampling_offsets.bias"][0] = \
+        float("nan")
+    bad = os.path.join(tmp, "nan.pth")
+    torch.save(payload, bad)
+    with open(ckpt, "rb") as f:
+        before = hashlib.sha256(f.read()).hexdigest()
+    tee = Tee(sys.stdout)
+    try:
+        with contextlib.redirect_stdout(tee):
+            cli.run(base + ["--epochs", "3", "--resume", bad])
+    except SystemExit as e:
+        code = e.code
+    else:
+        raise AssertionError("cli: training from a NaN sampling offset did not stop")
+    with open(ckpt, "rb") as f:
+        after = hashlib.sha256(f.read()).hexdigest()
+    if code != 1 or "Loss is nan, stopping training" not in tee.buffer.getvalue():
+        raise AssertionError(f"cli: the NaN gate exited with {code!r} and not JAX's message")
+    if after != before:
+        raise AssertionError("cli: the NaN gate let the rolling checkpoint be overwritten")
+
+    t = {"native_build_s": t_build, "decode_images_per_s": one, "decode_images_per_s_4_threads": four,
+         "png_mib": mb, "step_ms_p50": float(np.median(periods)) * 1e3,
+         "step_ms": [x * 1e3 for x in periods],
+         "loader_wait_ms_per_step": float(np.mean(probe.waits)) * 1e3,
+         "loader_wait_ms": [x * 1e3 for x in probe.waits],
+         # each epoch's first batch waits for the whole pipeline; the others
+         # for what the prefetch has not hidden (3 steps an epoch here)
+         "loader_wait_ms_first": float(np.mean(probe.waits[::steps])) * 1e3,
+         "loader_wait_ms_others": float(np.mean([w for i, w in enumerate(probe.waits)
+                                                 if i % steps])) * 1e3,
+         "fwd_per_step": fwd_per_step, "merged_per_step": merged_per_step,
+         "train_s": [t_train1, t_train2], "eval_s": t_eval, "bop_s": t_bop,
+         "inference_s": t_inf, "inference_ms_per_image": t_inf / CLI_TEST_IMAGES * 1e3,
+         "detections": n_det, "min_dist_launches": n_adi}
+    report["cli"] = t
+    report["cli_launches"] = by_path
+    log(f"cli: train (paper config, bf16, B=16, --rgb_augmentation --grayscale) 1 epoch "
+        f"{t_train1:.1f} s + resumed epoch {t_train2:.1f} s, finite losses, log.txt epochs 0, 1; "
+        f"step p50 {t['step_ms_p50']:.1f} ms (host clock, steps {', '.join(f'{x:.1f}' for x in t['step_ms'])}), "
+        f"loader wait {t['loader_wait_ms_per_step']:.2f} ms per step (an epoch's first step "
+        f"{t['loader_wait_ms_first']:.2f}, the others {t['loader_wait_ms_others']:.2f}); "
+        f"{fwd_per_step:g} forward + {merged_per_step:g} merged-adjoint launches per step; "
+        f"the resumed parameters and AdamW state equal the saved ones bit for bit | --eval "
+        f"{t_eval:.1f} s, --eval_bop {t_bop:.1f} s ({len(csv_rows) - 1} rows), {n_adi} min-distance "
+        f"launches | --inference {t_inf:.1f} s, {t['inference_ms_per_image']:.1f} ms per image "
+        f"(whole call / {CLI_TEST_IMAGES}), {n_det} detections | NaN gate: exit 1, "
+        f"\"Loss is nan, stopping training\", rolling checkpoint untouched | launches "
+        f"{LAUNCH_NAMES}: " + "; ".join(f"{k} {v}" for k, v in by_path.items())
+        + f" | phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def build_kernels():
     from poet_tpu_torch.ops.deform_attn_cuda import LIBRARIES, build_all
 
@@ -2827,7 +3338,7 @@ def main(argv) -> int:
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = {int(n) for n in argv[1].split(",")}
     elif argv:
-        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-22; 1-2 always run)",
+        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-23; 1-2 always run)",
               file=sys.stderr)
         return 2
     try:
@@ -2863,9 +3374,10 @@ def main(argv) -> int:
               15: lambda: phase_nn(report), 16: lambda: phase_eval(report),
               17: lambda: phase_eval_backbone(report), 18: lambda: phase_merged(report),
               19: lambda: phase_dense(report), 20: lambda: phase_paths(report),
-              21: lambda: phase_v2(report), 22: lambda: phase_probes(report)}
+              21: lambda: phase_v2(report), 22: lambda: phase_probes(report),
+              23: lambda: phase_cli(report)}
     spans = []
-    for first, last in ((3, 8), (9, 11), (12, 14), (15, 17), (18, 20), (21, 22)):
+    for first, last in ((3, 8), (9, 11), (12, 14), (15, 17), (18, 20), (21, 22), (23, 23)):
         t0 = time.perf_counter()
         for n in range(first, last + 1):
             if only is None or n in only:
@@ -2888,7 +3400,7 @@ def main(argv) -> int:
              "eval": report["eval_launches"], "eval_backbone": report["eval_backbone_launches"],
              "serve_pallas": report["launches_pallas"],
              "train_pallas": report["train_launches_pallas"],
-             "train_pair": report["train_launches_pair"]}
+             "train_pair": report["train_launches_pair"], **report["cli_launches"]}
     roi, nn = report["roi"], report["nn"]
     errs, bounds = report["adjoint_max_abs_err"], report["adjoint_bounds"]
     src, tpu = "poet_tpu_torch/csrc/", "poet_tpu/ops/deform_attn_pallas_v3.py:"

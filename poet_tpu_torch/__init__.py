@@ -10,6 +10,9 @@ Every TPU kernel on a ported path is a hand-written CUDA kernel for sm_90a
 under `csrc/` (deformable-attention sampling and its adjoint, multi-scale
 RoIAlign, the small-C stem conv, the ADD-S min distance), built with nvcc
 at first use; on CPU tensors each entry runs its plain PyTorch version.
+`python -m poet_tpu_torch.cli` trains, evaluates and infers from PNG files
+with the flags of `poet_tpu.cli`; its image decoder and augmentations are
+host C++ under `native/`, built with g++ at first use.
 
 This package never imports JAX or `poet_tpu`.
 """

@@ -1,6 +1,6 @@
 """Configuration for the port: the fields of `poet_tpu.config` that the
-serving paths, the train step and evaluation read, with the same names and
-defaults.
+serving paths, the train step, evaluation and the CLI read, with the same
+names and defaults, and `to_json` / `from_dict` as there.
 
 `poet_tpu.config` cannot be imported here (`poet_tpu/__init__.py` pulls in
 JAX), so the dataclasses are restated.
@@ -19,26 +19,35 @@ measured). `merged_adjoint` is the counterpart of JAX's
 instead of two, the port's default (JAX's is the two-kernel adjoint).
 `enc_remat` has no counterpart: the port's autograd
 Functions save only their inputs, so there is nothing to rematerialize.
-Fields that nothing in the port reads are left out as well: the epoch and
-batch counts (the caller's loop owns them), the backbone-name keywords (the
-backbone is frozen by its module name), and the legacy matcher's type and
-GIoU cost (only the pose matcher is ported).
+`lr_backbone_names`, `aux_loss`, the legacy matcher's type and GIoU cost
+and the TPU runtime's fields (`export_platforms`, `mesh_data`,
+`zero_opt_state`, `rng_impl`, `xla_cache_dir`, `donate_step`) are kept for
+the CLI's flags and the checkpoints' config echo; the detector backbone is
+frozen by its module name, every layer's loss is always taken and only the
+pose matcher is ported. `runtime.device` is the port's own: where the CLI
+runs ('cuda' unless the caller asks for 'cpu').
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass
 class OptimConfig:
     lr: float = 2e-4
+    lr_backbone_names: Tuple[str, ...] = ("backbone",)
     lr_backbone: float = 2e-5
     lr_linear_proj_names: Tuple[str, ...] = ("reference_points", "sampling_offsets")
     lr_linear_proj_mult: float = 0.1
+    batch_size: int = 16
+    eval_batch_size: int = 16
     weight_decay: float = 1e-4
+    epochs: int = 50
     lr_drop: int = 100              # StepLR drop interval (epochs)
     clip_max_norm: float = 0.1
     sgd: bool = False               # SGD(momentum=0.9) instead of AdamW
@@ -49,8 +58,10 @@ class OptimConfig:
 @dataclass
 class BackboneConfig:
     name: str = "maskrcnn"          # {maskrcnn, fasterrcnn, yolov4}
-    # darknet cfg of the yolov4 backbone; "" -> configs/{dataset}_yolov4-csp.cfg
+    # the rcnn YAML (label map, anchor sizes) or the yolov4 darknet cfg;
+    # "" -> torchvision's defaults / configs/{dataset}_yolov4-csp.cfg
     cfg_path: str = ""
+    weights: Optional[str] = None   # --backbone_weights: a detector .pth / darknet .weights
     # yolov4 detections: score threshold, NMS IoU, class-agnostic NMS
     conf_thresh: float = 0.4
     iou_thresh: float = 0.5
@@ -67,9 +78,12 @@ class BackboneConfig:
     # RPN proposals entering the RoI heads (torchvision's test-time 1000)
     max_detections: int = 100
     post_nms_top_n: int = 1000
+    input_size: Tuple[int, int] = (480, 640)   # (H, W)
     # per-FPN-level anchor sizes of the rcnn YAML; None -> torchvision's.
-    # Reading that YAML is not ported yet (it comes with the CLI).
+    # `input_resize` is recorded from the YAML for parity and has no effect
+    # (the reference's forward never applies its resize transform)
     anchor_sizes: Optional[Tuple[Tuple[int, ...], ...]] = None
+    input_resize: Optional[Tuple[int, int]] = None
 
 
 # enc_deform_impl / dec_deform_impl -> the port's route of the sampling core
@@ -104,6 +118,7 @@ class ModelConfig:
     enc_n_points: int = 4
     aleatoric: bool = False
     calibrate: bool = False
+    aux_loss: bool = True
     n_classes: int = 21
     # transformer/backbone compute dtype; parameters stay f32 except where
     # utils/params.py casts them at rest for inference
@@ -129,8 +144,10 @@ class ModelConfig:
 
 @dataclass
 class MatcherConfig:
+    matcher_type: str = "pose"
     set_cost_class: float = 1.0
     set_cost_bbox: float = 1.0
+    set_cost_giou: float = 2.0      # the legacy matcher's; unused, as in the reference CLI
     giou_thresh: float = 0.5        # backbone-mode post filter
 
 
@@ -143,15 +160,51 @@ class LossConfig:
 @dataclass
 class DataConfig:
     dataset: str = "ycbv"           # {ycbv, lmo}; lmo remaps the detector's ids
-    dataset_path: str = "/data"     # root the evaluator's asset paths join onto
+    dataset_path: str = "/data"     # root of the splits and the evaluator's assets
+    train_set: str = "train"
+    eval_set: str = "test"
+    synt_background: Optional[str] = None   # not ported (ROADMAP A.1): raises
+    jitter_probability: float = 0.5
+    rgb_augmentation: bool = False
+    grayscale: bool = False
+    num_workers: int = 0            # loader threads; 0 -> 4
+    cache_mode: bool = False        # the reference's in-RAM byte cache
+    decoded_cache_mb: int = 0       # decoded-uint8 image cache budget (MB); 0 = off
 
 
 @dataclass
 class EvalConfig:
+    eval_interval: int = 10
     # the evaluator's assets, joined onto data.dataset_path (reference main.py:141-149)
     class_info: str = "/annotations/classes.json"
     models_path: str = "/models_eval/"
     model_symmetry: str = "/annotations/symmetries.json"
+
+
+@dataclass
+class RuntimeConfig:
+    # the reference's main.py:151-187 (inference, misc, distributed)
+    inference: bool = False
+    inference_path: Optional[str] = None
+    inference_output: Optional[str] = None
+    save_interval: int = 5
+    output_dir: str = ""
+    seed: int = 42
+    resume: str = ""
+    start_epoch: int = 0
+    eval: bool = False
+    eval_bop: bool = False
+    export_model: Optional[str] = None      # not ported (ROADMAP A.2): raises
+    export_batch_size: int = 1
+    export_image_size: tuple = (480, 640)
+    export_platforms: tuple = ("cpu", "tpu")
+    mesh_data: int = -1
+    dtype: str = "float32"
+    donate_step: bool = True
+    zero_opt_state: bool = False
+    rng_impl: str = "threefry2x32"
+    xla_cache_dir: Optional[str] = None
+    device: str = "cuda"            # the port's device: 'cuda', or 'cpu' when asked
 
 
 @dataclass
@@ -163,3 +216,30 @@ class PoETConfig:
     loss: LossConfig = field(default_factory=LossConfig)
     data: DataConfig = field(default_factory=DataConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "PoETConfig":
+        kwargs = {}
+        for f in dataclasses.fields(cls):
+            sub = d.get(f.name, {})
+            sub_cls = f.default_factory  # type: ignore[misc]
+            sub_fields = {sf.name for sf in dataclasses.fields(sub_cls)}
+            kwargs[f.name] = sub_cls(**{k: _tupled(v) for k, v in sub.items()
+                                        if k in sub_fields})
+        return cls(**kwargs)
+
+    @classmethod
+    def from_json(cls, s: str) -> "PoETConfig":
+        return cls.from_dict(json.loads(s))
+
+
+def _tupled(v):
+    """JSON lists back to the config's tuples (nested: anchor_sizes)."""
+    return tuple(_tupled(x) for x in v) if isinstance(v, list) else v

@@ -28,9 +28,11 @@
 //
 // Sampling is the forward's (csrc/ms_deform_attn_point.cuh): pixel = loc *
 // size - 0.5, bilinear, zero padding. A point whose 2x2 footprint misses the
-// map (or is NaN, or sits at the dummy -1 / -10 conventions) adds nothing to
-// d_value and gets exactly 0 in d_loc and d_attn. floor() has zero
-// derivative, as under autodiff. Trailing tokens past the levels get 0.
+// map (or sits at the dummy -1 / -10 conventions) adds nothing to d_value and
+// gets exactly 0 in d_loc and d_attn; a point with a NaN or infinite
+// coordinate adds nothing to d_value and gets NaN in d_attn and in both d_loc
+// coordinates (the header's C1 rule). floor() has zero derivative, as under
+// autodiff. Trailing tokens past the levels get 0.
 //
 // d_value is a scatter. The scatter kernel and the atomic route add each
 // corner's contribution into an f32 buffer in device memory with Hopper's
@@ -264,11 +266,11 @@ ms_deform_attn_dloc_kernel(const T* __restrict__ value, const float* __restrict_
         const int k = l * P + p;
         Footprint f;
         if (!deform_point::footprint(loc_p[2 * k], loc_p[2 * k + 1], Hl, Wl, &f)) {
-          if (r == 0) {
-            dattn[bqh * L * P + k] = 0.f;
-            dloc[(bqh * L * P + k) * 2] = 0.f;
-            dloc[(bqh * L * P + k) * 2 + 1] = 0.f;
-          }
+          if (r == 0)
+            deform_point::miss_grads(
+                deform_point::nonfinite(loc_p[2 * k], loc_p[2 * k + 1], Hl, Wl),
+                dattn + bqh * L * P + k, dloc + (bqh * L * P + k) * 2,
+                dloc + (bqh * L * P + k) * 2 + 1);
           continue;
         }
         float e[4] = {0.f, 0.f, 0.f, 0.f};
@@ -304,7 +306,7 @@ ms_deform_attn_dloc_kernel(const T* __restrict__ value, const float* __restrict_
 // corner_weight * a * dout, its channels rotated left by `rot` (see
 // slab_add), to add(token, channel offset, weight, rotated dout); the
 // group's first lane writes d_attn and d_loc (exactly 0 for a point off the
-// map).
+// map, NaN for a non-finite coordinate).
 template <typename T, int VEC, typename Add>
 __device__ __forceinline__ void merged_point(const T* v, int64_t vstride, const T* do_p,
                                              const float* loc_p, const float* att_p,
@@ -313,11 +315,9 @@ __device__ __forceinline__ void merged_point(const T* v, int64_t vstride, const 
                                              unsigned group_mask, int rot, Add&& add) {
   Footprint f;
   if (!deform_point::footprint(loc_p[2 * k], loc_p[2 * k + 1], Hl, Wl, &f)) {
-    if (r == 0) {
-      dattn_p[k] = 0.f;
-      dloc_p[2 * k] = 0.f;
-      dloc_p[2 * k + 1] = 0.f;
-    }
+    if (r == 0)
+      deform_point::miss_grads(deform_point::nonfinite(loc_p[2 * k], loc_p[2 * k + 1], Hl, Wl),
+                               dattn_p + k, dloc_p + 2 * k, dloc_p + 2 * k + 1);
     return;
   }
   const float a = att_p[k];

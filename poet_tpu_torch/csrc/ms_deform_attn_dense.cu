@@ -30,10 +30,11 @@
 // Corner terms are the TPU kernel's (deform_attn_pallas.py:_corner_terms):
 // pixel = loc * size - 0.5, x0 = (int)floor(x); the point takes part when x0
 // and y0 lie in [-1, size], and its corners (y0 + {0, 1}, x0 + {0, 1}) then
-// fall on real tokens or on the zero border. A point with a NaN coordinate
-// takes no part (d_loc and d_attn 0), as in the gather kernels and in the
-// plain version on the card (F.grid_sample sends a non-finite coordinate out
-// of range); the TPU kernel's float-to-int cast of NaN is the platform's.
+// fall on real tokens or on the zero border. A point with a NaN or infinite
+// coordinate follows the C1 rule of the gather kernels
+// (csrc/ms_deform_attn_point.cuh) and of the plain version: it takes no part
+// in any product (its corners are never built into W), its (b, q, h) output
+// row is NaN, and its d_attn and both d_loc coordinates are NaN.
 //
 // What Hopper changes. A level's padded slab does not fit a block (5084 rows
 // at the YOLO pyramid's (60, 80) level; the TPU kept it whole in VMEM), so the
@@ -141,25 +142,29 @@ struct Load<__nv_bfloat16, 8> {
   }
 };
 
-// One point's corner terms, as the TPU kernel forms them. False when x0 or y0
-// lies outside [-1, size] (no corner then meets the zero-bordered level) or a
-// coordinate is NaN.
+// One point's corner terms, as the TPU kernel forms them: HIT, MISS when x0
+// or y0 lies outside [-1, size] (no corner then meets the zero-bordered
+// level), NONFINITE for a NaN or infinite coordinate (C1).
 struct Corners {
   int x0, y0;
   float tx, ty;
 };
 
-__device__ __forceinline__ bool corner_terms(const float* loc2, int Hl, int Wl, Corners* c) {
+enum class Pt { MISS, HIT, NONFINITE };
+
+__device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fc00000); }
+
+__device__ __forceinline__ Pt corner_terms(const float* loc2, int Hl, int Wl, Corners* c) {
   const float x = loc2[0] * (float)Wl - 0.5f;
   const float y = loc2[1] * (float)Hl - 0.5f;
+  if (!(isfinite(x) && isfinite(y))) return Pt::NONFINITE;
   const float x0f = floorf(x);
   const float y0f = floorf(y);
-  if (isnan(x) || isnan(y)) return false;
   c->x0 = (int)x0f;  // saturates: far points fail the test below
   c->y0 = (int)y0f;
   c->tx = x - x0f;
   c->ty = y - y0f;
-  return c->x0 >= -1 && c->x0 <= Wl && c->y0 >= -1 && c->y0 <= Hl;
+  return c->x0 >= -1 && c->x0 <= Wl && c->y0 >= -1 && c->y0 <= Hl ? Pt::HIT : Pt::MISS;
 }
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32, wmma::row_major>;
@@ -212,16 +217,21 @@ __device__ __forceinline__ void add_tile(FragC* acc, const FragC* big, const Fra
 // Add query `q`'s weights on level (Hl, Wl) that fall in padded rows
 // [k0, kend) into its one-hot row `wrow` (indexed from k0); true if any did.
 // Rows past the chunk's width stay outside [k0, kend). `busy_col` (or null)
-// flags the 16-row groups of the chunk that got a weight.
+// flags the 16-row groups of the chunk that got a weight; `nonfinite` (or
+// null) is set when a point's coordinate is not finite.
 __device__ __forceinline__ bool scatter_row(const float* loc_q, const float* att_q, int l, int P,
                                             int Hl, int Wl, int k0, int kend, float* wrow,
-                                            int* busy_col) {
+                                            int* busy_col, bool* nonfinite) {
   const int Wp = Wl + 2;
   bool wrote = false;
   for (int p = 0; p < P; ++p) {
     const int k = l * P + p;
     Corners c;
-    if (!corner_terms(loc_q + 2 * k, Hl, Wl, &c)) continue;
+    const Pt kind = corner_terms(loc_q + 2 * k, Hl, Wl, &c);
+    if (kind != Pt::HIT) {
+      if (nonfinite && kind == Pt::NONFINITE) *nonfinite = true;
+      continue;
+    }
     const float a = att_q[k];
     const int base = (c.y0 + 1) * Wp + (c.x0 + 1);
     const int idx[4] = {base, base + 1, base + Wp, base + Wp + 1};
@@ -270,6 +280,7 @@ ms_deform_attn_dense_fwd_kernel(const T* __restrict__ value, const float* __rest
   __shared__ __align__(32) float wt[QT * W_LD];  // one-hot tile, then the output tile
   __shared__ __align__(32) float vt[KC * V_LD];  // the chunk's value rows, f32
   __shared__ int busy[QT / 16];                  // row tile met a corner in this chunk
+  __shared__ int nan_row[QT];                    // the query met a non-finite coordinate
 
   const int tid = threadIdx.x, warp = tid >> 5;
   const int qt = blockIdx.x % n_qt;
@@ -290,6 +301,7 @@ ms_deform_attn_dense_fwd_kernel(const T* __restrict__ value, const float* __rest
   for (int j = 0; j < NCT; ++j) wmma::fill_fragment(acc[j], 0.f);
   clear_tile(wt);
   if (tid < QT / 16) busy[tid] = 0;
+  bool nonfinite = false;
   __syncthreads();
 
   for (int l = 0; l < L; ++l) {
@@ -299,7 +311,8 @@ ms_deform_attn_dense_fwd_kernel(const T* __restrict__ value, const float* __rest
       const int kend = min(k0 + KC, spl);
       bool wrote = false;
       if (owner) {
-        wrote = scatter_row(loc_q, att_q, l, P, Hl, Wl, k0, kend, wt + tid * W_LD, nullptr);
+        wrote = scatter_row(loc_q, att_q, l, P, Hl, Wl, k0, kend, wt + tid * W_LD, nullptr,
+                            &nonfinite);
         if (wrote) busy[tid >> 4] = 1;
       }
       if (!__syncthreads_or(wrote)) continue;
@@ -332,6 +345,7 @@ ms_deform_attn_dense_fwd_kernel(const T* __restrict__ value, const float* __rest
       __syncthreads();
     }
   }
+  if (tid < QT) nan_row[tid] = owner && nonfinite;
 #pragma unroll
   for (int j = 0; j < NCT; ++j)
     wmma::store_matrix_sync(wt + warp * 16 * W_LD + j * 16, acc[j], W_LD, wmma::mem_row_major);
@@ -339,7 +353,8 @@ ms_deform_attn_dense_fwd_kernel(const T* __restrict__ value, const float* __rest
   for (int i = tid; i < QT * DW; i += THREADS) {
     const int r = i / DW, d = i - r * DW;
     if (q0 + r < Q && c0 + d < D)
-      out[(((int64_t)b * Q + q0 + r) * H + h) * D + c0 + d] = from_float<T>(wt[r * W_LD + d]);
+      out[(((int64_t)b * Q + q0 + r) * H + h) * D + c0 + d] =
+          from_float<T>(nan_row[r] ? nan_f32() : wt[r * W_LD + d]);
   }
 }
 
@@ -385,7 +400,7 @@ __device__ __forceinline__ void dense_dvalue_block(const float* __restrict__ loc
     if (tid < QT && q < Q) {
       const int64_t bqh = ((int64_t)b * Q + q) * H + h;
       wrote = scatter_row(loc + bqh * L * P * 2, attn + bqh * L * P, l, P, Hl, Wl, k0, kend,
-                          wt + tid * W_LD, busy);
+                          wt + tid * W_LD, busy, nullptr);
     }
     if (!__syncthreads_or(wrote)) continue;
     for (int i = tid; i < QT * DW; i += THREADS) {
@@ -467,11 +482,13 @@ __device__ __forceinline__ void dense_dloc_item(const T* __restrict__ value,
       const int k = l * P + p;
       const int64_t o = bqh * L * P + k;
       Corners c;
-      if (!corner_terms(loc_p + 2 * k, Hl, Wl, &c)) {
+      const Pt kind = corner_terms(loc_p + 2 * k, Hl, Wl, &c);
+      if (kind != Pt::HIT) {
         if (r == 0) {
-          dattn[o] = 0.f;
-          dloc[2 * o] = 0.f;
-          dloc[2 * o + 1] = 0.f;
+          const float g = kind == Pt::NONFINITE ? nan_f32() : 0.f;
+          dattn[o] = g;
+          dloc[2 * o] = g;
+          dloc[2 * o + 1] = g;
         }
         continue;
       }

@@ -18,8 +18,11 @@
 // variants): pixel = loc * size - 0.5 (grid_sample, align_corners=False),
 // bilinear, zero padding outside the map. Each corner is bounds-checked on
 // its own, and a point whose whole 2x2 footprint lies outside the map
-// (including NaN coordinates and the dummy-query convention that puts
-// reference points at -1 / -10) reads nothing.
+// (the dummy-query convention that puts reference points at -1 / -10) reads
+// nothing. A point with a NaN or infinite coordinate reads nothing either
+// and makes its (b, q, h) output row NaN (the header's C1 rule): a flag per
+// thread, carried through the point loop, replaces the accumulator by NaN
+// before the store.
 //
 // What bounds it: gather bytes. Per (b, q, h, l, p) the kernel reads 4
 // corners x D values; at the flagship encoder shape (B=16, Q=S=1600,
@@ -108,13 +111,15 @@ struct Corner<__nv_bfloat16, 8> {
   }
 };
 
-// One (b, q, h) and channel slice: the sum over its L x P points into acc.
+// One (b, q, h) and channel slice: the sum over its L x P points into acc,
+// NaN in every channel when a point's coordinate is not finite (C1).
 // v: the slice's channels of token 0, tokens `stride` elements apart (H D in
 // device memory, D in a slab).
 template <typename T, int VEC>
 __device__ __forceinline__ void sample_query(const T* v, int64_t stride, const float* loc_p,
                                              const float* att_p, int L, int P, const Levels& lv,
                                              float* acc) {
+  bool nonfinite = false;
   for (int l = 0; l < L; ++l) {
     const int Hl = lv.h[l];
     const int Wl = lv.w[l];
@@ -122,11 +127,18 @@ __device__ __forceinline__ void sample_query(const T* v, int64_t stride, const f
     for (int p = 0; p < P; ++p) {
       const int k = l * P + p;
       Footprint f;
-      if (!deform_point::footprint(loc_p[2 * k], loc_p[2 * k + 1], Hl, Wl, &f)) continue;
+      if (!deform_point::footprint(loc_p[2 * k], loc_p[2 * k + 1], Hl, Wl, &f)) {
+        nonfinite |= deform_point::nonfinite(loc_p[2 * k], loc_p[2 * k + 1], Hl, Wl);
+        continue;
+      }
       deform_point::for_each_corner(f, Wl, att_p[k], [&](int, int t, float w) {
         Corner<T, VEC>::fma(v_l + (int64_t)t * stride, w, acc);
       });
     }
+  }
+  if (nonfinite) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[j] = deform_point::nan_f32();
   }
 }
 

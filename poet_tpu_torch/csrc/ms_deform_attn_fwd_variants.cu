@@ -82,11 +82,13 @@ __device__ __forceinline__ void store8(T* p, const float* acc) {
 
 // The corners of one point into an accumulator: the header's body for BASE
 // / UNROLL / QT256 / TREEY; the ablations change what each corner adds.
+// True when the point's coordinate is not finite: the caller then stores a
+// NaN row, as kernel 1 does (the header's C1 rule).
 template <int V, typename Acc>
-__device__ __forceinline__ void sample_point(const T* v_l, int64_t row, int Hl, int Wl, float lx,
+__device__ __forceinline__ bool sample_point(const T* v_l, int64_t row, int Hl, int Wl, float lx,
                                              float ly, float a, Acc* acc) {
   Footprint f;
-  if (!deform_point::footprint(lx, ly, Hl, Wl, &f)) return;
+  if (!deform_point::footprint(lx, ly, Hl, Wl, &f)) return deform_point::nonfinite(lx, ly, Hl, Wl);
   deform_point::for_each_corner(f, Wl, a, [&](int, int t, float w) {
     if constexpr (V == NOY) {         // no weight arithmetic: the attention weight alone
       corner_fma(v_l + (int64_t)t * row, a, acc);
@@ -98,6 +100,15 @@ __device__ __forceinline__ void sample_point(const T* v_l, int64_t row, int Hl, 
       corner_fma(v_l + (int64_t)t * row, w, acc);
     }
   });
+  return false;
+}
+
+// acc[0:8] = NaN where the query met a non-finite coordinate
+__device__ __forceinline__ void nan_row(bool nonfinite, float* acc) {
+  if (nonfinite) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[j] = deform_point::nan_f32();
+  }
 }
 
 // One query's 8 channels of one head: the forward kernel's level and point
@@ -110,21 +121,24 @@ __device__ __forceinline__ void sample_query(const T* v_bh, const float* loc_p,
     __nv_bfloat162 acc[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[j] = __float2bfloat162_rn(0.f);
+    bool nonfinite = false;
     for (int l = 0; l < L; ++l) {
       const T* v_l = v_bh + (int64_t)lv.start[l] * row;
       for (int p = 0; p < P; ++p) {
         const int k = l * P + p;
-        sample_point<V>(v_l, row, lv.h[l], lv.w[l], loc_p[2 * k], loc_p[2 * k + 1], att_p[k],
-                        acc);
+        nonfinite |= sample_point<V>(v_l, row, lv.h[l], lv.w[l], loc_p[2 * k], loc_p[2 * k + 1],
+                                     att_p[k], acc);
       }
     }
     uint4 raw;
     __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) h2[j] = acc[j];
+    for (int j = 0; j < 4; ++j)
+      h2[j] = nonfinite ? __float2bfloat162_rn(deform_point::nan_f32()) : acc[j];
     *reinterpret_cast<uint4*>(out_p) = raw;
   } else if constexpr (V == TREEY) {
     float part[POET_MAX_LEVELS][VEC];
+    bool nonfinite = false;
 #pragma unroll
     for (int l = 0; l < POET_MAX_LEVELS; ++l) {
 #pragma unroll
@@ -133,8 +147,8 @@ __device__ __forceinline__ void sample_query(const T* v_bh, const float* loc_p,
         const T* v_l = v_bh + (int64_t)lv.start[l] * row;
         for (int p = 0; p < P; ++p) {
           const int k = l * P + p;
-          sample_point<V>(v_l, row, lv.h[l], lv.w[l], loc_p[2 * k], loc_p[2 * k + 1], att_p[k],
-                          part[l]);
+          nonfinite |= sample_point<V>(v_l, row, lv.h[l], lv.w[l], loc_p[2 * k],
+                                       loc_p[2 * k + 1], att_p[k], part[l]);
         }
       }
     }
@@ -143,11 +157,13 @@ __device__ __forceinline__ void sample_query(const T* v_bh, const float* loc_p,
     for (int j = 0; j < VEC; ++j)
       acc[j] = ((part[0][j] + part[1][j]) + (part[2][j] + part[3][j])) +
                ((part[4][j] + part[5][j]) + (part[6][j] + part[7][j]));
+    nan_row(nonfinite, acc);
     store8(out_p, acc);
   } else if constexpr (V == UNROLL) {  // L = P = 4, checked by the entry
     float acc[VEC];
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+    bool nonfinite = false;
 #pragma unroll
     for (int l = 0; l < 4; ++l) {
       const int Hl = lv.h[l];
@@ -156,23 +172,28 @@ __device__ __forceinline__ void sample_query(const T* v_bh, const float* loc_p,
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
         const int k = l * 4 + p;
-        sample_point<V>(v_l, row, Hl, Wl, loc_p[2 * k], loc_p[2 * k + 1], att_p[k], acc);
+        nonfinite |=
+            sample_point<V>(v_l, row, Hl, Wl, loc_p[2 * k], loc_p[2 * k + 1], att_p[k], acc);
       }
     }
+    nan_row(nonfinite, acc);
     store8(out_p, acc);
   } else {
     float acc[VEC];
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+    bool nonfinite = false;
     for (int l = 0; l < L; ++l) {
       const int Hl = lv.h[l];
       const int Wl = lv.w[l];
       const T* v_l = v_bh + (int64_t)lv.start[l] * row;
       for (int p = 0; p < P; ++p) {
         const int k = l * P + p;
-        sample_point<V>(v_l, row, Hl, Wl, loc_p[2 * k], loc_p[2 * k + 1], att_p[k], acc);
+        nonfinite |=
+            sample_point<V>(v_l, row, Hl, Wl, loc_p[2 * k], loc_p[2 * k + 1], att_p[k], acc);
       }
     }
+    nan_row(nonfinite, acc);
     store8(out_p, acc);
   }
 }

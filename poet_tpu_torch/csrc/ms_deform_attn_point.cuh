@@ -14,8 +14,24 @@
 // bilinear, zero padding outside the map. The expression is left to nvcc,
 // which contracts it into one FMA: kernel 1 has always computed it so, and
 // the variants must stay bit-equal to it. A point whose whole 2x2 footprint
-// misses the map (NaN coordinates, the dummy-query -1 / -10 conventions)
-// reads nothing, adds nothing and gets exactly 0 in d_loc and d_attn.
+// misses the map (the dummy-query -1 / -10 conventions) reads nothing, adds
+// nothing and gets exactly 0 in d_loc and d_attn.
+//
+// A point with a non-finite pixel coordinate (a NaN or infinite location, as
+// a diverged sampling offset gives) follows the C1 rule, which every kernel
+// that includes this header and the plain version
+// (ops/deform_attn.py:ms_deform_attn_torch and its backward) share:
+//   * forward: its (b, q, h) output row is NaN, all D channels, as in every
+//     JAX formulation (ms_deform_attn_xla's bilinear weight is x - floor(x),
+//     NaN for a NaN or infinite x); the kernels carry a per-(q, h) flag
+//     through the point loop and read no corner for the point;
+//   * adjoint: its d_attn and both of its d_loc coordinates are NaN, and it
+//     adds nothing to d_value; every other entry is what it would be without
+//     the flag. jax.grad of ms_deform_attn_xla also gives NaN d_attn, but
+//     which d_value tokens turn NaN and whether d_loc's other coordinate is
+//     NaN hang on the backend's cast of a NaN index to an integer (XLA on the
+//     CPU clamps it to column 0): that part of the rule is the port's own,
+//     stated in ROADMAP C1.
 
 #pragma once
 
@@ -70,9 +86,12 @@ struct Footprint {
   bool in_x0, in_x1, in_y0, in_y1;  // columns x0, x0 + 1 and rows y0, y0 + 1 in the map
 };
 
+// NaN for the C1 rule's output rows and gradients.
+__device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fc00000); }
+
 // The footprint of the point at normalized (lx, ly) on an Hl x Wl level.
-// False when it misses the map entirely (also for NaN); otherwise x0, y0
-// lie in [-1, size - 1].
+// False when it misses the map entirely (also for a NaN or infinite
+// coordinate); otherwise f is filled and x0, y0 lie in [-1, size - 1].
 __device__ __forceinline__ bool footprint(float lx, float ly, int Hl, int Wl, Footprint* f) {
   const float x = lx * (float)Wl - 0.5f;
   const float y = ly * (float)Hl - 0.5f;
@@ -89,6 +108,23 @@ __device__ __forceinline__ bool footprint(float lx, float ly, int Hl, int Wl, Fo
   f->in_y0 = y0 >= 0;
   f->in_y1 = y0 + 1 < Hl;
   return true;
+}
+
+// For a point `footprint` refused: true when its pixel coordinate is NaN or
+// infinite (the C1 rule), false when it lies off the map. Asked only on that
+// path, so a point in the map costs nothing more.
+__device__ __forceinline__ bool nonfinite(float lx, float ly, int Hl, int Wl) {
+  return !(isfinite(lx * (float)Wl - 0.5f) && isfinite(ly * (float)Hl - 0.5f));
+}
+
+// d_attn and d_loc of a point that samples nothing: 0 off the map, NaN for a
+// non-finite coordinate (the C1 rule).
+__device__ __forceinline__ void miss_grads(bool is_nonfinite, float* d_attn, float* dx,
+                                           float* dy) {
+  const float g = is_nonfinite ? nan_f32() : 0.f;
+  *d_attn = g;
+  *dx = g;
+  *dy = g;
 }
 
 // fn(c, token, weight) for each corner of the footprint that lies in the

@@ -23,7 +23,9 @@
 // [0, W] x [0, H], and its four corners in the padded (H + 2) x (W + 2) level,
 // on data or on the zero border. v2 also keeps a base of exactly W or H: all
 // four of its corners read zeros there, so skipping it adds the same 0. Any
-// other point, NaN included, is skipped.
+// other finite point is skipped. A point with a NaN or infinite coordinate
+// reads nothing and makes its (b, q, h) output row NaN: the C1 rule of the
+// gather kernels (csrc/ms_deform_attn_point.cuh) and of the plain version.
 //
 // Layout: one block per (query chunk, h, b). The block stages the padded
 // levels of its (b, h), packed densely level after level (cells of D values,
@@ -174,6 +176,7 @@ ms_deform_attn_v2_kernel(const T* __restrict__ value, const float* __restrict__ 
   float acc[VEC];
 #pragma unroll
   for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+  bool nonfinite = false;
 
   for (int k = 0; k < bd.n; ++k) {
     const int cell0 = bd.cell[k];
@@ -208,8 +211,12 @@ ms_deform_attn_v2_kernel(const T* __restrict__ value, const float* __restrict__ 
         const int kp = l * P + p;
         const float x = __fsub_rn(__fmul_rn(loc_p[2 * kp], (float)Wl), 0.5f);
         const float y = __fsub_rn(__fmul_rn(loc_p[2 * kp + 1], (float)Hl), 0.5f);
-        // base outside [-1, W-1] x [-1, H-1] (also false for NaN): skip
-        if (!(x >= -1.f && x < (float)Wl && y >= -1.f && y < (float)Hl)) continue;
+        // base outside [-1, W-1] x [-1, H-1] (NaN too): skip; a non-finite
+        // coordinate also makes the row NaN (C1)
+        if (!(x >= -1.f && x < (float)Wl && y >= -1.f && y < (float)Hl)) {
+          nonfinite |= !(isfinite(x) && isfinite(y));
+          continue;
+        }
         const float x0f = floorf(x);
         const float y0f = floorf(y);
         const float tx = x - x0f;
@@ -231,6 +238,10 @@ ms_deform_attn_v2_kernel(const T* __restrict__ value, const float* __restrict__ 
         }
       }
     }
+  }
+  if (nonfinite) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[j] = __int_as_float(0x7fc00000);
   }
   if (active) Vec<T, VEC>::store(out + bqh * D + c * VEC, acc);
 }

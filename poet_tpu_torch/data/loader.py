@@ -7,7 +7,10 @@ Replaces DataLoader + DistributedSampler + data_prefetcher
     DistributedSampler semantics (samplers.py:48-66) with the caller's
     process index and count,
   * worker threads decode/augment images on the host, each item with its
-    own (seed, epoch, index) generator,
+    own (seed, epoch, index) generator, and copy each image into its row of
+    the batch array, which `alloc(shape, dtype)` provides (e.g. pinned
+    memory for an asynchronous upload; np.empty by default), so the batch
+    is never stacked or copied again on one thread,
   * a background thread assembles batches ahead of the consumer; an
     optional `device_put_fn` moves each batch to the device there.
 
@@ -43,6 +46,7 @@ class PoseDataLoader:
         device_put_fn=None,          # (images, pad_mask, targets) -> device batch
         prefetch: int = 2,
         pad_to_full_batch: bool = False,
+        alloc=np.empty,              # (shape, dtype) -> the batch's image array
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -61,6 +65,7 @@ class PoseDataLoader:
         # same shape and divides the device mesh; dummies cannot produce
         # matches, so metrics are unaffected.
         self.pad_to_full_batch = pad_to_full_batch
+        self.alloc = alloc
 
     # -- sampling (DistributedSampler parity, samplers.py:48-66) ----------
     def _epoch_indices(self, epoch: int) -> np.ndarray:
@@ -99,14 +104,28 @@ class PoseDataLoader:
             return self.dataset.__getitem__(int(i), rng=rng)
 
         def make_batch(idx_list):
-            items = list(pool.map(lambda i: load_one(i, epoch), idx_list))
-            images = np.stack([im for im, _ in items])
-            tgt_list = [t for _, t in items]
-            if self.pad_to_full_batch and len(items) < self.batch_size:
-                n_pad = self.batch_size - len(items)
-                images = np.concatenate(
-                    [images, np.zeros((n_pad,) + images.shape[1:], images.dtype)]
-                )
+            rows = self.batch_size if self.pad_to_full_batch else len(idx_list)
+            out = {}
+            lock = threading.Lock()
+
+            def fill(k_i):
+                k, i = k_i
+                img, tgt = load_one(i, epoch)
+                with lock:                   # the first image fixes the batch's shape
+                    if "images" not in out:
+                        out["images"] = self.alloc((rows,) + img.shape, img.dtype)
+                images = out["images"]
+                if images.shape[1:] != img.shape:
+                    raise ValueError(f"image {i} is {img.shape}, the batch's "
+                                     f"{images.shape[1:]}")
+                images[k] = img              # each worker copies its own row
+                return tgt
+
+            tgt_list = list(pool.map(fill, enumerate(idx_list)))
+            images = out["images"]
+            if len(idx_list) < rows:         # the padded final batch: zero images
+                n_pad = rows - len(idx_list)
+                images[len(idx_list):] = 0
                 tgt_list += [{"boxes": np.zeros((0, 4)), "labels": np.zeros((0,)),
                               "image_id": -1}] * n_pad
             pad_mask = np.zeros(images.shape[:3], dtype=bool)

@@ -112,6 +112,7 @@ class Optimizer:
             groups.setdefault(labels[name], []).append(p)
         self.param_groups = [{"params": ps, "name": lab, "lr": o.lr * scale[lab],
                               "lr_scale": scale[lab]} for lab, ps in groups.items()]
+        self._scale = scale
         self.params = [p for g in self.param_groups for p in g["params"]]
         if o.sgd:
             # optax add_decayed_weights before sgd == torch SGD's weight_decay
@@ -174,6 +175,28 @@ class Optimizer:
         self.torch_opt.step()
         self.updates += 1
         return True
+
+    def state_dict(self) -> Dict:
+        """Everything a resume needs: the update and micro-step counts, the
+        gradient-accumulation buffer, the torch optimizer's state."""
+        return {"updates": self.updates, "micro_step": self.micro_step,
+                "acc": None if self._acc is None else [a.detach().cpu() for a in self._acc],
+                "torch": self.torch_opt.state_dict()}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore `state_dict()`'s output. The rates and decay stay this
+        optimizer's, from the current config (torch's load would put the
+        saved groups' back): the schedule is rebuilt from the command line, as
+        in the JAX package."""
+        self.torch_opt.load_state_dict(state["torch"])
+        for group in self.torch_opt.param_groups:
+            group["lr_scale"] = self._scale[group["name"]]
+            group["weight_decay"] = self.torch_opt.defaults["weight_decay"]
+        self.updates = int(state["updates"])
+        self.micro_step = int(state["micro_step"])
+        dev = self.params[0].device
+        self._acc = (None if state["acc"] is None
+                     else [a.to(dev) for a in state["acc"]])
 
 
 def make_optimizer(cfg: PoETConfig, model: nn.Module, steps_per_epoch: int) -> Optimizer:

@@ -9,6 +9,14 @@ contract every JAX formulation and the Pallas kernels hold):
   * output = sum over (levels, points) of attention weight * sampled value,
     accumulated in f32 and returned in the value dtype.
 
+A sampling point with a NaN or infinite pixel coordinate follows the C1
+rule that every CUDA kernel of the port shares
+(`csrc/ms_deform_attn_point.cuh`): its (b, q, h) output row is NaN, as in
+every JAX formulation; its d_attn and both of its d_loc coordinates are
+NaN; it adds nothing to d_value. An explicit mask (`nonfinite_points`)
+carries the rule, so the CPU (whose `F.grid_sample` returns NaN for such a
+point) and CUDA (whose `F.grid_sample` drops it) give the same answer.
+
 This and its adjoint `ms_deform_attn_torch_backward` are the CPU path of
 `ops/deform_attn_cuda.py:ms_deform_attn` and the versions the CUDA kernels
 are held against on the card.
@@ -20,6 +28,21 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+# where a masked point samples: past every level's border, so grid_sample
+# reads nothing there and its backward adds nothing
+_OFF_MAP = -2.0
+
+
+def nonfinite_points(spatial_shapes: Sequence[Tuple[int, int]],
+                     sampling_locations: torch.Tensor) -> torch.Tensor:
+    """(B, Q, H, L, P) bool: the points whose pixel coordinate
+    loc * size - 0.5 is NaN or infinite on their level (the C1 rule)."""
+    loc = sampling_locations.float()
+    return torch.stack([~(torch.isfinite(loc[:, :, :, l, :, 0] * w - 0.5)
+                          & torch.isfinite(loc[:, :, :, l, :, 1] * h - 0.5))
+                        for l, (h, w) in enumerate(spatial_shapes)], dim=3)
 
 
 def ms_deform_attn_torch(
@@ -46,7 +69,10 @@ def ms_deform_attn_torch(
     if sum(h * w for h, w in spatial_shapes) > S:
         raise ValueError(f"levels {tuple(spatial_shapes)} exceed S={S}")
     v = value.float()
-    grids = 2.0 * sampling_locations.float() - 1.0     # grid_sample's [-1, 1]
+    bad = nonfinite_points(spatial_shapes, sampling_locations)
+    locs = torch.where(bad[..., None], _OFF_MAP, sampling_locations.float())
+    attention_weights = torch.where(bad, 0.0, attention_weights.float())
+    grids = 2.0 * locs - 1.0                           # grid_sample's [-1, 1]
     out = torch.zeros((B * H, D, Q), dtype=torch.float32, device=value.device)
     start = 0
     for lvl, (Hl, Wl) in enumerate(spatial_shapes):
@@ -57,8 +83,11 @@ def ms_deform_attn_torch(
                                 align_corners=False)    # (B*H, D, Q, P)
         a = attention_weights[:, :, :, lvl].float().transpose(1, 2)
         out += (sampled * a.reshape(B * H, 1, Q, P)).sum(-1)
-    out = out.view(B, H, D, Q).permute(0, 3, 1, 2).reshape(B, Q, H * D)
-    return out.to(value.dtype)
+    # a constant NaN on the rows that met such a point: autograd still sends
+    # dout to the row's other points, as JAX's gradient does
+    nan_rows = torch.where(bad.flatten(-2).any(-1), float("nan"), 0.0)   # (B, Q, H)
+    out = out.view(B, H, D, Q).permute(0, 3, 1, 2) + nan_rows[..., None]
+    return out.reshape(B, Q, H * D).to(value.dtype)
 
 
 def ms_deform_attn_torch_backward(
@@ -74,10 +103,15 @@ def ms_deform_attn_torch_backward(
     value's dtype, summed in f32, rows past sum(Hl * Wl) zero; d_loc
     (B, Q, H, L, P, 2) f32 w.r.t. the normalized locations; d_attn
     (B, Q, H, L, P) f32). The CPU path of the model's entry, and the version
-    the two adjoint kernels are held against on the card.
+    the two adjoint kernels are held against on the card. A point with a
+    non-finite coordinate gets NaN in d_attn and in both d_loc coordinates
+    and adds nothing to d_value (the C1 rule).
     """
     with torch.enable_grad():
         inputs = tuple(t.detach().requires_grad_()
                        for t in (value, sampling_locations, attention_weights))
         out = ms_deform_attn_torch(inputs[0], spatial_shapes, *inputs[1:])
-        return torch.autograd.grad(out, inputs, dout)
+        d_value, d_loc, d_attn = torch.autograd.grad(out, inputs, dout)
+    bad = nonfinite_points(spatial_shapes, sampling_locations)
+    return (d_value, torch.where(bad[..., None], float("nan"), d_loc),
+            torch.where(bad, float("nan"), d_attn))

@@ -39,7 +39,7 @@ from typing import Sequence, Tuple
 import torch
 
 from poet_tpu_torch.ops.cuda_build import VARIANTS_LIB, level_hw, stream_of
-from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch
+from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch, nonfinite_points
 from poet_tpu_torch.ops.deform_attn_cuda import _check_inputs
 
 VARIANTS = ("base", "unroll", "qt256", "treey", "bf16y", "noy", "nox")
@@ -88,18 +88,22 @@ def plain_variant(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]]
       bf16y: the forward kernel's terms, each weight rounded to bf16, summed
              in bf16 one corner at a time in the kernel's order (a fused
              multiply-add, rounded once to bf16; here through f32).
-    (B, Q, H * D) in the value's dtype."""
+    (B, Q, H * D) in the value's dtype. Every variant makes the row of a
+    point with a non-finite coordinate NaN, as the kernel does (the C1 rule
+    of `ops/deform_attn.py`)."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} not in {VARIANTS}")
     if variant in EXACT:
         return ms_deform_attn_torch(value, spatial_shapes, locs, attn)
     B, _, H, D = value.shape
     Q = locs.shape[1]
+    nan_rows = nonfinite_points(spatial_shapes, locs).flatten(-2).any(-1)[..., None]
     if variant == "bf16y":
         acc = torch.zeros((B, Q, H, D), dtype=torch.bfloat16, device=value.device)
         for v_c, _, w, _, ok in _corners(value, spatial_shapes, locs, attn):
             w16 = torch.where(ok, w, 0.0).to(torch.bfloat16).float()
             acc = (w16[..., None] * v_c + acc.float()).to(torch.bfloat16)
+        acc = torch.where(nan_rows, float("nan"), acc)
         return acc.reshape(B, Q, H * D).to(value.dtype)
     acc = torch.zeros((B, Q, H, D), dtype=torch.float32, device=value.device)
     for v_c, v_0, w, a, ok in _corners(value, spatial_shapes, locs, attn):
@@ -107,6 +111,7 @@ def plain_variant(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]]
             acc += torch.where(ok, a, 0.0)[..., None] * v_c
         else:                                                     # nox
             acc += torch.where(ok, w, 0.0)[..., None] * v_0
+    acc = torch.where(nan_rows, float("nan"), acc)
     return acc.reshape(B, Q, H * D).to(value.dtype)
 
 

@@ -90,9 +90,17 @@ def test_plan_never_exceeds_the_budget(dtype, D):
 
 # ------------------------------------------------------------------ models
 
+def _nonfinite(lx, ly, h, w):
+    """The header's Point::NONFINITE: a NaN or infinite pixel coordinate."""
+    x = np.float32(lx) * np.float32(w) - np.float32(0.5)
+    y = np.float32(ly) * np.float32(h) - np.float32(0.5)
+    return not (np.isfinite(x) and np.isfinite(y))
+
+
 def _footprint(lx, ly, h, w):
     """The header's footprint in float32 (deform_point::footprint): None off
-    the map (NaN too), else (t00, tx, ty, in_x0, in_x1, in_y0, in_y1)."""
+    the map or for a non-finite coordinate, else (t00, tx, ty, in_x0, in_x1,
+    in_y0, in_y1)."""
     x = np.float32(lx) * np.float32(w) - np.float32(0.5)
     y = np.float32(ly) * np.float32(h) - np.float32(0.5)
     if not (x > -1 and x < w and y > -1 and y < h):
@@ -161,9 +169,10 @@ def merged_slab_model(value, shapes, locs, attn, dout, itemsize=4, threads=MERGE
                     hl, wl = shapes[l]
                     f = _footprint(*locs[b, q, h, l, k % P], hl, wl)
                     if f is None:
-                        if r == 0:
-                            d_loc[b, q, h, l, k % P] = 0.0
-                            d_attn[b, q, h, l, k % P] = 0.0
+                        if r == 0:       # miss_grads: 0 off the map, NaN (C1)
+                            g0 = np.nan if _nonfinite(*locs[b, q, h, l, k % P], hl, wl) else 0.0
+                            d_loc[b, q, h, l, k % P] = g0
+                            d_attn[b, q, h, l, k % P] = g0
                         continue
                     a = float(attn[b, q, h, l, k % P])
                     g = dout[b, q, h * D:(h + 1) * D].astype(np.float64)
@@ -222,14 +231,16 @@ def fwd_slab_model(value, shapes, locs, attn, itemsize=4, threads=FWD_THREADS):
                     q, c = divmod(i, chunks)
                     ch = c * VEC + np.arange(VEC)
                     acc = np.zeros(VEC)
+                    nonfinite = False
                     for l, (hl, wl) in enumerate(shapes):
                         for p in range(P):
                             f = _footprint(*locs[b, q, h, l, p], hl, wl)
                             if f is None:
+                                nonfinite |= _nonfinite(*locs[b, q, h, l, p], hl, wl)
                                 continue
                             for _, t, w in _corners(f, wl, float(attn[b, q, h, l, p])):
                                 acc += w * slab[starts[l] + t, ch]
-                    out[b, q, h, ch] = acc
+                    out[b, q, h, ch] = np.nan if nonfinite else acc      # C1: a NaN row
                     writes[b, q, h, ch] += 1
     return out.reshape(B, Q, H * D), writes
 
@@ -260,9 +271,11 @@ def _case(rng, name, nan=False):
 
 
 def _xla(value, shapes, locs, w, dout):
-    """ms_deform_attn_xla and its gradient, NaN points replaced by the -10
-    fill (JAX's float-to-int cast of NaN is platform-defined; the kernels
-    read nothing for either)."""
+    """ms_deform_attn_xla and its gradient under the C1 rule: NaN points
+    replaced by the -10 fill (the point adds nothing; JAX's own d_value and
+    d_loc there hang on its float-to-int cast of NaN), then the rule's NaNs
+    put back: the point's output row, d_attn and both d_loc coordinates."""
+    bad = np.isnan(locs).any(-1)                     # (B, Q, H, L, P)
     locs = np.where(np.isnan(locs), np.float32(-10.0), locs)
 
     def f(v, l, a):
@@ -272,11 +285,17 @@ def _xla(value, shapes, locs, w, dout):
                                         jnp.asarray(w)))
     grads = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(value), jnp.asarray(locs),
                                            jnp.asarray(w))
-    return out, [np.asarray(g) for g in grads]
+    d_value, d_loc, d_attn = (np.array(g) for g in grads)
+    B, Q, H = bad.shape[:3]
+    out = np.where(bad.reshape(B, Q, H, -1).any(-1)[..., None], np.nan,
+                   out.reshape(B, Q, H, -1)).reshape(B, Q, -1)
+    return out, [d_value, np.where(bad[..., None], np.nan, d_loc), np.where(bad, np.nan, d_attn)]
 
 
 def _close(got, ref, name):
-    scale = max(float(np.abs(ref).max()), 1e-30)
+    """Within RTOL of ref's scale, NaN exactly where ref has NaN."""
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref), err_msg=name)
+    scale = max(float(np.nanmax(np.abs(ref))), 1e-30)
     np.testing.assert_allclose(got, ref, rtol=0, atol=RTOL * scale, err_msg=name)
 
 
@@ -301,8 +320,8 @@ def test_merged_slab_partition_adds_each_corner_once_and_matches_jax(rng, case, 
     assert (writes == 1).all()                      # every row, the pad rows too
     assert (d_value[:, S_lv:] == 0).all()
     assert (d_loc[:, -2:] == 0).all() and (d_attn[:, -2:] == 0).all()
-    if nan:
-        assert (d_loc[:, 0, :, 0, 1] == 0).all() and (d_attn[:, 0, :, 0, 1] == 0).all()
+    if nan:      # C1: NaN in d_attn and both d_loc coordinates
+        assert np.isnan(d_loc[:, 0, :, 0, 1]).all() and np.isnan(d_attn[:, 0, :, 0, 1]).all()
     _, ref = _xla(value, shapes, locs, w, dout)
     for got, r, name in zip((d_value, d_loc, d_attn), ref, ("d_value", "d_loc", "d_attn")):
         _close(got, r, name)

@@ -186,11 +186,15 @@ def _ablation_loop(value, shapes, locs, attn, variant):
         for q in range(Q):
             for h in range(H):
                 acc = np.zeros(D, jnp.bfloat16 if variant == "bf16y" else np.float64)
+                nonfinite = False
                 start = 0
                 for l, (hl, wl) in enumerate(shapes):
                     for p in range(P):
                         x = f32(locs[b, q, h, l, p, 0]) * f32(wl) - f32(0.5)
                         y = f32(locs[b, q, h, l, p, 1]) * f32(hl) - f32(0.5)
+                        if not (np.isfinite(x) and np.isfinite(y)):
+                            nonfinite = True             # C1: the row is NaN
+                            continue
                         if not (x > -1 and x < wl and y > -1 and y < hl):
                             continue
                         a = f32(attn[b, q, h, l, p])
@@ -210,7 +214,7 @@ def _ablation_loop(value, shapes, locs, attn, variant):
                                     w16 = np.float64(np.asarray(wx * wy).astype(jnp.bfloat16))
                                     acc = (w16 * v + acc.astype(np.float64)).astype(jnp.bfloat16)
                     start += hl * wl
-                out[b, q, h] = acc.astype(np.float64)
+                out[b, q, h] = np.nan if nonfinite else acc.astype(np.float64)
     return out.reshape(B, Q, H * D)
 
 
@@ -221,7 +225,7 @@ def test_ablation_plain_definitions_match_a_direct_loop(rng, variant):
     value, shapes, locs, w = _make_inputs(rng, B=2, Q=4, H=2, D=8, shapes=((3, 4), (2, 2)))
     if variant == "bf16y":
         value = value.astype(jnp.bfloat16).astype(np.float32)    # the kernel takes bf16
-    locs[0, 1, 0, 0, 2, 0] = np.nan                              # skipped, as in the kernels
+    locs[0, 1, 0, 0, 2, 0] = np.nan                   # its row NaN (C1), as in the kernels
     want = _ablation_loop(value, shapes, locs, w, variant)
     v = torch.from_numpy(value)
     got = plain_variant(v.bfloat16() if variant == "bf16y" else v, shapes,
@@ -230,7 +234,9 @@ def test_ablation_plain_definitions_match_a_direct_loop(rng, variant):
     # each step through f32 before bf16, so a step can land one bf16 ulp away
     atol = 2.0 ** -7 * np.abs(want).max() if variant == "bf16y" else 1e-5
     np.testing.assert_allclose(got, want, atol=atol)
-    assert np.isfinite(got).all()
+    nan_row = np.zeros((2, 4, 2, 8), bool)
+    nan_row[0, 1, 0] = True
+    np.testing.assert_array_equal(np.isnan(got), nan_row.reshape(2, 4, 16))
 
 
 def test_variant_kernels_refuse():
