@@ -126,11 +126,14 @@ Phases, each raising on failure:
      channels a block) against the plain adjoint, with device ms;
  19. the dense one-hot forward and adjoint kernels ('pallas') against the
      plain versions: phase 6's geometries and the YOLO pyramid (S=6380), f32
-     and bf16, NaN locations held to the plain version on the card (the C1
-     rule: NaN output row, d_attn and d_loc, nothing to d_value), the
-     adjoint's outputs bit-identical over two runs, autograd through the
-     entry; dense, kernel 1, pair, merged and plain ms; the bounds on the
-     tensor cores and in the gather form;
+     and bf16, and at the encoder, the decoder and the YOLO pyramid also at a
+     model's locations (model_locations), NaN locations held to the plain
+     version on the card (the C1 rule: NaN output row, d_attn and d_loc,
+     nothing to d_value), the adjoint's outputs bit-identical over two runs,
+     autograd through the entry; dense device ms from CUDA-graph replays at
+     both kinds of locations, the adjoint's two kinds of block alone; kernel
+     1, pair, merged and plain ms; the bounds on the tensor cores and in the
+     gather form;
  20. the paths away from the defaults at phase 4's and 7's config: 8
      gt-serving requests through `infer` with enc/dec_deform_impl='pallas'
      (10 dense forward launches each and no other), 8 train steps with
@@ -519,6 +522,17 @@ def grid_locations(g, B, H, shapes, P=4, noise_px=0.25):
     wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device=DEVICE)
     locs = ref[None, :, None, None, None] + (off[None, None, :, None] + noise) / wh[:, None]
     return locs.contiguous()
+
+
+def model_locations(g, B, Q, H, shapes):
+    """Q of grid_locations' queries, evenly spaced over its Q = sum(H_l W_l)
+    (all of them when Q is that many): a decoder's few queries sampling as
+    the encoder's do."""
+    import torch
+
+    grid = grid_locations(g, B, H, shapes)
+    idx = torch.linspace(0, grid.shape[1] - 1, Q, device=grid.device).round().long()
+    return grid[:, idx].contiguous()
 
 
 def route_outputs(kernels, fits, *args):
@@ -2460,13 +2474,53 @@ def nan_agrees(name, got, ref, tol):
     return int(nan.sum())
 
 
+def dense_checks(name, DF, DB, v, shapes, locs, attn, do, adjoint=True):
+    """The dense forward against the plain version (f32 or bf16 tolerance);
+    the adjoint bit-identical over two runs and against the plain adjoint.
+    Returns (forward max error, the adjoint's errors or None)."""
+    import torch
+
+    from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch as plain
+    from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch_backward as plain_bwd
+
+    bf16 = v.dtype == torch.bfloat16
+    with torch.inference_mode():
+        ref = plain(v.float(), shapes, locs, attn)
+        out = DF(v, shapes, locs, attn)
+        torch.cuda.synchronize()
+    if out.dtype != v.dtype:
+        raise AssertionError(f"dense {name}: forward returned {out.dtype}")
+    err = (out.float() - ref).abs()
+    tol = BF16_ATOL + BF16_RTOL * ref.abs() if bf16 else F32_ATOL
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"dense {name} {v.dtype}: forward max |kernel - plain| "
+                             f"{err.max().item():.3e}")
+    if not adjoint:
+        return err.max().item(), None
+    got = DB(v, shapes, locs, attn, do)
+    again = DB(v, shapes, locs, attn, do)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"dense {name} {v.dtype}: the adjoint differs between two runs")
+    S_lv = sum(h * w for h, w in shapes)
+    errs = adjoint_checks(name, got, plain_bwd(v.float(), shapes, locs, attn, do.float()),
+                          v.float(), locs, locs.shape[1], S_lv, v.shape[1] - S_lv,
+                          off_edges(locs, shapes), bf16)
+    return err.max().item(), errs
+
+
 def phase_dense(report):
     """Phase 19: the dense one-hot forward and adjoint against the plain
     versions (phase 6's geometries and the YOLO pyramid, f32 and bf16), NaN
     locations held to the plain version, the adjoint's outputs bit-identical
-    over two runs; times against kernel 1, the pair, the merged adjoint and
-    the plain versions; the bounds."""
+    over two runs; at the encoder, the decoder and the YOLO pyramid also at a
+    model's locations (model_locations), each kernel's device time from graph
+    replays there and at the uniform ones, the adjoint's two kinds of block
+    alone; against kernel 1, the pair, the merged adjoint and the plain
+    versions; the bounds."""
     import torch
+
+    from poet_tpu_torch.tools.timing import graph_ms
 
     from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch as plain
     from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch_backward as plain_bwd
@@ -2484,48 +2538,47 @@ def phase_dense(report):
         value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=lo, hi=hi, pad=pad)
         dout = torch.randn((B, Q, H * D), generator=g, device=DEVICE)
         S_lv = sum(h * w for h, w in shapes)
-        mask = off_edges(locs, shapes)
         line = f"dense-vs-plain {name}: B={B} Q={Q} H={H} D={D} levels={shapes} S={S_lv + pad}"
         for dt in (torch.float32, torch.bfloat16):
             bf16 = dt == torch.bfloat16
-            v, do = value.to(dt), dout.to(dt)
-            with torch.inference_mode():
-                ref = plain(v.float(), shapes, locs, attn)
-                out = DF(v, shapes, locs, attn)
-                torch.cuda.synchronize()
-            if out.dtype != dt:
-                raise AssertionError(f"dense {name}: forward returned {out.dtype}")
-            err = (out.float() - ref).abs()
-            tol = BF16_ATOL + BF16_RTOL * ref.abs() if bf16 else F32_ATOL
-            if not bool((err <= tol).all()):
-                raise AssertionError(f"dense {name} {dt}: forward max |kernel - plain| "
-                                     f"{err.max().item():.3e}")
-            got = DB(v, shapes, locs, attn, do)
-            again = DB(v, shapes, locs, attn, do)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"dense {name} {dt}: the adjoint differs between two runs")
-            errs = adjoint_checks(name, got, plain_bwd(v.float(), shapes, locs, attn,
-                                                      do.float()),
-                                  value, locs, Q, S_lv, pad, mask, bf16)
+            err, errs = dense_checks(name, DF, DB, value.to(dt), shapes, locs, attn, dout.to(dt))
             if not bf16:
-                worst_fwd = max(worst_fwd, err.max().item())
+                worst_fwd = max(worst_fwd, err)
                 worst = {k: max(worst[k], errs[k]) for k in worst}
-            line += (f" | {'bf16' if bf16 else 'f32'} forward {err.max().item():.2e}, "
+            line += (f" | {'bf16' if bf16 else 'f32'} forward {err:.2e}, "
                      + " ".join(f"{k} {e:.2e}" for k, e in errs.items()))
         line += " (adjoint bit-identical over two runs)"
         if name in ("encoder", "decoder", "yolo pyramid"):
             t = {}
+            adjoint = name != "yolo pyramid"
+            model = model_locations(g, B, Q, H, shapes)
+            model[:, -2:] = torch.tensor([-1.0, -10.0], device=DEVICE)[:, None, None, None,
+                                                                      None]   # the dummies
             for dt in (torch.float32, torch.bfloat16):
                 v, do = value.to(dt), dout.to(dt)
+                err, errs = dense_checks(name + " at a model's locations", DF, DB, v, shapes,
+                                         model, attn, do, adjoint)
+                line += (f" | model locations {'bf16' if dt == torch.bfloat16 else 'f32'} "
+                         f"forward {err:.2e}"
+                         + ("" if errs is None else ", " + " ".join(
+                             f"{k} {e:.2e}" for k, e in errs.items())))
+                ms = {}
+                for where, l in (("", locs), ("_model", model)):
+                    args = (v, shapes, l, attn)
+                    with torch.inference_mode():
+                        ms["dense_fwd" + where] = graph_ms(lambda: DF(*args))
+                    if adjoint:
+                        ms["dense_bwd" + where] = graph_ms(lambda: DB(*args, do))
+                        ms["dense_bwd_d_value" + where] = graph_ms(
+                            lambda: DB(*args, do, part="d_value"))
+                        ms["dense_bwd_d_loc" + where] = graph_ms(
+                            lambda: DB(*args, do, part="d_loc"))
                 args = (v, shapes, locs, attn)
                 with torch.inference_mode():
-                    ms = {"dense_fwd": cuda_ms(lambda: DF(*args)),
-                          "kernel1": cuda_ms(lambda: K1(*args)),
-                          "plain_fwd": cuda_ms(lambda: plain(*args), iters=5)}
-                if name != "yolo pyramid":
-                    ms.update(dense_bwd=cuda_ms(lambda: DB(*args, do)),
-                              pair=cuda_ms(lambda: (KV(*args, do), KL(*args, do))),
+                    ms.update(kernel1=cuda_ms(lambda: K1(*args)),
+                              plain_fwd=cuda_ms(lambda: plain(*args), iters=5))
+                if adjoint:
+                    ms.update(pair=cuda_ms(lambda: (KV(*args, do), KL(*args, do))),
                               merged=cuda_ms(lambda: KM(*args, do)),
                               plain_bwd=cuda_ms(lambda: plain_bwd(*args, do), iters=5))
                 t["bf16" if dt == torch.bfloat16 else "f32"] = ms
@@ -3405,7 +3458,7 @@ def main(argv) -> int:
     errs, bounds = report["adjoint_max_abs_err"], report["adjoint_bounds"]
     src, tpu = "poet_tpu_torch/csrc/", "poet_tpu/ops/deform_attn_pallas_v3.py:"
     dense_enc = report["dense_encoder"]
-    dense = dense_enc["bf16"]
+    dense, dense_dec = dense_enc["bf16"], report["dense_decoder"]["bf16"]
     dense_src = src + "ms_deform_attn_dense.cu"
     dense_tpu = "poet_tpu/ops/deform_attn_pallas.py:"
     v2_enc = report["v2_encoder"]
@@ -3505,20 +3558,33 @@ def main(argv) -> int:
          "replaces": dense_tpu + "143", **launched("dense_fwd"),
          "max_abs_err": report["dense_max_abs_err"]["forward"],
          **timed(dense["dense_fwd"], dense["plain_fwd"], dense_enc["fwd_bounds"][0]),
+         "model_locations_ms": dense["dense_fwd_model"], "decoder_ms": dense_dec["dense_fwd"],
+         "decoder_model_locations_ms": dense_dec["dense_fwd_model"],
+         "f32_ms": dense_enc["f32"]["dense_fwd"],
          "kernel1_ms": dense["kernel1"], "f32_bound_ms": dense_enc["fwd_bounds"][1][0],
          "bound_is": "bytes against one dense (Q x S_pad) @ (S_pad x D) product per (b, h) "
                      "on the bf16 tensor cores; f32_bound_ms: the gather form's on the f32 pipes",
-         "ms_are": "the encoder shape, bf16"},
+         "ms_are": "the encoder shape, bf16, uniform random locations, device time from graph "
+                   "replays; model_locations: at grid_locations; decoder: B=16, Q=10"},
         {"name": "ms_deform_attn_dense_bwd", "route": "cuda", "source": dense_src,
          "replaces": dense_tpu + "225", **launched("dense_bwd"),
          "max_abs_err": max(v for k, v in report["dense_max_abs_err"].items()
                             if k != "forward"),
          **timed(dense["dense_bwd"], dense["plain_bwd"], dense_enc["bwd_bounds"][0]),
+         "model_locations_ms": dense["dense_bwd_model"], "decoder_ms": dense_dec["dense_bwd"],
+         "decoder_model_locations_ms": dense_dec["dense_bwd_model"],
+         "f32_ms": dense_enc["f32"]["dense_bwd"],
+         "d_value_blocks_ms": dense["dense_bwd_d_value"],
+         "d_loc_blocks_ms": dense["dense_bwd_d_loc"],
+         "d_value_blocks_model_locations_ms": dense["dense_bwd_d_value_model"],
+         "d_loc_blocks_model_locations_ms": dense["dense_bwd_d_loc_model"],
          "pair_ms": dense["pair"], "merged_ms": dense["merged"],
          "f32_bound_ms": dense_enc["bwd_bounds"][1][0],
          "bound_is": "bytes against the TPU kernel's two dense products per (b, h) on the bf16 "
                      "tensor cores; f32_bound_ms: the gather form's dot + scatter",
-         "ms_are": "the encoder shape, bf16"},
+         "ms_are": "the encoder shape, bf16, uniform random locations, device time from graph "
+                   "replays; model_locations: at grid_locations; decoder: B=16, Q=10; "
+                   "d_value_blocks / d_loc_blocks: each kind of block launched alone"},
         {"name": "ms_deform_attn_v2_fwd", "route": "cuda", "source": src + "ms_deform_attn_v2.cu",
          "replaces": "poet_tpu/ops/deform_attn_pallas_v2.py:54", **launched("v2"),
          "phase_launches": probes["v2"], "max_abs_err": report["v2_max_abs_err"],

@@ -153,7 +153,7 @@ NN_LIB = CudaLibrary(CSRC / "min_dist_sq_fwd.cu", {
     "poet_min_dist_sq_fwd": [P] * 3 + [I] * 3 + [P]})
 DENSE_LIB = CudaLibrary(CSRC / "ms_deform_attn_dense.cu", {
     "poet_ms_deform_attn_dense_fwd": [P] * 4 + [I] * 8 + [INTS, P],
-    "poet_ms_deform_attn_dense_bwd": [P] * 7 + [I] * 8 + [INTS, I, P]})
+    "poet_ms_deform_attn_dense_bwd": [P] * 7 + [I] * 8 + [INTS, I, I, P]})
 V2_LIB = CudaLibrary(CSRC / "ms_deform_attn_v2.cu", {
     "poet_ms_deform_attn_v2_fwd": [P] * 4 + [I] * 8 + [INTS, I, INTS, I, I, I, P]})
 # the probes (poet_tpu_torch/tools/)
