@@ -32,15 +32,21 @@ Phases, each raising on failure:
   6. the pair's adjoint kernels against the plain adjoint on the card: d_value
      on both routes (the atomic scatter; the slab route, a block per (b, h,
      channel group) on an f32 slab in shared memory, written once in the
-     value dtype) and the d_loc/d_attn gather; phase 3's geometries plus
-     trailing pad tokens; f32 and bf16; NaN locations (C1: NaN d_loc in
-     both coordinates and d_attn, nothing to d_value); device ms of each
-     route from CUDA-graph replays, of the plain adjoint of its own outputs
-     (autograd with respect to those inputs alone) and of the whole plain
-     adjoint; at the encoder in bf16 the slab route over channel groups and
-     threads per block (the figures behind plan_dvalue); both routes at the
-     encoder shape at a model's sampling locations (each query at its
-     pixel centre, the grid initialisation's offsets), with device ms;
+     value dtype) and the d_loc/d_attn gather on both routes, a lane per
+     sampling point over all D channels (direct: a block per (b, h, 256
+     points) reading the corners from device memory; slab: a block per
+     (b, h) on its value slab in shared memory), each against the plain
+     adjoint and the two routes against
+     each other; phase 3's geometries plus trailing pad tokens; f32 and
+     bf16; NaN locations (C1: NaN d_loc in both coordinates and d_attn on
+     both d_loc routes, nothing to d_value); device ms of each route from
+     CUDA-graph replays and each d_loc route's bound, of the plain adjoint
+     of its own outputs (autograd with respect to those inputs alone) and
+     of the whole plain adjoint; at the encoder in bf16 the slab route over
+     channel groups and threads per block (the figures behind plan_dvalue);
+     every route at the encoder shape at a model's sampling locations (each
+     query at its pixel centre, the grid initialisation's offsets), f32 and
+     bf16, against the plain adjoint and each other, with device ms;
   7. the train slice: 8 steps of the paper config (the merged adjoint, the
      default), bf16 over f32 master weights, B=16, 480x640, seeded weights,
      the flagship batch, dropout 0.1, AdamW with clipping; exactly the route
@@ -131,8 +137,14 @@ Phases, each raising on failure:
      version on the card (the C1 rule: NaN output row, d_attn and d_loc,
      nothing to d_value), the adjoint's outputs bit-identical over two runs,
      autograd through the entry; dense device ms from CUDA-graph replays at
-     both kinds of locations, the adjoint's two kinds of block alone; kernel
-     1, pair, merged and plain ms; the bounds on the tensor cores and in the
+     both kinds of locations, the adjoint's two kinds of block alone; the
+     adjoint's d_loc / d_attn blocks on both routes (the value slab staged
+     in shared memory in a second launch, or read from device memory in the
+     d_value blocks' launch; the pair's plan_dloc picks)
+     at the encoder, f32 and bf16, uniform and a model's locations, against
+     the plain adjoint and each other, each alone and in the whole launch,
+     with device ms and the gather's bound; kernel 1, pair (on its rules'
+     routes), merged and plain ms; the bounds on the tensor cores and in the
      gather form;
  20. the paths away from the defaults at phase 4's and 7's config: 8
      gt-serving requests through `infer` with enc/dec_deform_impl='pallas'
@@ -140,7 +152,8 @@ Phases, each raising on failure:
      'pallas' (10 dense forward + 10 dense adjoint per step and no other) and
      8 with the pair adjoint (merged_adjoint=False: the forward's routes +
      10 d_value by its rule (5 scatter in the encoder, 5 slab in the
-     decoder) + 10 d_loc per step and no other), each beside phase 4's or
+     decoder) + 10 d_loc by plan_dloc (5 slab in the encoder, 5 direct in
+     the decoder) per step and no other), each beside phase 4's or
      7's p50 and img/s; one f32 train step of each at B=2 on the card against
      the CPU port, as phase 8;
  21. the v2 slab forward (`ms_deform_attn_v2`, on no model path) against the
@@ -342,7 +355,7 @@ EVAL_THIN = 32
 
 KERNEL_KEYS = ("fwd", "d_value", "d_loc", "roi", "stem", "nn", "merged", "dense_fwd",
                "dense_bwd", "v2", "kpad", "variants", "gather", "fwd_slab", "merged_slab",
-               "d_value_slab", "roi_tiles")
+               "d_value_slab", "roi_tiles", "d_loc_slab", "dense_dloc_slab")
 LAUNCH_NAMES = "/".join(KERNEL_KEYS)
 
 
@@ -356,7 +369,8 @@ def all_kernels():
     merged adjoint's atomic route, dense forward, dense adjoint, v2 forward,
     the three probes (kpad, the forward's variants, the dynamic gather), then
     the forward's and the merged adjoint's slab routes, the pair's d_value
-    slab route and RoIAlign's tiles route."""
+    slab route, RoIAlign's tiles route, the pair's d_loc slab route and the
+    dense adjoint's staged d_loc / d_attn kernel."""
     from poet_tpu_torch.ops import deform_attn_cuda as gather
     from poet_tpu_torch.ops import deform_attn_dense_cuda as dense
     from poet_tpu_torch.ops.conv_stem_cuda import CONV_STEM_FWD
@@ -371,7 +385,8 @@ def all_kernels():
             ROI_ALIGN_FWD, CONV_STEM_FWD, MIN_DIST_SQ, gather.MS_DEFORM_ATTN_MERGED,
             dense.MS_DEFORM_ATTN_DENSE_FWD, dense.MS_DEFORM_ATTN_DENSE_BWD, MS_DEFORM_ATTN_V2,
             KPAD_CHAIN, MS_DEFORM_ATTN_VARIANT, TAKE_ALONG_AXIS, gather.MS_DEFORM_ATTN_FWD_SLAB,
-            gather.MS_DEFORM_ATTN_MERGED_SLAB, gather.MS_DEFORM_ATTN_DVALUE_SLAB, ROI_ALIGN_TILES]
+            gather.MS_DEFORM_ATTN_MERGED_SLAB, gather.MS_DEFORM_ATTN_DVALUE_SLAB, ROI_ALIGN_TILES,
+            gather.MS_DEFORM_ATTN_DLOC_SLAB, dense.MS_DEFORM_ATTN_DENSE_DLOC]
 
 
 def expected(**counts):
@@ -390,11 +405,13 @@ def path_launches(cfg, S, n, train=False):
     """The deformable-attention launches by kernel that n forwards (train:
     n forward and backward passes) of the model at `cfg` over S encoder
     tokens make, by the wrappers' written route rules
-    (ops/deform_attn_cuda.py: plan_forward, plan_merged, plan_dvalue): the
-    encoder at Q = S, the decoder at Q = num_queries, each layer once."""
+    (ops/deform_attn_cuda.py: plan_forward, plan_merged, plan_dvalue,
+    plan_dloc): the encoder at Q = S, the decoder at Q = num_queries, each
+    layer once."""
     import torch
 
-    from poet_tpu_torch.ops.deform_attn_cuda import plan_dvalue, plan_forward, plan_merged
+    from poet_tpu_torch.ops.deform_attn_cuda import (plan_dloc, plan_dvalue, plan_forward,
+                                                     plan_merged)
 
     m = cfg.model
     dtype, D, L = getattr(torch, m.dtype), m.hidden_dim // m.nheads, m.num_feature_levels
@@ -403,6 +420,8 @@ def path_launches(cfg, S, n, train=False):
                                (m.dec_deform_impl, m.num_queries, m.dec_n_points, m.dec_layers)):
         if impl == "pallas":
             keys = ("dense_fwd", "dense_bwd") if train else ("dense_fwd",)
+            if train and plan_dloc(S, D, dtype, Q, L, P).route == "slab":
+                keys += ("dense_dloc_slab",)
         else:
             fwd = plan_forward(S, D, dtype, Q, L, P).route
             keys = ("fwd_slab" if fwd == "slab" else "fwd",)
@@ -411,7 +430,9 @@ def path_launches(cfg, S, n, train=False):
                          else "merged",)
             elif train:
                 keys += ("d_value_slab" if plan_dvalue(S, D, dtype, Q, L, P).route == "slab"
-                         else "d_value", "d_loc")
+                         else "d_value",
+                         "d_loc_slab" if plan_dloc(S, D, dtype, Q, L, P).route == "slab"
+                         else "d_loc")
         for k in keys:
             counts[k] = counts.get(k, 0) + layers * n
     return counts
@@ -479,10 +500,36 @@ def deform_points_in_map(locs, shapes) -> int:
     return n
 
 
-def deform_bound(locs, shapes, D, *tensors):
-    """Bound of a deformable kernel that reads and writes `tensors` and
-    does 4 corners x D channels x 2 operations per point in the map."""
-    return bound(nbytes(*tensors), 8.0 * D * deform_points_in_map(locs, shapes))
+def value_bytes_read(value, locs, shapes) -> int:
+    """Bytes of `value` (B, S, H, D) a gather at `locs` must read: each
+    (b, token, h) row of D channels under an in-map corner of a point in the
+    map, once: at most the whole tensor, which a run with few queries (the
+    decoder) does not read."""
+    import torch
+
+    B, S, H, _ = value.shape
+    b = torch.arange(B, device=locs.device).view(B, 1, 1, 1)
+    h = torch.arange(H, device=locs.device).view(1, 1, H, 1)
+    rows, start = [], 0
+    for l, (hl, wl) in enumerate(shapes):
+        x = locs[..., l, :, 0] * wl - 0.5                   # (B, Q, H, P)
+        y = locs[..., l, :, 1] * hl - 0.5
+        hit = (x > -1) & (x < wl) & (y > -1) & (y < hl)
+        x0 = torch.floor(torch.where(hit, x, 0.0)).long()
+        y0 = torch.floor(torch.where(hit, y, 0.0)).long()
+        for cy, cx in ((y0, x0), (y0, x0 + 1), (y0 + 1, x0), (y0 + 1, x0 + 1)):
+            ok = hit & (cx >= 0) & (cx < wl) & (cy >= 0) & (cy < hl)
+            rows.append(((b * S + start + cy * wl + cx) * H + h)[ok])
+        start += hl * wl
+    return int(torch.unique(torch.cat(rows)).numel()) * value.shape[3] * value.element_size()
+
+
+def deform_bound(locs, shapes, D, *tensors, value=None):
+    """Bound of a deformable kernel that reads and writes `tensors`, gathers
+    from `value` at `locs` (value_bytes_read), and does 4 corners x D
+    channels x 2 operations per point in the map."""
+    n = nbytes(*tensors) + (0 if value is None else value_bytes_read(value, locs, shapes))
+    return bound(n, 8.0 * D * deform_points_in_map(locs, shapes))
 
 
 def deform_inputs(g, B, Q, H, D, shapes, P=4, lo=-0.2, hi=1.2, dtype=None, pad=0):
@@ -649,7 +696,7 @@ def phase_kernel(report):
                     ms["plain"] = cuda_ms(lambda: ms_deform_attn_torch(v, shapes, locs, attn),
                                           iters=5)
                 ms["rule"] = rule
-                ms["bound"] = deform_bound(locs, shapes, D, v, locs, attn, outs["direct"])
+                ms["bound"] = deform_bound(locs, shapes, D, locs, attn, outs["direct"], value=v)
                 t[key] = ms
                 line += " | ms " + ", ".join(f"{r} {ms[r]:.4f}" for r in (*outs, "plain"))
         if t:
@@ -796,14 +843,33 @@ DVALUE_CROSSOVER_Q = (10, 25, 50, 100, 200, 400, 800, 1600)
 DVALUE_SWEEP_THREADS = (256, 512, 1024)
 
 
+def dloc_checks(name, got, ref, value, locs, Q, mask):
+    """Phase 6's and 19's checks of a d_loc / d_attn pair against `ref` (the
+    plain adjoint's, or another route's): zero gradients of the dummy
+    queries, each within ADJ_RTOL x max|ref| (d_loc off cell edges). Returns
+    the max errors by output."""
+    if Q >= 4 and not all(bool((t[:, -2:] == 0).all()) for t in got):
+        raise AssertionError(f"{name}: dummy queries (-1, -10) got a gradient")
+    errs = {}
+    for k, gt, rf, m in zip(("d_loc", "d_attn"), got, ref, (mask, None)):
+        errs[k], bad = adjoint_err(gt, rf, m)
+        if bad:
+            raise AssertionError(f"{name} {value.dtype}: {k} max |kernel - ref| {errs[k]:.3e} "
+                                 f"beyond {ADJ_RTOL} x {rf.abs().max().item():.3e}")
+    return errs
+
+
 def phase_adjoint(report):
     """Phase 6: the pair's kernels against the plain adjoint: d_value on both
     routes (the atomic scatter; the slab route with the rule's channel
-    group) and the d_loc/d_attn gather, on phase 3's geometries plus pad
+    group) and the d_loc/d_attn gather on both routes (direct, slab), each
+    pair of routes against each other, on phase 3's geometries plus pad
     tokens, f32 and bf16; NaN locations; device ms of each route, the plain
     adjoint of its own outputs and the whole plain adjoint at the encoder and
-    decoder shapes; at the encoder in bf16 the slab route over channel
-    groups and threads per block (the figures behind plan_dvalue)."""
+    decoder shapes, and each d_loc route's bound; at the encoder in bf16 the
+    d_value slab route over channel groups and threads per block (the
+    figures behind plan_dvalue); every route at a model's sampling
+    locations."""
     import torch
 
     from poet_tpu_torch.ops import deform_attn_cuda as dac
@@ -811,9 +877,10 @@ def phase_adjoint(report):
     from poet_tpu_torch.tools.timing import graph_ms
 
     KV, KVS, KL = dac.MS_DEFORM_ATTN_DVALUE, dac.MS_DEFORM_ATTN_DVALUE_SLAB, dac.MS_DEFORM_ATTN_DLOC
+    KLS = dac.MS_DEFORM_ATTN_DLOC_SLAB
     g = torch.Generator(device=DEVICE).manual_seed(1)
     worst = {"d_value": 0.0, "d_loc": 0.0, "d_attn": 0.0}
-    worst_slab = 0.0
+    worst_slab, worst_dloc_slab = 0.0, 0.0
     for name, B, Q, H, D, shapes, lo, hi, pad in ADJ_GEOMETRIES:
         value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=lo, hi=hi, pad=pad)
         dout = torch.randn((B, Q, H * D), generator=g, device=DEVICE)
@@ -827,6 +894,7 @@ def phase_adjoint(report):
             slab_group = dac.dvalue_slab_shape(S, D, Q, L, P).group
             ref = plain_bwd(v.float(), shapes, locs, attn, do.float())
             d_loc_attn = KL(v, shapes, locs, attn, do)
+            d_loc_slab = KLS(v, shapes, locs, attn, do)     # every geometry's slab fits
             got = (KV(v, shapes, locs, attn, do),) + d_loc_attn
             slab = (KVS(v, shapes, locs, attn, do),) + d_loc_attn
             torch.cuda.synchronize()
@@ -836,12 +904,16 @@ def phase_adjoint(report):
             adjoint_checks(f"{name} d_value slab vs scatter", slab,
                            [x.float() for x in got], value, locs, Q, S_lv, pad, None, bf16,
                            roundings=2)
+            dloc_err = dloc_checks(f"{name} d_loc slab", d_loc_slab, ref[1:], v, locs, Q, mask)
+            dloc_checks(f"{name} d_loc slab vs direct", d_loc_slab, d_loc_attn, v, locs, Q, mask)
             if not bf16:
                 worst = {k: max(worst[k], errs[k]) for k in worst}
                 worst_slab = max(worst_slab, slab_err)
+                worst_dloc_slab = max([worst_dloc_slab, *dloc_err.values()])
             line += (f" | {'bf16' if bf16 else 'f32'} max_abs_err "
                      + " ".join(f"{k} {e:.2e}" for k, e in errs.items())
-                     + f" d_value slab (group {slab_group}) {slab_err:.2e}")
+                     + f" d_value slab (group {slab_group}) {slab_err:.2e}"
+                     + "".join(f" {k} slab {e:.2e}" for k, e in dloc_err.items()))
         line += f" (d_loc off cell edges: {int(mask.sum())}/{mask.numel()})"
         if name in ("encoder", "decoder"):
             t = {}
@@ -856,16 +928,25 @@ def phase_adjoint(report):
                       "dvalue_slab": graph_ms(lambda: KVS(*args), counted=KVS),
                       "plain_dvalue": cuda_ms(lambda: plain_adjoint_of(*args, (0,)), iters=5),
                       "dloc": graph_ms(lambda: KL(*args), counted=KL),
+                      "dloc_slab": graph_ms(lambda: KLS(*args), counted=KLS),
                       "plain_dloc": cuda_ms(lambda: plain_adjoint_of(*args, (1, 2)), iters=5),
                       "plain": cuda_ms(lambda: plain_bwd(*args), iters=5)}
                 shape = dac.dvalue_slab_shape(S, D, Q, L, P)
                 ms["rule"] = {"route": plan.route, "group": shape.group,
-                              "threads": shape.threads}
+                              "threads": shape.threads,
+                              "dloc": dac.plan_dloc(S, D, dt, Q, L, P).route}
+                ms["dloc_bound"] = deform_bound(locs, shapes, D, locs, attn, do, locs, attn,
+                                                value=v)
+                ms["value_read"] = (value_bytes_read(v, locs, shapes), nbytes(v))
                 t["f32" if dt == torch.float32 else "bf16"] = ms
-            line += "".join(f" | ms {dt}: " + ", ".join(f"{k} {x:.4f}" for k, x in ms.items()
-                                                         if k != "rule")
+            line += "".join(f" | ms {dt}: " + ", ".join(
+                                f"{k} {x:.4f}" for k, x in ms.items()
+                                if k not in ("rule", "dloc_bound", "value_read"))
                             + f" (rule: {ms['rule']['route']}; slab group "
-                              f"{ms['rule']['group']}, {ms['rule']['threads']} threads)"
+                              f"{ms['rule']['group']}, {ms['rule']['threads']} threads; "
+                              f"d_loc {ms['rule']['dloc']}; d_loc bound "
+                              f"{ms['dloc_bound'][0]:.4f} ({ms['dloc_bound'][1]}), value rows "
+                              f"read {ms['value_read'][0]} of {ms['value_read'][1]} B)"
                             for dt, ms in t.items())
             report[f"adjoint_{name}"] = t
             v, do = value.bfloat16(), dout.bfloat16()
@@ -874,7 +955,7 @@ def phase_adjoint(report):
                 v, do = value.bfloat16(), dout.bfloat16()
                 report["adjoint_bounds"] = {
                     "dvalue": deform_bound(locs, shapes, D, locs, attn, do, v),
-                    "dloc": deform_bound(locs, shapes, D, v, locs, attn, do, locs, attn)}
+                    "dloc": deform_bound(locs, shapes, D, locs, attn, do, locs, attn, value=v)}
                 args = (v, shapes, locs, attn, do)
                 sweep = {f"{gr}x{th}": graph_ms(lambda: KVS(*args, group=gr, threads=th),
                                                 counted=KVS)
@@ -893,6 +974,7 @@ def phase_adjoint(report):
     locs[:, -2] = -1.0
     dout = torch.randn((B, FLAGSHIP_S, H * D), generator=g, device=DEVICE)
     t, line = {}, "adjoint-vs-plain encoder at grid-init locations:"
+    mask = off_edges(locs, shapes)
     for dt in (torch.float32, torch.bfloat16):
         key = "bf16" if dt == torch.bfloat16 else "f32"
         args = (value.to(dt), shapes, locs, attn, dout.to(dt))
@@ -900,11 +982,21 @@ def phase_adjoint(report):
         d_loc_attn = KL(*args)
         for r, kernel in (("scatter", KV), ("slab", KVS)):
             e = adjoint_checks(f"grid-init d_value {r}", (kernel(*args),) + d_loc_attn, ref,
-                               value, locs, FLAGSHIP_S, FLAGSHIP_S, 0, off_edges(locs, shapes),
+                               value, locs, FLAGSHIP_S, FLAGSHIP_S, 0, mask,
                                dt == torch.bfloat16)["d_value"]
-            line += f" | {key} {r} max_abs_err {e:.2e}"
+            line += f" | {key} d_value {r} max_abs_err {e:.2e}"
+        d_loc_slab = KLS(*args)
+        for r, got in (("direct", d_loc_attn), ("slab", d_loc_slab)):
+            e = dloc_checks(f"grid-init d_loc {r}", got, ref[1:], args[0], locs, FLAGSHIP_S,
+                            mask)
+            line += f" | {key} d_loc {r} max_abs_err " + " ".join(
+                f"{k} {x:.2e}" for k, x in e.items())
+        dloc_checks("grid-init d_loc slab vs direct", d_loc_slab, d_loc_attn, args[0], locs,
+                    FLAGSHIP_S, mask)
         t[key] = {"dvalue": graph_ms(lambda: KV(*args), counted=KV),
-                  "dvalue_slab": graph_ms(lambda: KVS(*args), counted=KVS)}
+                  "dvalue_slab": graph_ms(lambda: KVS(*args), counted=KVS),
+                  "dloc": graph_ms(lambda: KL(*args), counted=KL),
+                  "dloc_slab": graph_ms(lambda: KLS(*args), counted=KLS)}
         line += f" | ms {key}: " + ", ".join(f"{k} {x:.4f}" for k, x in t[key].items())
     # the crossover over Q (the first Q queries, a model's locations) at S = 1600, bf16
     args = (value.bfloat16(), shapes, locs, attn, dout.bfloat16())
@@ -928,7 +1020,6 @@ def phase_adjoint(report):
     dout = torch.randn((2, 5, 16), generator=g, device=DEVICE)
     locs[:, 0, :, 0, 1, 0] = float("nan")
     args = (value, ((6, 9), (4, 5)), locs, attn, dout)
-    d_loc, d_attn = KL(*args)
     clean = locs.clone()
     clean[:, 0, :, 0, 1] = -10.0                     # the same point off the map
     for kernel in (KV, KVS):
@@ -937,15 +1028,18 @@ def phase_adjoint(report):
         _, bad = adjoint_err(d_value, off_map.float())
         if bad or not bool(torch.isfinite(d_value).all()):
             raise AssertionError(f"a NaN location leaked into d_value ({type(kernel).__name__})")
-    check_nan_point("d_loc/d_attn gather", (d_loc, d_attn),
-                    KL(value, ((6, 9), (4, 5)), clean, attn, dout), (slice(None), 0, slice(None),
-                                                                    0, 1))
+    for route, kernel in (("direct", KL), ("slab", KLS)):
+        check_nan_point(f"d_loc/d_attn gather ({route})", kernel(*args),
+                        kernel(value, ((6, 9), (4, 5)), clean, attn, dout),
+                        (slice(None), 0, slice(None), 0, 1))
     report["adjoint_max_abs_err"] = worst
     report["dvalue_slab_max_abs_err"] = worst_slab
+    report["dloc_slab_max_abs_err"] = worst_dloc_slab
     log(f"adjoint kernels: f32 max |kernel - plain| {worst}, d_value slab {worst_slab:.3e}, "
-        f"over {len(ADJ_GEOMETRIES)} geometries (tol {ADJ_RTOL} x max|ref|; bf16 d_value + "
-        f"2^-8 |ref|); NaN point: NaN d_loc (both coordinates) and d_attn, d_value as with "
-        f"the point off the map (both routes)")
+        f"d_loc/d_attn slab {worst_dloc_slab:.3e}, over {len(ADJ_GEOMETRIES)} geometries (tol "
+        f"{ADJ_RTOL} x max|ref|; bf16 d_value + 2^-8 |ref|); NaN point: NaN d_loc (both "
+        f"coordinates) and d_attn on both d_loc routes, d_value as with the point off the map "
+        f"(both routes)")
 
 
 def rotations_ok(rot: np.ndarray) -> float:
@@ -2285,9 +2379,10 @@ YOLO_DVALUE_SWEEP = ((4, 512), (4, 1024), (8, 512), (8, 1024))
 
 
 def merged_bound(v, locs, attn, do, grads, shapes):
-    """The merged adjoint's bound: its bytes against a dot and a scatter, 4
-    corners x D channels x 4 operations per point in the map."""
-    return bound(nbytes(v, locs, attn, do, *grads),
+    """The merged adjoint's bound: its bytes (v's gathered rows,
+    value_bytes_read) against a dot and a scatter, 4 corners x D channels x
+    4 operations per point in the map."""
+    return bound(nbytes(locs, attn, do, *grads) + value_bytes_read(v, locs, shapes),
                  16.0 * v.shape[-1] * deform_points_in_map(locs, shapes))
 
 
@@ -2295,8 +2390,8 @@ def phase_merged(report):
     """Phase 18: every route of the merged adjoint (the slab route with the
     value slab staged and read from device memory, the atomic route) against
     the plain adjoint, against each other (the two slab routes' d_loc and
-    d_attn the same bits) and against the pair (d_value on its route + the
-    d_loc/d_attn gather), on phase 6's geometries and the YOLO pyramid, f32
+    d_attn the same bits) and against the pair (d_value and the d_loc/d_attn
+    gather, each on its route), on phase 6's geometries and the YOLO pyramid, f32
     and bf16; at the YOLO pyramid the pair's d_value on both routes (slab,
     atomic scatter) against the plain adjoint, with device ms; NaN
     locations; autograd through the entry; ms per route and the bound."""
@@ -2306,9 +2401,8 @@ def phase_merged(report):
     from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch_backward as plain_bwd
     from poet_tpu_torch.tools.timing import graph_ms
 
-    KV, KVS, KL, KM, KMS = (dac.MS_DEFORM_ATTN_DVALUE, dac.MS_DEFORM_ATTN_DVALUE_SLAB,
-                            dac.MS_DEFORM_ATTN_DLOC, dac.MS_DEFORM_ATTN_MERGED,
-                            dac.MS_DEFORM_ATTN_MERGED_SLAB)
+    KV, KVS, KM, KMS = (dac.MS_DEFORM_ATTN_DVALUE, dac.MS_DEFORM_ATTN_DVALUE_SLAB,
+                        dac.MS_DEFORM_ATTN_MERGED, dac.MS_DEFORM_ATTN_MERGED_SLAB)
     routes = {"atomic": KM,
               "slab_staged": lambda *args: KMS(*args, stage=True),
               "slab_unstaged": lambda *args: KMS(*args, stage=False)}
@@ -2336,7 +2430,7 @@ def phase_merged(report):
                     "slab_unstaged": dac.merged_slab_bytes(S, D, dt, False) <= dac.SMEM_OPTIN_MAX}
             ref = plain_bwd(v.float(), shapes, locs, attn, do.float())
             got = route_outputs(routes, fits, *args)
-            pair = (dac.dvalue_adjoint(*args),) + KL(*args)
+            pair = (dac.dvalue_adjoint(*args),) + dac.dloc_adjoint(*args)
             torch.cuda.synchronize()
             if name == "yolo pyramid":
                 # the pair's d_value: the rule's atomic scatter (the 16-channel
@@ -2386,7 +2480,8 @@ def phase_merged(report):
                 # zeroed buffer and cast included); the pair's and the plain
                 # adjoint's per call launched from the host
                 ms = {r: graph_ms(lambda: routes[r](*args), counted=counted[r]) for r in got}
-                ms.update(pair=cuda_ms(lambda: (dac.dvalue_adjoint(*args), KL(*args))),
+                ms.update(pair=cuda_ms(lambda: (dac.dvalue_adjoint(*args),
+                                                dac.dloc_adjoint(*args))),
                           plain=cuda_ms(lambda: plain_bwd(*args), iters=5))
                 ms["rule"] = rule
                 ms["bound"] = merged_bound(v, locs, attn, do, got[rule], shapes)
@@ -2444,8 +2539,9 @@ DENSE_GEOMETRIES = ADJ_GEOMETRIES + [
 
 
 def dense_bounds(value, locs, attn, tensors, shapes, products, gather_ops):
-    """(bound, f32 bound), each (ms, binds), of a dense one-hot kernel over
-    `value` that reads and writes `tensors`: its bytes against `products`
+    """(bound, f32 bound), each (ms, binds), of a dense one-hot kernel that
+    reads `value`'s rows under the points' corners (value_bytes_read) and
+    reads and writes `tensors`: its bytes against `products`
     dense (B H Q S_pad D) products on the bf16 tensor cores (2 flops per
     multiply-add), and, beside it, against the gather form's `gather_ops` per
     in-map point and channel on the f32 pipes (rows 1-3's bound)."""
@@ -2453,10 +2549,11 @@ def dense_bounds(value, locs, attn, tensors, shapes, products, gather_ops):
 
     B, _, H, D = value.shape
     Q = locs.shape[1]
-    t_bytes = nbytes(*tensors) / HBM_BYTES_PER_S
+    n_bytes = nbytes(*tensors) + value_bytes_read(value, locs, shapes)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
     t_tc = products * 2.0 * B * H * Q * padded_tokens(shapes) * D / BF16_TC_FLOP_PER_S
     tc = (max(t_bytes, t_tc) * 1e3, "bytes" if t_bytes >= t_tc else "operations")
-    return tc, bound(nbytes(*tensors), gather_ops * D * deform_points_in_map(locs, shapes))
+    return tc, bound(n_bytes, gather_ops * D * deform_points_in_map(locs, shapes))
 
 
 def nan_agrees(name, got, ref, tol):
@@ -2509,6 +2606,49 @@ def dense_checks(name, DF, DB, v, shapes, locs, attn, do, adjoint=True):
     return err.max().item(), errs
 
 
+def dense_dloc_routes(DB, value, shapes, uniform, model, attn, dout):
+    """Phase 19 at the encoder: the dense adjoint's d_loc / d_attn blocks on
+    both routes (the value slab staged, in a launch of their own; or read
+    from device memory in the d_value blocks' launch) at f32
+    and bf16, at uniform and a model's locations: each against the plain
+    adjoint and the two against each other; device ms of each alone
+    (part='d_loc') and of the whole launch on each, the rule's route, and
+    the gather's bound (as phase 6's d_loc routes)."""
+    import torch
+
+    from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch_backward as plain_bwd
+    from poet_tpu_torch.ops.deform_attn_cuda import plan_dloc
+    from poet_tpu_torch.tools.timing import graph_ms
+
+    B, S, H, D = value.shape
+    Q, L, P = uniform.shape[1], uniform.shape[3], uniform.shape[4]
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        key = "bf16" if dt == torch.bfloat16 else "f32"
+        v, do = value.to(dt), dout.to(dt)
+        out[f"{key}_rule"] = plan_dloc(S, D, dt, Q, L, P).route
+        for where, locs in (("", uniform), ("_model", model)):
+            args = (v, shapes, locs, attn, do)
+            ref = plain_bwd(v.float(), shapes, locs, attn, do.float())[1:]
+            mask = off_edges(locs, shapes)
+            got = {}
+            for route, stage in (("slab", True), ("direct", False)):
+                got[route] = DB(*args, part="d_loc", stage=stage)[1:]
+                errs = dloc_checks(f"dense d_loc blocks {route}{where}", got[route], ref, v, locs,
+                                   Q, mask)
+                out[f"{key}_{route}{where}_err"] = max(errs.values())
+                out[f"{key}_{route}{where}"] = graph_ms(lambda: DB(*args, part="d_loc",
+                                                                   stage=stage))
+                out[f"{key}_{route}_whole{where}"] = graph_ms(lambda: DB(*args, stage=stage))
+            dloc_checks(f"dense d_loc blocks slab vs direct{where}", got["slab"], got["direct"],
+                        v, locs, Q, mask)
+        bnd = deform_bound(uniform, shapes, D, uniform, attn, do, uniform, attn, value=v)
+        out[f"{key}_bound"], out[f"{key}_bound_by"] = bnd
+        out[f"{key}_plain"] = cuda_ms(lambda: plain_adjoint_of(v, shapes, uniform, attn, do,
+                                                                (1, 2)), iters=5)
+    return out
+
+
 def phase_dense(report):
     """Phase 19: the dense one-hot forward and adjoint against the plain
     versions (phase 6's geometries and the YOLO pyramid, f32 and bf16), NaN
@@ -2516,21 +2656,22 @@ def phase_dense(report):
     over two runs; at the encoder, the decoder and the YOLO pyramid also at a
     model's locations (model_locations), each kernel's device time from graph
     replays there and at the uniform ones, the adjoint's two kinds of block
-    alone; against kernel 1, the pair, the merged adjoint and the plain
-    versions; the bounds."""
+    alone; at the encoder the d_loc / d_attn blocks on both routes (staged,
+    unstaged) against the plain adjoint and each other, alone and in the
+    whole launch, with the gather's bound; against kernel 1, the pair, the
+    merged adjoint and the plain versions; the bounds."""
     import torch
 
     from poet_tpu_torch.tools.timing import graph_ms
 
     from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch as plain
     from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch_backward as plain_bwd
-    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_DLOC as KL
-    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_DVALUE as KV
     from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_FWD as K1
     from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_MERGED as KM
     from poet_tpu_torch.ops.deform_attn_dense_cuda import MS_DEFORM_ATTN_DENSE_BWD as DB
     from poet_tpu_torch.ops.deform_attn_dense_cuda import MS_DEFORM_ATTN_DENSE_FWD as DF
     from poet_tpu_torch.ops.deform_attn_dense_cuda import ms_deform_attn_dense
+    from poet_tpu_torch.ops import deform_attn_cuda as dac
 
     g = torch.Generator(device=DEVICE).manual_seed(6)
     worst_fwd, worst = 0.0, {"d_value": 0.0, "d_loc": 0.0, "d_attn": 0.0}
@@ -2578,7 +2719,8 @@ def phase_dense(report):
                     ms.update(kernel1=cuda_ms(lambda: K1(*args)),
                               plain_fwd=cuda_ms(lambda: plain(*args), iters=5))
                 if adjoint:
-                    ms.update(pair=cuda_ms(lambda: (KV(*args, do), KL(*args, do))),
+                    ms.update(pair=cuda_ms(lambda: (dac.dvalue_adjoint(*args, do),
+                                                    dac.dloc_adjoint(*args, do))),
                               merged=cuda_ms(lambda: KM(*args, do)),
                               plain_bwd=cuda_ms(lambda: plain_bwd(*args, do), iters=5))
                 t["bf16" if dt == torch.bfloat16 else "f32"] = ms
@@ -2586,16 +2728,22 @@ def phase_dense(report):
                             for dt, ms in t.items())
             v, do = value.bfloat16(), dout.bfloat16()
             out, grads = DF(v, shapes, locs, attn), DB(v, shapes, locs, attn, do)
-            t["fwd_bounds"] = dense_bounds(v, locs, attn, (v, locs, attn, out), shapes, 1, 8)
+            t["fwd_bounds"] = dense_bounds(v, locs, attn, (locs, attn, out), shapes, 1, 8)
             # the TPU kernel's two products (W^T dout for d_value, dout Vpad^T
             # for the corner dots) against the gather form's dot + scatter
-            t["bwd_bounds"] = dense_bounds(v, locs, attn, (v, locs, attn, do) + grads, shapes,
+            t["bwd_bounds"] = dense_bounds(v, locs, attn, (locs, attn, do) + grads, shapes,
                                            2, 16)
             line += (f" | bounds (tensor cores; f32 gather form) forward "
                      f"{t['fwd_bounds'][0][0]:.4f} ({t['fwd_bounds'][0][1]}); "
                      f"{t['fwd_bounds'][1][0]:.4f} ({t['fwd_bounds'][1][1]}), adjoint "
                      f"{t['bwd_bounds'][0][0]:.4f} ({t['bwd_bounds'][0][1]}); "
                      f"{t['bwd_bounds'][1][0]:.4f} ({t['bwd_bounds'][1][1]})")
+            if name == "encoder":
+                t["dloc_routes"] = dense_dloc_routes(DB, value, shapes, locs, model, attn, dout)
+                line += " | d_loc / d_attn blocks by route: " + ", ".join(
+                    f"{k} {x:.2e}" if k.endswith("_err") else
+                    f"{k} {x:.4f}" if isinstance(x, float) else f"{k} {x}"
+                    for k, x in t["dloc_routes"].items())
             report[f"dense_{name}"] = t
         log(line)
 
@@ -2687,7 +2835,7 @@ def v2_bounds(value, locs, attn, out, shapes):
     flops = sum(2.0 * Q * ((h + 2) * (w + 2) * D + (w + 2) * D * D) for h, w in shapes)
     t_tc = flops * B * H * P / BF16_TC_FLOP_PER_S
     tpu_form = (max(t_bytes, t_tc) * 1e3, "bytes" if t_bytes >= t_tc else "operations")
-    return deform_bound(locs, shapes, D, value, locs, attn, out), tpu_form
+    return deform_bound(locs, shapes, D, locs, attn, out, value=value), tpu_form
 
 
 def phase_v2(report):
@@ -2867,7 +3015,7 @@ def phase_probes(report):
                 raise AssertionError("variant base is not bit-equal to kernel 1")
             var[vname]["max_abs_err"] = err.max().item()
         var["plain_ms"] = cuda_ms(lambda: ms_deform_attn_torch(*args), iters=5)
-    var["bound"] = deform_bound(locs, shapes, D, v16, locs, attn, out)   # out: kernel 1's shape
+    var["bound"] = deform_bound(locs, shapes, D, locs, attn, out, value=v16)   # out: kernel 1's
     log(f"variants at the encoder shape (B={B} Q={Q} H={H} D={D} L=P=4, bf16), ms: "
         + ", ".join(f"{k} {x['ms']:.4f} (err {x['max_abs_err']:.1e}"
                     f"{', = kernel 1' if x['bit_equal_kernel1'] else ''})"
@@ -3483,7 +3631,7 @@ def main(argv) -> int:
     # the stem entry: the sums over the three launches of a YOLO request
     stem = [report["stem"][name] for name in STEM_PATH]
     stem_total = {k: sum(t[k] for t in stem) for k in ("ms", "plain_ms", "library_ms", "f32_ms")}
-    print(json.dumps({"kernels": [
+    kernels = [
         {"name": "ms_deform_attn_fwd", "route": "cuda", "source": src + "ms_deform_attn_fwd.cu",
          "replaces": tpu + "221", **launched("fwd"),
          "max_abs_err": report["max_abs_err"],
@@ -3504,10 +3652,19 @@ def main(argv) -> int:
                    "zeroed buffer and cast included; slab_ms: the slab route there, same call; "
                    "grid_init: at a model's sampling locations (grid_locations)"},
         {"name": "ms_deform_attn_bwd_dloc", "route": "cuda",
-         "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "470", **launched("d_loc"),
+         "source": src + "ms_deform_attn_point.cuh", "replaces": tpu + "470", **launched("d_loc"),
          "max_abs_err": max(errs["d_loc"], errs["d_attn"]),
-         **timed(adj["dloc"], adj["plain_dloc"], bounds["dloc"]),
-         "plain_adjoint_ms": adj["plain"]},
+         **timed(adj_dec["dloc"], adj_dec["plain_dloc"], adj_dec["dloc_bound"]),
+         "plain_adjoint_ms": adj_dec["plain"], "slab_ms": adj_dec["dloc_slab"],
+         "f32_ms": adj_dec_f32["dloc"], "encoder_ms": adj["dloc"],
+         "encoder_bound_ms": bounds["dloc"][0],
+         "grid_init_encoder_ms": report["adjoint_grid"]["bf16"]["dloc"],
+         "ms_are": "the direct route at its path's shape, the decoder (B=16, Q=10, S=1600, "
+                   "H=16, D=16, L=P=4), bf16, device time from graph replays; slab_ms: the "
+                   "slab route there, same call; encoder: Q=S=1600, where the rule takes the "
+                   "slab route (uniform locations; grid_init: a model's); bound_ms counts the "
+                   "value rows under the run's in-map corners (value_bytes_read), not the "
+                   "whole tensor"},
         {"name": "roi_align_fwd", "route": "cuda", "source": src + "roi_align_fwd.cu",
          "replaces": "poet_tpu/ops/roi_align_pallas.py:77", **launched("roi"),
          "max_abs_err": report["roi_max_abs_err"]["gather"],
@@ -3578,13 +3735,18 @@ def main(argv) -> int:
          "d_loc_blocks_ms": dense["dense_bwd_d_loc"],
          "d_value_blocks_model_locations_ms": dense["dense_bwd_d_value_model"],
          "d_loc_blocks_model_locations_ms": dense["dense_bwd_d_loc_model"],
+         "d_loc_blocks_by_route": dense_enc["dloc_routes"],
          "pair_ms": dense["pair"], "merged_ms": dense["merged"],
          "f32_bound_ms": dense_enc["bwd_bounds"][1][0],
          "bound_is": "bytes against the TPU kernel's two dense products per (b, h) on the bf16 "
                      "tensor cores; f32_bound_ms: the gather form's dot + scatter",
          "ms_are": "the encoder shape, bf16, uniform random locations, device time from graph "
                    "replays; model_locations: at grid_locations; decoder: B=16, Q=10; "
-                   "d_value_blocks / d_loc_blocks: each kind of block launched alone"},
+                   "d_value_blocks / d_loc_blocks: each kind of block launched alone; "
+                   "d_loc_blocks_by_route: the d_loc / d_attn blocks alone and the whole "
+                   "launch with the value slab staged (slab) or read from device memory "
+                   "(direct), f32 and bf16, uniform and a model's (_model) locations, the "
+                   "rule's route and the gather's bound"},
         {"name": "ms_deform_attn_v2_fwd", "route": "cuda", "source": src + "ms_deform_attn_v2.cu",
          "replaces": "poet_tpu/ops/deform_attn_pallas_v2.py:54", **launched("v2"),
          "phase_launches": probes["v2"], "max_abs_err": report["v2_max_abs_err"],
@@ -3602,9 +3764,11 @@ def main(argv) -> int:
          "max_rel_err": kpad["max_rel_err"],
          "ms": kpad["sweep"][128]["ms"], "plain_ms": kpad["plain_ms"],
          "bound_ms": kpad["bound"][0], "bound_by": kpad["bound"][1],
-         # no one call chains the products: torch.matmul of one of them beside it
+         # no one call chains R dependent products: torch.matmul of one of them
+         # beside it, and that time R x G times, for scale
          "library_ms": None, "matmul_ms": kpad["sweep"][128]["matmul_ms"],
          "matmul_is": "torch.matmul of one (M, K) @ (K, N) bf16 product, device time",
+         "matmul_x_products_ms": kpad["sweep"][128]["matmul_ms"] * KPAD_R * KPAD_G,
          "tflops_by_k": {K: [r["tflops"], r["tflops_pad16"]] for K, r in kpad["sweep"].items()},
          "ms_are": f"K=128, M={KPAD_M} N={KPAD_N} R={KPAD_R} G={KPAD_G}, bf16 -> f32; "
                    f"max_rel_err relative to max |plain|; plain_ms: G plain chains"},
@@ -3672,6 +3836,39 @@ def main(argv) -> int:
                    "model's sampling locations (grid_locations), where the rule takes the "
                    "scatter; crossover_ms: [scatter, slab] by Q at S=1600 there; yolo: B=16, "
                    "Q=S=6380, the slab splits that fit"},
+        {"name": "ms_deform_attn_bwd_dloc_slab", "route": "cuda",
+         "source": src + "ms_deform_attn_point.cuh", "replaces": tpu + "470",
+         **launched("d_loc_slab"), "max_abs_err": report["dloc_slab_max_abs_err"],
+         **timed(adj["dloc_slab"], adj["plain_dloc"], bounds["dloc"]),
+         "plain_adjoint_ms": adj["plain"], "direct_ms": adj["dloc"],
+         "f32_ms": adj_f32["dloc_slab"], "f32_direct_ms": adj_f32["dloc"],
+         "f32_bound_ms": adj_f32["dloc_bound"][0],
+         "grid_init_ms": report["adjoint_grid"]["bf16"]["dloc_slab"],
+         "grid_init_direct_ms": report["adjoint_grid"]["bf16"]["dloc"],
+         "grid_init_f32_ms": report["adjoint_grid"]["f32"]["dloc_slab"],
+         "grid_init_f32_direct_ms": report["adjoint_grid"]["f32"]["dloc"],
+         "decoder_ms": adj_dec["dloc_slab"], "decoder_direct_ms": adj_dec["dloc"],
+         "ms_are": "the encoder shape (B=16, Q=S=1600, H=16, D=16, L=P=4), where the rule "
+                   "takes the slab route, bf16, uniform locations, device time from graph "
+                   "replays; direct_ms: the direct route there, same call; grid_init: at a "
+                   "model's sampling locations (grid_locations); decoder: Q=10, where the "
+                   "rule takes the direct route"},
+        {"name": "ms_deform_attn_dense_dloc_slab", "route": "cuda",
+         "source": src + "ms_deform_attn_point.cuh",
+         "replaces": dense_tpu + "225", **launched("dense_dloc_slab"),
+         "max_abs_err": max(v for k, v in dense_enc["dloc_routes"].items()
+                            if k.startswith("f32_slab") and k.endswith("_err")),
+         **timed(dense_enc["dloc_routes"]["bf16_slab"], dense_enc["dloc_routes"]["bf16_plain"],
+                 (dense_enc["dloc_routes"]["bf16_bound"],
+                  dense_enc["dloc_routes"]["bf16_bound_by"])),
+         "model_locations_ms": dense_enc["dloc_routes"]["bf16_slab_model"],
+         "f32_ms": dense_enc["dloc_routes"]["f32_slab"],
+         "direct_ms": dense_enc["dloc_routes"]["bf16_direct"],
+         "ms_are": "the dense adjoint's d_loc / d_attn blocks on the staged slab, a kernel of "
+                   "their own, at the encoder shape (B=16, Q=S=1600, H=16, D=16, L=P=4), where "
+                   "plan_dloc stages, bf16, uniform locations, device time from graph replays; "
+                   "direct_ms: the same blocks from device memory inside the d_value blocks' "
+                   "launch, same call; plain_ms: the plain adjoint of d_loc and d_attn alone"},
         {"name": "roi_align_tiles", "route": "cuda", "source": src + "roi_align_fwd.cu",
          "replaces": "poet_tpu/ops/roi_align_pallas.py:77", **launched("roi_tiles"),
          "max_abs_err": report["roi_max_abs_err"]["tiles"],
@@ -3682,7 +3879,13 @@ def main(argv) -> int:
          "ms_are": "the detect+pose shape (B=16 x 1000 proposals, C=256, levels (120,160).."
                    "(15,20)), bf16, the kernel alone; wrapper_ms: with its geometry; gather_ms: "
                    "the gather route, same call"},
-    ]}))
+    ]
+    # a time under its bound means a bound that counts work the function
+    # does not need
+    under = [(k["name"], k["ms"], k["bound_ms"]) for k in kernels if k["ms"] < k["bound_ms"]]
+    if under:
+        raise AssertionError(f"kernels measured under their bound (name, ms, bound_ms): {under}")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,11 +1,14 @@
 // Multi-scale deformable attention, adjoint — CUDA for Hopper (sm_90a).
 //
-// Five kernels, replacing the TPU's two adjoints in
+// Six kernels, replacing the TPU's two adjoints in
 // poet_tpu/ops/deform_attn_pallas_v3.py:
 //   * ms_deform_attn_dvalue_kernel (the ATOMIC scatter) and
 //     ms_deform_attn_dvalue_slab_kernel (the SLAB route, for few corner adds
 //     per token: the decoder) replace _bwd_dval_kernel (d_value), and
-//   * ms_deform_attn_dloc_kernel    replaces _bwd_dloc_kernel (d_loc, d_attn),
+//   * ms_deform_attn_dloc_slab_kernel (the SLAB route, for many corner reads
+//     per token: the encoder) and ms_deform_attn_dloc_kernel (the DIRECT
+//     route: the decoder), both in ms_deform_attn_point.cuh under its
+//     GatherRule, replace _bwd_dloc_kernel (d_loc, d_attn),
 //     the two-kernel adjoint _bwd_twokernel_core;
 //   * ms_deform_attn_merged_slab_kernel (the SLAB route) and
 //   * ms_deform_attn_merged_kernel (the ATOMIC route, for slabs over the
@@ -59,18 +62,35 @@
 // 10) value is read from the L2 directly. The route and the staging are the
 // wrapper's rule (ops/deform_attn_cuda.py:plan_merged), from the budget.
 //
-// d_loc / d_attn is a gather, with the forward's four corner loads. Per
-// point, each lane forms four partial dot products e_c = sum_d dout_d *
-// v_c,d over its channels, the lanes of one (b, q, h) reduce them with warp
-// shuffles, and the first of them writes
+// d_loc / d_attn is a gather, with the forward's four corner loads: per
+// point the dot products e_c = sum_d dout_d * v_c,d at its corners, then
 //   d_attn = w00 e00 + w01 e01 + w10 e10 + w11 e11
 //   d_x    = a * W_l * [(1-ty)(e01 - e00) + ty (e11 - e10)]
 //   d_y    = a * H_l * [(1-tx)(e10 - e00) + tx (e11 - e01)]
 // (corner cy,cx: 00 = (y0,x0), 01 = (y0,x0+1), 10 = (y0+1,x0), 11 = both+1;
-// a corner outside the map counts as value 0).
+// a corner outside the map counts as value 0). It moves 183.5 MB at the
+// flagship encoder (value, loc, attn, dout in; d_loc, d_attn out: 0.055 ms
+// at 3.35 TB/s) and does 0.84 GFLOP: bytes bind it. Two routes, the
+// wrapper's rule (ops/deform_attn_cuda.py:plan_dloc):
+//   * SLAB (the encoder, 64 reads per token): a block per (b, h) stages the
+//     pair's value slab in shared memory once (51 200 B bf16 / 102 400 B
+//     f32 at S = 1600, D = 16), then a lane per sampling point
+//     (deform_point::dloc_walk): each lane gathers its point's corners from
+//     the slab with 16-byte shared loads over all D channels, so a query's
+//     16 points read and write contiguous loc / attn / d_loc / d_attn runs
+//     and nothing waits on a shuffle.
+//   * DIRECT (the decoder, 0.4 reads per token; the YOLO pyramid in f32,
+//     whose slab does not fit): the same walk, the corners read from the
+//     L2, a block per (b, h, 256 points): every point of a query in flight
+//     at once, where G lanes per (b, q, h) reducing channel slices with
+//     shuffles walked them one after another (on an H100 at the decoder
+//     0.0034 ms against 0.0217 for that mapping; at the encoder 0.2052
+//     against 0.3953, where the slab route takes 0.1304).
 //
 // The merged kernels (both routes) do both in one pass over the sampling
-// points, with the d_loc kernel's lane layout: per point the coordinates,
+// points, G lanes per (b, q, h) on channel slices whose partial e_c warp
+// shuffles reduce (a point's d_value adds need its channels spread over
+// lanes): per point the coordinates,
 // the corners and the bilinear weights once, the in-map value corners
 // gathered once for e_c, and corner_weight * a * dout added into d_value.
 // The two routes read the same value bits in the same order, so their d_loc
@@ -86,65 +106,9 @@ namespace {
 
 using deform_point::Footprint;
 using deform_point::Levels;
+using deform_point::Load;
 
 constexpr int kMergedSlabThreads = 1024;
-
-// dst[0:VEC] = float(p[0:VEC]); one vector load where VEC allows
-template <typename T, int VEC>
-struct Load {
-  static __device__ __forceinline__ void f32(const T* p, float* dst) {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) dst[j] = deform_point::to_float(p[j]);
-  }
-};
-
-template <>
-struct Load<float, 4> {
-  static __device__ __forceinline__ void f32(const float* p, float* dst) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    dst[0] = v.x;
-    dst[1] = v.y;
-    dst[2] = v.z;
-    dst[3] = v.w;
-  }
-};
-
-template <>
-struct Load<__nv_bfloat16, 8> {
-  static __device__ __forceinline__ void f32(const __nv_bfloat16* p, float* dst) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h2[j]);
-      dst[2 * j] = f.x;
-      dst[2 * j + 1] = f.y;
-    }
-  }
-};
-
-template <>
-struct Load<float, 8> {
-  static __device__ __forceinline__ void f32(const float* p, float* dst) {
-    Load<float, 4>::f32(p, dst);
-    Load<float, 4>::f32(p + 4, dst + 4);
-  }
-};
-
-// four bf16 channels: one 8-byte load
-template <>
-struct Load<__nv_bfloat16, 4> {
-  static __device__ __forceinline__ void f32(const __nv_bfloat16* p, float* dst) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const float2 f = __bfloat1622float2(h2[j]);
-      dst[2 * j] = f.x;
-      dst[2 * j + 1] = f.y;
-    }
-  }
-};
 
 // p[0:VEC] += w * g[0:VEC] in global memory. Groups of four channels go as
 // one 16-byte atomic (p 16-byte aligned when VEC % 4 == 0).
@@ -233,74 +197,14 @@ ms_deform_attn_dvalue_kernel(const float* __restrict__ loc, const float* __restr
 }
 
 // ---------------------------------------------------------- d_loc, d_attn
-// G consecutive lanes share one (b, q, h): G is the power of two >= D / VEC
-// (at most 32), so a group never straddles a warp. Lane r of a group takes
-// the channel slices c = r, r + G, ... < D / VEC. All lanes of a group take
-// the same branches (same point), so the shuffles use the group's mask.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(256)
-ms_deform_attn_dloc_kernel(const T* __restrict__ value, const float* __restrict__ loc,
-                           const float* __restrict__ attn, const T* __restrict__ dout,
-                           float* __restrict__ dloc, float* __restrict__ dattn, int S, int Q,
-                           int H, int D, int L, int P, int G, const __grid_constant__ Levels lv,
-                           int64_t n_items) {
-  const int chunks = D / VEC;
-  const int64_t row = (int64_t)H * D;
-  const unsigned group_mask = group_mask_of(threadIdx.x & 31, G);
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_items;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int r = (int)(i % G);
-    const int64_t bqh = i / G;
-    const int h = (int)(bqh % H);
-    const int64_t b = bqh / ((int64_t)Q * H);
-    const float* loc_p = loc + bqh * L * P * 2;
-    const float* att_p = attn + bqh * L * P;
-    const T* v_bh = value + b * S * row + (int64_t)h * D;
-    const T* do_p = dout + bqh * D;
-
-    for (int l = 0; l < L; ++l) {
-      const int Hl = lv.h[l];
-      const int Wl = lv.w[l];
-      const T* v_l = v_bh + (int64_t)lv.start[l] * row;
-      for (int p = 0; p < P; ++p) {
-        const int k = l * P + p;
-        Footprint f;
-        if (!deform_point::footprint(loc_p[2 * k], loc_p[2 * k + 1], Hl, Wl, &f)) {
-          if (r == 0)
-            deform_point::miss_grads(
-                deform_point::nonfinite(loc_p[2 * k], loc_p[2 * k + 1], Hl, Wl),
-                dattn + bqh * L * P + k, dloc + (bqh * L * P + k) * 2,
-                dloc + (bqh * L * P + k) * 2 + 1);
-          continue;
-        }
-        float e[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int c = r; c < chunks; c += G) {
-          float g[VEC];
-          Load<T, VEC>::f32(do_p + c * VEC, g);
-          deform_point::for_each_corner(f, Wl, 1.f, [&](int cc, int t, float) {
-            float v[VEC];
-            Load<T, VEC>::f32(v_l + (int64_t)t * row + c * VEC, v);
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) e[cc] += g[j] * v[j];
-          });
-        }
-        for (int s = G >> 1; s > 0; s >>= 1) {
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) e[cc] += __shfl_xor_sync(group_mask, e[cc], s);
-        }
-        if (r == 0) {
-          float* dl = dloc + (bqh * L * P + k) * 2;
-          deform_point::point_grads(f, att_p[k], Hl, Wl, e, dattn + bqh * L * P + k, dl, dl + 1);
-        }
-      }
-    }
-  }
-}
+// Both routes are deform_point's ms_deform_attn_dloc_kernel (DIRECT) and
+// ms_deform_attn_dloc_slab_kernel (SLAB) under deform_point::GatherRule,
+// launched by deform_point::dloc_entry.
 
 // ------------------------------------------------ merged: all three at once
 // One sampling point k = l * P + p of one (b, q, h) (loc_p, att_p, dloc_p,
-// dattn_p at the query's first point), lane r of its G-lane group (the
-// d_loc kernel's layout; VEC channels per slice). Per slice the lane loads
+// dattn_p at the query's first point), lane r of its G-lane group (VEC
+// channels per slice). Per slice the lane loads
 // dout and the in-map value corners once (v: token 0's channels, tokens
 // `vstride` elements apart), adds dout . v_c into e_c and hands
 // corner_weight * a * dout, its channels rotated left by `rot` (see
@@ -597,18 +501,6 @@ int launch_dvalue_slab(const float* loc, const float* attn, const void* dout, vo
 }
 
 template <typename T, int VEC>
-void launch_dloc(const void* value, const float* loc, const float* attn, const void* dout,
-                 float* dloc, float* dattn, int B, int S, int Q, int H, int D, int L, int P,
-                 const Levels& lv, cudaStream_t stream) {
-  const int G = group_lanes(D / VEC);
-  const int64_t n_items = (int64_t)B * Q * H * G;
-  if (n_items == 0) return;
-  ms_deform_attn_dloc_kernel<T, VEC><<<(unsigned)grid_for(n_items, 256), 256, 0, stream>>>(
-      static_cast<const T*>(value), loc, attn, static_cast<const T*>(dout), dloc, dattn, S, Q,
-      H, D, L, P, G, lv, n_items);
-}
-
-template <typename T, int VEC>
 void launch_merged(const void* value, const float* loc, const float* attn, const void* dout,
                    float* dvalue, float* dloc, float* dattn, int B, int S, int Q, int H, int D,
                    int L, int P, const Levels& lv, cudaStream_t stream) {
@@ -722,32 +614,26 @@ int poet_ms_deform_attn_bwd_dvalue_slab(const void* loc, const void* attn, const
   return -5;
 }
 
-// d_loc (w.r.t. normalized locations) and d_attn, every element written.
+// d_loc (w.r.t. normalized locations) and d_attn, every element written,
+// on the direct route (a block per (b, h, 256 points), the corners from
+// device memory). vec: 1 or the 16-byte width of the value (4 f32, 8 bf16).
 int poet_ms_deform_attn_bwd_dloc(const void* value, const void* loc, const void* attn,
                                  const void* dout, void* dloc, void* dattn, int dtype, int B,
                                  int S, int Q, int H, int D, int L, int P, const int* level_hw,
                                  int vec, void* stream) {
-  Levels lv;
-  const int rc = deform_point::make_levels(level_hw, L, S, &lv);
-  if (rc != 0) return rc;
-  if (vec < 1 || D % vec != 0) return -2;
-  const float* locf = static_cast<const float*>(loc);
-  const float* attf = static_cast<const float*>(attn);
-  float* dl = static_cast<float*>(dloc);
-  float* da = static_cast<float*>(dattn);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && vec == 4) {
-    launch_dloc<float, 4>(value, locf, attf, dout, dl, da, B, S, Q, H, D, L, P, lv, s);
-  } else if (dtype == 0 && vec == 1) {
-    launch_dloc<float, 1>(value, locf, attf, dout, dl, da, B, S, Q, H, D, L, P, lv, s);
-  } else if (dtype == 1 && vec == 8) {
-    launch_dloc<__nv_bfloat16, 8>(value, locf, attf, dout, dl, da, B, S, Q, H, D, L, P, lv, s);
-  } else if (dtype == 1 && vec == 1) {
-    launch_dloc<__nv_bfloat16, 1>(value, locf, attf, dout, dl, da, B, S, Q, H, D, L, P, lv, s);
-  } else {
-    return -5;
-  }
-  return (int)cudaGetLastError();
+  return deform_point::dloc_entry<deform_point::GatherRule, false>(
+      value, loc, attn, dout, dloc, dattn, dtype, B, S, Q, H, D, L, P, level_hw, vec, stream);
+}
+
+// The same on the slab route: a block per (b, h) on its value slab in shared
+// memory (S * D * sizeof(value) bytes; -7 when that exceeds the device's
+// opt-in limit per block), a lane per sampling point.
+int poet_ms_deform_attn_bwd_dloc_slab(const void* value, const void* loc, const void* attn,
+                                      const void* dout, void* dloc, void* dattn, int dtype,
+                                      int B, int S, int Q, int H, int D, int L, int P,
+                                      const int* level_hw, int vec, void* stream) {
+  return deform_point::dloc_entry<deform_point::GatherRule, true>(
+      value, loc, attn, dout, dloc, dattn, dtype, B, S, Q, H, D, L, P, level_hw, vec, stream);
 }
 
 // The merged adjoint's atomic route: d_value += (zeroed by the caller, f32),

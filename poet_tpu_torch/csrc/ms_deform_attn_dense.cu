@@ -1,11 +1,13 @@
 // Multi-scale deformable attention through a dense one-hot sampling matrix on
 // the tensor cores — CUDA for Hopper (sm_90a).
 //
-// Two kernels, replacing the TPU kernels of poet_tpu/ops/deform_attn_pallas.py
+// Three kernels, replacing the TPU kernels of poet_tpu/ops/deform_attn_pallas.py
 // (the `enc_deform_impl` / `dec_deform_impl` = 'pallas' entry
 // ms_deform_attn_pallas):
 //   * ms_deform_attn_dense_fwd_kernel  replaces _fwd_kernel (_run_forward),
-//   * ms_deform_attn_dense_bwd_kernel  replaces _bwd_kernel (_run_backward).
+//   * ms_deform_attn_dense_bwd_kernel  and, for its d_loc / d_attn blocks on
+//     a staged slab, ms_deform_attn_point.cuh's ms_deform_attn_dloc_slab_kernel
+//     under OneHotRule replace _bwd_kernel (_run_backward).
 // They compute the contract of poet_tpu/ops/deform_attn.py:ms_deform_attn_xla
 // and its gradient, the function the gather kernels (ms_deform_attn_fwd.cu,
 // ms_deform_attn_bwd.cu) compute, with the TPU kernel's idea: per (b, h) and
@@ -62,8 +64,8 @@
 // corners, and a one-hot tile holds a few percent non-zeros, so the
 // tensor-core rate is not what binds.
 //
-// Adjoint. One launch, two kinds of block of 256 threads.
-//   * d_value blocks = (b * H + h, unit, channel group): a unit is one level,
+// Adjoint. Two kinds of block.
+//   * d_value blocks (256 threads) = (b * H + h, unit, channel group): a unit is one level,
 //     or a band of its tokens where the level has more than the lane groups
 //     hold in registers (1280 at D = 16; the flagship's levels are whole, so
 //     every point's corner terms are computed once). The block walks the
@@ -80,10 +82,18 @@
 //     atomic, in device or shared memory, and the same bits on every run, as
 //     the TPU's sequential grid gave. What binds it: the ranking rounds and
 //     the runs' dependent shared-memory loads, at two blocks an SM.
-//   * d_loc / d_attn blocks: G consecutive lanes share one (b, q, h) and
-//     gather dout . v at each point's four corners, as the gather kernel of
-//     ms_deform_attn_bwd.cu (the TPU kernel formed the dense QT x S_pad
-//     product instead).
+//   * d_loc / d_attn blocks: a lane per sampling point gathers dout . v at
+//     its four corners (deform_point::dloc_walk, the pair's walk, with the
+//     one-hot corner terms and formula below; the TPU kernel formed the
+//     dense QT x S_pad product instead). By the pair's route rule
+//     (ops/deform_attn_cuda.py:plan_dloc), the wrapper's choice: where it
+//     stages (the encoder), a block per (b, h) stages its value slab and
+//     walks the pair's points from it, in a kernel of its own
+//     (the pair's slab kernel under OneHotRule, launched after the d_value
+//     blocks)
+//     free of the d_value blocks' register cap; elsewhere (the decoder; the
+//     YOLO pyramid in f32) a block per (b, h, 256 points) reads the corners
+//     from device memory inside the d_value blocks' launch.
 // A d_value route on the tensor cores (W^T over 16-token groups x 64
 // queries, hi/lo split, times the staged dout tile, into an f32 accumulator
 // in shared memory) was built beside this one and measured several times
@@ -106,8 +116,10 @@
 
 namespace {
 
+using deform_point::Footprint;
 using deform_point::from_float;
 using deform_point::Levels;
+using deform_point::Load;
 using deform_point::to_float;
 
 constexpr int KC = 64;            // tokens per chunk: the one-hot tile's columns
@@ -212,39 +224,6 @@ __device__ __forceinline__ void load_a_split(const float* a, int ld, int g, int 
   mma_sm90::split_tf32(a[(g + 8) * ld + t + 4], hi[3], lo[3]);
 }
 
-// dst[0:VEC] = float(p[0:VEC]): one 16-byte (or 8-byte) load where VEC fills it
-template <typename T, int VEC>
-struct Load {
-  static __device__ __forceinline__ void f32(const T* p, float* dst) {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) dst[j] = to_float(p[j]);
-  }
-};
-
-template <>
-struct Load<float, 4> {
-  static __device__ __forceinline__ void f32(const float* p, float* dst) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    dst[0] = v.x;
-    dst[1] = v.y;
-    dst[2] = v.z;
-    dst[3] = v.w;
-  }
-};
-
-template <>
-struct Load<__nv_bfloat16, 4> {
-  static __device__ __forceinline__ void f32(const __nv_bfloat16* p, float* dst) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    dst[0] = a.x;
-    dst[1] = a.y;
-    dst[2] = b.x;
-    dst[3] = b.y;
-  }
-};
-
 // four f32 values stored as one 16-byte (f32) or 8-byte (bf16) word
 template <typename T> struct Store4;
 template <> struct Store4<float> {
@@ -259,20 +238,6 @@ template <> struct Store4<__nv_bfloat16> {
     raw.x = *reinterpret_cast<const unsigned*>(&a);
     raw.y = *reinterpret_cast<const unsigned*>(&b);
     *reinterpret_cast<uint2*>(p) = raw;
-  }
-};
-
-template <>
-struct Load<__nv_bfloat16, 8> {
-  static __device__ __forceinline__ void f32(const __nv_bfloat16* p, float* dst) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h2[j]);
-      dst[2 * j] = f.x;
-      dst[2 * j + 1] = f.y;
-    }
   }
 };
 
@@ -797,99 +762,38 @@ __device__ __forceinline__ void dvalue_block(const float* __restrict__ loc,
   }
 }
 
-// d_loc / d_attn blocks: G consecutive lanes share one (b, q, h) and take the
-// channel slices r, r + G, ... of D / VEC, as the gather kernel of
-// ms_deform_attn_bwd.cu, with the corner terms above: per point the group
-// forms e_c = dout . v_c at the in-map corners and
+// The d_loc / d_attn blocks' rule for deform_point::dloc_walk: the corner
+// terms above (a point takes part when x0 and y0 lie in [-1, size]; its
+// corners on the zero border count as value 0) and the TPU kernel's formula,
+// with e_c = dout . v_c:
 //   d_attn = sum_c b_c e_c,
-//   d_x = a * W_l * [(1-ty)(e01 - e00) + ty (e11 - e10)],
-//   d_y = a * H_l * [(1-tx)(e10 - e00) + tx (e11 - e01)].
-template <typename T, int VEC>
-__device__ __forceinline__ void dense_dloc_item(const T* __restrict__ value,
-                                                const float* __restrict__ loc,
-                                                const float* __restrict__ attn,
-                                                const T* __restrict__ dout,
-                                                float* __restrict__ dloc,
-                                                float* __restrict__ dattn, int S, int Q, int H,
-                                                int D, int L, int P, int G, const Levels& lv,
-                                                int64_t i, int64_t n_items) {
-  if (i >= n_items) return;  // whole groups leave together: n_items is a multiple of G
-  const int chunks = D / VEC;
-  const int64_t row = (int64_t)H * D;
-  const int lane = threadIdx.x & 31;
-  const unsigned group_mask = (G == 32 ? 0xffffffffu : ((1u << G) - 1u)) << (lane & ~(G - 1));
-  const int r = (int)(i % G);
-  const int64_t bqh = i / G;
-  const int h = (int)(bqh % H);
-  const int64_t b = bqh / ((int64_t)Q * H);
-  const float* loc_p = loc + bqh * L * P * 2;
-  const float* att_p = attn + bqh * L * P;
-  const T* v_bh = value + b * S * row + (int64_t)h * D;
-  const T* do_p = dout + bqh * D;
-  for (int l = 0; l < L; ++l) {
-    const int Hl = lv.h[l], Wl = lv.w[l];
-    const T* v_l = v_bh + (int64_t)lv.start[l] * row;
-    for (int p = 0; p < P; ++p) {
-      const int k = l * P + p;
-      const int64_t o = bqh * L * P + k;
-      Corners c;
-      const Pt kind = corner_terms(reinterpret_cast<const float2*>(loc_p)[k], Hl, Wl, &c);
-      if (kind != Pt::HIT) {
-        if (r == 0) {
-          const float g = kind == Pt::NONFINITE ? nan_f32() : 0.f;
-          dattn[o] = g;
-          dloc[2 * o] = g;
-          dloc[2 * o + 1] = g;
-        }
-        continue;
-      }
-      const bool in_y0 = c.y0 >= 0 && c.y0 < Hl, in_y1 = c.y0 + 1 >= 0 && c.y0 + 1 < Hl;
-      const bool in_x0 = c.x0 >= 0 && c.x0 < Wl, in_x1 = c.x0 + 1 >= 0 && c.x0 + 1 < Wl;
-      const T* r0 = v_l + (int64_t)c.y0 * Wl * row;
-      const T* r1 = r0 + (int64_t)Wl * row;
-      float e00 = 0.f, e01 = 0.f, e10 = 0.f, e11 = 0.f;
-      for (int cc = r; cc < chunks; cc += G) {
-        const int64_t off = cc * VEC;
-        float g[VEC], v[VEC];
-        Load<T, VEC>::f32(do_p + off, g);
-        if (in_y0 && in_x0) {
-          Load<T, VEC>::f32(r0 + (int64_t)c.x0 * row + off, v);
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) e00 += g[j] * v[j];
-        }
-        if (in_y0 && in_x1) {
-          Load<T, VEC>::f32(r0 + (int64_t)(c.x0 + 1) * row + off, v);
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) e01 += g[j] * v[j];
-        }
-        if (in_y1 && in_x0) {
-          Load<T, VEC>::f32(r1 + (int64_t)c.x0 * row + off, v);
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) e10 += g[j] * v[j];
-        }
-        if (in_y1 && in_x1) {
-          Load<T, VEC>::f32(r1 + (int64_t)(c.x0 + 1) * row + off, v);
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) e11 += g[j] * v[j];
-        }
-      }
-      for (int s = G >> 1; s > 0; s >>= 1) {
-        e00 += __shfl_xor_sync(group_mask, e00, s);
-        e01 += __shfl_xor_sync(group_mask, e01, s);
-        e10 += __shfl_xor_sync(group_mask, e10, s);
-        e11 += __shfl_xor_sync(group_mask, e11, s);
-      }
-      if (r == 0) {
-        const float a = att_p[k];
-        const float tx = c.tx, ty = c.ty;
-        dattn[o] = (1.f - tx) * (1.f - ty) * e00 + tx * (1.f - ty) * e01 +
-                   (1.f - tx) * ty * e10 + tx * ty * e11;
-        dloc[2 * o] = a * ((1.f - ty) * (e01 - e00) + ty * (e11 - e10)) * (float)Wl;
-        dloc[2 * o + 1] = a * ((1.f - tx) * (e10 - e00) + tx * (e11 - e01)) * (float)Hl;
-      }
-    }
+//   d_x = a * [(1-ty)(e01 - e00) + ty (e11 - e10)] * W_l,
+//   d_y = a * [(1-tx)(e10 - e00) + tx (e11 - e01)] * H_l.
+struct OneHotRule {
+  static __device__ __forceinline__ int footprint(float lx, float ly, int Hl, int Wl,
+                                                  Footprint* f) {
+    Corners c;
+    const Pt kind = corner_terms(make_float2(lx, ly), Hl, Wl, &c);
+    if (kind != Pt::HIT) return kind == Pt::NONFINITE ? -1 : 0;
+    f->t00 = c.y0 * Wl + c.x0;
+    f->tx = c.tx;
+    f->ty = c.ty;
+    f->in_x0 = c.x0 >= 0 && c.x0 < Wl;
+    f->in_x1 = c.x0 + 1 < Wl;  // x0 >= -1
+    f->in_y0 = c.y0 >= 0 && c.y0 < Hl;
+    f->in_y1 = c.y0 + 1 < Hl;
+    return 1;
   }
-}
+  static __device__ __forceinline__ void grads(const Footprint& f, float a, int Hl, int Wl,
+                                               const float* e, float* d_attn, float* dx,
+                                               float* dy) {
+    const float tx = f.tx, ty = f.ty;
+    *d_attn = (1.f - tx) * (1.f - ty) * e[0] + tx * (1.f - ty) * e[1] +
+              (1.f - tx) * ty * e[2] + tx * ty * e[3];
+    *dx = a * ((1.f - ty) * (e[1] - e[0]) + ty * (e[3] - e[2])) * (float)Wl;
+    *dy = a * ((1.f - tx) * (e[2] - e[0]) + tx * (e[3] - e[1])) * (float)Hl;
+  }
+};
 
 template <typename T, int DGP, int VEC>
 __global__ void __launch_bounds__(BWD_THREADS, 2)
@@ -897,19 +801,31 @@ ms_deform_attn_dense_bwd_kernel(const T* __restrict__ value, const float* __rest
                                 const float* __restrict__ attn, const T* __restrict__ dout,
                                 T* __restrict__ dvalue, float* __restrict__ dloc,
                                 float* __restrict__ dattn, int S, int Q, int H, int D, int L,
-                                int P, int G, const __grid_constant__ Levels lv,
+                                int P, const __grid_constant__ Levels lv,
                                 const __grid_constant__ Units un, int n_units, int band_max,
-                                int n_dv_blocks, int n_bh, int64_t n_items, bool vec4) {
+                                int n_dv_blocks, int n_bh, bool vec4) {
   extern __shared__ __align__(16) unsigned char smem[];
   if ((int)blockIdx.x < n_dv_blocks) {
     dvalue_block<T, DGP>(loc, attn, dout, dvalue, S, Q, H, D, L, P, lv, un, n_units, band_max,
                          blockIdx.x, n_bh, vec4, smem);
-  } else {
-    const int64_t i = (int64_t)(blockIdx.x - n_dv_blocks) * BWD_THREADS + threadIdx.x;
-    dense_dloc_item<T, VEC>(value, loc, attn, dout, dloc, dattn, S, Q, H, D, L, P, G, lv, i,
-                            n_items);
+  } else {  // a d_loc / d_attn block: (b, h, BWD_THREADS points) from device memory
+    const deform_point::DlocBlock k = deform_point::dloc_block_of(
+        blockIdx.x - n_dv_blocks, BWD_THREADS, Q * L * P, H);
+    const int64_t row = (int64_t)H * D;
+    deform_point::dloc_walk<OneHotRule, T, VEC, 0>(value + k.b * S * row + (int64_t)k.h * D,
+                                                   row, loc, attn, dout, dloc, dattn, k.b, k.h, Q,
+                                                   H, D, L, P, lv, k.first, k.last);
   }
 }
+
+// The d_loc / d_attn blocks on the staged slab are a kernel of their own:
+// deform_point::ms_deform_attn_dloc_slab_kernel under OneHotRule (a block per
+// (b, h), 512 threads), free of the d_value blocks' register cap and shared
+// memory. On an H100 at the flagship encoder (bf16) the whole adjoint took
+// 0.7198 ms so, against 0.7383-0.7607 with the staged blocks inside the
+// d_value blocks' launch (256 threads, 128 registers, two blocks an SM); at
+// the decoder the unstaged blocks inside that launch (0.0590 in all) beat a
+// second launch (0.0635).
 
 // ---------------------------------------------------------------- host side
 
@@ -984,15 +900,9 @@ int launch_fwd_nt(int nt, const void* value, const float* loc, const float* attn
   }
 }
 
-// lanes per (b, q, h) of the d_loc / d_attn blocks: the power of two >= D / VEC, at most 32
-int group_lanes(int chunks) {
-  int G = 1;
-  while (G < chunks && G < 32) G <<= 1;
-  return G;
-}
-
-// part: 0 = d_value and d_loc / d_attn blocks, 1 = d_value blocks alone, 2 =
-// d_loc / d_attn blocks alone (no shared memory)
+// part: 0 = d_value and d_loc / d_attn blocks (a block per (b, h,
+// BWD_THREADS points) from device memory), 1 = d_value blocks alone, 2 =
+// d_loc / d_attn blocks alone.
 template <typename T, int DGP, int VEC>
 int launch_bwd(const void* value, const float* loc, const float* attn, const void* dout,
                void* dvalue, float* dloc, float* dattn, int B, int S, int Q, int H, int D, int L,
@@ -1004,19 +914,19 @@ int launch_bwd(const void* value, const float* loc, const float* attn, const voi
   if (rc != 0) return rc;
   const int n_bh = B * H, n_groups = (D + DGP - 1) / DGP;
   const int64_t n_dv = part == 2 ? 0 : (int64_t)n_units * n_bh * n_groups;
-  const int G = group_lanes(D / VEC);
-  const int64_t n_items = part == 1 ? 0 : (int64_t)B * Q * H * G;
-  const int64_t blocks = n_dv + (n_items + BWD_THREADS - 1) / BWD_THREADS;
-  if (blocks == 0) return 0;
+  const int n_pts = Q * L * P;
+  const int64_t n_dl =
+      part == 1 ? 0 : (int64_t)n_bh * ((n_pts + BWD_THREADS - 1) / BWD_THREADS);
+  if (n_dv + n_dl == 0) return 0;
   const size_t smem = n_dv ? dv_smem_bytes(band_max, DGP, P) : 0;
   auto kernel = ms_deform_attn_dense_bwd_kernel<T, DGP, VEC>;
   static size_t granted[deform_point::kMaxDevices];
   const int g = deform_point::grant_smem(kernel, smem, granted);
   if (g != 0) return g;
-  kernel<<<(unsigned)blocks, BWD_THREADS, smem, stream>>>(
+  kernel<<<(unsigned)(n_dv + n_dl), BWD_THREADS, smem, stream>>>(
       static_cast<const T*>(value), loc, attn, static_cast<const T*>(dout),
-      static_cast<T*>(dvalue), dloc, dattn, S, Q, H, D, L, P, G, lv, un, n_units, band_max,
-      (int)n_dv, n_bh, n_items,
+      static_cast<T*>(dvalue), dloc, dattn, S, Q, H, D, L, P, lv, un, n_units, band_max,
+      (int)n_dv, n_bh,
       D % 4 == 0 && reinterpret_cast<uintptr_t>(dout) % (4 * sizeof(T)) == 0 &&
           reinterpret_cast<uintptr_t>(dvalue) % (4 * sizeof(T)) == 0);
   return (int)cudaGetLastError();
@@ -1025,8 +935,7 @@ int launch_bwd(const void* value, const float* loc, const float* attn, const voi
 template <typename T, int VEC>
 int launch_bwd_dgp(int nt, const void* value, const float* loc, const float* attn,
                    const void* dout, void* dvalue, float* dloc, float* dattn, int B, int S, int Q,
-                   int H, int D, int L, int P, const Levels& lv, int part,
-                   cudaStream_t s) {
+                   int H, int D, int L, int P, const Levels& lv, int part, cudaStream_t s) {
   switch (nt) {
     case 1: return launch_bwd<T, 8, VEC>(value, loc, attn, dout, dvalue, dloc, dattn, B, S, Q, H, D, L, P, lv, part, s);
     case 2: return launch_bwd<T, 16, VEC>(value, loc, attn, dout, dvalue, dloc, dattn, B, S, Q, H, D, L, P, lv, part, s);
@@ -1072,8 +981,7 @@ int poet_ms_deform_attn_dense_fwd(const void* value, const void* loc, const void
 int poet_ms_deform_attn_dense_bwd(const void* value, const void* loc, const void* attn,
                                   const void* dout, void* dvalue, void* dloc, void* dattn,
                                   int dtype, int B, int S, int Q, int H, int D, int L, int P,
-                                  const int* level_hw, int vec, int part,
-                                  void* stream) {
+                                  const int* level_hw, int vec, int part, void* stream) {
   Levels lv;
   const int rc = deform_point::make_levels(level_hw, L, S, &lv);
   if (rc != 0) return rc;
@@ -1094,6 +1002,18 @@ int poet_ms_deform_attn_dense_bwd(const void* value, const void* loc, const void
   if (dtype == 1 && vec == 1)
     return launch_bwd_dgp<__nv_bfloat16, 1>(nt, value, locf, attf, dout, dvalue, dl, da, B, S, Q, H, D, L, P, lv, part, s);
   return -5;
+}
+
+// The d_loc / d_attn blocks on the staged value slab (a block per (b, h),
+// S * D * sizeof(value) bytes of shared memory: -7 over the device's opt-in
+// limit), in a launch of their own; every element of d_loc and d_attn
+// written. vec: 1 or the 16-byte width of the value (4 f32, 8 bf16).
+int poet_ms_deform_attn_dense_dloc_slab(const void* value, const void* loc, const void* attn,
+                                        const void* dout, void* dloc, void* dattn, int dtype,
+                                        int B, int S, int Q, int H, int D, int L, int P,
+                                        const int* level_hw, int vec, void* stream) {
+  return deform_point::dloc_entry<OneHotRule, true>(value, loc, attn, dout, dloc, dattn, dtype, B,
+                                                    S, Q, H, D, L, P, level_hw, vec, stream);
 }
 
 const char* poet_cuda_error_string(int code) {

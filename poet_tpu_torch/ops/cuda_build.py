@@ -142,6 +142,7 @@ BWD_LIB = CudaLibrary(CSRC / "ms_deform_attn_bwd.cu", {
     "poet_ms_deform_attn_bwd_dvalue": [P] * 4 + [I] * 8 + [INTS, I, P],
     "poet_ms_deform_attn_bwd_dvalue_slab": [P] * 4 + [I] * 8 + [INTS, I, I, I, P],
     "poet_ms_deform_attn_bwd_dloc": [P] * 6 + [I] * 8 + [INTS, I, P],
+    "poet_ms_deform_attn_bwd_dloc_slab": [P] * 6 + [I] * 8 + [INTS, I, P],
     "poet_ms_deform_attn_bwd_merged": [P] * 7 + [I] * 8 + [INTS, I, P],
     "poet_ms_deform_attn_bwd_merged_slab": [P] * 7 + [I] * 8 + [INTS, I, I, P]})
 ROI_LIB = CudaLibrary(CSRC / "roi_align_fwd.cu", {
@@ -153,7 +154,8 @@ NN_LIB = CudaLibrary(CSRC / "min_dist_sq_fwd.cu", {
     "poet_min_dist_sq_fwd": [P] * 3 + [I] * 3 + [P]})
 DENSE_LIB = CudaLibrary(CSRC / "ms_deform_attn_dense.cu", {
     "poet_ms_deform_attn_dense_fwd": [P] * 4 + [I] * 8 + [INTS, P],
-    "poet_ms_deform_attn_dense_bwd": [P] * 7 + [I] * 8 + [INTS, I, I, P]})
+    "poet_ms_deform_attn_dense_bwd": [P] * 7 + [I] * 8 + [INTS, I, I, P],
+    "poet_ms_deform_attn_dense_dloc_slab": [P] * 6 + [I] * 8 + [INTS, I, P]})
 V2_LIB = CudaLibrary(CSRC / "ms_deform_attn_v2.cu", {
     "poet_ms_deform_attn_v2_fwd": [P] * 4 + [I] * 8 + [INTS, I, INTS, I, I, I, P]})
 # the probes (poet_tpu_torch/tools/)

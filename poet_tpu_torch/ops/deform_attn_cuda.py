@@ -8,8 +8,8 @@ the table is `config.DEFORM_IMPLS`). It is a `torch.autograd.Function`:
     (`ops/deform_attn.py`);
   * CUDA tensors launch the hand-written kernels — the forward
     `csrc/ms_deform_attn_fwd.cu`, and in the backward, by its `adjoint`
-    argument, either the pair of `csrc/ms_deform_attn_bwd.cu` (d_value on
-    its route and the d_loc/d_attn gather) or the merged adjoint of the same
+    argument, either the pair of `csrc/ms_deform_attn_bwd.cu` (d_value and
+    the d_loc/d_attn gather, each on its route) or the merged adjoint of the same
     file (all three gradients in one pass) — or raise.
 There is no fallback from one to the other.
 
@@ -29,7 +29,7 @@ budget of one block, `SMEM_OPTIN_MAX` (never by catching a failure):
     both fit) wherever the f32 d_value slab fits, else the ATOMIC route
     (`MS_DEFORM_ATTN_MERGED`, float4 atomics into a zeroed f32 buffer in
     device memory, cast after): the YOLO pyramid, S = 6380.
-The pair's d_value has two routes too:
+The pair's two kernels have two routes each:
   * `plan_dvalue`: the SLAB route (`MS_DEFORM_ATTN_DVALUE_SLAB`, a block per
     (b, h, channel group of up to `DVALUE_GROUP_MAX`) sums its (S, group)
     f32 slab in shared memory and writes it once in the value dtype: no
@@ -39,6 +39,13 @@ The pair's d_value has two routes too:
     zeroed f32 buffer, cast after): the encoder, where the L2's atomics
     outrun the shared adds' compare-and-swap loops at a model's sampling
     locations, and the YOLO pyramid, whose 16-channel slab does not fit.
+  * `plan_dloc`: the d_loc/d_attn gather's SLAB route
+    (`MS_DEFORM_ATTN_DLOC_SLAB`, a block per (b, h) stages its value slab
+    in shared memory and walks the pair's points a lane each) by
+    `plan_forward`'s rule, else the DIRECT route (`MS_DEFORM_ATTN_DLOC`,
+    the same walk reading the corners from device memory, a block per
+    (b, h, 256 points): the decoder, and the YOLO pyramid in f32). Both
+    are instances of one wrapper, `MSDeformAttnDLoc`.
 
 The kernels are built by `ops/cuda_build.py` (nvcc at first use, loaded
 with ctypes); this module re-exports its `CudaLibrary`, `build_all`,
@@ -128,6 +135,14 @@ def plan_forward(S: int, D: int, dtype: torch.dtype, Q: int, L: int, P: int) -> 
     if slab <= SMEM_OPTIN_MAX and corner_reads_per_token(S, Q, L, P) >= SLAB_MIN_READS:
         return Plan("slab", True, slab)
     return Plan("direct", False, 0)
+
+
+def plan_dloc(S: int, D: int, dtype: torch.dtype, Q: int, L: int, P: int) -> Plan:
+    """The d_loc/d_attn gather's route, by the forward's rule: 'slab' where
+    the (S, D) value slab fits one block's shared memory and each token is
+    read at least SLAB_MIN_READS times (the encoder: 64), else 'direct' (the
+    decoder: 0.4; the YOLO pyramid in f32, whose slab does not fit)."""
+    return plan_forward(S, D, dtype, Q, L, P)
 
 
 def plan_merged(S: int, D: int, dtype: torch.dtype, Q: int, L: int, P: int) -> Plan:
@@ -368,14 +383,23 @@ class MSDeformAttnDValueSlab:
         return d_value
 
 
-class MSDeformAttnDLocAttn:
-    """Launches the d_loc / d_attn gather kernel (`csrc/ms_deform_attn_bwd.cu`).
+class MSDeformAttnDLoc:
+    """Launches one route of a d_loc / d_attn gather: `entry` of `lib`, a
+    lane per sampling point (`csrc/ms_deform_attn_point.cuh`,
+    `ms_deform_attn_dloc_kernel` / `ms_deform_attn_dloc_slab_kernel` under
+    the library's corner rule). With `slab`, one block per (b, h) stages its
+    (S, D) value slab in shared memory and walks the pair's points; without,
+    a block per (b, h, 256 points) reads the corners from device memory.
 
     Returns (d_loc (B, Q, H, L, P, 2), d_attn (B, Q, H, L, P)), f32, d_loc
-    with respect to the normalized locations. `launches` counts launches.
+    with respect to the normalized locations. CUDA tensors only; with `slab`
+    raises where the slab exceeds SMEM_OPTIN_MAX. `launches` counts launches
+    (none while a stream captures: nothing launches then); each instance
+    keeps its own.
     """
 
-    def __init__(self):
+    def __init__(self, lib: CudaLibrary, entry: str, slab: bool):
+        self.lib, self.entry, self.slab = lib, entry, slab
         self.launches = 0
 
     def __call__(self, value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
@@ -383,17 +407,22 @@ class MSDeformAttnDLocAttn:
                  dout: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         B, S, Q, H, D, L, P = _check_inputs(value, spatial_shapes, sampling_locations,
                                             attention_weights, dout)
-        lib = BWD_LIB.build()
+        if self.slab and S * D * value.element_size() > SMEM_OPTIN_MAX:
+            raise ValueError(f"a value slab of S={S} x D={D} {value.dtype} exceeds the "
+                             f"{SMEM_OPTIN_MAX} B of shared memory a block may use")
+        lib = self.lib.build()
         d_loc = torch.empty_like(sampling_locations)
         d_attn = torch.empty_like(attention_weights)
-        vec = min(vec_width(value, D), vec_width(dout, D))
+        # a staged slab's rows are packed and 16-byte aligned: there only
+        # dout's loads need its pointer aligned for VEC channels a load
+        vec = vec_width(dout, D) if self.slab else min(vec_width(value, D), vec_width(dout, D))
         with torch.cuda.device(value.device):
-            rc = lib.poet_ms_deform_attn_bwd_dloc(
+            rc = getattr(lib, self.entry)(
                 value.data_ptr(), sampling_locations.data_ptr(),
                 attention_weights.data_ptr(), dout.data_ptr(), d_loc.data_ptr(),
                 d_attn.data_ptr(), DTYPE_CODE[value.dtype], B, S, Q, H, D, L, P,
                 level_hw(spatial_shapes), vec, stream_of(value))
-        BWD_LIB.check(rc, "ms_deform_attn_bwd_dloc")
+        self.lib.check(rc, self.entry.removeprefix("poet_"))
         if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
             self.launches += 1
         return d_loc, d_attn
@@ -404,7 +433,7 @@ class MSDeformAttnMergedAdjoint:
     `ms_deform_attn_merged_kernel`): d_value, d_loc and d_attn in one pass
     over the sampling points, d_value added into device memory.
 
-    Returns what `MSDeformAttnDValue` and `MSDeformAttnDLocAttn` return
+    Returns what `MSDeformAttnDValue` and `MSDeformAttnDLoc` return
     together: (d_value (B, S, H, D) in value's dtype, summed in f32 with
     float4 atomics, rows past sum(Hl * Wl) exactly 0; d_loc (B, Q, H, L, P,
     2) f32 with respect to the normalized locations; d_attn (B, Q, H, L, P)
@@ -490,13 +519,15 @@ class MSDeformAttnMergedSlab:
 MS_DEFORM_ATTN_FWD = MSDeformAttnForward()
 MS_DEFORM_ATTN_FWD_SLAB = MSDeformAttnForwardSlab()
 MS_DEFORM_ATTN_DVALUE = MSDeformAttnDValue()
-MS_DEFORM_ATTN_DLOC = MSDeformAttnDLocAttn()
+MS_DEFORM_ATTN_DLOC = MSDeformAttnDLoc(BWD_LIB, "poet_ms_deform_attn_bwd_dloc", slab=False)
 MS_DEFORM_ATTN_MERGED = MSDeformAttnMergedAdjoint()
 MS_DEFORM_ATTN_MERGED_SLAB = MSDeformAttnMergedSlab()
 MS_DEFORM_ATTN_DVALUE_SLAB = MSDeformAttnDValueSlab()
+MS_DEFORM_ATTN_DLOC_SLAB = MSDeformAttnDLoc(BWD_LIB, "poet_ms_deform_attn_bwd_dloc_slab",
+                                            slab=True)
 KERNELS = (MS_DEFORM_ATTN_FWD, MS_DEFORM_ATTN_DVALUE, MS_DEFORM_ATTN_DLOC,
            MS_DEFORM_ATTN_MERGED, MS_DEFORM_ATTN_FWD_SLAB, MS_DEFORM_ATTN_MERGED_SLAB,
-           MS_DEFORM_ATTN_DVALUE_SLAB)
+           MS_DEFORM_ATTN_DVALUE_SLAB, MS_DEFORM_ATTN_DLOC_SLAB)
 ADJOINTS = ("merged", "pair")
 
 
@@ -523,11 +554,18 @@ def dvalue_adjoint(value, spatial_shapes, locs, attn, dout):
     return MS_DEFORM_ATTN_DVALUE(value, spatial_shapes, locs, attn, dout)
 
 
+def dloc_adjoint(value, spatial_shapes, locs, attn, dout):
+    """The pair's d_loc / d_attn on the route `plan_dloc` gives these operands."""
+    slab = _plan_of(plan_dloc, value, locs).route == "slab"
+    kernel = MS_DEFORM_ATTN_DLOC_SLAB if slab else MS_DEFORM_ATTN_DLOC
+    return kernel(value, spatial_shapes, locs, attn, dout)
+
+
 class _MSDeformAttn(torch.autograd.Function):
     """Deformable sampling with its adjoint: CPU -> plain versions, CUDA ->
     the forward on its route and the adjoint chosen by `adjoint` ('pair':
-    d_value on its route and the d_loc/d_attn gather; 'merged': one kernel,
-    on its route)."""
+    d_value and the d_loc/d_attn gather, each on its route; 'merged': one
+    kernel, on its route)."""
 
     @staticmethod
     def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights, adjoint):
@@ -551,7 +589,7 @@ class _MSDeformAttn(torch.autograd.Function):
             d_value, d_loc, d_attn = merged_adjoint(value, shapes, locs, attn, dout)
         else:
             d_value = dvalue_adjoint(value, shapes, locs, attn, dout)
-            d_loc, d_attn = MS_DEFORM_ATTN_DLOC(value, shapes, locs, attn, dout)
+            d_loc, d_attn = dloc_adjoint(value, shapes, locs, attn, dout)
         return d_value, None, d_loc, d_attn, None
 
 
@@ -560,10 +598,11 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
                    adjoint: str = "merged") -> torch.Tensor:
     """The model's deformable-attention entry on the gather kernels
     (differentiable): CPU -> plain version, CUDA -> the hand-written kernels
-    on the routes `plan_forward`, `plan_merged` and `plan_dvalue` give
+    on the routes `plan_forward`, `plan_merged`, `plan_dvalue` and
+    `plan_dloc` give
     (which raise on what they do not take). `adjoint` picks the backward on
     CUDA tensors: 'merged' (one kernel, the faster on the H100) or 'pair'
-    (d_value on its route + the d_loc/d_attn gather); both compute the same
+    (d_value + the d_loc/d_attn gather, each on its route); both compute the same
     gradients."""
     if adjoint not in ADJOINTS:
         raise ValueError(f"adjoint {adjoint!r} not in {ADJOINTS}")

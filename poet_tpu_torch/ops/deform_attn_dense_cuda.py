@@ -22,7 +22,13 @@ more than the products:
   once, sort the tile's corners by token (counts and ranks, no float
   atomics) and add each token's run in (q, p, corner) order into sums a
   lane group keeps in registers: the same bits from run to run. The d_loc /
-  d_attn blocks gather dout . v at each point's corners.
+  d_attn blocks gather dout . v at each point's corners, a lane per point
+  (the pair's walk under the one-hot corner rule), on the route the pair's
+  rule `plan_dloc` gives: a block per (b, h) on its value slab staged in
+  shared memory, a kernel of its own (`MS_DEFORM_ATTN_DENSE_DLOC`, launched
+  by the adjoint's wrapper after the d_value blocks; the encoder), or a
+  block per (b, h, 256 points) reading device memory inside the d_value
+  blocks' launch (the decoder).
 
 `ms_deform_attn_dense` is a `torch.autograd.Function`: CPU tensors run the
 plain PyTorch forward and backward (`ops/deform_attn.py`, the same as the
@@ -35,7 +41,7 @@ module builds nothing and needs neither nvcc nor a GPU.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -50,7 +56,12 @@ from poet_tpu_torch.ops.deform_attn import (
     ms_deform_attn_torch,
     ms_deform_attn_torch_backward,
 )
-from poet_tpu_torch.ops.deform_attn_cuda import SMEM_OPTIN_MAX, _check_inputs
+from poet_tpu_torch.ops.deform_attn_cuda import (
+    SMEM_OPTIN_MAX,
+    MSDeformAttnDLoc,
+    _check_inputs,
+    plan_dloc,
+)
 
 # the source's block sizes (csrc/ms_deform_attn_dense.cu)
 KC = 64                  # tokens per chunk: the one-hot tile's columns
@@ -192,16 +203,20 @@ class MSDeformAttnDenseAdjoint:
     returns. CUDA tensors only; `launches` counts launches (none while a
     stream captures).
 
-    For measurement only: `part='d_value'` or `'d_loc'` launches one kind of
-    block alone (the other outputs are left unwritten)."""
+    The d_loc / d_attn blocks take the route `plan_dloc` gives: on the
+    staged value slab (`MS_DEFORM_ATTN_DENSE_DLOC`, after this kernel's
+    d_value blocks), or from device memory in this kernel's launch. For
+    measurement only: `part='d_value'` or `'d_loc'` runs one kind of block
+    alone (the other outputs are left unwritten); `stage` overrides the
+    rule's route."""
 
     def __init__(self):
         self.launches = 0
 
     def __call__(self, value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                  sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
-                 dout: torch.Tensor,
-                 part: str = "all") -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                 dout: torch.Tensor, part: str = "all", stage: Optional[bool] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         if part not in PARTS:
             raise ValueError(f"part {part!r}: the parts are {tuple(PARTS)}")
         B, S, Q, H, D, L, P = _check_inputs(value, spatial_shapes, sampling_locations,
@@ -210,6 +225,8 @@ class MSDeformAttnDenseAdjoint:
             raise ValueError(f"the dense adjoint takes at most {TILE_PTS} points per level, "
                              f"got P={P}")
         plan = plan_dense_adjoint(spatial_shapes, D, P)
+        if stage is None:
+            stage = plan_dloc(S, D, value.dtype, Q, L, P).stage
         _fits("the dense adjoint", plan.smem_bytes if part != "d_loc" else 0, len(plan.units))
         lib = DENSE_LIB.build()
         # the kernel writes every token row of the levels, and no other
@@ -219,27 +236,37 @@ class MSDeformAttnDenseAdjoint:
         d_loc = torch.empty_like(sampling_locations)
         d_attn = torch.empty_like(attention_weights)
         vec = min(vec_width(value, D), vec_width(dout, D))
-        with torch.cuda.device(value.device):
-            rc = lib.poet_ms_deform_attn_dense_bwd(
-                value.data_ptr(), sampling_locations.data_ptr(),
-                attention_weights.data_ptr(), dout.data_ptr(), d_value.data_ptr(),
-                d_loc.data_ptr(), d_attn.data_ptr(), DTYPE_CODE[value.dtype],
-                B, S, Q, H, D, L, P, level_hw(spatial_shapes), vec, PARTS[part],
-                stream_of(value))
-        DENSE_LIB.check(rc, "ms_deform_attn_dense_bwd")
-        if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
-            self.launches += 1
+        # with the staged d_loc blocks this launch keeps the d_value blocks
+        own = "d_value" if stage and part == "all" else part
+        if not (stage and part == "d_loc"):
+            with torch.cuda.device(value.device):
+                rc = lib.poet_ms_deform_attn_dense_bwd(
+                    value.data_ptr(), sampling_locations.data_ptr(),
+                    attention_weights.data_ptr(), dout.data_ptr(), d_value.data_ptr(),
+                    d_loc.data_ptr(), d_attn.data_ptr(), DTYPE_CODE[value.dtype],
+                    B, S, Q, H, D, L, P, level_hw(spatial_shapes), vec, PARTS[own],
+                    stream_of(value))
+            DENSE_LIB.check(rc, "ms_deform_attn_dense_bwd")
+            if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+                self.launches += 1
+        if stage and part != "d_value":
+            d_loc, d_attn = MS_DEFORM_ATTN_DENSE_DLOC(value, spatial_shapes, sampling_locations,
+                                                      attention_weights, dout)
         return d_value, d_loc, d_attn
 
 
 MS_DEFORM_ATTN_DENSE_FWD = MSDeformAttnDenseForward()
 MS_DEFORM_ATTN_DENSE_BWD = MSDeformAttnDenseAdjoint()
-KERNELS = (MS_DEFORM_ATTN_DENSE_FWD, MS_DEFORM_ATTN_DENSE_BWD)
+# the d_loc / d_attn blocks on the staged slab: the pair's slab kernel under
+# the one-hot corner rule, in a launch of their own
+MS_DEFORM_ATTN_DENSE_DLOC = MSDeformAttnDLoc(DENSE_LIB, "poet_ms_deform_attn_dense_dloc_slab",
+                                             slab=True)
+KERNELS = (MS_DEFORM_ATTN_DENSE_FWD, MS_DEFORM_ATTN_DENSE_BWD, MS_DEFORM_ATTN_DENSE_DLOC)
 
 
 class _MSDeformAttnDense(torch.autograd.Function):
     """Deformable sampling with its adjoint: CPU -> plain versions, CUDA ->
-    the two dense kernels."""
+    the dense kernels."""
 
     @staticmethod
     def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):

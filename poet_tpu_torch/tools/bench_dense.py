@@ -11,7 +11,11 @@ Q=10), H=16, D=16, L=P=4, and the forward at the YOLO pyramid (B=2,
 Q=S=6380), in f32 and bf16, each at phase 19's uniform random locations
 and at a model's (`chip_smoke.grid_locations`; the decoder takes 10 of its
 queries: `chip_smoke.model_locations`). Where the package has them it also
-times the adjoint's two kinds of block alone. `--check` holds the
+times the adjoint's two kinds of block alone, and its d_loc / d_attn blocks
+on the route its rule does not take (`stage`: the value slab staged in
+shared memory, in a launch of their own, or read from device memory in the
+d_value blocks' launch), alone and in the whole adjoint.
+`--check` holds the
 kernels against the plain versions first (f32 and bf16 tolerances of
 chip_smoke.py, the adjoint bit-identical over two runs); `--ptxas` prints
 the dense library's register and shared-memory lines. The card's name and
@@ -36,6 +40,8 @@ CASES = ("encoder", "decoder", "yolo pyramid")
 def _inputs(cs, g, name, uniform):
     """(value f32, locs, attn, dout f32, shapes) of phase 19's geometry
     `name`, at its uniform locations or at a model's."""
+    import torch
+
     geo = next(x for x in cs.DENSE_GEOMETRIES if x[0] == name)
     _, B, Q, H, D, shapes, lo, hi, pad = geo
     value, locs, attn = cs.deform_inputs(g, B, Q, H, D, shapes, lo=lo, hi=hi, pad=pad)
@@ -74,6 +80,7 @@ def main(argv) -> int:
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print("ptxas", line.strip())
     parts = "part" in inspect.signature(DB.__call__).parameters
+    stages = "stage" in inspect.signature(DB.__call__).parameters
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch as plain
     from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch_backward as plain_bwd
@@ -112,6 +119,15 @@ def main(argv) -> int:
                     if parts:
                         rec["bwd_d_value_ms"] = graph_ms(lambda: DB(*args_, do, part="d_value"))
                         rec["bwd_d_loc_ms"] = graph_ms(lambda: DB(*args_, do, part="d_loc"))
+                    if stages:
+                        S, D = v.shape[1], v.shape[3]
+                        L, P = locs.shape[3], locs.shape[4]
+                        rule = dense.plan_dloc(S, D, dt, locs.shape[1], L, P).stage
+                        rec["d_loc_rule"] = "slab" if rule else "direct"
+                        other = "direct" if rule else "slab"
+                        rec[f"bwd_{other}_ms"] = graph_ms(lambda: DB(*args_, do, stage=not rule))
+                        rec[f"bwd_d_loc_{other}_ms"] = graph_ms(
+                            lambda: DB(*args_, do, part="d_loc", stage=not rule))
                 print(json.dumps(rec), flush=True)
     return 0
 

@@ -38,11 +38,16 @@ KERNEL_CLASSES: Tuple[Tuple[str, str], ...] = (
     ("forward kernel (slab)", r"ms_deform_attn_fwd_slab_kernel"),
     ("d_value kernel", r"ms_deform_attn_dvalue_kernel"),
     ("d_value kernel (slab)", r"ms_deform_attn_dvalue_slab_kernel"),
+    # the gather's kernels take their corner rule as a template argument: the
+    # pair's GatherRule, the dense adjoint's OneHotRule (its staged blocks
+    # only; the direct kernel is the pair's alone)
     ("d_loc/d_attn kernel", r"ms_deform_attn_dloc_kernel"),
+    ("d_loc/d_attn kernel (slab)", r"ms_deform_attn_dloc_slab_kernel<[^,]*GatherRule"),
     ("merged adjoint kernel (atomic)", r"ms_deform_attn_merged_kernel"),
     ("merged adjoint kernel (slab)", r"ms_deform_attn_merged_slab_kernel"),
     ("dense forward kernel", r"ms_deform_attn_dense_fwd_kernel"),
     ("dense adjoint kernel", r"ms_deform_attn_dense_bwd_kernel"),
+    ("dense adjoint kernel (d_loc slab)", r"ms_deform_attn_dloc_slab_kernel<[^,]*OneHotRule"),
     ("RoIAlign kernel", r"roi_align_fwd_kernel"),
     ("RoIAlign kernel (tiles)", r"roi_align_tiles_kernel"),
     ("stem kernel", r"conv_stem_fwd_kernel"),

@@ -358,13 +358,15 @@ def test_train_profiler_names_the_d_value_slab_kernel():
 def test_chip_smoke_pair_launch_plan_follows_the_rule():
     """The pair's train step: d_value on the scatter in the encoder and on
     the slab route in the decoder at the flagship pyramid (S=1600), on the
-    scatter in both at the YOLO pyramid's S=6380."""
+    scatter in both at the YOLO pyramid's S=6380 (d_loc by plan_dloc: the
+    slab route in each encoder, the direct route in each decoder)."""
     import chip_smoke as cs
     from poet_tpu_torch.flagship import flagship_config
 
     cfg = flagship_config("bfloat16")
     cfg.model.merged_adjoint = False
     assert cs.path_launches(cfg, 1600, 2, train=True) == {
-        "fwd_slab": 10, "fwd": 10, "d_value": 10, "d_value_slab": 10, "d_loc": 20}
+        "fwd_slab": 10, "fwd": 10, "d_value": 10, "d_value_slab": 10, "d_loc_slab": 10,
+        "d_loc": 10}
     assert cs.path_launches(cfg, 6380, 1, train=True) == {
-        "fwd_slab": 5, "fwd": 5, "d_value": 10, "d_loc": 10}
+        "fwd_slab": 5, "fwd": 5, "d_value": 10, "d_loc_slab": 5, "d_loc": 5}

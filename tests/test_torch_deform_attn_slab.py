@@ -437,8 +437,11 @@ def test_chip_smoke_launch_plan_follows_the_rule(dtype):
     """chip_smoke's expected launches per path: the encoder on the slab
     forward, the decoder on the direct one; the merged adjoint on its slab
     route (the default), the pair with merged_adjoint=False (its d_value by
-    plan_dvalue: the scatter in the encoder, the slab in the decoder), the dense
-    kernels with 'pallas'; the YOLO pyramid's forward by the budget."""
+    plan_dvalue: the scatter in the encoder, the slab in the decoder; its
+    d_loc by plan_dloc: the slab in the encoder, the direct route in the
+    decoder), the dense kernels with 'pallas' (the encoder's d_loc blocks in
+    a staged kernel of their own, by plan_dloc); the YOLO pyramid's forward
+    by the budget."""
     import chip_smoke as cs
     from poet_tpu_torch.flagship import flagship_config
 
@@ -450,6 +453,7 @@ def test_chip_smoke_launch_plan_follows_the_rule(dtype):
         {"fwd_slab": 5, "fwd": 5} if dtype == "bfloat16" else {"fwd": 10})
     cfg.model.merged_adjoint = False
     assert cs.path_launches(cfg, 1600, 1, train=True) == {
-        "fwd_slab": 5, "fwd": 5, "d_value": 5, "d_value_slab": 5, "d_loc": 10}
+        "fwd_slab": 5, "fwd": 5, "d_value": 5, "d_value_slab": 5, "d_loc_slab": 5, "d_loc": 5}
     cfg.model.enc_deform_impl = cfg.model.dec_deform_impl = "pallas"
-    assert cs.path_launches(cfg, 1600, 1, train=True) == {"dense_fwd": 10, "dense_bwd": 10}
+    assert cs.path_launches(cfg, 1600, 1, train=True) == {"dense_fwd": 10, "dense_bwd": 10,
+                                                          "dense_dloc_slab": 5}
