@@ -190,7 +190,29 @@ Phases, each raising on failure:
      stops with exit 1 and JAX's message before the rolling checkpoint is
      overwritten (C1, end to end). Each CLI path's launches are held to the
      route rules and reported as cli_train, cli_eval and cli_inference.
-Phases 4, 7, 10, 13, 16, 17, 20 and 23's paths each set every kernel's launch
+ 24. the model's options at the paper config (bf16, B=16, 480x640, seeded):
+     gt serving with the aleatoric heads and the learned query embedding,
+     reference points and position embedding (8 requests; the forward's
+     launches by the route rules and no other; finite poses in SO(3),
+     variances (B, Q, 3) finite and > 0); 5 train steps with the same
+     options and the bf16 AdamW first moment (the merged adjoint's launches,
+     the backbone bit-identical, the learned tables, the reference-point
+     projection and the aleatoric heads moved, the moment bf16 on the card);
+     3 calibrate steps (the backward still runs through the frozen
+     transformer: the same launches; every tensor but the aleatoric heads
+     bit-identical on the card); step p50/p95 and device busy ms of a traced
+     step (torch.profiler); one f32 step of the learned embeddings at B=2 on
+     the card against the CPU port, as phase 8 (serve_variants,
+     train_variants, train_calibrate in the report);
+ 25. training on detections (bbox_mode='backbone'): 3 steps with Mask R-CNN
+     (phase 10's config) and 3 with YOLOv4-CSP (phase 13's), bf16, B=16,
+     480x640, dropout 0.1, AdamW, on targets made of one detect forward of
+     the same batch; the step matches the forward's queries (the matched
+     count of each step printed, > 0), 1 RoIAlign (tiles) or 3 stem
+     launches and the forward and merged-adjoint launches per step, the
+     detector bit-identical; step p50/p95 and device busy ms
+     (train_detections_maskrcnn, train_detections_yolov4).
+Phases 4, 7, 10, 13, 16, 17, 20, 23, 24 and 25's paths each set every kernel's launch
 count to 0 before they drive their path and read them after, and hold them
 to the wrappers' route rules (`path_launches`, `roi_launches`; the v2
 kernel, the probes, the merged adjoint's atomic route and RoIAlign's gather
@@ -1154,16 +1176,29 @@ TRAIN_VARIANTS = {
     "merged": {"merged_adjoint": True},
     "pair": {"merged_adjoint": False},
     "pallas": {"enc_deform_impl": "pallas", "dec_deform_impl": "pallas"},
+    # phase 24's f32 check: the three learned embeddings (the aleatoric heads
+    # are held at f32 against JAX on the CPU; their rotation loss's log map
+    # is ill-conditioned near pi, where the flagship batch's uniform
+    # rotations put some pair in most draws)
+    "learned": {"query_embedding": "learned", "reference_points": "learned",
+                "position_embedding": "learned"},
 }
+# phase 24: the model's options, all on (position_embedding is a
+# BackboneConfig field, the others ModelConfig's)
+MODEL_OPTIONS = {"aleatoric": True, "query_embedding": "learned",
+                 "reference_points": "learned", "position_embedding": "learned"}
+
+
+def set_options(cfg, options):
+    for k, v in options.items():
+        setattr(cfg.backbone if k == "position_embedding" else cfg.model, k, v)
+    return cfg
 
 
 def train_config(dtype, variant):
     from poet_tpu_torch.flagship import flagship_config
 
-    cfg = flagship_config(dtype)
-    for k, v in TRAIN_VARIANTS[variant].items():
-        setattr(cfg.model, k, v)
-    return cfg
+    return set_options(flagship_config(dtype), TRAIN_VARIANTS[variant])
 
 
 def phase_train(report, variant="merged"):
@@ -3520,6 +3555,299 @@ def _phase_cli(report, tmp):
         + f" | phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------- phases 24, 25
+PATH_B = 16
+VARIANT_TRAIN_STEPS = 5
+CALIBRATE_STEPS = 3
+DETECTION_TRAIN_STEPS = 3
+
+
+def profiled_busy_ms(fn, steps: int):
+    """(device busy ms, {kernel class: ms}) per call of `fn` over `steps`
+    calls traced by torch.profiler: the union of kernel and copy intervals
+    of the exported Chrome trace, and each class's own sum
+    (`tools/profile_train.py:device_time_by_class`)."""
+    import tempfile
+
+    import torch
+
+    from poet_tpu_torch.tools.profile_train import device_time_by_class
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with tempfile.TemporaryDirectory(prefix="poet_trace_") as tmp:
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    busy, by_class = device_time_by_class(events, steps)
+    if busy <= 0.0:
+        raise AssertionError("the profiler saw no device time")
+    return busy, by_class
+
+
+def drive_train(label, cfg, model, batch, steps, expect, frozen=None, moved=()):
+    """`steps` train steps of `model` (on the card) on `batch` (host arrays)
+    after one warm-up step: every count 0 before, the launches after held to
+    `expect` (per step); then one traced step for the device busy ms (its
+    launches counted in too). `frozen`: {name: tensor} that must not change;
+    `moved`: names that must. Returns (stats, launches, metrics history)."""
+    import torch
+
+    from poet_tpu_torch.engine.train import (
+        fetch_metrics,
+        make_optimizer,
+        make_train_step,
+        prepare_batch,
+    )
+
+    opt = make_optimizer(cfg, model, steps_per_epoch=1000)
+    step = make_train_step(model, cfg, opt)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    before = {k: v.clone() for k, v in model.state_dict().items() if k in moved}
+    fetch_metrics(step(*prepare_batch(cfg, *batch, DEVICE), gen))      # warm-up
+    torch.cuda.synchronize()
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    times, history = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        history.append(fetch_metrics(step(*prepare_batch(cfg, *batch, DEVICE), gen)))
+        times.append(time.perf_counter() - t0)
+    busy, by_class = profiled_busy_ms(lambda: history.append(fetch_metrics(
+        step(*prepare_batch(cfg, *batch, DEVICE), gen))), 1)
+    launches = [k.launches for k in kernels]
+    want = expected(**{k: v * (steps + 1) for k, v in expect.items()})
+    if launches != want:
+        raise AssertionError(f"{label}: launches {LAUNCH_NAMES} {launches} for {steps + 1} "
+                             f"steps, expected {expect} per step and no other")
+    if not all(np.isfinite(list(m.values())).all() for m in history):
+        raise AssertionError(f"{label}: non-finite training metrics: {history}")
+    state = model.state_dict()
+    changed = [k for k, v in (frozen or {}).items() if not torch.equal(state[k], v)]
+    if changed:
+        raise AssertionError(f"{label}: frozen tensors changed: {changed[:5]}")
+    still = [k for k, v in before.items() if torch.equal(state[k], v)]
+    if still:
+        raise AssertionError(f"{label}: trained tensors did not move: {still}")
+    ms = np.asarray(times) * 1e3
+    stats = {"p50_ms": float(np.percentile(ms, 50)), "p95_ms": float(np.percentile(ms, 95)),
+             "busy_ms": busy, "img_s": float(batch[0].shape[0] / ms.mean() * 1e3),
+             "device_ms_by_class": by_class}
+    return stats, launches, history, opt
+
+
+def top_classes(stats, n=6) -> str:
+    """The traced step's n largest kernel classes, device ms."""
+    top = sorted(stats["device_ms_by_class"].items(), key=lambda kv: -kv[1])[:n]
+    return ", ".join(f"{k} {v:.3f}" for k, v in top)
+
+
+def phase_variants(report):
+    """Phase 24: the model's options at the paper config: gt serving with
+    the aleatoric heads and the three learned embeddings, train steps with
+    them and the bf16 AdamW moment, calibrate steps, and an f32 step of the
+    learned embeddings on the card against the CPU port."""
+    import torch
+
+    from poet_tpu_torch.engine.serving import PoseServer
+    from poet_tpu_torch.flagship import flagship_batch, flagship_config
+    from poet_tpu_torch.models import build_model
+    from poet_tpu_torch.utils.init import init_weights
+
+    B, (H, W) = PATH_B, FLAGSHIP_HW
+    cfg = set_options(flagship_config("bfloat16"), MODEL_OPTIONS)
+    images, pad_mask, targets = flagship_batch(B, H, W, seed=0)
+    boxes = (targets["boxes"], targets["labels"], targets["n_boxes"])
+
+    # ---- gt serving with the options
+    server = PoseServer(cfg, init_weights(build_model(cfg), seed=0), batch_size=B,
+                        image_size=(H, W), device=DEVICE)
+    for _ in range(2):                               # warm-up: cuDNN/cuBLAS init
+        server.fetch(server.infer_async(images, *boxes))
+    server.reset_latency_stats()
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    results = [server.infer(images, *boxes) for _ in range(REQUESTS)]
+    counts = [k.launches for k in kernels]
+    if counts != expected(**path_launches(cfg, FLAGSHIP_S, REQUESTS)):
+        raise AssertionError(f"variants serve: launches {LAUNCH_NAMES} {counts}, expected "
+                             f"{path_launches(cfg, FLAGSHIP_S, 1)} per request")
+    for res in results:
+        for k in ("translation", "rotation", "translation_var", "rotation_var"):
+            if not np.isfinite(res[k]).all():
+                raise AssertionError(f"variants serve: non-finite {k}")
+        for k in ("translation_var", "rotation_var"):
+            if res[k].shape != (B, cfg.model.num_queries, 3) or not (res[k] > 0).all():
+                raise AssertionError(f"variants serve: {k} {res[k].shape}, min {res[k].min()}")
+        rotations_ok(res["rotation"])
+    serve = server.latency_stats()
+    var_range = [float(min(r[k].min() for r in results)) for k in ("translation_var",
+                                                                   "rotation_var")]
+    del server
+    log(f"variants serve: PoseServer paper config bf16 B={B} {H}x{W} with {MODEL_OPTIONS}: "
+        f"{REQUESTS} requests, launches {LAUNCH_NAMES} {counts}; finite, SO(3), variances "
+        f"(B, Q, 3) > 0 (least translation {var_range[0]:.3e}, rotation {var_range[1]:.3e}); "
+        f"p50 {serve['p50_ms']:.3f} ms, p95 {serve['p95_ms']:.3f} ms, {serve['fps']:.2f} img/s")
+
+    # ---- train steps: the default config (this call's baseline), the
+    # options, the options with the bf16 first moment
+    learned = ("query_embed.weight", "transformer.reference_points.weight",
+               "position_embedding.row_embed.weight", "translation_head_aleatoric.4.layers.2.bias")
+    train = {}
+    for name, options, mu_bf16 in (("default", {}, False), ("options", MODEL_OPTIONS, False),
+                                   ("options_mu_bf16", MODEL_OPTIONS, True)):
+        tcfg = set_options(flagship_config("bfloat16"), options)
+        tcfg.optim.mu_bf16 = mu_bf16
+        model = init_weights(build_model(tcfg), seed=0).to(DEVICE)
+        frozen = {k: v.clone() for k, v in model.state_dict().items()
+                  if k.startswith("backbone.")}
+        per_step = path_launches(tcfg, FLAGSHIP_S, 1, train=True)
+        stats, train_counts, history, opt = drive_train(
+            f"variants train {name}", tcfg, model, (images, pad_mask, targets),
+            VARIANT_TRAIN_STEPS, per_step, frozen=frozen, moved=learned if options else ())
+        mu = {st["exp_avg"].dtype for st in opt.torch_opt.state.values()}
+        if mu != {torch.bfloat16 if mu_bf16 else torch.float32}:
+            raise AssertionError(f"variants train {name}: first moments {mu}")
+        log(f"variants train {name}: paper config bf16 B={B} {H}x{W}, "
+            f"{options or 'no options'}, AdamW first moment {mu.pop()} on the card: "
+            f"{VARIANT_TRAIN_STEPS} + 1 traced steps, launches {LAUNCH_NAMES} {train_counts} "
+            f"({per_step} per step), loss {history[0]['loss']:.4f} -> "
+            f"{history[-1]['loss']:.4f}, backbone bit-identical"
+            f"{', ' + ', '.join(learned) + ' moved' if options else ''}; step p50 "
+            f"{stats['p50_ms']:.3f} ms, p95 {stats['p95_ms']:.3f} ms, device busy "
+            f"{stats['busy_ms']:.3f} ms a step ({top_classes(stats)}), "
+            f"{stats['img_s']:.2f} img/s")
+        train[name] = stats
+        del model, opt
+    log(f"variants train: device busy ms a step, options - default "
+        f"{train['options']['busy_ms'] - train['default']['busy_ms']:.3f}, mu_bf16 - AdamW "
+        f"{train['options_mu_bf16']['busy_ms'] - train['options']['busy_ms']:.3f} (one call)")
+
+    # ---- calibrate: only the aleatoric heads train; the norm takes every gradient
+    ccfg = set_options(flagship_config("bfloat16"), MODEL_OPTIONS)
+    ccfg.model.calibrate = True
+    model = init_weights(build_model(ccfg), seed=0).to(DEVICE)
+    frozen = {k: v.clone() for k, v in model.state_dict().items() if "_head_aleatoric." not in k}
+    heads = tuple(k for k in model.state_dict() if "_head_aleatoric." in k
+                  and k.endswith(".weight"))
+    calib, calib_counts, history, opt = drive_train(
+        "calibrate", ccfg, model, (images, pad_mask, targets), CALIBRATE_STEPS, per_step,
+        frozen=frozen, moved=heads)
+    log(f"calibrate: paper config bf16 B={B} {H}x{W}, {MODEL_OPTIONS}: {CALIBRATE_STEPS} + 1 "
+        f"traced steps, launches {LAUNCH_NAMES} {calib_counts} (the backward through the "
+        f"frozen transformer: {per_step} per step), {len(frozen)} frozen tensors bit-identical "
+        f"on the card, {len(heads)} aleatoric head weights moved, {len(opt.params)} of "
+        f"{len(opt.clip_params)} gradients trained; grad_norm {history[-1]['grad_norm']:.4f}; "
+        f"step p50 {calib['p50_ms']:.3f} ms, p95 {calib['p95_ms']:.3f} ms, device busy "
+        f"{calib['busy_ms']:.3f} ms a step ({top_classes(calib)})")
+    del model, opt
+
+    phase_train_f32("learned")
+    report["model_options"] = {"serve": serve, "train": train, "calibrate": calib}
+    report["serve_variants_launches"] = counts
+    report["train_variants_launches"] = train_counts      # options with mu_bf16
+    report["train_calibrate_launches"] = calib_counts
+
+
+def detection_targets(model, images, seed):
+    """Targets made of the model's own top-Q detections of `images` (host
+    arrays): boxes, classes and counts of one detect forward on the card,
+    seeded poses."""
+    import torch
+
+    Q = model.cfg.num_queries
+    B, H, W = images.shape[:3]
+    with torch.inference_mode():
+        img = torch.from_numpy(images).to(DEVICE)
+        dets = model.backbone(img, torch.zeros((B, H, W), dtype=torch.bool, device=DEVICE))[2]
+        boxes, labels, _, n_boxes, valid = model._select_detections(dets, Q, (H, W))
+        boxes = torch.where(valid[..., None], boxes.float(), -1.0)
+        labels = torch.where(valid, labels, -1)
+    rng = np.random.default_rng(seed)
+    q, r = np.linalg.qr(rng.normal(size=(B * Q, 3, 3)))
+    q *= np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
+    q[:, :, 0] *= np.linalg.det(q)[:, None]
+    return {"boxes": boxes.cpu().numpy(), "labels": labels.cpu().numpy().astype(np.int32),
+            "n_boxes": n_boxes.cpu().numpy().astype(np.int32),
+            "relative_position": rng.normal(size=(B, Q, 3)).astype(np.float32),
+            "relative_rotation": q.reshape(B, Q, 3, 3).astype(np.float32)}
+
+
+def phase_train_detections(report):
+    """Phase 25: train steps on detections (bbox_mode='backbone') with Mask
+    R-CNN (phase 10's config) and YOLOv4-CSP (phase 13's), the targets the
+    detector's own detections of the same batch: the step matches the
+    forward's queries on the card (host waits for the match), the detector
+    stays frozen."""
+    import torch
+
+    from poet_tpu_torch.engine import train as train_mod
+    from poet_tpu_torch.flagship import (
+        detect_pose_batch,
+        detect_pose_config,
+        detect_pose_model,
+        yolo_detect_pose_config,
+        yolo_detect_pose_model,
+    )
+
+    B, (H, W) = PATH_B, FLAGSHIP_HW
+    matched = []
+    real_match = train_mod.match_outputs
+
+    def counting_match(*args, **kwargs):
+        m = real_match(*args, **kwargs)
+        matched.append(m.valid.sum())
+        return m
+
+    out = {}
+    train_mod.match_outputs = counting_match
+    try:
+        for name, cfg, make_model, S, extra in (
+                ("maskrcnn", detect_pose_config("bfloat16"), detect_pose_model, FLAGSHIP_S,
+                 lambda c, n: roi_launches(c, n)),
+                ("yolov4", yolo_detect_pose_config("bfloat16"), yolo_detect_pose_model, YOLO_S,
+                 lambda c, n: {"stem": 3 * n})):
+            model = make_model(cfg).to(DEVICE)
+            images, pad_mask = detect_pose_batch(B, H, W, seed=0)
+            targets = detection_targets(model, images, seed=25)
+            if targets["n_boxes"].sum() == 0:
+                raise AssertionError(f"train on detections {name}: the detector found nothing")
+            frozen = {k: v.clone() for k, v in model.state_dict().items()
+                      if k.startswith("backbone.")}
+            per_step = {**path_launches(cfg, S, 1, train=True), **extra(cfg, 1)}
+            matched.clear()
+            stats, counts, history, _ = drive_train(
+                f"train on detections {name}", cfg, model, (images, pad_mask, targets),
+                DETECTION_TRAIN_STEPS, per_step, frozen=frozen,
+                moved=("transformer.encoder.layers.0.linear1.weight",))
+            per = [int(m) for m in matched]
+            if min(per) == 0:
+                raise AssertionError(f"train on detections {name}: a step matched nothing: {per}")
+            stats["matched"] = per[-1]
+            stats["targets"] = int(targets["n_boxes"].sum())
+            log(f"train on detections {name}: paper config bf16 B={B} {H}x{W}, dropout "
+                f"{cfg.model.dropout}, AdamW: targets {stats['targets']} (the detector's own "
+                f"top-Q detections), matched {per} per step (warm-up first; the match in the "
+                f"step, on the card), {DETECTION_TRAIN_STEPS} + 1 traced steps, launches "
+                f"{LAUNCH_NAMES} {counts} ({per_step} per step), loss {history[0]['loss']:.4f} "
+                f"-> {history[-1]['loss']:.4f}, detector bit-identical ({len(frozen)} tensors); "
+                f"step p50 {stats['p50_ms']:.3f} ms, p95 {stats['p95_ms']:.3f} ms, device busy "
+                f"{stats['busy_ms']:.3f} ms a step ({top_classes(stats)}), "
+                f"{stats['img_s']:.2f} img/s")
+            out[name] = stats
+            report[f"train_detections_{name}_launches"] = counts
+            del model
+    finally:
+        train_mod.match_outputs = real_match
+    report["train_detections"] = out
+
+
 def build_kernels():
     from poet_tpu_torch.ops.deform_attn_cuda import LIBRARIES, build_all
 
@@ -3539,7 +3867,7 @@ def main(argv) -> int:
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = {int(n) for n in argv[1].split(",")}
     elif argv:
-        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-23; 1-2 always run)",
+        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-25; 1-2 always run)",
               file=sys.stderr)
         return 2
     try:
@@ -3576,9 +3904,11 @@ def main(argv) -> int:
               17: lambda: phase_eval_backbone(report), 18: lambda: phase_merged(report),
               19: lambda: phase_dense(report), 20: lambda: phase_paths(report),
               21: lambda: phase_v2(report), 22: lambda: phase_probes(report),
-              23: lambda: phase_cli(report)}
+              23: lambda: phase_cli(report), 24: lambda: phase_variants(report),
+              25: lambda: phase_train_detections(report)}
     spans = []
-    for first, last in ((3, 8), (9, 11), (12, 14), (15, 17), (18, 20), (21, 22), (23, 23)):
+    for first, last in ((3, 8), (9, 11), (12, 14), (15, 17), (18, 20), (21, 22), (23, 23),
+                        (24, 25)):
         t0 = time.perf_counter()
         for n in range(first, last + 1):
             if only is None or n in only:
@@ -3601,7 +3931,12 @@ def main(argv) -> int:
              "eval": report["eval_launches"], "eval_backbone": report["eval_backbone_launches"],
              "serve_pallas": report["launches_pallas"],
              "train_pallas": report["train_launches_pallas"],
-             "train_pair": report["train_launches_pair"], **report["cli_launches"]}
+             "train_pair": report["train_launches_pair"], **report["cli_launches"],
+             "serve_variants": report["serve_variants_launches"],
+             "train_variants": report["train_variants_launches"],
+             "train_calibrate": report["train_calibrate_launches"],
+             "train_detections_maskrcnn": report["train_detections_maskrcnn_launches"],
+             "train_detections_yolov4": report["train_detections_yolov4_launches"]}
     roi, nn = report["roi"], report["nn"]
     errs, bounds = report["adjoint_max_abs_err"], report["adjoint_bounds"]
     src, tpu = "poet_tpu_torch/csrc/", "poet_tpu/ops/deform_attn_pallas_v3.py:"

@@ -12,9 +12,13 @@ eval interval, NaN gate and SIGTERM checkpoint. It runs on the card
 (`--device cuda`, the default) and raises without one, unless the caller
 asks for the CPU (`--device cpu`).
 
-Flags of features the port does not have yet raise when set away from
-their default, naming their ROADMAP item: `--export_model` (A.2's export
-twin), `--calibrate`, `--aleatoric`, `--mu_bf16` (A.4), `--mesh_data`,
+Every model and optimizer flag of `poet_tpu.cli` that runs on one device
+runs here: the learned query embedding, reference points and position
+embedding, `--aleatoric` (and `--calibrate`, which trains only its heads),
+`--mu_bf16`, and training with `--bbox_mode backbone` (Mask R-CNN or
+YOLOv4-CSP detections matched in the step). Flags of features the port
+does not have yet raise when set away from their default, naming their
+ROADMAP item: `--export_model` (A.2's export twin), `--mesh_data`,
 `--zero_opt_state` (A.6); `--synt_background` and a JPEG dataset raise in
 the data pipeline (A.1). The TPU runtime's flags (`--export_platforms`,
 `--rng_impl`, `--xla_cache_dir`, `--enc_remat`) and the reference's
@@ -163,7 +167,7 @@ def get_args_parser():
     p.add_argument("--zero_opt_state", action="store_true",
                    help="ZeRO-1 sharded AdamW moments; not ported yet (ROADMAP A.6)")
     p.add_argument("--mu_bf16", action="store_true",
-                   help="bfloat16 AdamW first moment; not ported yet (ROADMAP A.4)")
+                   help="bfloat16 AdamW first moment (the second stays float32)")
     p.add_argument("--dtype", default="float32", type=str)
     p.add_argument("--enc_deform_impl", default=None, type=str, choices=DEFORM_CHOICES,
                    help="encoder sampling core: 'pallas' runs the dense one-hot kernels, "
@@ -245,9 +249,6 @@ def args_to_config(args) -> PoETConfig:
 # flag -> (its config value, its default, the ROADMAP item that ports it)
 def _unported(cfg):
     return (("--export_model", cfg.runtime.export_model, None, "A.2 (the export twin)"),
-            ("--calibrate", cfg.model.calibrate, False, "A.4"),
-            ("--aleatoric", cfg.model.aleatoric, False, "A.4"),
-            ("--mu_bf16", cfg.optim.mu_bf16, False, "A.4"),
             ("--mesh_data", cfg.runtime.mesh_data, -1, "A.6"),
             ("--zero_opt_state", cfg.runtime.zero_opt_state, False, "A.6"))
 
@@ -363,7 +364,7 @@ def main(cfg: PoETConfig):
 
     resume_payload = None
     if cfg.runtime.resume:
-        resume_payload, start_epoch = load_resume(cfg.runtime.resume)
+        resume_payload, start_epoch = load_resume(cfg.runtime.resume, cfg.model.aleatoric)
         missing, unexpected = merge_params(model, resume_payload["model"])
         if missing:
             print("Missing Keys:", missing)

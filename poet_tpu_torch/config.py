@@ -52,7 +52,7 @@ class OptimConfig:
     clip_max_norm: float = 0.1
     sgd: bool = False               # SGD(momentum=0.9) instead of AdamW
     grad_accum_steps: int = 1       # mean over k micro-batches per update
-    mu_bf16: bool = False           # bf16 AdamW first moment (not ported yet)
+    mu_bf16: bool = False           # bf16 AdamW first moment (engine/train.py:AdamWMuBf16)
 
 
 @dataclass

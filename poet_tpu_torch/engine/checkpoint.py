@@ -15,9 +15,13 @@ Parity target: the reference's main.py:285-317,357-369:
     rebuilt from it), as in the JAX package;
   * missing and unexpected keys are tolerated with a report (main.py:293-298).
 
-`--resume` also takes a reference model-zoo `.pth` (its detector under
-`backbone.0.`, which the port names `backbone.`) and an http(s) or file://
-URL to either. Orbax directories written by `poet_tpu` cannot be read
+`--resume` also takes a reference model-zoo `.pth` and an http(s) or file://
+URL to either. A zoo file keeps its detector under `backbone.0.` (the port
+names it `backbone.`) and a learned position embedding under `backbone.1.`
+(the port: `position_embedding.`); its aleatoric heads
+(`{translation,rotation}_head_aleatoric.*`) are read only for an aleatoric
+model and required there, as `poet_tpu/engine/checkpoint.py:load_resume`
+converts them. Orbax directories written by `poet_tpu` cannot be read
 without orbax, which the port does not use: they raise.
 """
 
@@ -33,7 +37,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn as nn
 
-ZOO_PREFIX = "backbone.0."          # the reference's Joiner: Sequential(detector, pos)
+# the reference's Joiner: Sequential(detector, position embedding)
+ZOO_PREFIX = "backbone.0."
+ZOO_POSITION_PREFIX = "backbone.1."
 
 
 def _torch_load(path: str):
@@ -98,19 +104,38 @@ def load_checkpoint(path: str) -> Tuple[Dict, int]:
     return payload, int(payload.get("epoch", -1)) + 1
 
 
-def load_resume(path: str) -> Tuple[Dict, int]:
+def zoo_to_port(sd: Dict, aleatoric: bool = False) -> Dict:
+    """A reference zoo state dict in the port's names: `module.` dropped,
+    the Joiner's `backbone.0.` -> `backbone.` and `backbone.1.` ->
+    `position_embedding.`; the aleatoric heads kept only when `aleatoric`,
+    and then required (KeyError without them)."""
+    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    heads = [k for k in sd if "_head_aleatoric." in k]
+    if aleatoric and not heads:
+        raise KeyError("an aleatoric model resumed from a zoo file without "
+                       "translation_head_aleatoric / rotation_head_aleatoric weights")
+    out = {}
+    for k, v in sd.items():
+        if k in heads and not aleatoric:
+            continue
+        for zoo, port in ((ZOO_PREFIX, "backbone."), (ZOO_POSITION_PREFIX, "position_embedding.")):
+            if k.startswith(zoo):
+                k = port + k[len(zoo):]
+                break
+        out[k] = v
+    return out
+
+
+def load_resume(path: str, aleatoric: bool = False) -> Tuple[Dict, int]:
     """`--resume` dispatcher: the port's checkpoint (parameters, optimizer
-    state, epoch) or a reference zoo `.pth` (parameters only: training starts
-    at epoch 0 with a fresh optimizer), a local path or a URL. Returns
-    (payload, start_epoch); payload["model"] is in the port's names."""
+    state, epoch) or a reference zoo `.pth` (parameters only, through
+    `zoo_to_port`: training starts at epoch 0 with a fresh optimizer), a
+    local path or a URL. Returns (payload, start_epoch); payload["model"] is
+    in the port's names."""
     payload, start = load_checkpoint(fetch_checkpoint(path))
     if "config" in payload:                           # the port's own file
         return payload, start
-    sd = payload["model"]
-    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
-    sd = {("backbone." + k[len(ZOO_PREFIX):]) if k.startswith(ZOO_PREFIX) else k: v
-          for k, v in sd.items()}
-    return {"model": sd}, 0
+    return {"model": zoo_to_port(payload["model"], aleatoric)}, 0
 
 
 def merge_params(module: nn.Module, state_dict: Dict[str, torch.Tensor]):

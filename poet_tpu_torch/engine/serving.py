@@ -9,7 +9,10 @@ and requests carry images only. Shapes are fixed per server (batch
 size, image size), the model runs on the card unless the caller passes
 another device, and every forward runs under `torch.inference_mode()`.
 With bf16 compute the bf16-compute weights are cast once at rest
-(`utils/params.py`).
+(`utils/params.py`). A model with the aleatoric heads answers per-axis
+variances beside the poses, `translation_var` and `rotation_var` =
+exp(log sigma^2) of the last decoder layer, for an EKF tracker, in both
+modes and from `stream` too.
 
 Not ported yet (ROADMAP queue A): the portable `export_model` artifact.
 """
@@ -79,15 +82,19 @@ class PoseServer:
                                  torch.int32),
         }
 
-    @staticmethod
-    def _outputs(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return {
+    def _outputs(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        res = {
             "translation": out["translations"][-1],
             "rotation": out["rotations"][-1],
             "boxes": out["pred_boxes"],
             "classes": out["pred_classes"],
             "n_boxes": out["n_boxes"],
         }
+        if self.cfg.model.aleatoric:
+            # s = log sigma^2 -> per-axis variances for the EKF consumer
+            res["translation_var"] = torch.exp(out["translations_aleatoric"][-1])
+            res["rotation_var"] = torch.exp(out["rotations_aleatoric"][-1])
+        return res
 
     def infer_async(self, images: np.ndarray, boxes: Optional[np.ndarray] = None,
                     labels: Optional[np.ndarray] = None,

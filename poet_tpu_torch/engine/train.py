@@ -2,21 +2,33 @@
 
 Counterpart of `poet_tpu/engine/train.py`:
   * `label_params` — main / linear_proj / backbone / frozen by the same name
-    keywords, on the port's parameter names;
+    keywords, on the port's parameter names; in calibrate mode 'main' for
+    the aleatoric heads and 'frozen' for every other parameter;
   * `make_lr_schedule` — StepLR by step; under gradient accumulation sized
     in updates per epoch;
   * `make_optimizer` — the optax chain clip_by_global_norm -> multi_transform
     (AdamW or SGD(0.9) with added decayed weights, per group lr; frozen
-    excluded) -> MultiSteps, over a torch optimizer;
+    excluded) -> MultiSteps, over a torch optimizer. The clip's norm, as
+    optax's, is over every gradient, the frozen parameters' included (in
+    calibrate mode the transformer's are not zero); only the trained
+    parameters are updated. `mu_bf16` keeps AdamW's first moment in bf16
+    (`AdamWMuBf16`, optax's `mu_dtype`);
   * `make_loss_fn` / `make_train_step` — forward with dropout, the shared
     matching, all per-layer losses, backward through the deformable adjoint
     kernels, clip, update; metrics stay on the device;
   * `make_eval_forward` — forward and the final-layer match.
 
-Matching runs on the host, before the batch is uploaded (`match_targets`):
-in gt and jitter mode the matched boxes and classes come from the targets
-alone, so the step itself never waits on the device. The NaN guard reads
-the metrics on the host once they are fetched (`fetch_metrics`).
+Matching: in gt and jitter mode the matched boxes and classes come from the
+targets alone, so the trainer matches on the host before the batch is
+uploaded (`match_targets`) and the step itself never waits on the device.
+In bbox_mode='backbone' the queries are the frozen detector's detections,
+known only after the forward: the step runs the forward, then
+`match_poses` on the model's `pred_boxes`, `pred_classes` and `n_boxes`
+(cost, then the GIoU and class post-filter), then the losses, JAX's
+`loss_fn` order. That match waits for the device once (its identity
+certificate's bool, then the cost matrix's copy for the solver), on top of
+the detector's NMS waits inside the forward. The NaN guard reads the
+metrics on the host once they are fetched (`fetch_metrics`).
 
 The training model keeps f32 master weights: it must not go through
 `utils/params.py:cast_params_for_inference`. bf16 modules cast each f32
@@ -38,7 +50,7 @@ from poet_tpu_torch.models import criterion as crit
 from poet_tpu_torch.models.matcher import MatchResult, match_poses
 from poet_tpu_torch.models.poet import gt_queries
 
-Batch = Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor], MatchResult]
+Batch = Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor], Optional[MatchResult]]
 
 
 # ---------------------------------------------------------------------------
@@ -49,13 +61,15 @@ def label_params(model: nn.Module, cfg: PoETConfig) -> Dict[str, str]:
     """Parameter name -> one of {main, linear_proj, backbone, frozen}.
 
     The detector backbone is 'frozen' (the reference's requires_grad_(False)),
-    so the 'backbone' group stays empty, as in the JAX package.
+    so the 'backbone' group stays empty, as in the JAX package. Calibrate
+    mode trains the aleatoric heads alone (the reference's main.py:337-347).
+    The learned position embedding's tables (`position_embedding.*`) label
+    'main', as in JAX, whose path holds no 'backbone' either.
     """
-    if cfg.model.calibrate:
-        raise NotImplementedError("calibrate mode trains only the aleatoric heads, "
-                                  "which are not ported yet (ROADMAP queue A)")
 
     def label_of(name: str) -> str:
+        if cfg.model.calibrate:
+            return "main" if "aleatoric" in name else "frozen"
         if "backbone" in name:
             return "frozen"
         if any(k in name for k in cfg.optim.lr_linear_proj_names):
@@ -83,6 +97,75 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+class AdamWMuBf16(torch.optim.Optimizer):
+    """optax `adamw(mu_dtype=bfloat16)`, in torch `_foreach` ops.
+
+    The first moment is stored in bf16, the second in f32. Each step, per
+    group: mu = (1 - b1) g + b1 mu in f32 from the stored bf16 mu, as the
+    jitted optax update computes it on XLA: b1 is a weakly typed scalar and
+    takes mu's dtype (0.9 -> 0.8984375), the product b1 mu is exact in f32,
+    and the sum is one fused multiply-add, fma((1 - b1), g, b1 mu), rounded
+    once (here from a float64 sum, exact but for a double rounding once in
+    ~2^29 elements); nu = (1 - b2) g^2 + b2 nu in f32; the update
+    (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) from that f32 mu, plus
+    weight_decay * p (decoupled), times -lr, added to p; only then is mu
+    stored in bf16 (round to nearest even). `load_state_dict` keeps mu in
+    bf16 (the torch base class would cast it to the parameter's dtype)."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        super().__init__(params, {"lr": lr, "betas": betas, "eps": eps,
+                                  "weight_decay": weight_decay})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            states = [self.state[p] for p in params]
+            for p, st in zip(params, states):
+                if not st:
+                    st["step"] = 0
+                    st["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+            count = states[0]["step"] + 1
+            grads = [p.grad for p in params]
+            mus = [st["exp_avg"] for st in states]
+            nus = [st["exp_avg_sq"] for st in states]
+            b1_bf16 = float(torch.tensor(b1, dtype=torch.bfloat16))
+            one_minus_b1 = float(np.float32(1.0 - b1))
+            # both products are exact in float64: the sum rounds once in it
+            mu32 = [(m.double() * b1_bf16 + g.double() * one_minus_b1).float()
+                    for m, g in zip(mus, grads)]
+            sq = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(sq, 1.0 - b2)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, sq)
+            # the bias corrections in f32, as optax's 1 - decay**count
+            bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
+            bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
+            den = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, group["eps"])
+            upd = torch._foreach_div(mu32, bc1)
+            torch._foreach_div_(upd, den)
+            if group["weight_decay"]:
+                torch._foreach_add_(upd, torch._foreach_mul(params, group["weight_decay"]))
+            torch._foreach_mul_(upd, -group["lr"])
+            torch._foreach_add_(params, upd)
+            for m, m32, st in zip(mus, mu32, states):
+                m.copy_(m32)
+                st["step"] = count
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            if "exp_avg" in st:
+                st["exp_avg"] = st["exp_avg"].to(torch.bfloat16)
+
+
 class Optimizer:
     """optax `MultiSteps(chain(clip_by_global_norm, multi_transform(...)))`.
 
@@ -92,24 +175,34 @@ class Optimizer:
     (t / norm * max_norm when norm >= max_norm; torch's clip_grad_norm_
     divides by norm + 1e-6), sets each group's StepLR rate for this update
     and applies the torch optimizer. It returns True when it updated.
+
+    The gradients accumulated, clipped and reported (`grads()`) are those
+    of every parameter autograd reaches (`requires_grad`), as optax's clip
+    and norm run over the whole tree before `multi_transform` drops the
+    frozen group; `params` are the trained ones, which alone are updated
+    and decayed. The two lists differ in calibrate mode, where the frozen
+    transformer, projections and pose heads get gradients.
     """
 
     def __init__(self, cfg: PoETConfig, model: nn.Module, steps_per_epoch: int):
         o = cfg.optim
-        if o.mu_bf16:
-            raise NotImplementedError("mu_bf16 (bf16 AdamW first moment) is not ported "
-                                      "yet (ROADMAP queue A)")
         labels = label_params(model, cfg)
         scale = {"main": 1.0, "linear_proj": o.lr_linear_proj_mult,
                  "backbone": o.lr_backbone / o.lr}
         groups: Dict[str, List[torch.Tensor]] = {}
+        self.clip_params: List[torch.Tensor] = []
         for name, p in model.named_parameters():
+            if p.requires_grad:
+                self.clip_params.append(p)
             if labels[name] == "frozen":
                 continue
             if p.dtype != torch.float32:
                 raise TypeError(f"{name} is {p.dtype}: training needs f32 master weights "
                                 "(do not cast the model for inference)")
             groups.setdefault(labels[name], []).append(p)
+        if not groups:
+            raise ValueError("every parameter is frozen: calibrate mode trains the aleatoric "
+                             "heads alone (calibrate needs aleatoric)")
         self.param_groups = [{"params": ps, "name": lab, "lr": o.lr * scale[lab],
                               "lr_scale": scale[lab]} for lab, ps in groups.items()]
         self._scale = scale
@@ -118,6 +211,9 @@ class Optimizer:
             # optax add_decayed_weights before sgd == torch SGD's weight_decay
             self.torch_opt = torch.optim.SGD(self.param_groups, lr=o.lr, momentum=0.9,
                                              weight_decay=o.weight_decay)
+        elif o.mu_bf16:
+            self.torch_opt = AdamWMuBf16(self.param_groups, lr=o.lr,
+                                         weight_decay=o.weight_decay)
         else:
             # optax adamw: eps outside the sqrt, bias correction, decay lr*wd*p
             # on the pre-update parameter, on every trained tensor
@@ -134,15 +230,16 @@ class Optimizer:
         self._acc: Optional[List[torch.Tensor]] = None
 
     def grads(self) -> List[torch.Tensor]:
-        """The trained parameters' gradients; a missing one counts as zero
-        (optax would still decay its parameter)."""
-        for p in self.params:
+        """The gradients of every parameter autograd reaches (the clip's and
+        the reported norm's); a missing one counts as zero (optax would still
+        decay a trained parameter)."""
+        for p in self.clip_params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        return [p.grad for p in self.params]
+        return [p.grad for p in self.clip_params]
 
     def zero_grad(self) -> None:
-        for p in self.params:
+        for p in self.clip_params:
             p.grad = None
 
     @torch.no_grad()
@@ -167,8 +264,9 @@ class Optimizer:
             div = torch.where(clip, norm, torch.ones_like(norm))
             mul = torch.where(clip, torch.full_like(norm, self.clip_max_norm),
                               torch.ones_like(norm))
-            torch._foreach_div_(grads, div)
-            torch._foreach_mul_(grads, mul)
+            trained = [p.grad for p in self.params]     # the others are not used again
+            torch._foreach_div_(trained, div)
+            torch._foreach_mul_(trained, mul)
         factor = self.schedule(self.updates)
         for group in self.param_groups:
             group["lr"] = self.torch_opt.defaults["lr"] * group["lr_scale"] * factor
@@ -207,17 +305,30 @@ def make_optimizer(cfg: PoETConfig, model: nn.Module, steps_per_epoch: int) -> O
 # Matching on the host, the batch on the device
 # ---------------------------------------------------------------------------
 
-def match_targets(cfg: PoETConfig, targets: Dict[str, torch.Tensor]) -> MatchResult:
+def match_targets(cfg: PoETConfig, targets: Dict[str, torch.Tensor]) -> Optional[MatchResult]:
     """`match_poses` from the (CPU) targets: in gt/jitter mode the model's
-    boxes and classes are `gt_queries` of the targets."""
+    boxes and classes are `gt_queries` of the targets. None in
+    bbox_mode='backbone': the step matches the model's detections."""
     mcfg = cfg.model
-    if mcfg.bbox_mode not in ("gt", "jitter"):
-        raise NotImplementedError("bbox_mode='backbone' matches detections, which need "
-                                  "the detector (ROADMAP queue A, detect+pose)")
+    if mcfg.bbox_mode == "backbone":
+        return None
     boxes, classes, n_boxes, _ = gt_queries(targets, mcfg.num_queries, mcfg.bbox_mode)
     return match_poses(boxes, classes, targets["boxes"], targets["labels"], n_boxes,
                        targets["n_boxes"], bbox_mode=mcfg.bbox_mode,
                        class_mode=mcfg.class_mode, cost_bbox=cfg.matcher.set_cost_bbox,
+                       cost_class=cfg.matcher.set_cost_class,
+                       giou_thresh=cfg.matcher.giou_thresh)
+
+
+def match_outputs(cfg: PoETConfig, outputs: Dict[str, torch.Tensor],
+                  targets: Dict[str, torch.Tensor]) -> MatchResult:
+    """`match_poses` of a forward's queries (its `pred_boxes`,
+    `pred_classes`, `n_boxes`) against the targets, on their device."""
+    mcfg = cfg.model
+    return match_poses(outputs["pred_boxes"], outputs["pred_classes"], targets["boxes"],
+                       targets["labels"], outputs["n_boxes"], targets["n_boxes"],
+                       bbox_mode=mcfg.bbox_mode, class_mode=mcfg.class_mode,
+                       cost_bbox=cfg.matcher.set_cost_bbox,
                        cost_class=cfg.matcher.set_cost_class,
                        giou_thresh=cfg.matcher.giou_thresh)
 
@@ -234,12 +345,14 @@ def _put(x, device) -> torch.Tensor:
 
 def prepare_batch(cfg: PoETConfig, images, pad_mask, targets: Dict, device) -> Batch:
     """Host arrays (numpy or CPU tensors) -> (images, pad_mask, targets,
-    match) on `device`, the match computed on the host first."""
+    match) on `device`, the match computed on the host first (None in
+    bbox_mode='backbone', where the step matches)."""
     host = {k: torch.as_tensor(np.asarray(v)) for k, v in targets.items()}
     match = match_targets(cfg, host)
+    if match is not None:
+        match = MatchResult(_put(match.tgt_idx, device), _put(match.valid, device))
     return (_put(images, device), _put(pad_mask, device),
-            {k: _put(v, device) for k, v in host.items()},
-            MatchResult(_put(match.tgt_idx, device), _put(match.valid, device)))
+            {k: _put(v, device) for k, v in host.items()}, match)
 
 
 # ---------------------------------------------------------------------------
@@ -247,12 +360,16 @@ def prepare_batch(cfg: PoETConfig, images, pad_mask, targets: Dict, device) -> B
 # ---------------------------------------------------------------------------
 
 def make_loss_fn(model: nn.Module, cfg: PoETConfig) -> Callable:
-    """loss_fn(images, pad_mask, targets, match, generator) -> (total, losses)."""
+    """loss_fn(images, pad_mask, targets, match, generator) -> (total, losses).
+    `match` is None in bbox_mode='backbone': the forward's queries are
+    matched to the targets here, between the forward and the losses."""
     mcfg = cfg.model
 
-    def loss_fn(images, pad_mask, targets, match: MatchResult,
+    def loss_fn(images, pad_mask, targets, match: Optional[MatchResult],
                 generator: Optional[torch.Generator]):
         outputs = model(images, pad_mask, targets, generator=generator)
+        if match is None:
+            match = match_outputs(cfg, outputs, targets)
         losses = crit.compute_losses(outputs, targets, match,
                                      rotation_mode=mcfg.rotation_representation,
                                      aleatoric=mcfg.aleatoric)
@@ -276,7 +393,7 @@ def make_train_step(model: nn.Module, cfg: PoETConfig, optimizer: Optimizer) -> 
         model.to(memory_format=torch.channels_last)
     loss_fn = make_loss_fn(model, cfg)
 
-    def step(images, pad_mask, targets, match: MatchResult,
+    def step(images, pad_mask, targets, match: Optional[MatchResult],
              generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         model.train()
         optimizer.zero_grad()
@@ -304,19 +421,12 @@ def fetch_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
 def make_eval_forward(model: nn.Module, cfg: PoETConfig) -> Callable:
     """forward(images, pad_mask, targets) -> final-layer poses and the match,
     in eval() mode without autograd."""
-    mcfg = cfg.model
 
     def forward(images, pad_mask, targets) -> Dict[str, torch.Tensor]:
         model.eval()
         with torch.no_grad():
             outputs = model(images, pad_mask, targets)
-        match = match_poses(outputs["pred_boxes"], outputs["pred_classes"],
-                            targets["boxes"], targets["labels"], outputs["n_boxes"],
-                            targets["n_boxes"], bbox_mode=mcfg.bbox_mode,
-                            class_mode=mcfg.class_mode,
-                            cost_bbox=cfg.matcher.set_cost_bbox,
-                            cost_class=cfg.matcher.set_cost_class,
-                            giou_thresh=cfg.matcher.giou_thresh)
+        match = match_outputs(cfg, outputs, targets)
         return {
             "pred_translation": outputs["translations"][-1],
             "pred_rotation": outputs["rotations"][-1],

@@ -3,7 +3,15 @@
 Counterpart of `poet_tpu/models/backbone.py`: `MaskRCNNFeatureBackbone`
 (gt/jitter modes: FPN levels only), `MaskRCNNDetectorBackbone`
 (bbox_mode='backbone': the same levels plus the detector's per-image
-detections from one FPN pass) and `add_position_embeddings`.
+detections from one FPN pass), `add_position_embeddings` (sine) and
+`PositionEmbeddingLearned`.
+
+The learned embedding's tables: the port keeps them at
+`position_embedding.{row,col}_embed.weight` (a submodule of PoET, as JAX's
+`position_embedding/{row,col}_embed`), where the reference's Joiner keeps
+them at `backbone.1.{row,col}_embed.weight`; a zoo `.pth` is remapped on
+load (`engine/checkpoint.py:load_resume`). Not under `backbone.`, they
+label 'main' in `engine/train.py:label_params`, as in JAX.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from poet_tpu_torch.models.layers import Embedding
 from poet_tpu_torch.models.maskrcnn import MaskRCNNDetector
 from poet_tpu_torch.models.resnet_fpn import ResNetFPN, downsample_mask
 from poet_tpu_torch.ops.embeddings import position_embedding_sine
@@ -104,3 +113,33 @@ def add_position_embeddings(masks: List[torch.Tensor], hidden_dim: int,
     """Sine embedding per level (computed in f32, returned in `dtype`)."""
     return [position_embedding_sine(m, num_pos_feats=hidden_dim // 2, scale=scale).to(dtype)
             for m in masks]
+
+
+class PositionEmbeddingLearned(nn.Module):
+    """Learned 50x50 absolute embedding. Counterpart of
+    `poet_tpu/models/backbone.py:PositionEmbeddingLearned`: row and column
+    tables of `num_pos_feats` each, U[0, 1) at init; the output's channels
+    are the x (column) features first, then the y (row) features, the
+    opposite of the sine embedding. One instance serves every level, the
+    extra ones included. A level larger than 50x50 raises, as in JAX."""
+
+    SIZE = 50
+
+    def __init__(self, num_pos_feats: int = 128):
+        super().__init__()
+        self.num_pos_feats = num_pos_feats
+        self.row_embed = Embedding(self.SIZE, num_pos_feats, init="uniform")
+        self.col_embed = Embedding(self.SIZE, num_pos_feats, init="uniform")
+
+    def forward(self, pad_mask: torch.Tensor) -> torch.Tensor:
+        """(B, H, W) mask -> (B, H, W, 2 * num_pos_feats) f32."""
+        B, H, W = pad_mask.shape
+        if H > self.SIZE or W > self.SIZE:
+            raise ValueError(f"PositionEmbeddingLearned: level {H}x{W} exceeds the "
+                             f"{self.SIZE}x{self.SIZE} table")
+        F_ = self.num_pos_feats
+        x_emb = self.col_embed.weight[:W]                   # (W, F)
+        y_emb = self.row_embed.weight[:H]                   # (H, F)
+        pos = torch.cat([x_emb[None, :, :].expand(H, W, F_),
+                         y_emb[:, None, :].expand(H, W, F_)], dim=-1)
+        return pos[None].expand(B, H, W, 2 * F_)

@@ -3,7 +3,8 @@
 flax modules take a compute `dtype` separate from their (f32) parameters:
 `nn.Dense(dtype=bf16)` casts its input, kernel and bias to bf16; `LayerNorm`
 and `GroupNorm` take their statistics in f32 and return the compute dtype.
-These subclasses of the torch layers do the same, keep torch's parameter
+These subclasses of the torch layers (and `Embedding`, a learned table) do
+the same, keep torch's parameter
 names (`weight`, `bias`) so state_dicts follow the reference checkpoints,
 and carry the flax initializer of their JAX counterpart for
 `utils/init.py:init_weights`. Norm epsilons are flax's 1e-6.
@@ -91,6 +92,26 @@ class Conv(nn.Conv2d):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Embedding(nn.Embedding):
+    """A learned f32 table, its rows read by index (the reference's
+    nn.Embedding names: `weight`), with the flax initializer of its JAX
+    `self.param`: 'normal' N(0, 1) (`initializers.normal(1.0)`) or 'uniform'
+    U[0, 1) (`initializers.uniform(1.0)`)."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, init: str = "normal"):
+        super().__init__(num_embeddings, embedding_dim)
+        if init not in ("normal", "uniform"):
+            raise ValueError(f"init {init!r} not in ('normal', 'uniform')")
+        self.init = init
+
+    def seeded_init(self, g: torch.Generator) -> None:
+        with torch.no_grad():
+            if self.init == "normal":
+                self.weight.normal_(0.0, 1.0, generator=g)
+            else:
+                self.weight.uniform_(0.0, 1.0, generator=g)
 
 
 class LayerNorm(nn.LayerNorm):

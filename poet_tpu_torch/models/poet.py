@@ -6,14 +6,19 @@ of two sources: in gt/jitter modes the caller supplies boxes, pre-padded to
 backbone's detections are reduced to the top `num_queries` by score
 (`_select_detections`). Dummy slots keep the reference conventions (boxes
 -1, query-embedding fill -10, class -1). Per-decoder-layer heads give
-stacked outputs (n_layers, B, Q, ...). The same module trains in gt/jitter
-modes: in `train()` mode the transformer applies dropout from the generator
-passed to `forward`, and the frozen backbone runs without autograd (the
-JAX package's stop_gradient).
+stacked outputs (n_layers, B, Q, ...). The same module trains in every
+bbox mode: in `train()` mode the transformer applies dropout from the
+generator passed to `forward`, and the frozen backbone runs without
+autograd (the JAX package's stop_gradient).
 
-Not ported yet (ROADMAP queue A): training in bbox_mode='backbone' (the
-matcher on detections), learned query embeddings/reference points/position
-embeddings, and the aleatoric heads.
+The options of JAX's PoET: `query_embedding='learned'` (a (Q, 2C) table,
+`query_embed`, N(0, 1) at init, in place of the box embedding for every
+query, dummies included), `reference_points='learned'` (the transformer's
+sigmoid(Linear(qe)) in place of the box centres), `position_embedding=
+'learned'` (`models/backbone.py:PositionEmbeddingLearned`, one module for
+every level) and `aleatoric` (per-layer log-variance heads beside the pose
+heads, `translations_aleatoric` / `rotations_aleatoric`, (n_layers, B, Q,
+3), selected by class as the pose heads are).
 """
 
 from __future__ import annotations
@@ -26,8 +31,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from poet_tpu_torch.config import ModelConfig
-from poet_tpu_torch.models.backbone import add_position_embeddings
-from poet_tpu_torch.models.layers import Conv, Dense, GroupNorm
+from poet_tpu_torch.models.backbone import PositionEmbeddingLearned, add_position_embeddings
+from poet_tpu_torch.models.layers import Conv, Dense, Embedding, GroupNorm
 from poet_tpu_torch.models.resnet_fpn import downsample_mask
 from poet_tpu_torch.models.transformer import DeformableTransformer
 from poet_tpu_torch.ops.detection import NEG_INF, topk
@@ -80,13 +85,11 @@ class PoET(nn.Module):
         super().__init__()
         if cfg.bbox_mode not in ("gt", "jitter", "backbone"):
             raise NotImplementedError(f"bbox_mode={cfg.bbox_mode!r}")
-        unported = [f for f, ok in (
-            ("position_embedding", position_embedding == "sine"),
-            ("query_embedding", cfg.query_embedding == "bbox"),
-            ("reference_points", cfg.reference_points == "bbox"),
-            ("aleatoric", not cfg.aleatoric)) if not ok]
-        if unported:
-            raise NotImplementedError(f"{unported}: not ported yet (ROADMAP queue A)")
+        for name, value, default in (("position_embedding", position_embedding, "sine"),
+                                     ("query_embedding", cfg.query_embedding, "bbox"),
+                                     ("reference_points", cfg.reference_points, "bbox")):
+            if value not in (default, "learned"):
+                raise ValueError(f"{name}={value!r} not in ({default!r}, 'learned')")
         self.cfg = cfg
         self.backbone = backbone
         self.position_embedding_scale = position_embedding_scale
@@ -102,6 +105,10 @@ class PoET(nn.Module):
             projs.append(nn.Sequential(Conv(cin, C, 3, stride=2, padding=1, compute_dtype=dt),
                                        GroupNorm(32, C, dt)))
         self.input_proj = nn.ModuleList(projs)
+        self.position_embedding = (PositionEmbeddingLearned(C // 2)
+                                   if position_embedding == "learned" else None)
+        self.query_embed = (Embedding(cfg.num_queries, 2 * C)
+                            if cfg.query_embedding == "learned" else None)
 
         self.transformer = DeformableTransformer(
             d_model=C, nhead=cfg.nheads, num_encoder_layers=cfg.enc_layers,
@@ -109,7 +116,8 @@ class PoET(nn.Module):
             num_feature_levels=cfg.num_feature_levels, dec_n_points=cfg.dec_n_points,
             enc_n_points=cfg.enc_n_points, dtype=dt, dropout=cfg.dropout,
             enc_impl=cfg.enc_deform_impl, dec_impl=cfg.dec_deform_impl,
-            merged_adjoint=cfg.merged_adjoint)
+            merged_adjoint=cfg.merged_adjoint,
+            learned_reference_points=cfg.reference_points == "learned")
 
         n_classes = cfg.n_classes + 1           # +1 dummy/background
         class_mult = n_classes if cfg.class_mode == "specific" else 1
@@ -117,6 +125,12 @@ class PoET(nn.Module):
             MLP(C, C, 3 * class_mult) for _ in range(cfg.dec_layers))
         self.rotation_head = nn.ModuleList(
             MLP(C, C, cfg.rot_dim * class_mult) for _ in range(cfg.dec_layers))
+        if cfg.aleatoric:
+            # s = log sigma^2 per axis, of the translation and of the rotation
+            self.translation_head_aleatoric = nn.ModuleList(
+                MLP(C, C, 3 * class_mult) for _ in range(cfg.dec_layers))
+            self.rotation_head_aleatoric = nn.ModuleList(
+                MLP(C, C, 3 * class_mult) for _ in range(cfg.dec_layers))
 
     def forward(self, images: torch.Tensor,            # (B, H, W, 3) in [0, 1]
                 pad_mask: torch.Tensor,                # (B, H, W) bool, True = padded
@@ -131,11 +145,9 @@ class PoET(nn.Module):
         it."""
         cfg = self.cfg
         C, Q = cfg.hidden_dim, cfg.num_queries
-        dt = self.compute_dtype
-        scale = self.position_embedding_scale
 
         features, masks, backbone_dets = self.backbone(images, pad_mask)
-        pos = add_position_embeddings(masks, C, dt, scale=scale)
+        pos = [self._embed_level(m) for m in masks]
 
         # ---- query construction -------------------------------------------
         if cfg.bbox_mode == "backbone":
@@ -150,9 +162,12 @@ class PoET(nn.Module):
         else:
             t_boxes, t_classes, n_boxes, valid_q = gt_queries(targets, Q, cfg.bbox_mode)
             t_scores = valid_q.float()
-        embed = bbox_embedding_sine(t_boxes, num_pos_feats=C // 8)     # (B, Q, C)
-        embed = torch.cat([embed, embed], dim=-1)
-        query_embeds = torch.where(valid_q[..., None], embed, DUMMY_EMBED_FILL)
+        if self.query_embed is not None:
+            query_embeds = self.query_embed.weight                     # (Q, 2C)
+        else:
+            embed = bbox_embedding_sine(t_boxes, num_pos_feats=C // 8)  # (B, Q, C)
+            embed = torch.cat([embed, embed], dim=-1)
+            query_embeds = torch.where(valid_q[..., None], embed, DUMMY_EMBED_FILL)
 
         # ---- input projections + extra stride-2 levels --------------------
         srcs = [proj(f.permute(0, 3, 1, 2))
@@ -163,24 +178,28 @@ class PoET(nn.Module):
             srcs.append(x)
             m = downsample_mask(pad_mask, x.shape[-2:])
             masks.append(m)
-            pos += add_position_embeddings([m], C, dt, scale=scale)
+            pos.append(self._embed_level(m))
         srcs = [s.permute(0, 2, 3, 1) for s in srcs]                    # NHWC
 
-        hs, _, _ = self.transformer(srcs, masks, pos, query_embeds, t_boxes[:, :, :2],
+        reference_points = t_boxes[:, :, :2] if cfg.reference_points == "bbox" else None
+        hs, _, _ = self.transformer(srcs, masks, pos, query_embeds, reference_points,
                                     generator)
 
         # ---- per-layer heads ----------------------------------------------
         output_idx = torch.where(t_classes > 0, t_classes, 0)
-        translations, rotations = [], []
+        heads = [self.translation_head, self.rotation_head]
+        if cfg.aleatoric:
+            heads += [self.translation_head_aleatoric, self.rotation_head_aleatoric]
+        per_head = [[] for _ in heads]
         for lvl in range(cfg.dec_layers):
-            out_t = self.translation_head[lvl](hs[lvl])
-            out_r = self.rotation_head[lvl](hs[lvl])
-            if cfg.class_mode == "specific":
-                out_t = self._select_class(out_t, output_idx)
-                out_r = self._select_class(out_r, output_idx)
-            translations.append(out_t)
-            rotations.append(self._process_rotation(out_r))
-        return {
+            for outs, head in zip(per_head, heads):
+                out = head[lvl](hs[lvl])
+                if cfg.class_mode == "specific":
+                    out = self._select_class(out, output_idx)
+                outs.append(out)
+        translations, rotations = per_head[:2]
+        rotations = [self._process_rotation(r) for r in rotations]
+        out = {
             "translations": torch.stack(translations),   # (n_layers, B, Q, 3)
             "rotations": torch.stack(rotations),         # (n_layers, B, Q, 3, 3|4)
             "pred_boxes": t_boxes,                       # (B, Q, 4)
@@ -190,6 +209,18 @@ class PoET(nn.Module):
             "n_boxes": n_boxes,                          # (B,)
             "query_valid": valid_q,                      # (B, Q)
         }
+        if cfg.aleatoric:
+            out["translations_aleatoric"] = torch.stack(per_head[2])   # (n_layers, B, Q, 3)
+            out["rotations_aleatoric"] = torch.stack(per_head[3])      # (n_layers, B, Q, 3)
+        return out
+
+    def _embed_level(self, mask: torch.Tensor) -> torch.Tensor:
+        """A level's position embedding in the compute dtype: the learned
+        tables or the sine embedding at `position_embedding_scale`."""
+        if self.position_embedding is not None:
+            return self.position_embedding(mask).to(self.compute_dtype)
+        return add_position_embeddings([mask], self.cfg.hidden_dim, self.compute_dtype,
+                                       scale=self.position_embedding_scale)[0]
 
     @staticmethod
     def _select_detections(dets: Dict[str, torch.Tensor], Q: int, image_size):

@@ -279,18 +279,26 @@ class DeformableTransformer(nn.Module):
     intermediate states. Takes per-level maps channels-last. `enc_impl` /
     `dec_impl` pick each stack's sampling core by JAX's names (JAX's decoder
     'auto' resolves by memory length to 'mxu'; here it is the gather route
-    too), `merged_adjoint` the gather route's backward."""
+    too), `merged_adjoint` the gather route's backward. A learned (Q, 2C)
+    query table is split and broadcast over the batch; without reference
+    points (`learned_reference_points`) the decoder's are
+    sigmoid(`reference_points`(qe)), as in JAX (`poet_tpu/models/
+    transformer.py:533-544`)."""
 
     def __init__(self, d_model: int = 256, nhead: int = 8, num_encoder_layers: int = 6,
                  num_decoder_layers: int = 6, dim_feedforward: int = 1024,
                  num_feature_levels: int = 4, dec_n_points: int = 4,
                  enc_n_points: int = 4, dtype: torch.dtype = torch.float32,
                  dropout: float = 0.0, enc_impl: str = "mxu", dec_impl: str = "auto",
-                 merged_adjoint: bool = True):
+                 merged_adjoint: bool = True, learned_reference_points: bool = False):
         super().__init__()
         self.d_model = d_model
         self.dtype = dtype
         self.level_embed = nn.Parameter(torch.empty(num_feature_levels, d_model))
+        # reference_points='learned': sigmoid(Linear(qe)), in f32 (flax's Dense
+        # promotes the bf16 query to its f32 kernel)
+        self.reference_points = (Dense(d_model, 2, torch.float32)
+                                 if learned_reference_points else None)
         self.encoder = _LayerStack([
             EncoderLayer(d_model, dim_feedforward, num_feature_levels, nhead,
                          enc_n_points, dtype, dropout, enc_impl, merged_adjoint)
@@ -307,8 +315,8 @@ class DeformableTransformer(nn.Module):
     def forward(self, srcs: List[torch.Tensor],        # per level (B, Hl, Wl, C)
                 masks: List[torch.Tensor],             # per level (B, Hl, Wl) True = pad
                 pos_embeds: List[torch.Tensor],        # per level (B, Hl, Wl, C)
-                query_embed: torch.Tensor,             # (B, Q, 2C)
-                reference_points: torch.Tensor,        # (B, Q, 2)
+                query_embed: torch.Tensor,             # (B, Q, 2C), or (Q, 2C) if learned
+                reference_points: Optional[torch.Tensor],   # (B, Q, 2); None if learned
                 generator: Optional[torch.Generator] = None):
         spatial_shapes = tuple((int(s.shape[1]), int(s.shape[2])) for s in srcs)
         B, C = srcs[0].shape[0], self.d_model
@@ -324,8 +332,11 @@ class DeformableTransformer(nn.Module):
             out = layer(out, pos_flat, enc_ref, spatial_shapes, mask_flat, generator)
         memory = out
 
-        qe, tgt = query_embed.to(self.dtype).split(C, dim=2)
-        ref = reference_points
+        qe, tgt = query_embed.to(self.dtype).split(C, dim=-1)
+        if query_embed.dim() == 2:                  # a learned (Q, 2C) table
+            qe, tgt = qe.expand(B, -1, -1), tgt.expand(B, -1, -1)
+        ref = (torch.sigmoid(self.reference_points(qe)) if reference_points is None
+               else reference_points)
         intermediates = []
         output = tgt
         for layer in self.decoder.layers:

@@ -19,7 +19,13 @@ Module names map onto flax names by the rules in `_RULES` (e.g.
 `backbone/fpn_body/body/layer1_0/downsample_conv`, `backbone.rpn.head.conv`
 -> `backbone/detector/rpn_head/conv`, `backbone.roi_heads.box_head.fc6` ->
 `backbone/detector/box_head/fc6`; fc6's JAX kernel has Dense's (in, out)
-layout in torchvision's (C, 7, 7) flatten order).
+layout in torchvision's (C, 7, 7) flatten order). A learned table
+(`models/layers.py:Embedding`) is its flax leaf itself: `query_embed.weight`
+<- `query_embed`, `position_embedding.row_embed.weight` <-
+`position_embedding/row_embed` (and `col_embed`); the aleatoric heads
+`translation_head_aleatoric.{l}` <- `translation_head_aleatoric_{l}` (and
+the rotation's), the learned reference points `transformer.reference_points`
+<- `transformer/reference_points`, as every Dense.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from poet_tpu_torch.models.layers import Conv, Dense, GroupNorm, LayerNorm
+from poet_tpu_torch.models.layers import Conv, Dense, Embedding, GroupNorm, LayerNorm
 from poet_tpu_torch.models.resnet_fpn import FrozenBatchNorm
 from poet_tpu_torch.models.transformer import DeformableTransformer, MultiheadAttention
 
@@ -42,7 +48,7 @@ _RULES = (
     (r"(^|\.)roi_heads\.(box_head|box_predictor)(?=\.|$)", r"\1detector.\2"),
     (r"(^|\.)encoder\.layers\.(\d+)", r"\1encoder_layer_\2"),
     (r"(^|\.)decoder\.layers\.(\d+)", r"\1decoder_layer_\2"),
-    (r"(^|\.)(translation_head|rotation_head)\.(\d+)", r"\1\2_\3"),
+    (r"(^|\.)((?:translation|rotation)_head(?:_aleatoric)?)\.(\d+)", r"\1\2_\3"),
     (r"(^|\.)input_proj\.(\d+)\.0$", r"\1input_proj_\2_conv"),
     (r"(^|\.)input_proj\.(\d+)\.1$", r"\1input_proj_\2_gn"),
     (r"(^|\.)layers\.(\d+)$", r"\1layer_\2"),            # MLP heads
@@ -118,6 +124,8 @@ def load_jax_params(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
         elif isinstance(m, FrozenBatchNorm):
             for b in ("weight", "bias", "running_mean", "running_var"):
                 put(pre + b, getattr(m, b), take(path + (b,)))
+        elif isinstance(m, Embedding):
+            put(pre + "weight", m.weight, take(path))
         elif isinstance(m, DeformableTransformer):
             put(pre + "level_embed", m.level_embed, take(path + ("level_embed",)))
 

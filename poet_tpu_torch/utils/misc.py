@@ -2,8 +2,9 @@
 
 Parity targets from the reference's util/misc.py: the git state stamp
 (:288-305) and the rank gating helpers (:374-427), here on the
-`torch.distributed` rank (0 without a process group). `inverse_sigmoid`
-waits for the learned-reference-point work (ROADMAP A.4).
+`torch.distributed` rank (0 without a process group). JAX's
+`inverse_sigmoid` has no counterpart: no path of either package calls it
+(the learned reference points are a sigmoid, `models/transformer.py`).
 """
 
 from __future__ import annotations

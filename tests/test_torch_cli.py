@@ -11,7 +11,14 @@ decoder layer, 2 heads) on `tests/helpers.make_synthetic_dataset`:
   the SIGTERM checkpoint;
 * CLI against CLI: one reference-zoo `.pth` resumed by both: --eval metric
   JSONs within 1e-5, the BOP CSV rows equal, one train epoch's log.txt
-  losses within 1e-4 relative;
+  losses within 1e-4 relative; the same epoch with the model's options
+  (`--aleatoric` with the three learned embeddings and `--mu_bf16`) and on
+  detections (`--bbox_mode backbone`, the Mask R-CNN of
+  `flagship.detector_state_dict`, on a copy of the dataset whose train
+  targets are its own detections; without the clip, ROADMAP C2), each from
+  a zoo file of a port model with those options; every ported model and
+  optimizer flag accepted (`--calibrate` too, held against JAX's train step
+  in tests/test_torch_variants.py);
 * --inference's results.json against `PoseServer` in detector mode on the
   same decoded images.
 """
@@ -106,11 +113,42 @@ def test_args_to_config_matches_jax(argv):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--export_model", "out"], "A.2"), (["--calibrate"], "A.4"), (["--aleatoric"], "A.4"),
-    (["--mu_bf16"], "A.4"), (["--mesh_data", "2"], "A.6"), (["--zero_opt_state"], "A.6")])
+    (["--export_model", "out"], "A.2"), (["--mesh_data", "2"], "A.6"),
+    (["--zero_opt_state"], "A.6")])
 def test_unported_flags_raise(flag, item, data):
     with pytest.raises(NotImplementedError, match=item):
         _port(["--dataset_path", data] + SMALL + flag)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--aleatoric"], ["--aleatoric", "--calibrate"], ["--mu_bf16"],
+    ["--query_embedding", "learned"], ["--reference_points", "learned"],
+    ["--position_embedding", "learned"], ["--bbox_mode", "backbone"]])
+def test_model_and_optimizer_flags_are_ported(flags):
+    """The flags A.4 and A.5 ported: no refusal, and the model and
+    optimizer they ask for."""
+    from poet_tpu_torch.cli import check_ported, parse_config
+    from poet_tpu_torch.engine.train import make_optimizer
+    from poet_tpu_torch.models import build_model
+
+    cfg = parse_config(SMALL + flags + ["--device", "cpu"])
+    check_ported(cfg)
+    model = build_model(cfg)
+    opt = make_optimizer(cfg, model, steps_per_epoch=2)
+    names = {n for n, _ in model.named_parameters()}
+    if "--aleatoric" in flags:
+        assert "translation_head_aleatoric.0.layers.2.weight" in names
+    if "--calibrate" in flags:
+        assert {n for n, p in model.named_parameters() if any(p is q for q in opt.params)} \
+            == {n for n in names if "_head_aleatoric." in n}
+    if "--mu_bf16" in flags:
+        assert type(opt.torch_opt).__name__ == "AdamWMuBf16"
+    for flag, name in (("--query_embedding", "query_embed.weight"),
+                       ("--reference_points", "transformer.reference_points.weight"),
+                       ("--position_embedding", "position_embedding.row_embed.weight")):
+        assert (name in names) == (flag in flags), name
+    if "--bbox_mode" in flags:
+        assert type(model.backbone).__name__ == "MaskRCNNDetectorBackbone"
 
 
 def test_ignored_flags_warn_in_one_line(capsys):
@@ -148,12 +186,12 @@ def test_inference_forces_the_detector():
 
 
 # ---------------------------------------------------------------- checkpoints
-def _small_model():
+def _small_model(flags=()):
     from poet_tpu_torch.cli import parse_config
     from poet_tpu_torch.models import build_model
     from poet_tpu_torch.utils.init import init_weights
 
-    cfg = parse_config(SMALL + ["--device", "cpu"])
+    cfg = parse_config(SMALL + list(flags) + ["--device", "cpu"])
     return cfg, init_weights(build_model(cfg), seed=3)
 
 
@@ -335,19 +373,67 @@ def test_nan_gate_and_sigterm_checkpoint(data, tmp_path, capsys, monkeypatch):
 
 
 # ---------------------------------------------------------------- CLI against CLI
-@pytest.fixture(scope="module")
-def both(data, tmp_path_factory):
-    """A reference-zoo .pth (the detector under backbone.0.) of a seeded port
-    model, resumed by both CLIs for --eval, --eval_bop and one epoch."""
-    root = tmp_path_factory.mktemp("cli")
-    _, model = _small_model()
-    sd = {("backbone.0." + k[len("backbone."):]) if k.startswith("backbone.") else k: v
-          for k, v in model.state_dict().items()}
-    zoo = str(root / "zoo.pth")
-    torch.save({"model": sd}, zoo)
+def _zoo(model, path):
+    """A reference-zoo .pth of a port model: its detector under the Joiner's
+    backbone.0., a learned position embedding under backbone.1."""
+    sd = {}
+    for k, v in model.state_dict().items():
+        for port, zoo in (("backbone.", "backbone.0."), ("position_embedding.", "backbone.1.")):
+            if k.startswith(port):
+                k = zoo + k[len(port):]
+                break
+        sd[k] = v
+    torch.save({"model": sd}, path)
+    return path
+
+
+TRAIN_EPOCH = ["--epochs", "1", "--eval_interval", "5", "--save_interval", "50"]
+# the epochs of the model's options and of training on detections (without
+# the clip: JAX's backbone-mode step puts the Mask R-CNN heads' gradients
+# into the clip's norm, ROADMAP C2)
+VARIANT_EPOCHS = {
+    "options": ["--aleatoric", "--query_embedding", "learned", "--reference_points", "learned",
+                "--position_embedding", "learned", "--mu_bf16"],
+    "detections": ["--bbox_mode", "backbone", "--clip_max_norm", "0"],
+}
+
+
+def _detection_targets(data, root, model):
+    """A copy of the dataset whose train annotations are the detector's own
+    detections of each image (class, box), with the original poses: the
+    queries then match their targets."""
+    import shutil
+
+    from poet_tpu_torch.native import load_image_rgb_f32
+
+    dst = str(root / "data_detections")
+    shutil.copytree(data, dst)
+    path = os.path.join(dst, "annotations", "train.json")
+    ann = json.load(open(path))
+    poses = [a["relative_pose"] for a in ann["annotations"]]
+    out = []
+    for img in ann["images"]:
+        image = load_image_rgb_f32(os.path.join(dst, "train", img["file_name"]))[None]
+        with torch.no_grad():
+            dets = model.backbone(torch.from_numpy(image),
+                                  torch.zeros(image.shape[:3], dtype=torch.bool))[2]
+        for k in torch.nonzero(dets["valid"][0]).flatten().tolist():
+            x1, y1, x2, y2 = dets["boxes"][0, k].tolist()
+            out.append({"id": len(out), "image_id": img["id"],
+                        "bbox": [x1, y1, x2 - x1, y2 - y1], "area": (x2 - x1) * (y2 - y1),
+                        "iscrowd": 0, "category_id": int(dets["labels"][0, k]),
+                        "relative_pose": poses[len(out) % len(poses)],
+                        "intrinsics": ann["annotations"][0]["intrinsics"]})
+    ann["annotations"] = out
+    json.dump(ann, open(path, "w"))
+    return dst, len(out)
+
+
+def _both_clis(root, runs_of):
+    """Run each (name, argv) of `runs_of` through JAX's CLI and the port's;
+    the JAX runs share compiled programs through their CLI's cache flag."""
     import jax
 
-    # the JAX runs share compiled programs through their CLI's cache flag
     keys = ("jax_compilation_cache_dir", "jax_persistent_cache_min_entry_size_bytes",
             "jax_persistent_cache_min_compile_time_secs")
     saved = {k: getattr(jax.config, k) for k in keys}
@@ -355,16 +441,49 @@ def both(data, tmp_path_factory):
     try:
         for name, run, extra_flags in (
                 ("jax", _jax, ["--xla_cache_dir", str(root / "xla")]), ("port", _port, [])):
-            for mode, extra in (("eval", ["--eval"]), ("bop", ["--eval_bop"]),
-                                ("train", ["--epochs", "1", "--eval_interval", "5",
-                                           "--save_interval", "50"])):
+            for mode, argv in runs_of:
                 out = str(root / name / mode)
-                run(["--dataset_path", data, "--output_dir", out, "--resume", zoo] + SMALL
-                    + extra + extra_flags)
+                run(argv + ["--output_dir", out] + extra_flags)
                 runs[name, mode] = out
     finally:
         for k, v in saved.items():
             jax.config.update(k, v)
+    return runs
+
+
+@pytest.fixture(scope="module")
+def both(data, tmp_path_factory):
+    """A reference-zoo .pth (the detector under backbone.0.) of a seeded port
+    model, resumed by both CLIs for --eval, --eval_bop and one epoch."""
+    root = tmp_path_factory.mktemp("cli")
+    zoo = _zoo(_small_model()[1], str(root / "zoo.pth"))
+    base = ["--dataset_path", data, "--resume", zoo] + SMALL
+    return _both_clis(root, [("eval", base + ["--eval"]), ("bop", base + ["--eval_bop"]),
+                             ("train", base + TRAIN_EPOCH)])
+
+
+@pytest.fixture(scope="module")
+def variant_epochs(data, tmp_path_factory):
+    """One train epoch of each of VARIANT_EPOCHS through both CLIs, each
+    resumed from a zoo file of a seeded port model with its flags. On
+    detections: `flagship.detector_state_dict`'s well-conditioned Mask
+    R-CNN, and the dataset's train targets its own detections."""
+    from poet_tpu_torch.flagship import detector_state_dict
+
+    root = tmp_path_factory.mktemp("cli_variants")
+    runs_of, n_targets = [], None
+    for name, flags in VARIANT_EPOCHS.items():
+        _, model = _small_model(flags)
+        dataset = data
+        if name == "detections":
+            model.backbone.load_state_dict({k: torch.from_numpy(v)
+                                            for k, v in detector_state_dict(4).items()})
+            dataset, n_targets = _detection_targets(data, root, model.eval())
+        zoo = _zoo(model, str(root / f"{name}.pth"))
+        runs_of.append((name, ["--dataset_path", dataset, "--resume", zoo] + SMALL + flags
+                        + TRAIN_EPOCH))
+    runs = _both_clis(root, runs_of)
+    runs["n_detection_targets"] = n_targets
     return runs
 
 
@@ -407,14 +526,35 @@ def test_bop_csv_matches_jax(both):
                                        rtol=1e-5, atol=1e-5)
 
 
-def test_train_epoch_log_matches_jax(both):
-    want, got = ([json.loads(ln) for ln in open(os.path.join(both[k, "train"], "log.txt"))]
+def _assert_epoch_logs_match(runs, mode):
+    want, got = ([json.loads(ln) for ln in open(os.path.join(runs[k, mode], "log.txt"))]
                  for k in ("jax", "port"))
     assert len(got) == len(want) == 1 and got[0]["epoch"] == want[0]["epoch"] == 0
     losses = [k for k in want[0] if k.startswith("train_loss")]
     assert losses and set(losses) == {k for k in got[0] if k.startswith("train_loss")}
     for k in losses + ["train_lr"]:
         assert got[0][k] == pytest.approx(want[0][k], rel=1e-4), k
+    return got[0]
+
+
+def test_train_epoch_log_matches_jax(both):
+    _assert_epoch_logs_match(both, "train")
+
+
+@pytest.mark.parametrize("mode", list(VARIANT_EPOCHS))
+def test_variant_epoch_log_matches_jax(variant_epochs, mode):
+    """The epoch's losses within 1e-4 relative, as the default epoch's;
+    each run's own checkpoint holds what its flags ask for."""
+    got = _assert_epoch_logs_match(variant_epochs, mode)
+    payload = torch.load(os.path.join(variant_epochs["port", mode], "checkpoint.pth"),
+                         weights_only=True)
+    states = payload["optimizer"]["torch"]["state"].values()
+    if mode == "options":
+        assert all(st["exp_avg"].dtype == torch.bfloat16 for st in states)
+        assert "query_embed.weight" in payload["model"]
+    if mode == "detections":
+        assert variant_epochs["n_detection_targets"] >= 8
+        assert got["train_loss"] > 0                  # detections matched the targets
 
 
 # ---------------------------------------------------------------- inference

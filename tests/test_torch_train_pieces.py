@@ -309,18 +309,20 @@ def test_clip_is_optax_not_clip_grad_norm():
 
 
 def test_optimizer_refuses_bf16_weights_and_unported_options():
+    """bf16 master weights raise. The options this refused until they were
+    ported (mu_bf16, calibrate) now build their optimizer and groups: the
+    bf16 first moment's AdamW, and calibrate's heads-only 'main' group
+    (nothing here is an aleatoric head: every tensor frozen)."""
     from poet_tpu_torch.config import PoETConfig
-    from poet_tpu_torch.engine.train import label_params, make_optimizer
+    from poet_tpu_torch.engine.train import AdamWMuBf16, label_params, make_optimizer
 
     model = _Toy(np.zeros((4, 3), np.float32), np.zeros(4, np.float32))
     cfg = PoETConfig()
     cfg.optim.mu_bf16 = True
-    with pytest.raises(NotImplementedError, match="mu_bf16"):
-        make_optimizer(cfg, model, 1)
+    assert isinstance(make_optimizer(cfg, model, 1).torch_opt, AdamWMuBf16)
     cfg = PoETConfig()
     cfg.model.calibrate = True
-    with pytest.raises(NotImplementedError, match="calibrate"):
-        label_params(model, cfg)
+    assert set(label_params(model, cfg).values()) == {"frozen"}
     model.layer.weight.data = model.layer.weight.data.bfloat16()
     with pytest.raises(TypeError, match="f32 master weights"):
         make_optimizer(PoETConfig(), model, 1)
