@@ -121,13 +121,16 @@ Phases, each raising on failure:
      targets made of the detector's own detections: 1 RoIAlign and 10
      forward launches per batch, matched pairs = valid detections;
  18. every route of the merged adjoint (slab, the value slab staged or read
-     from device memory; atomic) against the plain adjoint, against each
-     other and against the pair of phase 6 (phase 6's geometries and the
-     YOLO pyramid at B=16, where only the atomic route fits: the slab
-     wrapper must refuse; f32 and bf16; pad rows exactly 0; NaN locations
-     -> NaN d_loc / d_attn and nothing to d_value on every route), autograd through the entry with adjoint='merged'
-     on the rule's route; device ms per route from CUDA-graph replays, pair
-     and plain ms, and the bound; at the YOLO pyramid the pair's d_value on
+     from device memory; banded, staged, unstaged and cut at every row or
+     two by a narrow budget; atomic) against the plain adjoint, against the
+     atomic route, against each other (the slab and banded routes' d_loc /
+     d_attn the same bits) and against the pair of phase 6 (phase 6's
+     geometries and the YOLO pyramid at B=16 as encoder, Q=6380, also at
+     grid_locations, and decoder, Q=10, where the slab wrappers must refuse;
+     f32 and bf16; pad rows exactly 0; NaN locations -> NaN d_loc / d_attn
+     and nothing to d_value on every route), autograd through the entry with
+     adjoint='merged' on the rule's route; device ms per route from CUDA-graph
+     replays, pair and plain ms, and the bound; at the YOLO pyramid the pair's d_value on
      the rule's atomic scatter and on the slab splits that fit (8 and 4
      channels a block) against the plain adjoint, with device ms;
  19. the dense one-hot forward and adjoint kernels ('pallas') against the
@@ -210,7 +213,9 @@ Phases, each raising on failure:
      the same batch; the step matches the forward's queries (the matched
      count of each step printed, > 0), 1 RoIAlign (tiles) or 3 stem
      launches and the forward and merged-adjoint launches per step, the
-     detector bit-identical; step p50/p95 and device busy ms
+     detector bit-identical; step p50/p95 and device busy ms, the merged
+     adjoint's launches per route (the rule's: slab for Mask R-CNN, banded
+     for YOLO) and its device ms in the traced step
      (train_detections_maskrcnn, train_detections_yolov4).
 Phases 4, 7, 10, 13, 16, 17, 20, 23, 24 and 25's paths each set every kernel's launch
 count to 0 before they drive their path and read them after, and hold them
@@ -292,8 +297,9 @@ YOLO_LEVELS = ((60, 80), (30, 40), (15, 20), (8, 10))
 # phase 3's and 6's geometries and the YOLO pyramid at the path's batch
 ROUTE_GEOMETRIES = ADJ_GEOMETRIES + [
     ("yolo pyramid", 16, 6380, 16, 16, YOLO_LEVELS, 0.0, 1.0, 0),
+    ("yolo decoder", 16, 10, 16, 16, YOLO_LEVELS, -0.2, 1.2, 0),
 ]
-ROUTES_TIMED = ("encoder", "decoder", "yolo pyramid")
+ROUTES_TIMED = ("encoder", "decoder", "yolo pyramid", "yolo decoder")
 # phase 3's crossover sweep: queries per (b, h) at the encoder's S = 1600
 CROSSOVER_Q = (10, 25, 50, 100, 200, 400, 800, 1600)
 # phase 3's autograd through the entry, one case per pair of routes:
@@ -377,7 +383,7 @@ EVAL_THIN = 32
 
 KERNEL_KEYS = ("fwd", "d_value", "d_loc", "roi", "stem", "nn", "merged", "dense_fwd",
                "dense_bwd", "v2", "kpad", "variants", "gather", "fwd_slab", "merged_slab",
-               "d_value_slab", "roi_tiles", "d_loc_slab", "dense_dloc_slab")
+               "d_value_slab", "roi_tiles", "d_loc_slab", "dense_dloc_slab", "merged_banded")
 LAUNCH_NAMES = "/".join(KERNEL_KEYS)
 
 
@@ -391,8 +397,9 @@ def all_kernels():
     merged adjoint's atomic route, dense forward, dense adjoint, v2 forward,
     the three probes (kpad, the forward's variants, the dynamic gather), then
     the forward's and the merged adjoint's slab routes, the pair's d_value
-    slab route, RoIAlign's tiles route, the pair's d_loc slab route and the
-    dense adjoint's staged d_loc / d_attn kernel."""
+    slab route, RoIAlign's tiles route, the pair's d_loc slab route, the
+    dense adjoint's staged d_loc / d_attn kernel and the merged adjoint's
+    banded route."""
     from poet_tpu_torch.ops import deform_attn_cuda as gather
     from poet_tpu_torch.ops import deform_attn_dense_cuda as dense
     from poet_tpu_torch.ops.conv_stem_cuda import CONV_STEM_FWD
@@ -408,7 +415,8 @@ def all_kernels():
             dense.MS_DEFORM_ATTN_DENSE_FWD, dense.MS_DEFORM_ATTN_DENSE_BWD, MS_DEFORM_ATTN_V2,
             KPAD_CHAIN, MS_DEFORM_ATTN_VARIANT, TAKE_ALONG_AXIS, gather.MS_DEFORM_ATTN_FWD_SLAB,
             gather.MS_DEFORM_ATTN_MERGED_SLAB, gather.MS_DEFORM_ATTN_DVALUE_SLAB, ROI_ALIGN_TILES,
-            gather.MS_DEFORM_ATTN_DLOC_SLAB, dense.MS_DEFORM_ATTN_DENSE_DLOC]
+            gather.MS_DEFORM_ATTN_DLOC_SLAB, dense.MS_DEFORM_ATTN_DENSE_DLOC,
+            gather.MS_DEFORM_ATTN_MERGED_BANDED]
 
 
 def expected(**counts):
@@ -418,6 +426,8 @@ def expected(**counts):
     return [counts.get(k, 0) for k in KERNEL_KEYS]
 
 
+# the merged adjoint's routes (plan_merged) -> their KERNEL_KEYS
+MERGED_KEYS = {"slab": "merged_slab", "banded": "merged_banded", "atomic": "merged"}
 # the token counts of the two pyramids at 480x640: Mask R-CNN's ResNet-FPN
 # levels (gt mode and detect+pose) and YOLOv4-CSP's full pyramid
 FLAGSHIP_S, YOLO_S = 1600, 6380
@@ -448,8 +458,7 @@ def path_launches(cfg, S, n, train=False):
             fwd = plan_forward(S, D, dtype, Q, L, P).route
             keys = ("fwd_slab" if fwd == "slab" else "fwd",)
             if train and m.merged_adjoint:
-                keys += ("merged_slab" if plan_merged(S, D, dtype, Q, L, P).route == "slab"
-                         else "merged",)
+                keys += (MERGED_KEYS[plan_merged(S, D, dtype, Q, L, P).route],)
             elif train:
                 keys += ("d_value_slab" if plan_dvalue(S, D, dtype, Q, L, P).route == "slab"
                          else "d_value",
@@ -639,8 +648,7 @@ def entry_autograd(g, name, B, Q, shapes, dtype):
     S = value.shape[1]
     fwd = dac.plan_forward(S, D, dt, Q, len(shapes), P).route
     bwd = dac.plan_merged(S, D, dt, Q, len(shapes), P).route
-    want = expected(**{"fwd_slab" if fwd == "slab" else "fwd": 1,
-                       "merged_slab" if bwd == "slab" else "merged": 1})
+    want = expected(**{"fwd_slab" if fwd == "slab" else "fwd": 1, MERGED_KEYS[bwd]: 1})
     kernels = all_kernels()
     n0 = [k.launches for k in kernels]
     leaves = [t.clone().requires_grad_() for t in (value, locs, attn)]
@@ -2421,121 +2429,193 @@ def merged_bound(v, locs, attn, do, grads, shapes):
                  16.0 * v.shape[-1] * deform_points_in_map(locs, shapes))
 
 
+def banded_name(stage):
+    """The banded route's name in phase 18 and the report, by its staging."""
+    return f"banded_{'staged' if stage else 'unstaged'}"
+
+
+def narrow_budget(shapes, D, dtype, stage):
+    """The least shared memory in which every row of `shapes` fits as a band
+    of its own (with its halo row): the banded route's plan then cuts bands
+    inside levels and at their edges."""
+    from poet_tpu_torch.ops import deform_attn_cuda as dac
+
+    return max(dac.merged_band_bytes(w, w + (w if y + 1 < h else 0), D, dtype, stage)
+               for h, w in shapes for y in range(h))
+
+
+def merged_rule_name(plan):
+    """Phase 18's name of the route plan_merged gives."""
+    if plan.route == "banded":
+        return banded_name(plan.stage)
+    if plan.route == "slab":
+        return "slab_staged" if plan.stage else "slab_unstaged"
+    return "atomic"
+
+
 def phase_merged(report):
     """Phase 18: every route of the merged adjoint (the slab route with the
-    value slab staged and read from device memory, the atomic route) against
-    the plain adjoint, against each other (the two slab routes' d_loc and
-    d_attn the same bits) and against the pair (d_value and the d_loc/d_attn
-    gather, each on its route), on phase 6's geometries and the YOLO pyramid, f32
-    and bf16; at the YOLO pyramid the pair's d_value on both routes (slab,
-    atomic scatter) against the plain adjoint, with device ms; NaN
-    locations; autograd through the entry; ms per route and the bound."""
+    value slab staged and read from device memory; the banded route staged,
+    unstaged, and with a budget that cuts a band at every row or two; the
+    atomic route) against the plain adjoint, against the atomic route,
+    against each other (every slab and banded route's d_loc and d_attn the
+    same bits) and against the pair (d_value and the d_loc/d_attn gather, each on its
+    route), on phase 6's geometries and the YOLO pyramid (encoder and
+    decoder), f32 and bf16, the YOLO encoder also at a model's sampling
+    locations (grid_locations); at the YOLO pyramid the pair's d_value on
+    both routes (slab, atomic scatter) against the plain adjoint, with
+    device ms; NaN locations; autograd through the entry; ms per route and
+    the bound."""
     import torch
 
     from poet_tpu_torch.ops import deform_attn_cuda as dac
     from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch_backward as plain_bwd
     from poet_tpu_torch.tools.timing import graph_ms
 
-    KV, KVS, KM, KMS = (dac.MS_DEFORM_ATTN_DVALUE, dac.MS_DEFORM_ATTN_DVALUE_SLAB,
-                        dac.MS_DEFORM_ATTN_MERGED, dac.MS_DEFORM_ATTN_MERGED_SLAB)
+    KV, KVS, KM, KMS, KMB = (dac.MS_DEFORM_ATTN_DVALUE, dac.MS_DEFORM_ATTN_DVALUE_SLAB,
+                             dac.MS_DEFORM_ATTN_MERGED, dac.MS_DEFORM_ATTN_MERGED_SLAB,
+                             dac.MS_DEFORM_ATTN_MERGED_BANDED)
     routes = {"atomic": KM,
               "slab_staged": lambda *args: KMS(*args, stage=True),
               "slab_unstaged": lambda *args: KMS(*args, stage=False)}
     counted = {"atomic": KM, "slab_staged": KMS, "slab_unstaged": KMS}
+    for stage in (True, False):
+        routes[banded_name(stage)] = (lambda st: lambda *args: KMB(*args, stage=st))(stage)
+        counted[banded_name(stage)] = KMB
     g = torch.Generator(device=DEVICE).manual_seed(5)
     worst = {"d_value": 0.0, "d_loc": 0.0, "d_attn": 0.0}
+
+    def check_routes(name, value, locs, attn, dout, Q, S_lv, pad, bf16, timed):
+        """Every route at one geometry, dtype and set of locations: the checks
+        above; with `timed`, device ms per route (graph replays; the atomic
+        route's zeroed buffer and cast included), the pair's and the plain
+        adjoint's per host call, and the bound. Returns (log text, times)."""
+        dt = torch.bfloat16 if bf16 else torch.float32
+        key = "bf16" if bf16 else "f32"
+        v, do = value.to(dt), dout.to(dt)
+        args = (v, shapes, locs, attn, do)
+        S, D, L, P = v.shape[1], v.shape[3], len(shapes), locs.shape[4]
+        mask = off_edges(locs, shapes)
+        rule = merged_rule_name(dac.plan_merged(S, D, dt, Q, L, P))
+        fits = {r: True for r in routes}
+        fits["slab_staged"] = dac.merged_slab_bytes(S, D, dt, True) <= dac.SMEM_OPTIN_MAX
+        fits["slab_unstaged"] = dac.merged_slab_bytes(S, D, dt, False) <= dac.SMEM_OPTIN_MAX
+        rts = dict(routes)
+        if not name.startswith("yolo"):   # a band at every row or two
+            budget = narrow_budget(shapes, D, dt, True)
+            rts["banded_narrow"] = lambda *a: KMB(*a, stage=True, budget=budget)
+            fits["banded_narrow"] = True
+            n_bands = len(dac.plan_merged_bands(shapes, D, dt, True, budget).bounds) - 1
+            if n_bands < 2:
+                raise AssertionError(f"{name}: the narrow budget cut {n_bands} band")
+        ref = plain_bwd(v.float(), shapes, locs, attn, do.float())
+        got = route_outputs(rts, fits, *args)
+        pair = (dac.dvalue_adjoint(*args),) + dac.dloc_adjoint(*args)
+        torch.cuda.synchronize()
+        if rule not in got:
+            raise AssertionError(f"{name} {key}: the rule picks {rule}, which refuses")
+        errs = {}
+        for r, gr in got.items():
+            errs[r] = adjoint_checks(f"{name} {r}", gr, ref, value, locs, Q, S_lv, pad, mask,
+                                     bf16)
+            if r != "atomic":
+                adjoint_checks(f"{name} {r} vs atomic", gr, [x.float() for x in got["atomic"]],
+                               value, locs, Q, S_lv, pad, None, bf16, roundings=2)
+            if not bf16:
+                for k in worst:
+                    worst[k] = max(worst[k], errs[r][k])
+        # every slab and banded route gathers the same values in the same order
+        gathers = [r for r in got if r != "atomic"]
+        if not all(torch.equal(got[r][i], got[gathers[0]][i]) for r in gathers for i in (1, 2)):
+            raise AssertionError(f"{name} {key}: the slab and banded routes' d_loc / d_attn "
+                                 f"differ")
+        # against the pair: the same coordinates, sums in other orders
+        pair_errs = adjoint_checks(name + " vs the pair", got[rule], [x.float() for x in pair],
+                                   value, locs, Q, S_lv, pad, None, bf16, roundings=2)
+        text = (f" | {key}: rule {rule}; max_abs_err "
+                + "; ".join(f"{r} " + " ".join(f"{k} {e:.2e}" for k, e in es.items())
+                            for r, es in errs.items())
+                + " (rule vs the pair " + " ".join(f"{e:.2e}" for e in pair_errs.values())
+                + "); slab and banded d_loc / d_attn equal"
+                + "".join(f", {r} refused (over budget)" for r in rts if r not in got))
+        if not timed:
+            return text, None
+        ms = {r: graph_ms(lambda: rts[r](*args), counted=counted[r])
+              for r in got if not r.startswith("banded_narrow")}
+        ms.update(pair=cuda_ms(lambda: (dac.dvalue_adjoint(*args), dac.dloc_adjoint(*args))),
+                  plain=cuda_ms(lambda: plain_bwd(*args), iters=5))
+        ms["rule"] = rule
+        # the banded route with the wrappers' defaults (the rule's, where it takes it)
+        ms["banded"] = banded_name(dac.corner_reads_per_token(S, Q, L, P) >= dac.SLAB_MIN_READS)
+        ms["bound"] = merged_bound(v, locs, attn, do, got[rule], shapes)
+        return text + " | ms " + ", ".join(f"{r} {ms[r]:.4f}" for r in ms
+                                          if r not in ("rule", "banded", "bound")), ms
+
     for name, B, Q, H, D, shapes, lo, hi, pad in ROUTE_GEOMETRIES:
         value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=lo, hi=hi, pad=pad)
         dout = torch.randn((B, Q, H * D), generator=g, device=DEVICE)
         S, L, P = value.shape[1], len(shapes), locs.shape[4]
         S_lv = sum(h * w for h, w in shapes)
-        mask = off_edges(locs, shapes)
         line = f"merged routes {name}: B={B} Q={Q} H={H} D={D} levels={shapes} S={S}"
         t = {}
         for dt in (torch.float32, torch.bfloat16):
             bf16 = dt == torch.bfloat16
             key = "bf16" if bf16 else "f32"
-            v, do = value.to(dt), dout.to(dt)
-            args = (v, shapes, locs, attn, do)
-            plan = dac.plan_merged(S, D, dt, Q, L, P)
-            rule = "atomic" if plan.route == "atomic" else (
-                "slab_staged" if plan.stage else "slab_unstaged")
-            fits = {"atomic": True,
-                    "slab_staged": dac.merged_slab_bytes(S, D, dt, True) <= dac.SMEM_OPTIN_MAX,
-                    "slab_unstaged": dac.merged_slab_bytes(S, D, dt, False) <= dac.SMEM_OPTIN_MAX}
-            ref = plain_bwd(v.float(), shapes, locs, attn, do.float())
-            got = route_outputs(routes, fits, *args)
-            pair = (dac.dvalue_adjoint(*args),) + dac.dloc_adjoint(*args)
-            torch.cuda.synchronize()
             if name == "yolo pyramid":
                 # the pair's d_value: the rule's atomic scatter (the 16-channel
                 # slab does not fit) and the narrower slab splits that do
+                v, do = value.to(dt), dout.to(dt)
+                args = (v, shapes, locs, attn, do)
                 if dac.plan_dvalue(S, D, dt, Q, L, P).route != "atomic":
                     raise AssertionError(f"{name} {key}: plan_dvalue takes the slab route")
+                ref = plain_bwd(v.float(), shapes, locs, attn, do.float())
+                pair = (dac.dvalue_adjoint(*args),) + dac.dloc_adjoint(*args)
                 dv = {"scatter": graph_ms(lambda: KV(*args), counted=KV),
                       "bound": deform_bound(locs, shapes, D, locs, attn, do, v), "sweep": {}}
                 line += f" | {key} d_value ms: scatter (the rule) {dv['scatter']:.4f}, slab"
                 for gr, th in YOLO_DVALUE_SWEEP:
                     e = adjoint_checks(f"{name} d_value slab {gr}x{th}",
                                        (KVS(*args, group=gr, threads=th),) + pair[1:], ref,
-                                       value, locs, Q, S_lv, pad, mask, bf16)["d_value"]
+                                       value, locs, Q, S_lv, pad, off_edges(locs, shapes),
+                                       bf16)["d_value"]
                     dv["sweep"][f"{gr}x{th}"] = graph_ms(
                         lambda: KVS(*args, group=gr, threads=th), counted=KVS)
                     line += f" {gr}x{th} {dv['sweep'][f'{gr}x{th}']:.4f} (err {e:.2e})"
                 line += f", bound {dv['bound'][0]:.4f}"
                 t.setdefault("d_value", {})[key] = dv
-            if rule not in got:
-                raise AssertionError(f"{name} {key}: the rule picks {rule}, which refuses")
-            errs = {}
-            for r, gr in got.items():
-                errs[r] = adjoint_checks(f"{name} {r}", gr, ref, value, locs, Q, S_lv, pad, mask,
-                                         bf16)
-                if r != "atomic":
-                    adjoint_checks(f"{name} {r} vs atomic", gr,
-                                   [x.float() for x in got["atomic"]], value, locs, Q, S_lv,
-                                   pad, None, bf16, roundings=2)
-                if not bf16:
-                    worst = {k: max(worst[k], errs[r][k]) for k in worst}
-            # the two slab routes gather the same values in the same order
-            if len(got) == 3 and not all(torch.equal(got["slab_staged"][i],
-                                                     got["slab_unstaged"][i]) for i in (1, 2)):
-                raise AssertionError(f"{name} {key}: the slab routes' d_loc / d_attn differ")
-            # against the pair: the same coordinates, sums in other orders
-            pair_errs = adjoint_checks(name + " vs the pair", got[rule],
-                                       [x.float() for x in pair], value, locs, Q, S_lv, pad,
-                                       None, bf16, roundings=2)
-            line += (f" | {key}: rule {rule}; max_abs_err "
-                     + "; ".join(f"{r} " + " ".join(f"{k} {e:.2e}" for k, e in es.items())
-                                 for r, es in errs.items())
-                     + " (rule vs the pair " + " ".join(f"{e:.2e}" for e in pair_errs.values())
-                     + ")" + "".join(f", {r} refused (over budget)" for r in routes
-                                     if r not in got))
-            if name in ROUTES_TIMED:
-                # each route's device time from graph replays (the atomic route's
-                # zeroed buffer and cast included); the pair's and the plain
-                # adjoint's per call launched from the host
-                ms = {r: graph_ms(lambda: routes[r](*args), counted=counted[r]) for r in got}
-                ms.update(pair=cuda_ms(lambda: (dac.dvalue_adjoint(*args),
-                                                dac.dloc_adjoint(*args))),
-                          plain=cuda_ms(lambda: plain_bwd(*args), iters=5))
-                ms["rule"] = rule
-                ms["bound"] = merged_bound(v, locs, attn, do, got[rule], shapes)
+            text, ms = check_routes(name, value, locs, attn, dout, Q, S_lv, pad, bf16,
+                                    name in ROUTES_TIMED)
+            line += text
+            if ms is not None:
                 t[key] = ms
-                line += " | ms " + ", ".join(f"{r} {ms[r]:.4f}" for r in (*got, "pair", "plain"))
+            if name == "yolo pyramid":
+                # a model's sampling locations (neighbouring queries sample
+                # neighbouring tokens), the last two queries the dummies
+                grid = grid_locations(g, B, H, shapes)
+                grid[:, -2:] = torch.tensor([-1.0, -10.0], device=DEVICE)[:, None, None, None,
+                                                                         None]
+                text, ms = check_routes(name + " at grid locations", value, grid, attn, dout,
+                                        Q, S_lv, pad, bf16, True)
+                line += " | grid locations" + text
+                t[key + "_grid"] = ms
         if t:
             report[f"merged_{name}"] = t
         log(line)
 
     # NaN locations (the C1 rule): the point adds nothing to d_value and gets
-    # NaN in d_attn and both d_loc coordinates, on every route; every other
-    # entry is that of the same point off the map
+    # NaN in d_attn and both d_loc coordinates, on every route (the banded
+    # route also cut at every row); every other entry is that of the same
+    # point off the map
     shapes = ((6, 9), (4, 5))
     value, locs, attn = deform_inputs(g, 2, 5, 2, 8, shapes)
     dout = torch.randn((2, 5, 16), generator=g, device=DEVICE)
     locs[:, 0, :, 0, 1, 0] = float("nan")
     clean = locs.clone()
     clean[:, 0, :, 0, 1] = -10.0
-    for r, kernel in routes.items():
+    nan_routes = dict(routes)
+    nan_budget = narrow_budget(shapes, 8, torch.float32, True)
+    nan_routes["banded_narrow"] = lambda *a: KMB(*a, stage=True, budget=nan_budget)
+    for r, kernel in nan_routes.items():
         d_value, d_loc, d_attn = kernel(value, shapes, locs, attn, dout)
         ref_value, ref_loc, ref_attn = kernel(value, shapes, clean, attn, dout)
         _, bad = adjoint_err(d_value.float(), ref_value.float())
@@ -2549,10 +2629,11 @@ def phase_merged(report):
     dout = torch.randn((1, 6, 16), generator=g, device=DEVICE)
     leaves = [t.clone().requires_grad_() for t in (v, l, a)]
     plan = dac.plan_merged(v.shape[1], 8, v.dtype, 6, 2, 4)
-    kernel = KMS if plan.route == "slab" else KM
-    n0 = (KM.launches, KMS.launches)
+    kernel = {"slab": KMS, "banded": KMB, "atomic": KM}[plan.route]
+    n0 = [k.launches for k in (KM, KMS, KMB)]
     dac.ms_deform_attn(leaves[0], shapes, *leaves[1:], adjoint="merged").backward(dout)
-    if (KM.launches - n0[0], KMS.launches - n0[1]) != ((0, 1) if kernel is KMS else (1, 0)):
+    if [k.launches - n for k, n in zip((KM, KMS, KMB), n0)] != [int(k is kernel)
+                                                                for k in (KM, KMS, KMB)]:
         raise AssertionError(f"adjoint='merged' did not launch the {plan.route} route alone")
     want = plain_bwd(v, shapes, l, a, dout)
     for name, t, ref in zip(("d_value", "d_loc", "d_attn"), leaves, want):
@@ -2562,10 +2643,10 @@ def phase_merged(report):
     report["merged_max_abs_err"] = worst
     log(f"merged adjoint: f32 max |kernel - plain| {worst} over {len(ROUTE_GEOMETRIES)} "
         f"geometries and every route that takes them (tol {ADJ_RTOL} x max|ref|; bf16 d_value "
-        f"+ 2^-8 |ref|); the two slab routes' d_loc / d_attn equal; agrees with "
-        f"the pair; NaN point -> NaN d_loc / d_attn, nothing to d_value, on every route; "
-        f"the entry's adjoint='merged' launches the "
-        f"{plan.route} route")
+        f"+ 2^-8 |ref|); every slab and banded route's d_loc / d_attn equal; agrees with the "
+        f"pair; NaN point -> NaN "
+        f"d_loc / d_attn, nothing to d_value, on every route; the entry's adjoint='merged' "
+        f"launches the {plan.route} route")
 
 
 DENSE_GEOMETRIES = ADJ_GEOMETRIES + [
@@ -3423,11 +3504,10 @@ def _phase_cli(report, tmp):
         raise AssertionError(f"cli: {len(probe.starts)} train steps and {len(probe.waits)} "
                              f"loader waits, not {2 * steps}")
     periods = np.diff(probe.starts[:steps]).tolist() + np.diff(probe.starts[steps:]).tolist()
-    i_fwd, i_fwd_direct, i_merged = (KERNEL_KEYS.index(k) for k in ("fwd_slab", "fwd",
-                                                                    "merged_slab"))
+    i_fwd, i_fwd_direct = (KERNEL_KEYS.index(k) for k in ("fwd_slab", "fwd"))
     eval_fwd_total = 3 * (eval_fwd.get("fwd_slab", 0) + eval_fwd.get("fwd", 0))
     fwd_per_step = (got[i_fwd] + got[i_fwd_direct] - eval_fwd_total) / (2 * steps)
-    merged_per_step = (got[i_merged] + got[KERNEL_KEYS.index("merged")]) / (2 * steps)
+    merged_per_step = sum(got[KERNEL_KEYS.index(k)] for k in MERGED_KEYS.values()) / (2 * steps)
 
     # the resumed state equals the saved one, bit for bit: a resume with no
     # epoch left to run returns what it restored
@@ -3831,6 +3911,16 @@ def phase_train_detections(report):
                 raise AssertionError(f"train on detections {name}: a step matched nothing: {per}")
             stats["matched"] = per[-1]
             stats["targets"] = int(targets["n_boxes"].sum())
+            # the merged adjoint by route (drive_train held them to the rule's)
+            # and its device ms in the traced step
+            stats["merged_launches"] = {k: counts[KERNEL_KEYS.index(k)]
+                                        for k in MERGED_KEYS.values()}
+            stats["merged_device_ms"] = sum(v for c, v in stats["device_ms_by_class"].items()
+                                            if c.startswith("merged adjoint"))
+            log(f"train on detections {name}: merged adjoint launches by route "
+                f"{stats['merged_launches']} for {DETECTION_TRAIN_STEPS} + 1 steps (the rule's "
+                f"{ {k: v for k, v in per_step.items() if k in MERGED_KEYS.values()} } a step), "
+                f"{stats['merged_device_ms']:.3f} device ms of the traced step")
             log(f"train on detections {name}: paper config bf16 B={B} {H}x{W}, dropout "
                 f"{cfg.model.dropout}, AdamW: targets {stats['targets']} (the detector's own "
                 f"top-Q detections), matched {per} per step (warm-up first; the match in the "
@@ -3926,6 +4016,9 @@ def main(argv) -> int:
     d_yolo = report["merged_yolo pyramid"]["d_value"]["bf16"]
     m_enc, m_dec = report["merged_encoder"]["bf16"], report["merged_decoder"]["bf16"]
     m_yolo = report["merged_yolo pyramid"]["bf16"]
+    m_yolo_grid = report["merged_yolo pyramid"]["bf16_grid"]
+    m_yolo_f32 = report["merged_yolo pyramid"]["f32"]
+    m_yolo_dec = report["merged_yolo decoder"]["bf16"]
     paths = {"serve": report["launches"], "train": report["train_launches"],
              "detect": report["detect"]["launches"], "yolo": report["yolo"]["launches"],
              "eval": report["eval_launches"], "eval_backbone": report["eval_backbone_launches"],
@@ -4043,9 +4136,29 @@ def main(argv) -> int:
          "max_abs_err": max(report["merged_max_abs_err"].values()),
          **timed(m_yolo["atomic"], m_yolo["plain"], m_yolo["bound"]),
          "encoder_ms": m_enc["atomic"], "pair_ms": m_enc["pair"],
-         "ms_are": "the atomic route at the one shape the rule sends it, the YOLO pyramid "
-                   "(B=16, Q=S=6380, H=16, D=16, L=P=4), bf16; encoder_ms, pair_ms: the "
-                   "encoder shape (B=16, Q=S=1600)"},
+         "grid_init_ms": m_yolo_grid["atomic"], "decoder_ms": m_yolo_dec["atomic"],
+         "ms_are": "the atomic route at the YOLO pyramid (B=16, Q=S=6380, H=16, D=16, L=P=4), "
+                   "bf16, uniform locations, device time from graph replays, its zeroed buffer "
+                   "and cast included; grid_init: at a model's sampling locations "
+                   "(grid_locations); decoder: Q=10 over the same pyramid; encoder_ms, pair_ms: "
+                   "the flagship encoder shape (B=16, Q=S=1600)"},
+        {"name": "ms_deform_attn_bwd_merged_banded", "route": "cuda",
+         "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "341",
+         **launched("merged_banded"), "max_abs_err": max(report["merged_max_abs_err"].values()),
+         **timed(m_yolo[m_yolo["banded"]], m_yolo["plain"], m_yolo["bound"]),
+         "variant": m_yolo["banded"], "atomic_ms": m_yolo["atomic"],
+         "grid_init_ms": m_yolo_grid[m_yolo_grid["banded"]],
+         "grid_init_atomic_ms": m_yolo_grid["atomic"],
+         "decoder_ms": m_yolo_dec[m_yolo_dec["banded"]], "decoder_atomic_ms": m_yolo_dec["atomic"],
+         "f32_ms": m_yolo_f32[m_yolo_f32["banded"]], "f32_atomic_ms": m_yolo_f32["atomic"],
+         "variants_ms": {r: {"uniform": m_yolo[r], "grid_init": m_yolo_grid[r]}
+                         for r in m_yolo if r.startswith("banded_")},
+         "ms_are": "the banded route with the rule's staging (variant) at the YOLO pyramid "
+                   "(B=16, Q=S=6380, H=16, D=16, L=P=4), bf16, uniform locations, device time "
+                   "from graph replays; atomic_ms: the atomic route there, same call; "
+                   "grid_init: at a model's sampling locations (grid_locations); decoder: Q=10 "
+                   "over the same pyramid; f32: where the rule takes the atomic route; "
+                   "variants_ms: staged and unstaged"},
         {"name": "ms_deform_attn_dense_fwd", "route": "cuda", "source": dense_src,
          "replaces": dense_tpu + "143", **launched("dense_fwd"),
          "max_abs_err": report["dense_max_abs_err"]["forward"],

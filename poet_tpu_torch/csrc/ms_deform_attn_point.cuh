@@ -143,6 +143,7 @@ struct Load<__nv_bfloat16, 4> {
 // A sampling point's 2x2 footprint on its level.
 struct Footprint {
   int t00;                          // token of corner (y0, x0) in the level: y0 * W + x0
+  int y0;                           // the footprint's top row, in [-1, H - 1]
   float tx, ty;                     // the point's fractions within the cell
   bool in_x0, in_x1, in_y0, in_y1;  // columns x0, x0 + 1 and rows y0, y0 + 1 in the map
 };
@@ -164,6 +165,7 @@ __device__ __forceinline__ bool footprint(float lx, float ly, int Hl, int Wl, Fo
   const int x0 = (int)x0f;
   const int y0 = (int)y0f;
   f->t00 = y0 * Wl + x0;
+  f->y0 = y0;
   f->in_x0 = x0 >= 0;
   f->in_x1 = x0 + 1 < Wl;
   f->in_y0 = y0 >= 0;

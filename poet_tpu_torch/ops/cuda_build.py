@@ -144,7 +144,9 @@ BWD_LIB = CudaLibrary(CSRC / "ms_deform_attn_bwd.cu", {
     "poet_ms_deform_attn_bwd_dloc": [P] * 6 + [I] * 8 + [INTS, I, P],
     "poet_ms_deform_attn_bwd_dloc_slab": [P] * 6 + [I] * 8 + [INTS, I, P],
     "poet_ms_deform_attn_bwd_merged": [P] * 7 + [I] * 8 + [INTS, I, P],
-    "poet_ms_deform_attn_bwd_merged_slab": [P] * 7 + [I] * 8 + [INTS, I, I, P]})
+    "poet_ms_deform_attn_bwd_merged_slab": [P] * 7 + [I] * 8 + [INTS, I, I, P],
+    "poet_ms_deform_attn_bwd_merged_banded": [P] * 7 + [I] * 8 + [INTS, I, I, INTS, I, P,
+                                                                  ctypes.c_int64, P]})
 ROI_LIB = CudaLibrary(CSRC / "roi_align_fwd.cu", {
     "poet_roi_align_fwd": [PTRS, INTS, I] + [P] * 6 + [I] * 7 + [P],
     "poet_roi_align_tiles": [PTRS, INTS, I] + [P] * 6 + [I] * 9 + [P]})

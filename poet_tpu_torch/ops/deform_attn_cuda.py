@@ -26,9 +26,12 @@ budget of one block, `SMEM_OPTIN_MAX` (never by catching a failure):
   * `plan_merged`: the SLAB route (`MS_DEFORM_ATTN_MERGED_SLAB`, d_value
     summed in an f32 slab in shared memory and written once in the value
     dtype; the value slab staged beside it by the same reads rule where
-    both fit) wherever the f32 d_value slab fits, else the ATOMIC route
+    both fit) wherever the f32 d_value slab fits, else (the YOLO pyramid,
+    S = 6380) the BANDED route for bf16 (`MS_DEFORM_ATTN_MERGED_BANDED`,
+    the same block per (b, h) walking its token rows in bands that fit,
+    `plan_merged_bands`) and the ATOMIC route for f32
     (`MS_DEFORM_ATTN_MERGED`, float4 atomics into a zeroed f32 buffer in
-    device memory, cast after): the YOLO pyramid, S = 6380.
+    device memory, cast after), each the faster where measured.
 The pair's two kernels have two routes each:
   * `plan_dvalue`: the SLAB route (`MS_DEFORM_ATTN_DVALUE_SLAB`, a block per
     (b, h, channel group of up to `DVALUE_GROUP_MAX`) sums its (S, group)
@@ -55,6 +58,7 @@ and needs neither nvcc nor a GPU.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -103,8 +107,10 @@ DVALUE_SLAB_MAX_READS = 16.0
 
 class Plan(NamedTuple):
     """A route of the forward ('slab' or 'direct') or of the merged adjoint
-    ('slab' or 'atomic'), whether it stages the value slab in shared memory,
-    and the dynamic shared memory one block of it takes (bytes)."""
+    ('slab', 'banded' or 'atomic'), whether it stages the value slab (or each
+    band's value rows) in shared memory, and the dynamic shared memory one
+    block of it takes (bytes; 0 for 'banded', whose shared memory is its band
+    plan's, `plan_merged_bands`)."""
     route: str
     stage: bool
     smem_bytes: int
@@ -148,13 +154,94 @@ def plan_dloc(S: int, D: int, dtype: torch.dtype, Q: int, L: int, P: int) -> Pla
 def plan_merged(S: int, D: int, dtype: torch.dtype, Q: int, L: int, P: int) -> Plan:
     """The merged adjoint's route: 'slab' where the f32 d_value slab fits one
     block's shared memory, staging the value slab too where both fit and
-    each token is read at least SLAB_MIN_READS times; else 'atomic'."""
+    each token is read at least SLAB_MIN_READS times. Where it does not fit,
+    'banded' for bf16 values, staging each band's value rows by the same
+    reads rule, and 'atomic' for f32.
+
+    Measured on an NVIDIA H100 80GB HBM3, 700 W, at the YOLO pyramid (S =
+    6380, B = 16, H = 16, D = 16, L = P = 4; tools/bench_banded.py, two runs
+    in one call), device ms banded / atomic at uniform locations, then at a
+    model's (chip_smoke.grid_locations): bf16 encoder (Q = 6380, staged)
+    3.166-3.186 / 3.590-3.593 and 2.779-2.798 / 3.133-3.138; bf16 decoder
+    (Q = 10, unstaged) 0.062 / 0.133 and 0.061 / 0.130; f32 encoder
+    (staged) 4.201-4.216 / 3.578-3.581 and 3.246 / 3.092-3.097; f32 decoder
+    (unstaged) 0.080 / 0.081 and 0.079 / 0.077. In f32 the atomic route's
+    f32 buffer needs no cast and the banded route's staged rows take twice
+    the bytes (four bands, not three). Staging by the reads rule: bf16
+    encoder 3.166-3.186 staged against 3.700-3.721 unstaged, decoder 0.087
+    against 0.062. At the flagship encoder (S = 1600) the slab route still
+    beats the atomic one at a model's locations: bf16 0.639 against 0.714,
+    f32 0.676 against 0.699."""
+    reads = corner_reads_per_token(S, Q, L, P) >= SLAB_MIN_READS
     if merged_slab_bytes(S, D, dtype, False) > SMEM_OPTIN_MAX:
-        return Plan("atomic", False, 0)
+        return Plan("banded", reads, 0) if dtype == torch.bfloat16 else Plan("atomic", False, 0)
     staged = merged_slab_bytes(S, D, dtype, True)
-    if staged <= SMEM_OPTIN_MAX and corner_reads_per_token(S, Q, L, P) >= SLAB_MIN_READS:
+    if staged <= SMEM_OPTIN_MAX and reads:
         return Plan("slab", True, staged)
     return Plan("slab", False, merged_slab_bytes(S, D, dtype, False))
+
+
+MAX_BANDS = 64                      # POET_MAX_BANDS
+BAND_HEAD = (MAX_BANDS + 2 * _MAX_LEVELS) * 4    # kBandHead: list lengths, level rows
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def merged_band_bytes(tokens: int, staged: int, D: int, dtype: torch.dtype,
+                      stage: bool) -> int:
+    """Shared memory of one band of the banded route (`band_bytes` in the
+    source): the block's head (the carry lists' lengths, each level's rows
+    in the band), the f32 d_value slab of its `tokens` rows and, with
+    `stage`, the `staged` value rows (the band's and its halo row)."""
+    return BAND_HEAD + _align16(tokens * D * 4) + (staged * D * _itemsize(dtype) if stage else 0)
+
+
+class BandPlan(NamedTuple):
+    """The banded route's bands: token boundaries 0 = bounds[0] < ... <
+    bounds[-1] = sum(H_l W_l), each at the start of a row of a level; the
+    dynamic shared memory of the block (its largest band's, bytes); and the
+    carry lists a block keeps, one per band that starts inside a level."""
+    bounds: Tuple[int, ...]
+    smem_bytes: int
+    lists: int
+
+
+def plan_merged_bands(shapes: Sequence[Tuple[int, int]], D: int, dtype: torch.dtype,
+                      stage: bool, budget: int = SMEM_OPTIN_MAX) -> BandPlan:
+    """Cut the concatenated level rows into bands of whole rows, greedily in
+    order, each band's shared memory (`merged_band_bytes`: its f32 slab and,
+    with `stage`, its value rows plus the halo row, the level's next row,
+    where it ends inside a level) within `budget`. Raises where one row
+    alone does not fit, or where more than MAX_BANDS bands would be needed."""
+    rows, start = [], 0                   # (first token, tokens, halo tokens after it)
+    for h, w in shapes:
+        rows += [(start + y * w, w, w if y + 1 < h else 0) for y in range(h)]
+        start += h * w
+
+    def size(first, end, halo):
+        return merged_band_bytes(end - first, end + halo - first, D, dtype, stage)
+
+    bounds, smem, first, last, lists = [0], 0, 0, None, 0
+    for t, w, halo in rows:
+        if size(first, t + w, halo) > budget and t > first:
+            smem = max(smem, size(first, t, last))
+            bounds.append(t)
+            lists += last > 0                 # the band ended inside a level
+            first = t
+        if size(first, t + w, halo) > budget:
+            raise ValueError(
+                f"the banded route cannot fit a row of {w} tokens (halo {halo}): "
+                f"{size(t, t + w, halo)} B of shared memory over the budget of {budget} B "
+                f"(D={D}, {dtype}, stage={stage})")
+        last = halo
+    smem = max(smem, size(first, start, last))
+    bounds.append(start)
+    if len(bounds) - 1 > MAX_BANDS:
+        raise ValueError(f"the banded route would need {len(bounds) - 1} bands within "
+                         f"{budget} B, over its {MAX_BANDS}")
+    return BandPlan(tuple(bounds), smem, lists)
 
 
 class DValuePlan(NamedTuple):
@@ -516,6 +603,59 @@ class MSDeformAttnMergedSlab:
         return d_value, d_loc, d_attn
 
 
+class MSDeformAttnMergedBanded:
+    """Launches the merged adjoint's banded route (`csrc/ms_deform_attn_bwd.cu`,
+    `ms_deform_attn_merged_banded_kernel`): one block per (b, h) walks the
+    pair's token rows in bands of whole level rows (`plan_merged_bands`
+    within `budget`), sums each band's d_value in an f32 slab in shared
+    memory and writes it once, in the value's dtype, every row (rows past
+    sum(Hl * Wl) exactly 0): no zeroed buffer, no global atomics. A band
+    walks the points of the levels that start in it and, of a level it
+    continues, the points an earlier band handed on to it (its carry list,
+    an int32 scratch this call allocates). `stage` (default: `plan_merged`'s
+    reads rule) stages each band's value rows and halo row.
+
+    Returns what `MSDeformAttnMergedAdjoint` returns. Raises where a band
+    plan does not fit (with its numbers). `launches` counts launches.
+    """
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                 sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+                 dout: torch.Tensor, stage: Optional[bool] = None,
+                 budget: int = SMEM_OPTIN_MAX
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        B, S, Q, H, D, L, P = _check_inputs(value, spatial_shapes, sampling_locations,
+                                            attention_weights, dout)
+        if stage is None:
+            stage = corner_reads_per_token(S, Q, L, P) >= SLAB_MIN_READS
+        plan = plan_merged_bands(spatial_shapes, D, value.dtype, stage, budget)
+        lib = BWD_LIB.build()
+        d_value = torch.empty_like(value)         # every row written by the kernel
+        d_loc = torch.empty_like(sampling_locations)
+        d_attn = torch.empty_like(attention_weights)
+        bounds = (ctypes.c_int * len(plan.bounds))(*plan.bounds)
+        # the carry lists: the points a band hands on to a later band of their level
+        lists = torch.empty(B * H * Q * P * plan.lists, dtype=torch.int32, device=value.device)
+        # 8 channels per lane where D and the pointers allow (2 lanes per point
+        # at D = 16), else 4, else 1: the slab route's
+        vec = next(n for n in (8, 4, 1) if D % n == 0 and all(
+            t.data_ptr() % (n * t.element_size()) == 0 for t in (value, dout)))
+        with torch.cuda.device(value.device):
+            rc = lib.poet_ms_deform_attn_bwd_merged_banded(
+                value.data_ptr(), sampling_locations.data_ptr(),
+                attention_weights.data_ptr(), dout.data_ptr(), d_value.data_ptr(),
+                d_loc.data_ptr(), d_attn.data_ptr(), DTYPE_CODE[value.dtype],
+                B, S, Q, H, D, L, P, level_hw(spatial_shapes), vec, int(stage), bounds,
+                len(plan.bounds) - 1, lists.data_ptr(), lists.numel(), stream_of(value))
+        BWD_LIB.check(rc, "ms_deform_attn_bwd_merged_banded")
+        if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+            self.launches += 1
+        return d_value, d_loc, d_attn
+
+
 MS_DEFORM_ATTN_FWD = MSDeformAttnForward()
 MS_DEFORM_ATTN_FWD_SLAB = MSDeformAttnForwardSlab()
 MS_DEFORM_ATTN_DVALUE = MSDeformAttnDValue()
@@ -525,9 +665,10 @@ MS_DEFORM_ATTN_MERGED_SLAB = MSDeformAttnMergedSlab()
 MS_DEFORM_ATTN_DVALUE_SLAB = MSDeformAttnDValueSlab()
 MS_DEFORM_ATTN_DLOC_SLAB = MSDeformAttnDLoc(BWD_LIB, "poet_ms_deform_attn_bwd_dloc_slab",
                                             slab=True)
+MS_DEFORM_ATTN_MERGED_BANDED = MSDeformAttnMergedBanded()
 KERNELS = (MS_DEFORM_ATTN_FWD, MS_DEFORM_ATTN_DVALUE, MS_DEFORM_ATTN_DLOC,
            MS_DEFORM_ATTN_MERGED, MS_DEFORM_ATTN_FWD_SLAB, MS_DEFORM_ATTN_MERGED_SLAB,
-           MS_DEFORM_ATTN_DVALUE_SLAB, MS_DEFORM_ATTN_DLOC_SLAB)
+           MS_DEFORM_ATTN_DVALUE_SLAB, MS_DEFORM_ATTN_DLOC_SLAB, MS_DEFORM_ATTN_MERGED_BANDED)
 ADJOINTS = ("merged", "pair")
 
 
@@ -542,6 +683,8 @@ def merged_adjoint(value, spatial_shapes, locs, attn, dout):
     plan = _plan_of(plan_merged, value, locs)
     if plan.route == "slab":
         return MS_DEFORM_ATTN_MERGED_SLAB(value, spatial_shapes, locs, attn, dout, plan.stage)
+    if plan.route == "banded":
+        return MS_DEFORM_ATTN_MERGED_BANDED(value, spatial_shapes, locs, attn, dout, plan.stage)
     return MS_DEFORM_ATTN_MERGED(value, spatial_shapes, locs, attn, dout)
 
 

@@ -45,6 +45,8 @@ KERNEL_CLASSES: Tuple[Tuple[str, str], ...] = (
     ("d_loc/d_attn kernel (slab)", r"ms_deform_attn_dloc_slab_kernel<[^,]*GatherRule"),
     ("merged adjoint kernel (atomic)", r"ms_deform_attn_merged_kernel"),
     ("merged adjoint kernel (slab)", r"ms_deform_attn_merged_slab_kernel"),
+    ("merged adjoint kernel (banded)", r"ms_deform_attn_merged_banded_kernel"),
+    ("merged adjoint kernel (banded, ordered)", r"ms_deform_attn_merged_banded_ordered_kernel"),
     ("dense forward kernel", r"ms_deform_attn_dense_fwd_kernel"),
     ("dense adjoint kernel", r"ms_deform_attn_dense_bwd_kernel"),
     ("dense adjoint kernel (d_loc slab)", r"ms_deform_attn_dloc_slab_kernel<[^,]*OneHotRule"),

@@ -425,7 +425,7 @@ def test_slab_wrapper_refuses_cpu_tensors(device):
 
 def test_slab_wrapper_is_a_kernel_of_the_module():
     assert dac.MS_DEFORM_ATTN_DLOC_SLAB in dac.KERNELS
-    assert len(set(map(id, dac.KERNELS))) == len(dac.KERNELS) == 8
+    assert len(set(map(id, dac.KERNELS))) == len(dac.KERNELS) == 9
 
 
 @pytest.mark.parametrize("Q, levels, dtype, want", [
@@ -481,10 +481,10 @@ def test_chip_smoke_launch_plan_counts_the_slab_d_loc(dtype):
 def test_chip_smoke_reports_every_kernel():
     import chip_smoke as cs
 
-    assert cs.KERNEL_KEYS[-2:] == ("d_loc_slab", "dense_dloc_slab")
+    assert cs.KERNEL_KEYS[-3:-1] == ("d_loc_slab", "dense_dloc_slab")
     assert len(cs.all_kernels()) == len(cs.KERNEL_KEYS)
-    assert cs.all_kernels()[-2:] == [dac.MS_DEFORM_ATTN_DLOC_SLAB,
-                                     dense.MS_DEFORM_ATTN_DENSE_DLOC]
+    assert cs.all_kernels()[-3:-1] == [dac.MS_DEFORM_ATTN_DLOC_SLAB,
+                                       dense.MS_DEFORM_ATTN_DENSE_DLOC]
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

@@ -60,13 +60,15 @@ def test_rule_keeps_the_direct_gathers_at_the_decoder(dtype):
 def test_rule_at_the_yolo_pyramid():
     """S=6380: the bf16 value slab fits (204 160 B), the f32 one does not;
     the f32 d_value slab (408 320 B) never does: the merged adjoint takes the
-    atomic route."""
+    banded route in bf16 (its bands' value rows staged at 64 reads per
+    token) and the atomic route in f32."""
     assert dac.plan_forward(6380, 16, torch.bfloat16, 6380, 4, 4) == ("slab", True, 204160)
     assert dac.plan_forward(6380, 16, torch.float32, 6380, 4, 4) == ("direct", False, 0)
     assert dac.plan_forward(6380, 16, torch.bfloat16, 10, 4, 4).route == "direct"
     for dtype in (torch.bfloat16, torch.float32):
         assert dac.merged_slab_bytes(6380, 16, dtype, False) == 408320
-        assert dac.plan_merged(6380, 16, dtype, 6380, 4, 4) == ("atomic", False, 0)
+    assert dac.plan_merged(6380, 16, torch.bfloat16, 6380, 4, 4) == ("banded", True, 0)
+    assert dac.plan_merged(6380, 16, torch.float32, 6380, 4, 4) == ("atomic", False, 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -85,7 +87,11 @@ def test_plan_never_exceeds_the_budget(dtype, D):
             assert (fwd.route == "slab") == (S * D * size <= BUDGET and reads >= 8)
             assert (merged.route == "slab") == (S * D * 4 <= BUDGET)
             staged = -(-S * D * 4 // 16) * 16 + S * D * size
-            assert merged.stage == (merged.route == "slab" and staged <= BUDGET and reads >= 8)
+            if merged.route == "slab":
+                assert merged.stage == (staged <= BUDGET and reads >= 8)
+            else:         # past the slab: bands in bf16, staged by the reads rule
+                assert merged == (("banded", reads >= 8, 0) if dtype == torch.bfloat16
+                                  else ("atomic", False, 0))
 
 
 # ------------------------------------------------------------------ models
@@ -401,7 +407,7 @@ def test_slab_wrappers_refuse_cpu_tensors(kernel, device):
     (1600, FLAGSHIP, torch.bfloat16, "MS_DEFORM_ATTN_FWD_SLAB", ("slab", True)),
     (1600, FLAGSHIP, torch.float32, "MS_DEFORM_ATTN_FWD_SLAB", ("slab", True)),
     (10, FLAGSHIP, torch.bfloat16, "MS_DEFORM_ATTN_FWD", ("slab", False)),
-    (6380, YOLO, torch.bfloat16, "MS_DEFORM_ATTN_FWD_SLAB", ("atomic", None)),
+    (6380, YOLO, torch.bfloat16, "MS_DEFORM_ATTN_FWD_SLAB", ("banded", True)),
     (6380, YOLO, torch.float32, "MS_DEFORM_ATTN_FWD", ("atomic", None)),
 ])
 def test_entry_dispatches_by_the_rule(monkeypatch, Q, levels, dtype, fwd, merged):
@@ -415,6 +421,8 @@ def test_entry_dispatches_by_the_rule(monkeypatch, Q, levels, dtype, fwd, merged
     monkeypatch.setattr(dac, "MS_DEFORM_ATTN_MERGED_SLAB",
                         lambda *a: calls.append(("slab", a[5])))
     monkeypatch.setattr(dac, "MS_DEFORM_ATTN_MERGED", lambda *a: calls.append(("atomic", None)))
+    monkeypatch.setattr(dac, "MS_DEFORM_ATTN_MERGED_BANDED",
+                        lambda *a: calls.append(("banded", a[5])))
     dac.merged_adjoint(value, levels, locs, None, None)
     assert calls == [merged]
 
