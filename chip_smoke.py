@@ -216,8 +216,30 @@ Phases, each raising on failure:
      detector bit-identical; step p50/p95 and device busy ms, the merged
      adjoint's launches per route (the rule's: slab for Mask R-CNN, banded
      for YOLO) and its device ms in the traced step
-     (train_detections_maskrcnn, train_detections_yolov4).
-Phases 4, 7, 10, 13, 16, 17, 20, 23, 24 and 25's paths each set every kernel's launch
+     (train_detections_maskrcnn, train_detections_yolov4);
+ 26. data and data parallel: the JPEG route this machine builds
+     (`native.jpeg_route()`: libjpeg, else nvJPEG) on the committed fixtures
+     (tests/data/jpeg/: 4:4:4, 4:2:0, 4:2:2, gray, progressive, restart
+     markers, odd sizes) against their reference pixels (exact on libjpeg,
+     within JPEG_NVJPEG_MAX_DIFF on nvJPEG), a CMYK file refused, and
+     images/s of the 480x640 fixture on 1 and 4 threads; 'synt' compositing
+     of 8 480x640 RGBA PNGs (encode_png) over the fixtures' reference PNGs
+     (the items' digest the CPU port gives, SYNT_DIGEST) and over their
+     JPEGs (within the route's tolerance of those), ms per item; then data
+     parallel at the paper config, 480x640, B=8 a process: 2 processes on
+     the one card in a gloo group over CUDA tensors (NCCL puts no two
+     processes on one device; `chip_smoke.py --dp-worker`; rank 0 holds the
+     seeded weights, the other takes them by `replicate`), 2 f32 SGD steps
+     with and without ZeRO-1 against one process taking the same shards with
+     the global matched count (DP_SAME_TOL) and, by losses, grad norm and
+     parameters, against one process's step on the 16 images (phase 8's
+     tolerances), bf16 AdamW steps with and without ZeRO-1 (step p50, device
+     busy ms, optimizer state MiB a process, the launches of the route
+     rules), then a one-process NCCL group in this process (its steps, the
+     metric sync on the card, the preemption vote, the pair gather, a rank-0
+     checkpoint), beside one process's bf16 step at B=8: a rehearsal on one
+     card, not a multi-card figure (train_data_parallel: rank 0's launches).
+Phases 4, 7, 10, 13, 16, 17, 20, 23, 24, 25 and 26's paths each set every kernel's launch
 count to 0 before they drive their path and read them after, and hold them
 to the wrappers' route rules (`path_launches`, `roi_launches`; the v2
 kernel, the probes, the merged adjoint's atomic route and RoIAlign's gather
@@ -3938,6 +3960,636 @@ def phase_train_detections(report):
     report["train_detections"] = out
 
 
+# ---------------------------------------------------------------- phase 26
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
+JPEG_NAMES = ("baseline_444_37x53", "baseline_420_37x53", "baseline_422_53x37",
+              "baseline_420_120x160", "gray_37x53", "progressive_420_48x64",
+              "restart_420_64x48")
+# the nvJPEG route against the fixtures' reference pixels (PIL's, = libjpeg's):
+# nvJPEG's IDCT is not libjpeg's ISLOW (the upsampling and colour conversion
+# are libjpeg's, native/jpeg_color.h). The largest difference over the
+# fixtures, measured on the card (NVIDIA H100 80GB HBM3, 700.00 W, CUDA
+# 12.8's nvJPEG 12.4): 3 units, mean 0.013-0.038 by fixture; with nvJPEG's
+# own upsampling and conversion (NVJPEG_OUTPUT_RGBI) it was 37, mean 6.2
+JPEG_NVJPEG_MAX_DIFF = 3
+JPEG_RATE_IMAGES = 64                 # decodes of the 480x640 fixture per rate
+SYNT_IMAGES, SYNT_SEEDS = 8, 3         # 480x640 RGBA renders, items drawn per image
+# sha256 of every composited 'synt' item (uint8) over the fixtures' reference
+# PNGs as backgrounds, SYNT_SEEDS x SYNT_IMAGES, written by the port on the CPU
+SYNT_DIGEST = "0e1a45d847622ef381244652cd5677bae0d8abb1a8a3a6f9d76fac079327bb5e"
+DP_B, DP_RANKS, DP_TIMED_STEPS = 8, 2, 3
+# the group's f32 steps against one process taking the same shards with the
+# global matched count (the same kernels at the same batch, the gradients
+# summed in the same order; cuDNN's weight gradients may use atomics): the
+# losses of both steps; the grad norm of both (the second step starts from
+# weights an ulp apart, where a sampling point near a cell edge may cross
+# it: 7.9e-6 seen); the first step's gradients, relative L2 and max; the
+# parameters after two steps in units of lr (1e-3 of lr is an ulp of an
+# O(1) weight)
+DP_SAME_TOL = (1e-6, 1e-4, 1e-5, 1e-4, 1e-3)
+DP_TIMEOUT_S = 600
+
+
+def synt_dataset(root: str):
+    """A 'train_synt' split of SYNT_IMAGES 480x640 RGBA PNGs (encode_png) under
+    `root`: a seeded field (cli_image), alpha 0 in the left quarter, 255 in
+    the next, a ramp in the rest; 1-3 objects an image. Two background
+    directories beside it, `bg_png` (the fixtures' reference PNGs) and
+    `bg_jpg` (their JPEGs), the same stems."""
+    import shutil
+
+    rng = np.random.default_rng(26)
+    H, W = FLAGSHIP_HW
+    os.makedirs(os.path.join(root, "train", "000001", "rgb"))
+    os.makedirs(os.path.join(root, "annotations"))
+    images, anns = [], []
+    alpha = np.empty((H, W), np.uint8)
+    alpha[:, :W // 4], alpha[:, W // 4:W // 2] = 0, 255
+    alpha[:, W // 2:] = np.linspace(1, 254, W - W // 2).astype(np.uint8)[None]
+    for i in range(SYNT_IMAGES):
+        name = f"000001/rgb/{i:06d}.png"
+        rgba = np.concatenate([cli_image(rng, H, W), alpha[..., None]], axis=2)
+        with open(os.path.join(root, "train", name), "wb") as f:
+            f.write(encode_png(rgba, chunk=1 << 16))
+        images.append({"id": i, "file_name": name, "width": W, "height": H, "type": "synt",
+                       "intrinsics": [1066.778, 0.0, 312.9869, 0.0, 1067.487, 241.3109,
+                                      0.0, 0.0, 1.0]})
+        for _ in range(int(rng.integers(1, 4))):
+            q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+            q *= np.sign(np.diag(r))
+            q[:, 0] *= np.linalg.det(q)
+            anns.append({"id": len(anns), "image_id": i, "iscrowd": 0,
+                         "bbox": [float(rng.uniform(0, 500)), float(rng.uniform(0, 380)),
+                                  float(rng.uniform(40, 140)), float(rng.uniform(40, 100))],
+                         "category_id": int(rng.integers(1, 22)),
+                         "relative_pose": {"position": [float(rng.normal(0, 0.1)),
+                                                        float(rng.normal(0, 0.1)), 1.0],
+                                           "rotation": q.reshape(-1).tolist()}})
+    with open(os.path.join(root, "annotations", "train_synt.json"), "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": []}, f)
+    for kind in ("png", "jpg"):
+        os.makedirs(os.path.join(root, f"bg_{kind}"))
+        for name in JPEG_NAMES:
+            shutil.copy(os.path.join(JPEG_FIXTURES, f"{name}.{kind}"),
+                        os.path.join(root, f"bg_{kind}", f"{name}.{kind}"))
+
+
+def synt_items(root: str, kind: str):
+    """Every composited item of the split over `bg_{kind}` (backgrounds in
+    sorted order, whatever the file system's listing order), item i of
+    seed s drawn with default_rng((s, i)): (H, W, 3) uint8 images, host ms
+    per item."""
+    from poet_tpu_torch.cli import parse_config
+    from poet_tpu_torch.data.dataset import build_dataset
+
+    cfg = parse_config(["--dataset_path", root, "--synt_background",
+                        os.path.join(root, f"bg_{kind}"), "--train_set", "train_synt"])
+    ds = build_dataset("train_synt", cfg)
+    ds.synthetic_background.sort()
+    out, t0 = [], time.perf_counter()
+    for s in range(SYNT_SEEDS):
+        for i in range(len(ds)):
+            img, _ = ds.__getitem__(i, rng=np.random.default_rng((s, i)))
+            out.append(np.rint(np.asarray(img) * 255.0).astype(np.uint8))
+    return out, (time.perf_counter() - t0) / len(out) * 1e3
+
+
+def digest(images) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in images:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def phase_data_jpeg(report):
+    """The JPEG route this machine built, against the committed fixtures;
+    images/s of the 480x640 fixture on 1 and 4 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from poet_tpu_torch import native
+
+    t0 = time.perf_counter()
+    route = native.jpeg_route()
+    t_build = time.perf_counter() - t0
+    if route is None:
+        native.decode_image(b"\xff\xd8\xff")              # raises with the builds' errors
+    version = native._load_jpeg()[1].jpeg_lib_version()
+    diffs = {}
+    for name in JPEG_NAMES:
+        with open(os.path.join(JPEG_FIXTURES, name + ".png"), "rb") as f:
+            want = native.decode_image(f.read()).astype(np.int16)
+        with open(os.path.join(JPEG_FIXTURES, name + ".jpg"), "rb") as f:
+            blob = f.read()
+        got = native.decode_image(blob)
+        rgba = native.decode_image(blob, 4)
+        if got.shape != want.shape or not np.array_equal(rgba[..., :3], got) or \
+                not (rgba[..., 3] == 255).all():
+            raise AssertionError(f"jpeg {name}: shape {got.shape} or RGBA unlike RGB + 255")
+        d = np.abs(got.astype(np.int16) - want)
+        diffs[name] = (int(d.max()), float(d.mean()))
+    worst = max(m for m, _ in diffs.values())
+    limit = 0 if route == "libjpeg" else JPEG_NVJPEG_MAX_DIFF
+    if worst > limit:
+        raise AssertionError(f"jpeg {route}: the fixtures decode up to {worst} units from "
+                             f"their reference pixels (limit {limit}): {diffs}")
+    try:
+        with open(os.path.join(JPEG_FIXTURES, "cmyk_16x16.jpg"), "rb") as f:
+            native.decode_image(f.read())
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"jpeg {route}: a CMYK JPEG decoded (JAX's decoder refuses it)")
+    with open(os.path.join(JPEG_FIXTURES, "background_480x640.jpg"), "rb") as f:
+        blob = f.read()
+    if native.decode_image(blob).shape != (480, 640, 3):
+        raise AssertionError("jpeg: the 480x640 fixture decodes to another shape")
+    rates = {}
+    for threads in (1, 4):
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(native.decode_image, [blob] * threads))       # warm-up
+            t0 = time.perf_counter()
+            list(pool.map(native.decode_image, [blob] * JPEG_RATE_IMAGES))
+            rates[threads] = JPEG_RATE_IMAGES / (time.perf_counter() - t0)
+    report["jpeg"] = {"route": route, "lib_version": version, "build_s": t_build,
+                      "max_diff": worst, "diff_by_fixture": diffs,
+                      "images_per_s": rates[1], "images_per_s_4_threads": rates[4]}
+    log(f"jpeg: route {route} (library version {version}, built in {t_build:.2f} s); "
+        f"{len(JPEG_NAMES)} fixtures (4:4:4, 4:2:0, 4:2:2, gray, progressive, restart markers, "
+        f"odd sizes) within {worst} units of their reference pixels (limit {limit}; max, mean "
+        "by fixture: " + ", ".join(f"{k} {m} {a:.3f}" for k, (m, a) in diffs.items())
+        + f"), CMYK refused; 480x640 decode {rates[1]:.1f} images/s on one thread, "
+        f"{rates[4]:.1f} on 4")
+
+
+def phase_data_synt(report, tmp):
+    """'synt' compositing: the items over PNG backgrounds against the
+    digest the CPU port gives, over the JPEG backgrounds against those."""
+    root = os.path.join(tmp, "synt")
+    synt_dataset(root)
+    png_items, png_ms = synt_items(root, "png")
+    jpg_items, jpg_ms = synt_items(root, "jpg")
+    got = digest(png_items)
+    if got != SYNT_DIGEST:
+        raise AssertionError(f"synt: the items over PNG backgrounds hash to {got}, not "
+                             f"{SYNT_DIGEST}")
+    worst = max(int(np.abs(a.astype(np.int16) - b).max()) for a, b in zip(jpg_items, png_items))
+    limit = 0 if report["jpeg"]["route"] == "libjpeg" else 2 * JPEG_NVJPEG_MAX_DIFF + 1
+    if worst > limit:
+        raise AssertionError(f"synt: over the JPEG backgrounds the items lie {worst} units "
+                             f"from those over the PNGs (limit {limit})")
+    report["synt"] = {"ms_per_image_png_bg": png_ms, "ms_per_image_jpg_bg": jpg_ms,
+                      "jpg_vs_png_max_diff": worst}
+    log(f"synt: {len(png_items)} composited 480x640 items ({SYNT_IMAGES} RGBA renders x "
+        f"{SYNT_SEEDS} seeds) over the fixtures' PNGs hash to the CPU port's digest; over "
+        f"their JPEGs ({report['jpeg']['route']}) within {worst} units (limit {limit}); "
+        f"{png_ms:.2f} ms per item (PNG backgrounds), {jpg_ms:.2f} ms (JPEG), one thread")
+
+
+def dp_config(dtype: str, zero: bool):
+    """Phase 26's configs: the paper config; f32 with SGD and dropout 0 for the
+    check, bf16 with AdamW and dropout 0.1 for the rehearsal timing."""
+    cfg = train_config(dtype, "merged")
+    cfg.runtime.zero_opt_state = zero
+    if dtype == "float32":
+        cfg.model.dropout, cfg.optim.sgd = 0.0, True
+    return cfg
+
+
+def dp_model(cfg, state=None):
+    """The paper model of `cfg` on the CPU holding `state` (phase 26's seeded
+    weights; None: torch's default init, for a process that takes rank 0's);
+    at f32 its offset kernels moved off the cell edges, as phase 8's."""
+    import torch
+
+    from poet_tpu_torch.models import build_model
+
+    model = build_model(cfg)
+    if state is not None:
+        model.load_state_dict(state)
+    if cfg.model.dtype == "float32":
+        g = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("sampling_offsets.weight"):
+                    p.normal_(0.0, 0.02, generator=g)
+    return model
+
+
+def dp_batches(rows: slice, rotations=None):
+    """`rows` of each of two global batches of DP_B x DP_RANKS images; with
+    `rotations` (a .npz of the global batches' target rotations) those
+    targets."""
+    from poet_tpu_torch.flagship import flagship_batch
+
+    out = []
+    for s, seed in enumerate((0, 1)):
+        images, pad_mask, t = flagship_batch(DP_B * DP_RANKS, *FLAGSHIP_HW, seed=seed)
+        if rotations is not None:
+            with np.load(rotations) as z:
+                t = dict(t, relative_rotation=z[f"batch{s}"])
+        out.append((images[rows], pad_mask[rows], {k: v[rows] for k, v in t.items()}))
+    return out
+
+
+def rank_rows(rank: int) -> slice:
+    return slice(rank * DP_B, (rank + 1) * DP_B)
+
+
+def midpoint_rotations(model, batch):
+    """The batch's target rotations with each valid query's the geodesic
+    midpoint of the first and last decoder layers' predicted rotations (an
+    f32 forward on the card, TF32 off): the geodesic loss's arccos is
+    ill-conditioned as a pair's angle nears pi, where the flagship batch's
+    uniform rotations put some pair, and two orders of the same f32 sums
+    then part by more than the tolerance (tests/test_torch_variants.py,
+    tests/test_torch_ddp.py do the same)."""
+    import copy
+
+    import torch
+    from scipy.spatial.transform import Rotation
+
+    images, pad_mask, targets = batch
+    with torch.no_grad(), tf32_off():
+        m = copy.deepcopy(model).to(DEVICE).eval()
+        rot = m(torch.from_numpy(images).to(DEVICE), torch.from_numpy(pad_mask).to(DEVICE),
+                {k: torch.from_numpy(v).to(DEVICE) for k, v in targets.items()})["rotations"]
+    rot = rot.double().cpu().numpy()
+    first, last = rot[0], rot[-1]
+    half = Rotation.from_rotvec(Rotation.from_matrix(
+        np.swapaxes(first, -1, -2).reshape(-1, 3, 3) @ last.reshape(-1, 3, 3)).as_rotvec() / 2)
+    mid = (first.reshape(-1, 3, 3) @ half.as_matrix()).reshape(first.shape)
+    valid = np.arange(first.shape[1])[None, :] < targets["n_boxes"][:, None]
+    return np.where(valid[..., None, None], mid, targets["relative_rotation"]).astype(np.float32)
+
+
+def dp_f32_steps(cfg, model, batches):
+    """Two f32 steps on the card, TF32 off: (metrics per step, the first
+    update's gradients by name, the parameters after the second, on the CPU)."""
+    from poet_tpu_torch.engine.train import (
+        fetch_metrics,
+        make_optimizer,
+        make_train_step,
+        prepare_batch,
+    )
+
+    model = model.to(DEVICE)
+    opt = make_optimizer(cfg, model, steps_per_epoch=1000)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    grads, update = {}, opt.step
+
+    def step_and_record():
+        if not grads:
+            grads.update({n: g.detach().double().cpu() for n, g in zip(names, opt.grads())})
+        return update()
+
+    opt.step = step_and_record
+    step = make_train_step(model, cfg, opt)
+    with tf32_off():
+        metrics = [fetch_metrics(step(*prepare_batch(cfg, *b, DEVICE), None)) for b in batches]
+    params = {n: p.detach().double().cpu() for n, p in model.named_parameters()
+              if p.requires_grad}
+    return metrics, grads, params
+
+
+def dp_shard_steps(cfg, model, shards):
+    """One process taking each of two f32 steps as the data-parallel group
+    does, without its collectives: each shard (a process's DP_B images)
+    through the loss with the matched count of all of them, the gradients
+    summed (autograd accumulates), the losses summed, then the clip and the
+    update; TF32 off. Returns dp_f32_steps's triple."""
+    import torch
+
+    from poet_tpu_torch.engine.train import (
+        global_norm,
+        make_loss_fn,
+        make_optimizer,
+        prepare_batch,
+    )
+
+    model = model.to(DEVICE).to(memory_format=torch.channels_last).train()
+    opt = make_optimizer(cfg, model, steps_per_epoch=1000)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    metrics, grads = [], {}
+    with tf32_off():
+        for step in range(len(shards[0])):
+            prepared = [prepare_batch(cfg, *shard[step], DEVICE) for shard in shards]
+            count = sum(p[3].num_matched for p in prepared)
+            loss_fn = make_loss_fn(model, cfg, count=lambda match: count)
+            opt.zero_grad()
+            sums = {}
+            for p in prepared:
+                total, losses = loss_fn(*p, None)
+                total.backward()
+                for k, v in dict(losses, loss=total).items():
+                    sums[k] = sums[k] + v.detach() if k in sums else v.detach()
+            if not grads:
+                grads = {n: g.detach().double().cpu() for n, g in zip(names, opt.grads())}
+            sums["grad_norm"] = global_norm(opt.grads())
+            metrics.append({k: float(v) for k, v in sums.items()})
+            opt.step()
+    params = {n: p.detach().double().cpu() for n, p in model.named_parameters()
+              if p.requires_grad}
+    return metrics, grads, params
+
+
+def dp_compare(got, want, lr):
+    """The largest relative errors of a data-parallel run's (metrics, grads,
+    params) against a reference's: losses, grad norm, each gradient's L2 and
+    max (and which tensor), the parameters in units of lr."""
+    (gm, gg, gp), (wm, wg, wp) = got, want
+    errs = {"loss": 0.0, "grad_norm": 0.0, "grad_l2": 0.0, "grad_max": 0.0, "param": 0.0}
+    for g, w in zip(gm, wm):
+        errs["loss"] = max([errs["loss"]] + [abs(g[k] - v) / max(abs(v), 1e-12)
+                                             for k, v in w.items() if k != "grad_norm"])
+        errs["grad_norm"] = max(errs["grad_norm"], abs(g["grad_norm"] / w["grad_norm"] - 1))
+    floor = GRAD_FLOOR * max(float(v.abs().max()) for v in wg.values())
+    for n, ref in wg.items():
+        d = gg[n] - ref
+        l2 = float(d.norm()) / (float(ref.norm()) + floor)
+        mx = float(d.abs().max()) / (float(ref.abs().max()) + floor)
+        if l2 > errs["grad_l2"]:
+            errs["grad_l2"], errs["grad_l2_at"] = l2, n
+        if mx > errs["grad_max"]:
+            errs["grad_max"], errs["grad_max_at"] = mx, n
+    errs["param"] = max(float((gp[n] - v).abs().max()) for n, v in wp.items()) / lr
+    return errs
+
+
+def dp_hold(label, errs, tol, grads=True):
+    """Raise where an error of dp_compare passes its tolerance
+    (loss, grad_norm, grad_l2, grad_max, param); `grads=False` holds the
+    metrics and parameters only."""
+    keys = ("loss", "grad_norm", "grad_l2", "grad_max", "param")
+    over = [k for k, t in zip(keys, tol) if (grads or k not in ("grad_l2", "grad_max"))
+            and errs[k] > t]
+    if over:
+        raise AssertionError(f"data parallel {label}: {over} over {dict(zip(keys, tol))}: "
+                             f"{errs}")
+
+
+def dp_bf16_steps(cfg, model, rank):
+    """The rehearsal timing: 2 warm-up and DP_TIMED_STEPS timed bf16 steps
+    (host clock, ended by fetching the metrics), then one traced step;
+    the launches of the timed and traced steps held to the route rules."""
+    import torch
+
+    from poet_tpu_torch.engine.train import (
+        fetch_metrics,
+        make_optimizer,
+        make_train_step,
+        prepare_batch,
+    )
+    from poet_tpu_torch.parallel.zero import opt_state_bytes_per_device
+
+    model = model.to(DEVICE)
+    opt = make_optimizer(cfg, model, steps_per_epoch=1000)
+    step = make_train_step(model, cfg, opt)
+    gen = torch.Generator(device=DEVICE).manual_seed(rank)
+    batch = dp_batches(rank_rows(rank))[0]
+    fetch_metrics(step(*prepare_batch(cfg, *batch, DEVICE), gen))        # warm-up
+    torch.cuda.synchronize()
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    times, history = [], []
+    for _ in range(DP_TIMED_STEPS):
+        t0 = time.perf_counter()
+        history.append(fetch_metrics(step(*prepare_batch(cfg, *batch, DEVICE), gen)))
+        times.append(time.perf_counter() - t0)
+    busy, _ = profiled_busy_ms(lambda: history.append(fetch_metrics(
+        step(*prepare_batch(cfg, *batch, DEVICE), gen))), 1)
+    launches = [k.launches for k in kernels]
+    want = expected(**path_launches(cfg, FLAGSHIP_S, DP_TIMED_STEPS + 1, train=True))
+    if launches != want:
+        raise AssertionError(f"data parallel: launches {launches}, expected {want}")
+    if not all(np.isfinite(list(m.values())).all() for m in history):
+        raise AssertionError(f"data parallel: non-finite metrics {history}")
+    return {"p50_ms": float(np.median(times)) * 1e3, "step_ms": [t * 1e3 for t in times],
+            "busy_ms": busy, "launches": launches, "loss": [m["loss"] for m in history],
+            "opt_state_mib": opt_state_bytes_per_device(opt) / 2 ** 20}
+
+
+def dp_worker(rank: int, world: int, port: int, out: str) -> int:
+    """One process of phase 26's gloo group of `world` over CUDA tensors on
+    the one card: rank 0 holds the seeded weights (`dp_weights.pt`), the
+    others torch's default init until `replicate`; then the f32 check's two
+    steps with and without ZeRO-1 and the bf16 timing of each."""
+    import copy
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from poet_tpu_torch.engine.train import make_optimizer
+    from poet_tpu_torch.parallel import mesh
+    from poet_tpu_torch.parallel.zero import ZeroOptimizer
+
+    torch.cuda.set_device(0)
+    # a peer that fails ends the others' collectives within the timeout
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=DP_TIMEOUT_S // 4))
+    seeded = torch.load(os.path.join(out, "dp_weights.pt"), weights_only=True)
+    models = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dp_config(dtype, False)
+        models[dtype] = mesh.replicate(dp_model(cfg, seeded if rank == 0 else None))
+        want = dp_model(cfg, seeded).state_dict()
+        if any(not torch.equal(v, want[k]) for k, v in models[dtype].state_dict().items()):
+            raise AssertionError(f"rank {rank}: replicate did not give rank 0's weights")
+    result = {}
+    batches = dp_batches(rank_rows(rank), os.path.join(out, "dp_rotations.npz"))
+    for zero in (False, True):
+        result[f"f32_zero{int(zero)}"] = dp_f32_steps(
+            dp_config("float32", zero), copy.deepcopy(models["float32"]), batches)
+    for zero in (False, True):
+        cfg = dp_config("bfloat16", zero)
+        if isinstance(make_optimizer(cfg, copy.deepcopy(models["bfloat16"]), 1000),
+                      ZeroOptimizer) != zero:
+            raise AssertionError(f"data parallel: zero={zero} built the other optimizer")
+        result[f"bf16_zero{int(zero)}"] = dp_bf16_steps(cfg, copy.deepcopy(models["bfloat16"]),
+                                                        rank)
+        torch.cuda.empty_cache()
+    if rank == 0:
+        torch.save(result, os.path.join(out, "dp_gloo.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_nccl(model, out):
+    """A one-process NCCL group in this process: bf16 steps through the
+    group's collectives (sums over one process), the metric sync on the
+    card, the preemption vote, the pair gather and a rank-0 checkpoint; the
+    group is destroyed after."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from poet_tpu_torch.engine.checkpoint import save_checkpoint
+    from poet_tpu_torch.engine.evaluate import gather_pairs_across_hosts
+    from poet_tpu_torch.engine.metrics import SmoothedValue
+    from poet_tpu_torch.parallel import mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", 0))
+    try:
+        cfg = dp_config("bfloat16", False)
+        stats = dp_bf16_steps(cfg, model, 0)
+        v = SmoothedValue()
+        v.update(2.0, n=3)
+        if mesh.collective_device().type != "cuda":
+            raise AssertionError("nccl: the metric sync would reduce on the CPU")
+        v.synchronize_between_processes()
+        if (v.count, v.total) != (3, 6.0):
+            raise AssertionError(f"nccl: the metric sync gave {(v.count, v.total)}")
+        if mesh.any_process(False) or not mesh.any_process(True):
+            raise AssertionError("nccl: the preemption vote is wrong")
+        if gather_pairs_across_hosts([{"image_id": 7}]) != [{"image_id": 7}]:
+            raise AssertionError("nccl: the pair gather changed the pairs")
+        if not os.path.isfile(save_checkpoint(out, "dp_nccl.pth", model, None, 0, 1, cfg)):
+            raise AssertionError("nccl: rank 0 wrote no checkpoint")
+    finally:
+        dist.destroy_process_group()
+    return stats
+
+
+def run_dp_workers(world: int, out: str):
+    """`world` processes of dp_worker; each joined within DP_TIMEOUT_S and
+    killed after it. Returns rank 0's results."""
+    import socket
+
+    import torch
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                               "--dp-worker", str(r), str(world), str(port), out],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs, late = [], False
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                late = True
+                for q in procs:
+                    q.kill()
+                outs.append(p.communicate()[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    if late:
+        raise AssertionError(f"data parallel (gloo): a process did not finish in "
+                             f"{DP_TIMEOUT_S} s:\n" + "\n".join(o[-3000:] for o in outs))
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"data parallel (gloo) rank {r} exited {p.returncode}:\n"
+                                 f"{text[-4000:]}")
+    return torch.load(os.path.join(out, "dp_gloo.pt"), weights_only=False)
+
+
+def phase_data_parallel(report, tmp):
+    """Two processes on the one card in a gloo group (NCCL puts no two
+    processes on one device), then a one-process NCCL group; one process's
+    f32 steps on the same 16 images and its bf16 step at the same per-process
+    batch beside them."""
+    import copy
+
+    import torch
+
+    from poet_tpu_torch.flagship import flagship_batch
+    from poet_tpu_torch.models import build_model
+    from poet_tpu_torch.utils.init import init_weights
+
+    out = os.path.join(tmp, "dp")
+    os.makedirs(out)
+    cfg32, cfg16 = dp_config("float32", False), dp_config("bfloat16", False)
+    seeded = init_weights(build_model(cfg32), seed=0).state_dict()
+    torch.save(seeded, os.path.join(out, "dp_weights.pt"))
+    model32 = dp_model(cfg32, seeded)
+    one = [flagship_batch(DP_B * DP_RANKS, *FLAGSHIP_HW, seed=seed) for seed in (0, 1)]
+    rotations = {f"batch{s}": midpoint_rotations(model32, b) for s, b in enumerate(one)}
+    np.savez(os.path.join(out, "dp_rotations.npz"), **rotations)
+    one = dp_batches(slice(None), os.path.join(out, "dp_rotations.npz"))
+    want = dp_f32_steps(cfg32, copy.deepcopy(model32), one)
+    shards = [dp_batches(rank_rows(r), os.path.join(out, "dp_rotations.npz"))
+              for r in range(DP_RANKS)]
+    same = dp_shard_steps(cfg32, copy.deepcopy(model32), shards)
+    del model32
+    model16 = dp_model(cfg16, seeded)
+    single, _, _, _ = drive_train("single process B=8", cfg16,
+                                  copy.deepcopy(model16).to(DEVICE),
+                                  dp_batches(rank_rows(0))[0], DP_TIMED_STEPS,
+                                  path_launches(cfg16, FLAGSHIP_S, 1, train=True))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gloo = run_dp_workers(DP_RANKS, out)
+    t_gloo = time.perf_counter() - t0
+    errs, errs16 = {}, {}
+    for z in (0, 1):
+        got = gloo[f"f32_zero{z}"]
+        errs[z] = dp_compare(got, same, cfg32.optim.lr)
+        dp_hold(f"f32 zero={bool(z)} against one process's shard steps", errs[z], DP_SAME_TOL)
+        errs16[z] = dp_compare(got, want, cfg32.optim.lr)
+        dp_hold(f"f32 zero={bool(z)} against one process's 16-image steps", errs16[z],
+                (TRAIN_F32_LOSS_RTOL, TRAIN_F32_L2_RTOL, None, None, 1e-3), grads=False)
+    t0 = time.perf_counter()
+    nccl = dp_nccl(model16, out)
+    t_nccl = time.perf_counter() - t0
+    r = {"single": single, "gloo": gloo["bf16_zero0"], "gloo_zero": gloo["bf16_zero1"],
+         "nccl": nccl, "f32_errors": errs, "f32_errors_16": errs16,
+         "gloo_call_s": t_gloo,
+         "nccl_call_s": t_nccl}
+    report["data_parallel"] = r
+    report["dp_launches"] = gloo["bf16_zero0"]["launches"]
+    e0, e1, g0 = errs[0], errs[1], errs16[0]
+    log(f"data parallel (paper config, {FLAGSHIP_HW[0]}x{FLAGSHIP_HW[1]}, B={DP_B} a process): "
+        f"{DP_RANKS} processes in a gloo group on the one card, f32 SGD 2 steps (TF32 off) "
+        f"against one process taking the same shards with the global matched count: losses "
+        f"{e0['loss']:.2e}, grad norm {e0['grad_norm']:.2e}, gradients relative L2 "
+        f"{e0['grad_l2']:.2e} / max {e0['grad_max']:.2e}, parameters {e0['param']:.2e} lr; "
+        f"with ZeRO-1 {e1['loss']:.2e}, {e1['grad_norm']:.2e}, {e1['grad_l2']:.2e} / "
+        f"{e1['grad_max']:.2e}, {e1['param']:.2e} lr (tolerances {DP_SAME_TOL}); against one "
+        f"process's step on the {DP_B * DP_RANKS} images at once: losses {g0['loss']:.2e}, grad "
+        f"norm {g0['grad_norm']:.2e}, parameters {g0['param']:.2e} lr (phase 8's "
+        f"{TRAIN_F32_LOSS_RTOL}, {TRAIN_F32_L2_RTOL}, 1e-3 lr), gradients L2 "
+        f"{g0['grad_l2']:.2e} ({g0.get('grad_l2_at')}) / max {g0['grad_max']:.2e} (reported: "
+        f"B=8 and B=16 round differently, and d_loc jumps where a point crosses a cell "
+        f"edge) | bf16 AdamW step p50 (host clock) / device busy ms, "
+        f"a rehearsal on one card and not a multi-card figure: one process "
+        f"{single['p50_ms']:.1f} / {single['busy_ms']:.2f}; gloo x{DP_RANKS} "
+        f"{r['gloo']['p50_ms']:.1f} / {r['gloo']['busy_ms']:.2f} (optimizer state "
+        f"{r['gloo']['opt_state_mib']:.1f} MiB a process); with ZeRO-1 "
+        f"{r['gloo_zero']['p50_ms']:.1f} / {r['gloo_zero']['busy_ms']:.2f} "
+        f"({r['gloo_zero']['opt_state_mib']:.1f} MiB); one-process NCCL group "
+        f"{r['nccl']['p50_ms']:.1f} / {r['nccl']['busy_ms']:.2f}, metric sync on the card, "
+        f"rank-0 checkpoint | launches per process {LAUNCH_NAMES} {r['gloo']['launches']} "
+        f"over {DP_TIMED_STEPS + 1} steps | gloo workers {t_gloo:.1f} s, NCCL group "
+        f"{t_nccl:.1f} s")
+
+
+def phase_data(report):
+    """Phase 26: data and data parallel (see the module docstring), in a
+    temporary directory removed afterwards."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="poet_data_") as tmp:
+        phase_data_jpeg(report)
+        phase_data_synt(report, tmp)
+        phase_data_parallel(report, tmp)
+    log(f"phase 26 in {time.perf_counter() - t0:.1f} s")
+
+
 def build_kernels():
     from poet_tpu_torch.ops.deform_attn_cuda import LIBRARIES, build_all
 
@@ -3954,10 +4606,13 @@ def build_kernels():
 
 def main(argv) -> int:
     only = None
+    if argv[:1] == ["--dp-worker"] and len(argv) == 5:     # phase 26's processes
+        sys.path.insert(0, ROOT)
+        return dp_worker(int(argv[1]), int(argv[2]), int(argv[3]), argv[4])
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = {int(n) for n in argv[1].split(",")}
     elif argv:
-        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-25; 1-2 always run)",
+        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-26; 1-2 always run)",
               file=sys.stderr)
         return 2
     try:
@@ -3995,10 +4650,10 @@ def main(argv) -> int:
               19: lambda: phase_dense(report), 20: lambda: phase_paths(report),
               21: lambda: phase_v2(report), 22: lambda: phase_probes(report),
               23: lambda: phase_cli(report), 24: lambda: phase_variants(report),
-              25: lambda: phase_train_detections(report)}
+              25: lambda: phase_train_detections(report), 26: lambda: phase_data(report)}
     spans = []
     for first, last in ((3, 8), (9, 11), (12, 14), (15, 17), (18, 20), (21, 22), (23, 23),
-                        (24, 25)):
+                        (24, 25), (26, 26)):
         t0 = time.perf_counter()
         for n in range(first, last + 1):
             if only is None or n in only:
@@ -4029,7 +4684,8 @@ def main(argv) -> int:
              "train_variants": report["train_variants_launches"],
              "train_calibrate": report["train_calibrate_launches"],
              "train_detections_maskrcnn": report["train_detections_maskrcnn_launches"],
-             "train_detections_yolov4": report["train_detections_yolov4_launches"]}
+             "train_detections_yolov4": report["train_detections_yolov4_launches"],
+             "train_data_parallel": report["dp_launches"]}
     roi, nn = report["roi"], report["nn"]
     errs, bounds = report["adjoint_max_abs_err"], report["adjoint_bounds"]
     src, tpu = "poet_tpu_torch/csrc/", "poet_tpu/ops/deform_attn_pallas_v3.py:"
@@ -4247,11 +4903,12 @@ def main(argv) -> int:
          **launched("fwd_slab"), "max_abs_err": report["max_abs_err"],
          **timed(fwd_enc["slab"], fwd_enc["plain"], fwd_enc["bound"]),
          "direct_ms": fwd_enc["direct"], "yolo_ms": fwd_yolo.get("slab"),
-         "yolo_direct_ms": fwd_yolo["direct"],
+         "yolo_direct_ms": fwd_yolo["direct"], "yolo_bound_ms": fwd_yolo["bound"][0],
          "crossover_ms": {q: [c["direct"], c["slab"]] for q, c in
                           report["fwd_crossover"].items()},
          "ms_are": "the encoder shape (B=16, Q=S=1600, H=16, D=16, L=P=4), bf16; direct_ms: "
-                   "the direct route there, same call; yolo: B=16, Q=S=6380; crossover_ms: "
+                   "the direct route there, same call; yolo: B=16, Q=S=6380 (its bound the "
+                   "bytes: value rows under the corners, loc, attn, out); crossover_ms: "
                    "[direct, slab] by Q at S=1600"},
         {"name": "ms_deform_attn_bwd_merged_slab", "route": "cuda",
          "source": src + "ms_deform_attn_bwd.cu", "replaces": tpu + "341",

@@ -12,17 +12,30 @@ eval interval, NaN gate and SIGTERM checkpoint. It runs on the card
 (`--device cuda`, the default) and raises without one, unless the caller
 asks for the CPU (`--device cpu`).
 
-Every model and optimizer flag of `poet_tpu.cli` that runs on one device
-runs here: the learned query embedding, reference points and position
-embedding, `--aleatoric` (and `--calibrate`, which trains only its heads),
-`--mu_bf16`, and training with `--bbox_mode backbone` (Mask R-CNN or
-YOLOv4-CSP detections matched in the step). Flags of features the port
-does not have yet raise when set away from their default, naming their
-ROADMAP item: `--export_model` (A.2's export twin), `--mesh_data`,
-`--zero_opt_state` (A.6); `--synt_background` and a JPEG dataset raise in
-the data pipeline (A.1). The TPU runtime's flags (`--export_platforms`,
-`--rng_impl`, `--xla_cache_dir`, `--enc_remat`) and the reference's
-torch-distributed flags are accepted and ignored, with one warning line.
+Every model, optimizer and data flag of `poet_tpu.cli` runs here: the
+learned query embedding, reference points and position embedding,
+`--aleatoric` (and `--calibrate`, which trains only its heads), `--mu_bf16`,
+training with `--bbox_mode backbone` (Mask R-CNN or YOLOv4-CSP detections
+matched in the step), PNG and JPEG datasets, and `--synt_background` ('synt'
+RGBA images composited onto random backgrounds).
+
+Data parallel (`parallel/mesh.py`): one process per card,
+
+    torchrun --nproc_per_node N -m poet_tpu_torch.cli --mesh_data N [--zero_opt_state] ...
+
+each process loading `--batch_size` images of its shard (the global batch
+is batch_size x N, JAX's multi-process rule and the reference's DDP rule),
+seeded `--seed` + rank; the step sums the gradients of the global batch's
+loss over the processes (`engine/train.py`); `--zero_opt_state` shards the
+optimizer state (ZeRO-1, `parallel/zero.py`; a no-op over one process);
+rank 0 writes the checkpoints, log.txt and the evaluation's files.
+`--mesh_data` must be -1 or the number of processes started.
+
+`--export_model` (A.2's export twin) is not ported and raises, naming its
+ROADMAP item. The TPU runtime's flags (`--export_platforms`, `--rng_impl`,
+`--xla_cache_dir`, `--enc_remat`) and the reference's torch-distributed
+flags (the process group comes from torchrun's environment) are accepted
+and ignored, with one warning line.
 """
 
 from __future__ import annotations
@@ -161,11 +174,12 @@ def get_args_parser():
         p.add_argument(flag, default=None, type=int, help="accepted and ignored")
     p.add_argument("--distributed", action="store_true", help="accepted and ignored")
     p.add_argument("--mesh_data", default=-1, type=int,
-                   help="devices on the data axis; not ported yet (ROADMAP A.6)")
+                   help="processes on the data axis (-1: all that torchrun started; one "
+                        "process per card)")
     p.add_argument("--grad_accum_steps", default=1, type=int,
                    help="micro-batches averaged per optimizer update")
     p.add_argument("--zero_opt_state", action="store_true",
-                   help="ZeRO-1 sharded AdamW moments; not ported yet (ROADMAP A.6)")
+                   help="ZeRO-1: the optimizer state sharded over the data-parallel processes")
     p.add_argument("--mu_bf16", action="store_true",
                    help="bfloat16 AdamW first moment (the second stays float32)")
     p.add_argument("--dtype", default="float32", type=str)
@@ -248,9 +262,7 @@ def args_to_config(args) -> PoETConfig:
 
 # flag -> (its config value, its default, the ROADMAP item that ports it)
 def _unported(cfg):
-    return (("--export_model", cfg.runtime.export_model, None, "A.2 (the export twin)"),
-            ("--mesh_data", cfg.runtime.mesh_data, -1, "A.6"),
-            ("--zero_opt_state", cfg.runtime.zero_opt_state, False, "A.6"))
+    return (("--export_model", cfg.runtime.export_model, None, "A.2 (the export twin)"),)
 
 
 def check_ported(cfg) -> None:
@@ -273,14 +285,18 @@ def warn_ignored_flags(args) -> None:
     set_flags = [f"--{k}" for k, d in IGNORED_FLAGS.items() if getattr(args, k, d) != d]
     if set_flags:
         print(f"note: {', '.join(set_flags)} ignored (TPU runtime and torch-distributed "
-              f"flags have no effect in the port)")
+              f"flags have no effect in the port: its process group comes from torchrun's "
+              f"environment)")
 
 
 def resolve_device(name: str):
-    """The port's device; 'cuda' without a card raises (no silent CPU run)."""
+    """The port's device (`cuda:LOCAL_RANK` for 'cuda'); 'cuda' without a
+    card raises (no silent CPU run)."""
     import torch
 
-    dev = torch.device(name)
+    from poet_tpu_torch.parallel.mesh import local_device
+
+    dev = local_device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available; pass --device cpu "
                            "to run the port on the CPU")
@@ -342,13 +358,23 @@ def main(cfg: PoETConfig):
     )
     from poet_tpu_torch.evaluation.pose_evaluator import build_pose_evaluator
     from poet_tpu_torch.models import build_model
+    from poet_tpu_torch.parallel import mesh
     from poet_tpu_torch.utils.init import init_weights
-    from poet_tpu_torch.utils.misc import get_rank, get_sha, is_main_process, save_on_master
+    from poet_tpu_torch.utils.misc import get_rank, get_sha
 
     check_ported(cfg)
     dev = resolve_device(cfg.runtime.device)
+    # the process group torchrun describes (WORLD_SIZE > 1), or one the caller made
+    mesh.init_distributed(dev.type)
+    rank, world = get_rank(), mesh.world_size()
+    n_data = mesh.data_axis_size(cfg.runtime.mesh_data, cfg.optim.batch_size,
+                                 cfg.optim.eval_batch_size)
     print(f"git:\n  {get_sha()}\n")             # the reference's main.py:195
-    seed = cfg.runtime.seed + get_rank()        # per-process offset (main.py:198-202)
+    if world > 1:
+        print(f"data parallel: rank {rank} of {n_data} on {dev}, global batch "
+              f"{cfg.optim.batch_size * world}"
+              + (", ZeRO-1 optimizer state" if cfg.runtime.zero_opt_state else ""))
+    seed = cfg.runtime.seed + rank              # per-process offset (main.py:198-202)
     np.random.seed(seed)
     torch.manual_seed(seed)
 
@@ -372,15 +398,16 @@ def main(cfg: PoETConfig):
             print("Unexpected Keys:", unexpected)
         if not cfg.runtime.eval:
             cfg.runtime.start_epoch = start_epoch
+    mesh.replicate(model)               # rank 0's weights (each rank seeded its own)
 
-    if cfg.runtime.inference:
-        return inference(model, cfg, device=dev)
+    if cfg.runtime.inference:            # one image directory, one results.json: rank 0
+        return inference(model, cfg, device=dev) if rank == 0 else None
 
     def make_loader(split, batch_size, shuffle, device_put_fn=None):
         return PoseDataLoader(
             build_dataset(split, cfg), batch_size=batch_size,
             num_queries=cfg.model.num_queries, shuffle=shuffle, drop_last=shuffle,
-            seed=cfg.runtime.seed, process_index=get_rank(),
+            seed=cfg.runtime.seed, process_index=rank, process_count=world,
             num_workers=cfg.data.num_workers or 4,
             with_jitter=(cfg.model.bbox_mode == "jitter"),
             device_put_fn=device_put_fn, pad_to_full_batch=not shuffle, alloc=alloc)
@@ -468,12 +495,13 @@ def main(cfg: PoETConfig):
                     consume_metrics(*pending)
                 pending = (metrics, host_step)
                 host_step += 1
-                if preempted["flag"]:
+                # every process stops at the same step (their collectives pair up)
+                if mesh.any_process(preempted["flag"]):
                     consume_metrics(*pending)
                     pending = None
                     if output_dir:
-                        save_on_master(save_checkpoint, str(output_dir), "checkpoint.pth",
-                                       model, optimizer, epoch - 1, host_step, cfg)
+                        save_checkpoint(str(output_dir), "checkpoint.pth", model, optimizer,
+                                        epoch - 1, host_step, cfg)
                     print(f"preempted at epoch {epoch} step {host_step}: "
                           "checkpoint written, exiting cleanly")
                     return {"model": model, "optimizer": optimizer,
@@ -488,17 +516,17 @@ def main(cfg: PoETConfig):
                 prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
                 prof = None
 
-            if output_dir and is_main_process():
-                for name in checkpoint_paths_for_epoch(str(output_dir), epoch, cfg):
-                    save_checkpoint(str(output_dir), name, model, optimizer, epoch, host_step,
-                                    cfg)
+            if output_dir:               # every process: a ZeRO-1 state is gathered
+                save_checkpoint(str(output_dir),
+                                checkpoint_paths_for_epoch(str(output_dir), epoch, cfg),
+                                model, optimizer, epoch, host_step, cfg)
             if epoch % cfg.eval.eval_interval == 0:
                 # pose_evaluate moves the model to `dev` (channels_last on the
                 # card) and leaves it there; the parameters stay the same
                 # objects, so the optimizer and the train step keep them
                 pose_evaluate(model, evaluator, loader_val, cfg, cfg.data.eval_set, epoch,
                               output_dir=out, device=dev)
-            if output_dir and is_main_process():
+            if output_dir and rank == 0:
                 log_stats = {f"train_{k}": mt.global_avg for k, mt in logger.meters.items()}
                 log_stats.update(epoch=epoch, n_parameters=n_params)
                 with (output_dir / "log.txt").open("a") as f:

@@ -20,9 +20,10 @@ instead of two, the port's default (JAX's is the two-kernel adjoint).
 `enc_remat` has no counterpart: the port's autograd
 Functions save only their inputs, so there is nothing to rematerialize.
 `lr_backbone_names`, `aux_loss`, the legacy matcher's type and GIoU cost
-and the TPU runtime's fields (`export_platforms`, `mesh_data`,
-`zero_opt_state`, `rng_impl`, `xla_cache_dir`, `donate_step`) are kept for
-the CLI's flags and the checkpoints' config echo; the detector backbone is
+and the TPU runtime's fields (`export_platforms`, `rng_impl`,
+`xla_cache_dir`, `donate_step`) are kept for the CLI's flags and the
+checkpoints' config echo (`mesh_data` and `zero_opt_state` are read by the
+data-parallel CLI, `parallel/`); the detector backbone is
 frozen by its module name, every layer's loss is always taken and only the
 pose matcher is ported. `runtime.device` is the port's own: where the CLI
 runs ('cuda' unless the caller asks for 'cpu').

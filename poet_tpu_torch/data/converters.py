@@ -84,7 +84,7 @@ def convert_bop_to_poet(
     (the reference hardcodes 640x480, ycbv2poet.py:158-180).
     """
     if image_size is None:
-        from poet_tpu_torch.native import png_size
+        from poet_tpu_torch.native import image_size as header_size
 
         for data_path in data_paths:
             for scene in sorted(os.listdir(os.path.join(base_path, data_path))):
@@ -92,7 +92,7 @@ def convert_bop_to_poet(
                 if os.path.isdir(rgb):
                     first = sorted(os.listdir(rgb))[0]
                     with open(os.path.join(rgb, first), "rb") as f:
-                        image_size = png_size(f.read(24))    # (W, H)
+                        image_size = header_size(f.read())    # (W, H), PNG or JPEG
                     break
             if image_size:
                 break

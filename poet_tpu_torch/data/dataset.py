@@ -11,11 +11,17 @@ clamp, degenerate-box filter, relative pose with derived quaternions,
 per-object intrinsics; split -> path map; box jitter). The decoded-image
 cache is the JAX package's extension (`decoded_cache_mb`).
 
-Not ported: compositing 'synt' RGBA images onto random backgrounds
-(`synt_background`). It needs PIL's bicubic resize, crop and alpha paste
-(`poet_tpu/data/dataset.py:189-231`); the dataset raises when it is asked
-for (ROADMAP A.1). A 'synt' image without a background directory is read as
-RGB (its alpha dropped), as JAX's `convert("RGB")` does.
+'synt' images (an image entry with "type": "synt") are RGBA renders. With
+`synthetic_background` (a directory) each is pasted with its alpha onto a
+background file drawn at random (`_get_background`, as
+`poet_tpu/data/dataset.py:189-230`: the file list in `os.listdir` order, and
+from the item's generator in JAX's order the file's index, a top-bottom
+flip or else a left-right one, a crop at four random integers, then PIL's
+default bicubic resize to the image's size; the resize and the paste are
+Pillow's arithmetic in C, `native.resize_bicubic` / `native.paste_rgba`).
+Decoded backgrounds share the decoded-image cache and its byte budget.
+Without a background directory a 'synt' image is read as RGB (its alpha
+dropped), as JAX's `convert("RGB")` does.
 """
 
 from __future__ import annotations
@@ -33,7 +39,12 @@ from poet_tpu_torch.data.transforms import (
     jitter_boxes,
     make_pose_estimation_transform,
 )
-from poet_tpu_torch.native import decode_image, load_image_rgb_f32  # noqa: F401
+from poet_tpu_torch.native import (  # noqa: F401  (load_image_rgb_f32: JAX's module has it)
+    decode_image,
+    load_image_rgb_f32,
+    paste_rgba,
+    resize_bicubic,
+)
 from poet_tpu_torch.utils.quaternions import quat2rot_np, rot2quat_np
 
 
@@ -56,11 +67,6 @@ class PoseDataset:
         local_rank: int = 0,
         local_size: int = 1,
     ):
-        if synthetic_background is not None:
-            raise NotImplementedError(
-                "synt_background (compositing synthetic RGBA images onto random "
-                "backgrounds) is not ported: it needs PIL's bicubic resize and alpha paste "
-                "(ROADMAP A.1)")
         self.root = str(img_folder)
         with open(ann_file) as f:
             coco = json.load(f)
@@ -85,9 +91,14 @@ class PoseDataset:
         # decoded uint8 pixels up to a byte budget, filled on first decode and
         # never evicted (epochs read every image once, so a prefix cache is as
         # good as LRU); stored read-only: every transform returns a new array
-        self._decoded_cache: Dict[str, np.ndarray] = {}
+        self._decoded_cache: Dict[tuple, np.ndarray] = {}
         self._decoded_budget = int(decoded_cache_mb) * (1 << 20)
         self._decoded_bytes = 0
+        self.synthetic_background = None
+        if synthetic_background is not None:
+            self.synthetic_background = [
+                os.path.join(synthetic_background, f) for f in os.listdir(synthetic_background)
+                if os.path.isfile(os.path.join(synthetic_background, f))]
 
     def __len__(self):
         return len(self.ids)
@@ -113,25 +124,57 @@ class PoseDataset:
         with open(os.path.join(self.root, path), "rb") as f:
             return f.read()
 
-    def _get_image(self, path: str) -> np.ndarray:
-        """(H, W, 3) uint8 of one file, through the decoded cache."""
-        arr = self._decoded_cache.get(path)
+    def _cached(self, key: tuple, decode) -> np.ndarray:
+        """`decode()` through the decoded cache, under its byte budget."""
+        arr = self._decoded_cache.get(key)
         if arr is None:
-            arr = decode_image(self._get_blob(path), 3)
+            arr = decode()
             if self._decoded_bytes + arr.nbytes <= self._decoded_budget:
                 arr.setflags(write=False)
                 # a dict assignment is atomic under the GIL: a racing worker at
                 # worst decodes the same image twice
-                self._decoded_cache[path] = arr
+                self._decoded_cache[key] = arr
                 self._decoded_bytes += arr.nbytes
         return arr
+
+    def _get_image(self, path: str, channels: int = 3) -> np.ndarray:
+        """(H, W, channels) uint8 of one image file, through the decoded cache."""
+        return self._cached((path, channels),
+                            lambda: decode_image(self._get_blob(path), channels))
+
+    def _get_background(self, width: int, height: int, rng) -> np.ndarray:
+        """A random background flipped, cropped and resized to (height, width, 3)
+        (JAX's `_get_background`; the reference's coco.py:83-104)."""
+        path = self.synthetic_background[int(rng.integers(0, len(self.synthetic_background)))]
+
+        def decode():
+            with open(path, "rb") as f:
+                return decode_image(f.read(), 3)
+
+        bg = self._cached((path, "BG"), decode)
+        h, w = bg.shape[:2]
+        if rng.random() < 0.5:
+            bg = bg[::-1]
+        elif rng.random() < 0.5:
+            bg = bg[:, ::-1]
+        if rng.random() < 0.5:
+            left = int(rng.integers(0, w + 1))
+            top = int(rng.integers(0, h + 1))
+            right = int(rng.integers(left, w + 1))
+            bottom = int(rng.integers(top, h + 1))
+            bg = bg[top:bottom, left:right]
+        return resize_bicubic(bg, width, height)
 
     def __getitem__(self, idx: int, rng: Optional[np.random.Generator] = None):
         rng = rng or np.random.default_rng()
         img_id = self.ids[idx]
         info = self.images[img_id]
         anno = [a for a in self.anns_by_image[img_id] if a.get("iscrowd", 0) == 0]
-        img = self._get_image(info["file_name"])
+        if info.get("type") == "synt" and self.synthetic_background is not None:
+            rgba = self._get_image(info["file_name"], 4)
+            img = paste_rgba(self._get_background(rgba.shape[1], rgba.shape[0], rng), rgba)
+        else:
+            img = self._get_image(info["file_name"])
         target = self._process(img, anno, img_id, info)
         if self._transforms is not None:
             img, target = self._transforms(img, target, rng)

@@ -13,7 +13,11 @@ Parity target: the reference's main.py:285-317,357-369:
   * resume restores the parameters, the optimizer state and the epoch; the
     learning rates come from the current command line (the schedule is
     rebuilt from it), as in the JAX package;
-  * missing and unexpected keys are tolerated with a report (main.py:293-298).
+  * missing and unexpected keys are tolerated with a report (main.py:293-298);
+  * over more than one process rank 0 writes, after a ZeRO-1 optimizer has
+    gathered its state there: the file holds the plain optimizer's layout,
+    so it resumes with or without `--zero_opt_state`, over any number of
+    processes.
 
 `--resume` also takes a reference model-zoo `.pth` and an http(s) or file://
 URL to either. A zoo file keeps its detector under `backbone.0.` (the port
@@ -49,19 +53,30 @@ def _torch_load(path: str):
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def save_checkpoint(output_dir: str, name: str, model: nn.Module, optimizer, epoch: int,
+def save_checkpoint(output_dir: str, names, model: nn.Module, optimizer, epoch: int,
                     step: int, cfg) -> str:
-    """Write {model, optimizer, epoch, step, config} to output_dir/name;
-    returns the path. The file is written beside and renamed over the old
-    one, so a crash mid-write leaves the old checkpoint whole."""
-    path = os.path.join(output_dir, name)
+    """Write {model, optimizer, epoch, step, config} to output_dir/name for
+    each of `names` (one name or several); returns the last path. Each file
+    is written beside and renamed over the old one, so a crash mid-write
+    leaves the old checkpoint whole.
+
+    Over more than one process every process calls it: a ZeRO-1 optimizer
+    consolidates its shares to rank 0 here (`parallel/zero.py`), and rank 0
+    alone writes (the model is replicated)."""
+    from poet_tpu_torch.utils.misc import get_rank
+
+    opt_state = optimizer.state_dict() if optimizer is not None else None
+    paths = [os.path.join(output_dir, n) for n in ([names] if isinstance(names, str) else names)]
+    if get_rank() != 0:
+        return paths[-1]
     payload = {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-               "optimizer": optimizer.state_dict() if optimizer is not None else None,
-               "epoch": int(epoch), "step": int(step), "config": cfg.to_json()}
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    return path
+               "optimizer": opt_state, "epoch": int(epoch), "step": int(step),
+               "config": cfg.to_json()}
+    for path in paths:
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    return paths[-1]
 
 
 def checkpoint_paths_for_epoch(output_dir: str, epoch: int, cfg):

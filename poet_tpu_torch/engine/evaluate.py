@@ -93,11 +93,14 @@ def gather_pairs_across_hosts(pairs):
     """All-gather the matched pose pairs, so that every process evaluates
     the full set when the eval loader is sharded by process: through
     `torch.distributed.all_gather_object` (lists of any length, in rank
-    order) when a process group with more than one rank is initialized, the
-    identity otherwise."""
+    order) when a process group is initialized, the identity otherwise. The loader's shards are contiguous chunks of the
+    dataset, so where the images divide evenly among the processes the
+    gathered list is in one process's order."""
     import torch.distributed as dist
 
-    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+    from poet_tpu_torch.parallel.mesh import is_distributed
+
+    if not is_distributed():
         return pairs
     gathered = [None] * dist.get_world_size()
     dist.all_gather_object(gathered, pairs)
@@ -145,12 +148,18 @@ def pose_evaluate(model: nn.Module, pose_evaluator, data_loader, cfg: PoETConfig
     another), the matched pairs into `pose_evaluator`, then the five metric
     passes into `output_dir/eval_{image_set}_{bbox_mode}[_{epoch}]/`, ADD-S
     on the same `device`. The model is moved to `device` and stays there
-    (channels_last on the card). Returns the ADD(-S) results. Parity:
-    engine.py:96-184."""
+    (channels_last on the card). Returns the ADD(-S) results. Over more than
+    one process each evaluates its shard of the loader, the pairs are
+    gathered, and rank 0 runs the metric passes, writes the files and
+    returns the results (the others None). Parity: engine.py:96-184."""
+    from poet_tpu_torch.utils.misc import get_rank
+
     bbox_mode = cfg.model.bbox_mode
     name = f"eval_{image_set}_{bbox_mode}" + (f"_{epoch}" if epoch is not None else "")
     out_dir = os.path.join(output_dir, name) + "/"
-    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    main = get_rank() == 0
+    if main:
+        Path(out_dir).mkdir(parents=True, exist_ok=True)
 
     pose_evaluator.reset()
     dev = _on_device(model, device)
@@ -176,8 +185,12 @@ def pose_evaluate(model: nn.Module, pose_evaluator, data_loader, cfg: PoETConfig
             print(f"Processed {processed}/{n_images}")
         if pending is not None:
             local_pairs.extend(_matched_pairs_to_host(*pending, rotation_mode))
-    # full-dataset metrics when the eval loader is sharded by process
-    for pr in gather_pairs_across_hosts(local_pairs):
+    # full-dataset metrics when the eval loader is sharded by process: the
+    # pairs gathered, rank 0 evaluates and writes the files
+    pairs = gather_pairs_across_hosts(local_pairs)
+    if not main:
+        return None
+    for pr in pairs:
         pose_evaluator.record(
             pr["cls"], pr["pred_rotation"], pr["pred_translation"],
             pr["tgt_rotation"], pr["tgt_translation"],
@@ -207,16 +220,19 @@ def bop_evaluate(model: nn.Module, data_loader, cfg: PoETConfig, image_set: str,
     one row per matched object, scene_id, im_id, obj_id, score, R
     (row-major), t (mm), and the batch's forward time with its result on the
     host. The model is moved to `device` (the card unless the caller passes
-    another) and stays there. Parity: engine.py:187-242."""
+    another) and stays there. Over more than one process each process runs
+    its shard and rank 0 writes every shard's rows, in rank order. Parity:
+    engine.py:187-242."""
+    from poet_tpu_torch.utils.misc import get_rank
+
     out_dir = os.path.join(output_dir, f"bop_{cfg.model.bbox_mode}") + "/"
-    Path(out_dir).mkdir(parents=True, exist_ok=True)
     dev = _on_device(model, device)
     forward = make_eval_forward(model, cfg)
 
     file_names = {i: data_loader.dataset.file_name(i) for i in data_loader.dataset.ids}
     csv_path = os.path.join(out_dir, f"{cfg.data.dataset}.csv")
-    with _inference_weights(model, cfg), open(csv_path, "w") as f:
-        f.write("scene_id,im_id,obj_id,score,R,t,time")
+    rows = []
+    with _inference_weights(model, cfg):
         counter = 1
         for images, pad_mask, targets in data_loader.epoch(0):
             t0 = time.time()
@@ -231,7 +247,7 @@ def bop_evaluate(model: nn.Module, data_loader, cfg: PoETConfig, image_set: str,
                 # score: the reference hardcodes 1.0 (engine.py:232); in
                 # backbone mode the detector's confidence is written (gt
                 # queries carry 1.0)
-                f.write(
+                rows.append(
                     "\n{},{},{},{},{} {} {} {} {} {} {} {} {}, {} {} {}, {}".format(
                         scene_id, img_id, pr["cls"], pr["score"],
                         R[0, 0], R[0, 1], R[0, 2], R[1, 0], R[1, 1], R[1, 2],
@@ -240,4 +256,11 @@ def bop_evaluate(model: nn.Module, data_loader, cfg: PoETConfig, image_set: str,
                 )
             print(f"Processed batch {counter}")
             counter += 1
+    # over more than one process: every shard's rows, in rank order, to rank 0
+    rows = gather_pairs_across_hosts(rows)
+    if get_rank() == 0:
+        Path(out_dir).mkdir(parents=True, exist_ok=True)
+        with open(csv_path, "w") as f:
+            f.write("scene_id,im_id,obj_id,score,R,t,time")
+            f.writelines(rows)
     return csv_path

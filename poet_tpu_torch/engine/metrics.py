@@ -3,7 +3,8 @@ Counterpart of `poet_tpu/engine/metrics.py`.
 
 Parity target: the reference's util/misc.py:66-285 (SmoothedValue /
 MetricLogger). The cross-process sum goes through `torch.distributed` when a
-process group with more than one rank is initialized (a no-op otherwise).
+process group is initialized (a no-op otherwise), on the card under NCCL and
+on the CPU under gloo.
 The peak-memory field is `torch.cuda.max_memory_allocated` on a CUDA device,
 as the reference prints it, and is left out otherwise, as JAX's
 `_device_peak_mem_mb` leaves it out where the backend reports none.
@@ -46,14 +47,18 @@ class SmoothedValue:
         self.total += float(value) * n
 
     def synchronize_between_processes(self):
-        """Sum count/total across processes (only with a process group of
-        more than one rank)."""
+        """Sum count/total across processes (when a process group is
+        initialized, as the reference's util/misc.py:97-108), on the group's
+        device: NCCL refuses CPU tensors."""
         import torch
         import torch.distributed as dist
 
-        if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        from poet_tpu_torch.parallel.mesh import collective_device
+
+        if not (dist.is_available() and dist.is_initialized()):
             return
-        t = torch.tensor([self.count, self.total], dtype=torch.float64)
+        t = torch.tensor([self.count, self.total], dtype=torch.float64,
+                         device=collective_device())
         dist.all_reduce(t)
         self.count = int(t[0].item())
         self.total = float(t[1].item())

@@ -15,7 +15,8 @@ Counterpart of `poet_tpu/engine/train.py`:
     (`AdamWMuBf16`, optax's `mu_dtype`);
   * `make_loss_fn` / `make_train_step` — forward with dropout, the shared
     matching, all per-layer losses, backward through the deformable adjoint
-    kernels, clip, update; metrics stay on the device;
+    kernels, clip, update; metrics stay on the device; in a process group
+    data parallel (the global matched count, summed gradients);
   * `make_eval_forward` — forward and the final-layer match.
 
 Matching: in gt and jitter mode the matched boxes and classes come from the
@@ -207,19 +208,7 @@ class Optimizer:
                               "lr_scale": scale[lab]} for lab, ps in groups.items()]
         self._scale = scale
         self.params = [p for g in self.param_groups for p in g["params"]]
-        if o.sgd:
-            # optax add_decayed_weights before sgd == torch SGD's weight_decay
-            self.torch_opt = torch.optim.SGD(self.param_groups, lr=o.lr, momentum=0.9,
-                                             weight_decay=o.weight_decay)
-        elif o.mu_bf16:
-            self.torch_opt = AdamWMuBf16(self.param_groups, lr=o.lr,
-                                         weight_decay=o.weight_decay)
-        else:
-            # optax adamw: eps outside the sqrt, bias correction, decay lr*wd*p
-            # on the pre-update parameter, on every trained tensor
-            self.torch_opt = torch.optim.AdamW(self.param_groups, lr=o.lr,
-                                               betas=(0.9, 0.999), eps=1e-8,
-                                               weight_decay=o.weight_decay)
+        self.torch_opt = self._torch_optimizer(o, self._owned_groups())
         self.accum = max(o.grad_accum_steps, 1)
         # the inner count advances once per update: size StepLR in updates
         self.schedule = make_lr_schedule(1.0, o.lr_drop,
@@ -228,6 +217,33 @@ class Optimizer:
         self.micro_step = 0
         self.updates = 0
         self._acc: Optional[List[torch.Tensor]] = None
+
+    @staticmethod
+    def _torch_optimizer(o, groups: List[Dict]) -> torch.optim.Optimizer:
+        if o.sgd:
+            # optax add_decayed_weights before sgd == torch SGD's weight_decay
+            return torch.optim.SGD(groups, lr=o.lr, momentum=0.9, weight_decay=o.weight_decay)
+        if o.mu_bf16:
+            return AdamWMuBf16(groups, lr=o.lr, weight_decay=o.weight_decay)
+        # optax adamw: eps outside the sqrt, bias correction, decay lr*wd*p on
+        # the pre-update parameter, on every trained tensor
+        return torch.optim.AdamW(groups, lr=o.lr, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=o.weight_decay)
+
+    def _owned_groups(self) -> List[Dict]:
+        """The param groups whose state this process keeps: all of them
+        (ZeRO-1 keeps a share, `parallel/zero.py`)."""
+        return self.param_groups
+
+    def _update(self) -> None:
+        """Apply the torch optimizer to the clipped gradients."""
+        self.torch_opt.step()
+
+    def _torch_state(self) -> Dict:
+        return self.torch_opt.state_dict()
+
+    def _load_torch_state(self, state: Dict) -> None:
+        self.torch_opt.load_state_dict(state)
 
     def grads(self) -> List[torch.Tensor]:
         """The gradients of every parameter autograd reaches (the clip's and
@@ -268,9 +284,10 @@ class Optimizer:
             torch._foreach_div_(trained, div)
             torch._foreach_mul_(trained, mul)
         factor = self.schedule(self.updates)
-        for group in self.param_groups:
+        # the torch optimizer's own groups: a load_state_dict replaces them
+        for group in self.torch_opt.param_groups:
             group["lr"] = self.torch_opt.defaults["lr"] * group["lr_scale"] * factor
-        self.torch_opt.step()
+        self._update()
         self.updates += 1
         return True
 
@@ -279,14 +296,14 @@ class Optimizer:
         gradient-accumulation buffer, the torch optimizer's state."""
         return {"updates": self.updates, "micro_step": self.micro_step,
                 "acc": None if self._acc is None else [a.detach().cpu() for a in self._acc],
-                "torch": self.torch_opt.state_dict()}
+                "torch": self._torch_state()}
 
     def load_state_dict(self, state: Dict) -> None:
         """Restore `state_dict()`'s output. The rates and decay stay this
         optimizer's, from the current config (torch's load would put the
         saved groups' back): the schedule is rebuilt from the command line, as
         in the JAX package."""
-        self.torch_opt.load_state_dict(state["torch"])
+        self._load_torch_state(state["torch"])
         for group in self.torch_opt.param_groups:
             group["lr_scale"] = self._scale[group["name"]]
             group["weight_decay"] = self.torch_opt.defaults["weight_decay"]
@@ -298,6 +315,15 @@ class Optimizer:
 
 
 def make_optimizer(cfg: PoETConfig, model: nn.Module, steps_per_epoch: int) -> Optimizer:
+    """`Optimizer`, or with `runtime.zero_opt_state` over more than one
+    process its ZeRO-1 form (`parallel/zero.py`); over one process ZeRO is a
+    no-op, as JAX's `mesh.shape["data"] > 1` guard makes it."""
+    from poet_tpu_torch.parallel.mesh import world_size
+
+    if cfg.runtime.zero_opt_state and world_size() > 1:
+        from poet_tpu_torch.parallel.zero import ZeroOptimizer
+
+        return ZeroOptimizer(cfg, model, steps_per_epoch)
     return Optimizer(cfg, model, steps_per_epoch)
 
 
@@ -359,10 +385,13 @@ def prepare_batch(cfg: PoETConfig, images, pad_mask, targets: Dict, device) -> B
 # Train / eval steps
 # ---------------------------------------------------------------------------
 
-def make_loss_fn(model: nn.Module, cfg: PoETConfig) -> Callable:
+def make_loss_fn(model: nn.Module, cfg: PoETConfig,
+                 count: Optional[Callable[[MatchResult], torch.Tensor]] = None) -> Callable:
     """loss_fn(images, pad_mask, targets, match, generator) -> (total, losses).
     `match` is None in bbox_mode='backbone': the forward's queries are
-    matched to the targets here, between the forward and the losses."""
+    matched to the targets here, between the forward and the losses.
+    `count(match)`, when given, is the matched count every loss divides by
+    (a data-parallel step's global count)."""
     mcfg = cfg.model
 
     def loss_fn(images, pad_mask, targets, match: Optional[MatchResult],
@@ -372,7 +401,8 @@ def make_loss_fn(model: nn.Module, cfg: PoETConfig) -> Callable:
             match = match_outputs(cfg, outputs, targets)
         losses = crit.compute_losses(outputs, targets, match,
                                      rotation_mode=mcfg.rotation_representation,
-                                     aleatoric=mcfg.aleatoric)
+                                     aleatoric=mcfg.aleatoric,
+                                     num_matched=None if count is None else count(match))
         total = crit.weighted_total(losses, cfg.loss.translation_loss_coef,
                                     cfg.loss.rotation_loss_coef)
         return total, losses
@@ -380,18 +410,58 @@ def make_loss_fn(model: nn.Module, cfg: PoETConfig) -> Callable:
     return loss_fn
 
 
+def global_count(match: MatchResult) -> torch.Tensor:
+    """The matched count summed over the processes (a collective)."""
+    import torch.distributed as dist
+
+    n = match.num_matched.clone()
+    dist.all_reduce(n)
+    return n
+
+
+def reduce_over_processes(grads: List[torch.Tensor], metrics: Dict[str, torch.Tensor]) -> None:
+    """Sum the gradients and the metrics over the processes, in place, in
+    one all-reduce of one flat f32 buffer."""
+    import torch.distributed as dist
+
+    values = list(metrics.values())
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [v.reshape(1).float() for v in values])
+    dist.all_reduce(flat)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view(g.shape))
+        offset += g.numel()
+    summed = flat[offset:].clone()          # the metrics keep no view of the buffer
+    for i, (k, v) in enumerate(zip(metrics, values)):
+        metrics[k] = summed[i].to(v.dtype)
+
+
 def make_train_step(model: nn.Module, cfg: PoETConfig, optimizer: Optimizer) -> Callable:
     """step(images, pad_mask, targets, match, generator) -> metrics: the loss
     dict, 'loss' and 'grad_norm' (of this micro-batch's gradients), all
     device scalars. Forward in train() mode, backward, clip and update.
 
+    In a process group (`parallel/mesh.py`) the step is data parallel, as
+    JAX's jit over the global batch (`poet_tpu/engine/train.py:
+    176-178`): the matching stays per process (it is per image), the losses
+    divide by the matched count summed over the processes (an all-reduce
+    before the division), and the gradients and the losses are then summed
+    over the processes (one all-reduce): the gradient of the global batch's
+    loss, not DDP's mean of per-process means. The clip, `grad_norm` and the
+    update run on the summed gradients, identical on every process, and the
+    metrics are the global ones.
+
     A model on the GPU is converted to channels_last in place (the
     parameters stay the same objects, so `optimizer` still holds them), as
     `PoseServer` does: cuDNN's fast bf16 convs want NHWC, which the NHWC
     input already is."""
+    from poet_tpu_torch.parallel.mesh import is_distributed
+
     if next(model.parameters()).is_cuda:
         model.to(memory_format=torch.channels_last)
-    loss_fn = make_loss_fn(model, cfg)
+    data_parallel = is_distributed()
+    loss_fn = make_loss_fn(model, cfg, count=global_count if data_parallel else None)
 
     def step(images, pad_mask, targets, match: Optional[MatchResult],
              generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
@@ -401,6 +471,8 @@ def make_train_step(model: nn.Module, cfg: PoETConfig, optimizer: Optimizer) -> 
         total.backward()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
+        if data_parallel:
+            reduce_over_processes(optimizer.grads(), metrics)
         metrics["grad_norm"] = global_norm(optimizer.grads())
         optimizer.step()
         return metrics

@@ -17,12 +17,21 @@ The per-layer functions broadcast over any leading dims before (B, Q), so
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from poet_tpu_torch.models.matcher import MatchResult
 from poet_tpu_torch.utils.rotations import so3_log_map
+
+
+class _CountedMatch(NamedTuple):
+    """A match whose losses divide by a count given from outside: the
+    global matched count of a data-parallel step."""
+
+    tgt_idx: torch.Tensor
+    valid: torch.Tensor
+    num_matched: torch.Tensor
 
 
 def _gather_tgt(tgt: torch.Tensor, match: MatchResult) -> torch.Tensor:
@@ -79,12 +88,18 @@ def loss_silho_quaternion(pred_q, tgt_q, match: MatchResult, eps: float = 1e-4) 
 
 def compute_losses(outputs: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor],
                    match: MatchResult, rotation_mode: str = "6d",
-                   aleatoric: bool = False) -> Dict[str, torch.Tensor]:
+                   aleatoric: bool = False,
+                   num_matched: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """All per-layer losses from stacked (n_layers, B, Q, ...) outputs.
 
     Names follow the reference: the final layer 'loss_trans' / 'loss_rot',
-    the others suffixed '_{i}' for i in [0, n_layers - 2].
+    the others suffixed '_{i}' for i in [0, n_layers - 2]. `num_matched`
+    (default: the match's own count) is what every loss divides by: a
+    data-parallel step passes the count over all processes, so the sum of
+    the processes' losses is the loss of the global batch.
     """
+    if num_matched is not None:
+        match = _CountedMatch(match.tgt_idx, match.valid, num_matched)
     trans, rots = outputs["translations"], outputs["rotations"]
     n_layers = trans.shape[0]
     # the targets broadcast over the layer axis: gather once on (B, Q, ...)

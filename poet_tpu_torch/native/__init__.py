@@ -1,4 +1,4 @@
-"""The port's image decoder: PNG files to uint8 arrays, with no PIL.
+"""The port's image decoder: PNG and JPEG files to uint8 arrays, with no PIL.
 
 Counterpart of the decode half of `poet_tpu/native/imagepipe.cpp` and of the
 PIL fallback in `poet_tpu/data/dataset.py:load_image_rgb_f32`: the same
@@ -19,12 +19,23 @@ bits):
 Python's `zlib` inflates the concatenated IDAT data and one C call
 (`png_unfilter.cpp`) undoes the row filters of the whole image, outside the
 GIL. Every chunk's CRC is checked. The same library holds Pillow's box blur
-and 3x3 smoothing filter for the augmentations (`image_ops.cpp`,
-`data/transforms.py`); it is built with g++ into the gitignored
+and 3x3 smoothing filter for the augmentations, and its bicubic resize and
+alpha paste for 'synt' compositing (`image_ops.cpp`, `data/transforms.py`,
+`data/dataset.py`); it is built with g++ into the gitignored
 `build/poet_tpu_torch/`, keyed by a hash of its sources and flags.
-What it cannot decode raises `ValueError`: an interlaced (Adam7) PNG, a JPEG
-(that waits for nvJPEG, ROADMAP A.1), any other format, a corrupt file.
-There is no fallback.
+
+A JPEG is decoded by a second library, built the same way at the first
+JPEG from the first route that builds here (`jpeg_route()`): "libjpeg",
+`jpeg_decode.cpp` on the system libjpeg (JAX's settings: RGB out, gray
+upconverted, the default IDCT and fancy upsampling: PIL's pixels); else
+"nvjpeg", `jpeg_nvjpeg.cpp` on the CUDA toolkit's nvJPEG (a decode on
+cuda:LOCAL_RANK, its own IDCT and upsampling: within a few units of PIL's
+pixels); else None, and a JPEG raises naming the builds' errors. An RGBA
+output has alpha 255. Each machine's route is in the README.
+What cannot be decoded raises `ValueError`: an interlaced (Adam7) PNG, a
+CMYK or YCCK JPEG (libjpeg converts neither to RGB, and neither does the
+JAX package's native decoder), any other format, a corrupt file. There is
+no fallback.
 """
 
 from __future__ import annotations
@@ -42,25 +53,60 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = tuple(os.path.join(_HERE, f) for f in ("png_unfilter.cpp", "image_ops.cpp"))
+_CUDA_HOME = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+# JPEG route -> (sources, g++ flags after them): the first that builds is taken
+_JPEG_ROUTES = {
+    "libjpeg": ((os.path.join(_HERE, "jpeg_decode.cpp"),), ("-ljpeg",)),
+    "nvjpeg": ((os.path.join(_HERE, "jpeg_nvjpeg.cpp"),),
+               (f"-I{_CUDA_HOME}/include", f"-L{_CUDA_HOME}/lib64",
+                f"-Wl,-rpath,{_CUDA_HOME}/lib64", "-lnvjpeg", "-lcudart")),
+}
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "poet_tpu_torch")
 # no fused multiply-add: smooth3x3 rounds each product, as Pillow's build does
 _CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_JPEG_SIGNATURE = b"\xff\xd8\xff"
 # colour type -> (samples per pixel, the bit depths the PNG specification allows)
 _COLOR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
                 4: (2, (8, 16)), 6: (4, (8, 16))}
 
 _lock = threading.Lock()
 _lib = None
+_jpeg = None              # (route, library), or the RuntimeError of the builds
 
 
-def library_path() -> str:
-    """Where the library is built: keyed by its sources and flags."""
-    digest = hashlib.sha256(" ".join(_CXX_FLAGS).encode())
-    for src in _SOURCES:
+def library_path(sources=_SOURCES, libs=(), name="poet_native") -> str:
+    """Where a library is built: keyed by its sources, the headers beside
+    them and its flags."""
+    digest = hashlib.sha256(" ".join(_CXX_FLAGS + tuple(libs)).encode())
+    headers = sorted(os.path.join(_HERE, f) for f in os.listdir(_HERE) if f.endswith(".h"))
+    for src in tuple(sources) + tuple(headers):
         with open(src, "rb") as f:
             digest.update(os.path.basename(src).encode() + b"\0" + f.read())
-    return os.path.join(_BUILD_DIR, f"poet_native_{digest.hexdigest()[:16]}.so")
+    return os.path.join(_BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
+
+
+def _build(sources, libs=(), name="poet_native") -> ctypes.CDLL:
+    """Build `sources` with g++ (once per set of sources and flags) and load
+    the library; RuntimeError with g++'s output when the build fails."""
+    so = library_path(sources, libs, name)
+    if not os.path.exists(so):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        cmd = ["g++", *_CXX_FLAGS, *sources, "-o", tmp, *libs]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:                    # no g++ at all
+            os.unlink(tmp)
+            raise RuntimeError(f"{' '.join(cmd)}: {e}") from e
+        if proc.returncode != 0:
+            if os.path.exists(tmp):             # g++ removes it when the link fails
+                os.unlink(tmp)
+            raise RuntimeError(f"g++ failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)    # atomic: a concurrent build never sees a partial file
+    return ctypes.CDLL(so)
 
 
 def _load():
@@ -70,19 +116,7 @@ def _load():
         return _lib
     with _lock:
         if _lib is None:
-            so = library_path()
-            if not os.path.exists(so):
-                os.makedirs(_BUILD_DIR, exist_ok=True)
-                fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-                os.close(fd)
-                cmd = ["g++", *_CXX_FLAGS, *_SOURCES, "-o", tmp]
-                proc = subprocess.run(cmd, capture_output=True, text=True)
-                if proc.returncode != 0:
-                    os.unlink(tmp)
-                    raise RuntimeError(f"g++ failed ({proc.returncode}): {' '.join(cmd)}\n"
-                                       f"{proc.stdout}{proc.stderr}")
-                os.replace(tmp, so)    # atomic: a concurrent build never sees a partial file
-            lib = ctypes.CDLL(so)
+            lib = _build(_SOURCES)
             lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                                          ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
             lib.png_unfilter.restype = ctypes.c_int
@@ -97,8 +131,83 @@ def _load():
             lib.blend.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float]
             lib.blend.restype = ctypes.c_int
+            lib.resize_bicubic.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            lib.resize_bicubic.restype = ctypes.c_int
+            lib.paste_rgba.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+            lib.paste_rgba.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def _load_jpeg():
+    """(route, library) of the first JPEG route that builds here, built at
+    first use; raises the RuntimeError of the builds (again at every call)
+    where none does."""
+    global _jpeg
+    if _jpeg is None:
+        with _lock:
+            if _jpeg is None:
+                errors = []
+                for route, (sources, libs) in _JPEG_ROUTES.items():
+                    try:
+                        lib = _build(sources, libs, f"poet_{route}")
+                    except RuntimeError as e:
+                        errors.append(f"{route}: {e}")
+                        continue
+                    lib.jpeg_probe.argtypes = [ctypes.c_char_p, ctypes.c_int64] + [
+                        ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_char_p]
+                    lib.jpeg_probe.restype = ctypes.c_int
+                    lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_int, ctypes.c_char_p]
+                    lib.jpeg_decode.restype = ctypes.c_int
+                    lib.jpeg_lib_version.restype = ctypes.c_int
+                    if route == "nvjpeg":        # the process's card (cuda:LOCAL_RANK)
+                        lib.jpeg_set_device(int(os.environ.get("LOCAL_RANK", "0")))
+                    _jpeg = (route, lib)
+                    break
+                else:
+                    _jpeg = RuntimeError("\n".join(errors))
+    if isinstance(_jpeg, RuntimeError):
+        raise _jpeg
+    return _jpeg
+
+
+def jpeg_route():
+    """How this machine decodes JPEG: "libjpeg" (`jpeg_decode.cpp` on the
+    system library), "nvjpeg" (`jpeg_nvjpeg.cpp` on the CUDA toolkit's
+    nvJPEG, where libjpeg is missing) or None (neither builds)."""
+    try:
+        return _load_jpeg()[0]
+    except RuntimeError:
+        return None
+
+
+def resize_bicubic(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """PIL's default `Image.resize((width, height))` of an (H, W, 3) uint8
+    image (`image_ops.cpp:resize_bicubic`; H or W may be 0: all black)."""
+    src = np.ascontiguousarray(img, dtype=np.uint8)
+    if src.ndim != 3 or src.shape[2] != 3:
+        raise ValueError(f"resize_bicubic takes an (H, W, 3) image, not {src.shape}")
+    if width < 1 or height < 1:
+        raise ValueError(f"height and width must be > 0, not {(width, height)}")
+    out = np.empty((height, width, 3), np.uint8)
+    _load().resize_bicubic(src.ctypes.data, src.shape[0], src.shape[1], out.ctypes.data,
+                           height, width)
+    return out
+
+
+def paste_rgba(bg: np.ndarray, img: np.ndarray) -> np.ndarray:
+    """PIL's `bg.paste(img, (0, 0), img)` of an (H, W, 4) RGBA image onto an
+    (H, W, 3) RGB one of its size (`image_ops.cpp:paste_rgba`), on a copy."""
+    out = np.array(bg, dtype=np.uint8, order="C", copy=True)
+    src = np.ascontiguousarray(img, dtype=np.uint8)
+    if out.ndim != 3 or out.shape[2] != 3 or src.shape != out.shape[:2] + (4,):
+        raise ValueError(f"paste_rgba takes an RGB image and an RGBA one of its size, not "
+                         f"{out.shape} and {src.shape}")
+    _load().paste_rgba(out.ctypes.data, src.ctypes.data, out.shape[0] * out.shape[1])
+    return out
 
 
 def box_blur(img: np.ndarray, radius: float, passes: int) -> np.ndarray:
@@ -175,19 +284,58 @@ def _chunks(blob: bytes):
 
 def png_size(blob: bytes):
     """(width, height) from a PNG's header, without decoding it."""
-    _check_png(blob)
+    if _format(blob) != "png":
+        raise ValueError("not a PNG file")
     if blob[12:16] != b"IHDR":
         raise ValueError("PNG does not start with IHDR")
     return struct.unpack(">II", blob[16:24])
 
 
-def _check_png(blob: bytes) -> None:
+def image_size(blob: bytes):
+    """(width, height) of a PNG or JPEG file from its header."""
+    if _format(blob) == "png":
+        return png_size(blob)
+    h, w, _ = _probe_jpeg(blob)
+    return w, h
+
+
+def _format(blob: bytes) -> str:
     if blob[:len(_PNG_SIGNATURE)] == _PNG_SIGNATURE:
-        return
-    if blob[:3] == b"\xff\xd8\xff":
-        raise ValueError("JPEG images are not decoded by the port yet: they wait for the "
-                         "nvJPEG decoder (ROADMAP A.1); the BOP test images are PNG")
-    raise ValueError("not a PNG file (the port decodes PNG only)")
+        return "png"
+    if blob[:len(_JPEG_SIGNATURE)] == _JPEG_SIGNATURE:
+        return "jpeg"
+    raise ValueError("not a PNG or JPEG file (the port decodes those two)")
+
+
+def _jpeg_lib():
+    try:
+        return _load_jpeg()[1]
+    except RuntimeError as e:
+        raise ValueError(f"no JPEG route builds on this machine (libjpeg: jpeglib.h and "
+                         f"libjpeg.so; nvJPEG: the CUDA toolkit's nvjpeg.h): {e}") from e
+
+
+def _probe_jpeg(blob: bytes):
+    """(height, width, components) from a JPEG's header."""
+    lib = _jpeg_lib()
+    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    msg = ctypes.create_string_buffer(200)
+    if lib.jpeg_probe(blob, len(blob), ctypes.byref(h), ctypes.byref(w), ctypes.byref(c),
+                      msg) != 0:
+        raise ValueError(f"JPEG header: {msg.value.decode(errors='replace')}")
+    return h.value, w.value, c.value
+
+
+def _decode_jpeg(blob: bytes, channels: int) -> np.ndarray:
+    h, w, _ = _probe_jpeg(blob)
+    out = np.empty((h, w, channels), np.uint8)
+    msg = ctypes.create_string_buffer(200)
+    rc = _jpeg_lib().jpeg_decode(blob, len(blob), out.ctypes.data, h, w, channels, msg)
+    if rc != 0:
+        raise ValueError(f"JPEG decode failed: {msg.value.decode(errors='replace')}"
+                         if rc == -1 else f"JPEG decodes to another size than its header's "
+                         f"{w}x{h}")
+    return out
 
 
 def _unpack_bits(data: np.ndarray, height: int, width: int, depth: int) -> np.ndarray:
@@ -200,11 +348,12 @@ def _unpack_bits(data: np.ndarray, height: int, width: int, depth: int) -> np.nd
 
 
 def decode_image(blob: bytes, channels: int = 3) -> np.ndarray:
-    """A PNG file's bytes -> (H, W, channels) uint8, channels 3 (RGB) or 4
-    (RGBA), as PIL's convert("RGB") / convert("RGBA") gives."""
+    """A PNG or JPEG file's bytes -> (H, W, channels) uint8, channels 3 (RGB)
+    or 4 (RGBA), as PIL's convert("RGB") / convert("RGBA") gives."""
     if channels not in (3, 4):
         raise ValueError(f"channels must be 3 or 4, not {channels}")
-    _check_png(blob)
+    if _format(blob) == "jpeg":
+        return _decode_jpeg(blob, channels)
     header, palette, trns, idat = None, None, None, []
     for ctype, data in _chunks(blob):
         if ctype == b"IHDR":

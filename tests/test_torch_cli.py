@@ -3,8 +3,9 @@ the CPU (`--device cpu`), at a small width (hidden 32, 1 encoder / 1
 decoder layer, 2 heads) on `tests/helpers.make_synthetic_dataset`:
 
 * the option strings and `args_to_config`'s fields equal to JAX's; the
-  unported flags raise, the ignored ones warn in one line, a missing card
-  raises;
+  unported flag raises, the ignored ones warn in one line, a missing card
+  raises; over one process the data-parallel flags train what a run
+  without them trains, and `--mesh_data 2` raises;
 * checkpoints: a bit-exact round trip, two epochs straight equal to one, a
   resume and one more, a port checkpoint read by JAX's converter giving
   JAX's forward, the zoo remap, orbax directories refused, the NaN gate and
@@ -112,12 +113,36 @@ def test_args_to_config_matches_jax(argv):
     assert pcfg.runtime.device == "cuda"
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--export_model", "out"], "A.2"), (["--mesh_data", "2"], "A.6"),
-    (["--zero_opt_state"], "A.6")])
+@pytest.mark.parametrize("flag,item", [(["--export_model", "out"], "A.2")])
 def test_unported_flags_raise(flag, item, data):
     with pytest.raises(NotImplementedError, match=item):
         _port(["--dataset_path", data] + SMALL + flag)
+
+
+@pytest.fixture(scope="module")
+def one_epoch(data, tmp_path_factory):
+    """The parameters after one train epoch without the data-parallel flags."""
+    out = str(tmp_path_factory.mktemp("one_epoch"))
+    res = _port(["--dataset_path", data, "--output_dir", out, "--epochs", "1"] + SMALL)
+    return {k: v.detach().clone() for k, v in res["model"].state_dict().items()}
+
+
+def test_data_parallel_flags_in_one_process(data, one_epoch, tmp_path):
+    """Over one process `--mesh_data 1` and `--zero_opt_state` (a no-op
+    there, as JAX's `mesh.shape["data"] > 1` guard) train the epoch a run
+    without them trains, bit for bit. Over several processes:
+    tests/test_torch_ddp.py."""
+    res = _port(["--dataset_path", data, "--output_dir", str(tmp_path), "--epochs", "1"]
+                + SMALL + ["--mesh_data", "1", "--zero_opt_state"])
+    assert type(res["optimizer"]).__name__ == "Optimizer"
+    for k, v in res["model"].state_dict().items():
+        assert torch.equal(v, one_epoch[k]), k
+
+
+def test_mesh_data_needs_its_processes(data):
+    """`--mesh_data 2` in one process raises and says how to start two."""
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        _port(["--dataset_path", data] + SMALL + ["--mesh_data", "2"])
 
 
 @pytest.mark.parametrize("flags", [

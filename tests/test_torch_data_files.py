@@ -192,12 +192,22 @@ def test_caches_give_the_same_items(synthetic):
 
 
 def test_synthetic_background_raises(synthetic):
+    """`synt_background` names a directory: a missing one raises
+    FileNotFoundError (os.listdir's), as in JAX's dataset; an existing one
+    gives JAX's background list (its files, in os.listdir order). The
+    compositing itself: tests/test_torch_synt.py."""
+    from poet_tpu.data.dataset import build_dataset as jbuild
+
     from poet_tpu_torch.data.dataset import build_dataset
 
-    _, pcfg = _configs(synthetic)
-    pcfg.data.synt_background = synthetic
-    with pytest.raises(NotImplementedError, match="A.1"):
-        build_dataset("train", pcfg)
+    jcfg, pcfg = _configs(synthetic)
+    for cfg, build in ((jcfg, jbuild), (pcfg, build_dataset)):
+        cfg.data.synt_background = os.path.join(synthetic, "no_such_directory")
+        with pytest.raises(FileNotFoundError):
+            build("train", cfg)
+        cfg.data.synt_background = os.path.join(synthetic, "annotations")
+    got = build_dataset("train", pcfg).synthetic_background
+    assert got == jbuild("train", jcfg).synthetic_background and len(got) >= 2
 
 
 # ---------------------------------------------------------------- converters

@@ -7,7 +7,8 @@ filters each row adaptively and splits large IDAT data into chunks), and by
 `chip_smoke.encode_png` (every row filter in turn, IDAT in small chunks) for
 the kinds PIL reads but does not write: 16-bit RGB, RGBA and gray+alpha.
 PIL's `convert("RGB")` / `convert("RGBA")` of the same bytes is the
-reference. What the decoder cannot decode must raise.
+reference. What the decoder cannot decode must raise; JPEG has its own
+file, tests/test_torch_jpeg.py.
 """
 
 import io
@@ -165,11 +166,19 @@ def test_interlaced_raises():
 
 
 def test_jpeg_and_other_formats_raise():
+    """A whole JPEG decodes (its pixels: tests/test_torch_jpeg.py); one cut
+    inside its headers, a CMYK JPEG (no route converts CMYK to RGB, nor does
+    the JAX package's decoder) and other formats raise."""
     buf = io.BytesIO()
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, "JPEG")
-    with pytest.raises(ValueError, match="nvJPEG.*A.1"):
-        decode_image(buf.getvalue())
-    with pytest.raises(ValueError, match="not a PNG"):
+    assert decode_image(buf.getvalue()).shape == (8, 8, 3)
+    with pytest.raises(ValueError, match="JPEG header"):
+        decode_image(buf.getvalue()[:40])
+    cmyk = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).convert("CMYK").save(cmyk, "JPEG")
+    with pytest.raises(ValueError, match="JPEG decode failed"):
+        decode_image(cmyk.getvalue())
+    with pytest.raises(ValueError, match="not a PNG or JPEG"):
         decode_image(b"GIF89a" + bytes(20))
 
 

@@ -222,6 +222,31 @@ def test_lr_schedule_matches_jax():
             assert p(step) == pytest.approx(float(j(step)), rel=1e-12)
 
 
+@pytest.mark.parametrize("sgd", [False, True], ids=["adamw", "sgd"])
+def test_resumed_optimizer_follows_the_schedule(sgd):
+    """After `load_state_dict` the rates still follow StepLR: torch's load
+    replaces its param groups, and the rates are set on the new ones (they
+    were set on the old dicts, so a resume kept the saved rate past every
+    drop)."""
+    from poet_tpu_torch.config import PoETConfig
+    from poet_tpu_torch.engine.train import Optimizer
+
+    cfg = PoETConfig()
+    cfg.optim.lr, cfg.optim.lr_drop, cfg.optim.sgd, cfg.optim.clip_max_norm = 1.0, 1, sgd, 0.0
+    model = torch.nn.Linear(2, 2)
+
+    def update(opt):
+        model.weight.grad, model.bias.grad = torch.ones(2, 2), torch.ones(2)
+        opt.step()
+        return opt.torch_opt.param_groups[0]["lr"]
+
+    first = Optimizer(cfg, model, steps_per_epoch=1)
+    assert update(first) == 1.0
+    resumed = Optimizer(cfg, model, steps_per_epoch=1)
+    resumed.load_state_dict(first.state_dict())
+    assert [update(resumed) for _ in range(2)] == pytest.approx([0.1, 0.01], rel=1e-12)
+
+
 class _Toy(torch.nn.Module):
     """Two parameters under port-style names: 'main' and 'linear_proj'."""
 
