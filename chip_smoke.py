@@ -238,8 +238,24 @@ Phases, each raising on failure:
      rules), then a one-process NCCL group in this process (its steps, the
      metric sync on the card, the preemption vote, the pair gather, a rank-0
      checkpoint), beside one process's bf16 step at B=8: a rehearsal on one
-     card, not a multi-card figure (train_data_parallel: rank 0's launches).
-Phases 4, 7, 10, 13, 16, 17, 20, 23, 24, 25 and 26's paths each set every kernel's launch
+     card, not a multi-card figure (train_data_parallel: rank 0's launches);
+ 27. multi-device layouts (`parallel/mesh.py:create_layout`, `parallel/tp.py`):
+     (a) the forward and the merged adjoint at the shapes a layout gives
+     them (TP=2: H=8, Q=S=1600; SP=2: H=16, Q=800, S=1600, and the YOLO
+     pyramid's Q=3190 of S=6380, on the banded route in bf16), f32 and bf16,
+     through the entry on the routes the rules give, against their plain
+     versions, with device ms beside the unsharded shape's (H=16, Q=S) from
+     the same call; (b) 2 processes in a gloo group on the one card
+     (`chip_smoke.py --tp-worker`) under the layouts (1,1,2) and (1,2,1) at
+     the paper config, 480x640, B=8 (one data slot): 2 f32 SGD steps, the
+     gradients and parameters gathered whole, against one process on the
+     same images (LAYOUT_TOL), then bf16 AdamW steps (p50, device busy ms
+     and the launches of the route rules per process; a rehearsal, not a
+     multi-card figure: train_layout_1x1x2, train_layout_1x2x1, rank 0's
+     launches); (c) `PoseServer(devices=("cuda:0", "cuda:0"))` at phase 4's
+     config against the one-device server (f32 within SERVE_DEVICES_RTOL of
+     scale; bf16 p50 of each; serve_devices: each shard's forward launches).
+Phases 4, 7, 10, 13, 16, 17, 20, 23, 24, 25, 26 and 27's paths each set every kernel's launch
 count to 0 before they drive their path and read them after, and hold them
 to the wrappers' route rules (`path_launches`, `roi_launches`; the v2
 kernel, the probes, the merged adjoint's atomic route and RoIAlign's gather
@@ -455,13 +471,14 @@ MERGED_KEYS = {"slab": "merged_slab", "banded": "merged_banded", "atomic": "merg
 FLAGSHIP_S, YOLO_S = 1600, 6380
 
 
-def path_launches(cfg, S, n, train=False):
+def path_launches(cfg, S, n, train=False, n_seq=1):
     """The deformable-attention launches by kernel that n forwards (train:
     n forward and backward passes) of the model at `cfg` over S encoder
     tokens make, by the wrappers' written route rules
     (ops/deform_attn_cuda.py: plan_forward, plan_merged, plan_dvalue,
-    plan_dloc): the encoder at Q = S, the decoder at Q = num_queries, each
-    layer once."""
+    plan_dloc): the encoder at Q = S (under a 'seq' axis of n_seq processes
+    its share, ceil(S / n_seq)), the decoder at Q = num_queries, each layer
+    once."""
     import torch
 
     from poet_tpu_torch.ops.deform_attn_cuda import (plan_dloc, plan_dvalue, plan_forward,
@@ -470,7 +487,8 @@ def path_launches(cfg, S, n, train=False):
     m = cfg.model
     dtype, D, L = getattr(torch, m.dtype), m.hidden_dim // m.nheads, m.num_feature_levels
     counts = {}
-    for impl, Q, P, layers in ((m.enc_deform_impl, S, m.enc_n_points, m.enc_layers),
+    for impl, Q, P, layers in ((m.enc_deform_impl, -(-S // n_seq), m.enc_n_points,
+                                m.enc_layers),
                                (m.dec_deform_impl, m.num_queries, m.dec_n_points, m.dec_layers)):
         if impl == "pallas":
             keys = ("dense_fwd", "dense_bwd") if train else ("dense_fwd",)
@@ -650,7 +668,7 @@ def route_outputs(kernels, fits, *args):
     return outs
 
 
-def entry_autograd(g, name, B, Q, shapes, dtype):
+def entry_autograd(g, name, B, Q, shapes, dtype, H=16):
     """ms_deform_attn on CUDA leaves that require grad, forward and merged
     adjoint: the routes the rules give (one launch each, no other), the
     output and the three gradients against the plain versions. Returns the
@@ -661,7 +679,7 @@ def entry_autograd(g, name, B, Q, shapes, dtype):
     from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch as plain
     from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch_backward as plain_bwd
 
-    H, D, P = 16, 16, 4
+    D, P = 16, 4
     dt = getattr(torch, dtype)
     bf16 = dt == torch.bfloat16
     value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=-0.1, hi=1.1)
@@ -4226,29 +4244,33 @@ def midpoint_rotations(model, batch):
 
 def dp_f32_steps(cfg, model, batches):
     """Two f32 steps on the card, TF32 off: (metrics per step, the first
-    update's gradients by name, the parameters after the second, on the CPU)."""
+    update's gradients by name, the parameters after the second, on the CPU;
+    a sharded model's gathered whole, a collective over 'model')."""
     from poet_tpu_torch.engine.train import (
         fetch_metrics,
         make_optimizer,
         make_train_step,
         prepare_batch,
     )
+    from poet_tpu_torch.parallel.tp import gather_tensor
 
     model = model.to(DEVICE)
+    layout = getattr(model, "layout", None)
     opt = make_optimizer(cfg, model, steps_per_epoch=1000)
     names = [n for n, p in model.named_parameters() if p.requires_grad]
     grads, update = {}, opt.step
 
     def step_and_record():
         if not grads:
-            grads.update({n: g.detach().double().cpu() for n, g in zip(names, opt.grads())})
+            grads.update({n: gather_tensor(g, n, layout).double()
+                          for n, g in zip(names, opt.grads())})
         return update()
 
     opt.step = step_and_record
     step = make_train_step(model, cfg, opt)
     with tf32_off():
         metrics = [fetch_metrics(step(*prepare_batch(cfg, *b, DEVICE), None)) for b in batches]
-    params = {n: p.detach().double().cpu() for n, p in model.named_parameters()
+    params = {n: gather_tensor(p, n, layout).double() for n, p in model.named_parameters()
               if p.requires_grad}
     return metrics, grads, params
 
@@ -4329,10 +4351,14 @@ def dp_hold(label, errs, tol, grads=True):
                              f"{errs}")
 
 
-def dp_bf16_steps(cfg, model, rank):
+def dp_bf16_steps(cfg, model, rank, rows=None, n_seq=1):
     """The rehearsal timing: 2 warm-up and DP_TIMED_STEPS timed bf16 steps
     (host clock, ended by fetching the metrics), then one traced step;
-    the launches of the timed and traced steps held to the route rules."""
+    the launches of the timed and traced steps held to the route rules.
+    `rows`: the process's images of each global batch (default: the rank's
+    data slot); the generator is seeded by the first image's slot, so every
+    process of one data slot draws the same dropout masks; `n_seq`: the
+    processes the encoder's tokens are split over."""
     import torch
 
     from poet_tpu_torch.engine.train import (
@@ -4346,8 +4372,9 @@ def dp_bf16_steps(cfg, model, rank):
     model = model.to(DEVICE)
     opt = make_optimizer(cfg, model, steps_per_epoch=1000)
     step = make_train_step(model, cfg, opt)
-    gen = torch.Generator(device=DEVICE).manual_seed(rank)
-    batch = dp_batches(rank_rows(rank))[0]
+    rows = rows or rank_rows(rank)
+    gen = torch.Generator(device=DEVICE).manual_seed(rows.start // DP_B)
+    batch = dp_batches(rows)[0]
     fetch_metrics(step(*prepare_batch(cfg, *batch, DEVICE), gen))        # warm-up
     torch.cuda.synchronize()
     kernels = all_kernels()
@@ -4361,7 +4388,8 @@ def dp_bf16_steps(cfg, model, rank):
     busy, _ = profiled_busy_ms(lambda: history.append(fetch_metrics(
         step(*prepare_batch(cfg, *batch, DEVICE), gen))), 1)
     launches = [k.launches for k in kernels]
-    want = expected(**path_launches(cfg, FLAGSHIP_S, DP_TIMED_STEPS + 1, train=True))
+    want = expected(**path_launches(cfg, FLAGSHIP_S, DP_TIMED_STEPS + 1, train=True,
+                                    n_seq=n_seq))
     if launches != want:
         raise AssertionError(f"data parallel: launches {launches}, expected {want}")
     if not all(np.isfinite(list(m.values())).all() for m in history):
@@ -4459,9 +4487,10 @@ def dp_nccl(model, out):
     return stats
 
 
-def run_dp_workers(world: int, out: str):
-    """`world` processes of dp_worker; each joined within DP_TIMEOUT_S and
-    killed after it. Returns rank 0's results."""
+def run_dp_workers(world: int, out: str, flag="--dp-worker", result="dp_gloo.pt"):
+    """`world` processes of dp_worker (`flag` --tp-worker: tp_worker); each
+    joined within DP_TIMEOUT_S and killed after it. Returns rank 0's results
+    (`result` in `out`)."""
     import socket
 
     import torch
@@ -4470,7 +4499,7 @@ def run_dp_workers(world: int, out: str):
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
-                               "--dp-worker", str(r), str(world), str(port), out],
+                               flag, str(r), str(world), str(port), out],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
     outs, late = [], False
@@ -4494,7 +4523,29 @@ def run_dp_workers(world: int, out: str):
         if p.returncode != 0:
             raise AssertionError(f"data parallel (gloo) rank {r} exited {p.returncode}:\n"
                                  f"{text[-4000:]}")
-    return torch.load(os.path.join(out, "dp_gloo.pt"), weights_only=False)
+    return torch.load(os.path.join(out, result), weights_only=False)
+
+
+def dp_setup(out):
+    """Phases 26 and 27's inputs in `out`: the seeded paper-config weights
+    (dp_weights.pt) and the two global batches' midpoint target rotations
+    (dp_rotations.npz). Returns (f32 config, bf16 config, the weights, the
+    f32 model holding them)."""
+    import torch
+
+    from poet_tpu_torch.flagship import flagship_batch
+    from poet_tpu_torch.models import build_model
+    from poet_tpu_torch.utils.init import init_weights
+
+    os.makedirs(out)
+    cfg32, cfg16 = dp_config("float32", False), dp_config("bfloat16", False)
+    seeded = init_weights(build_model(cfg32), seed=0).state_dict()
+    torch.save(seeded, os.path.join(out, "dp_weights.pt"))
+    model32 = dp_model(cfg32, seeded)
+    one = [flagship_batch(DP_B * DP_RANKS, *FLAGSHIP_HW, seed=seed) for seed in (0, 1)]
+    rotations = {f"batch{s}": midpoint_rotations(model32, b) for s, b in enumerate(one)}
+    np.savez(os.path.join(out, "dp_rotations.npz"), **rotations)
+    return cfg32, cfg16, seeded, model32
 
 
 def phase_data_parallel(report, tmp):
@@ -4506,19 +4557,8 @@ def phase_data_parallel(report, tmp):
 
     import torch
 
-    from poet_tpu_torch.flagship import flagship_batch
-    from poet_tpu_torch.models import build_model
-    from poet_tpu_torch.utils.init import init_weights
-
     out = os.path.join(tmp, "dp")
-    os.makedirs(out)
-    cfg32, cfg16 = dp_config("float32", False), dp_config("bfloat16", False)
-    seeded = init_weights(build_model(cfg32), seed=0).state_dict()
-    torch.save(seeded, os.path.join(out, "dp_weights.pt"))
-    model32 = dp_model(cfg32, seeded)
-    one = [flagship_batch(DP_B * DP_RANKS, *FLAGSHIP_HW, seed=seed) for seed in (0, 1)]
-    rotations = {f"batch{s}": midpoint_rotations(model32, b) for s, b in enumerate(one)}
-    np.savez(os.path.join(out, "dp_rotations.npz"), **rotations)
+    cfg32, cfg16, seeded, model32 = dp_setup(out)
     one = dp_batches(slice(None), os.path.join(out, "dp_rotations.npz"))
     want = dp_f32_steps(cfg32, copy.deepcopy(model32), one)
     shards = [dp_batches(rank_rows(r), os.path.join(out, "dp_rotations.npz"))
@@ -4590,6 +4630,256 @@ def phase_data(report):
     log(f"phase 26 in {time.perf_counter() - t0:.1f} s")
 
 
+# phase 27: the kernels at the shapes a layout gives them, B = PATH_B: TP=2
+# halves the heads (H = 8, Q = S = 1600); SP=2 halves the encoder's queries
+# (H = 16, Q = 800 of S = 1600; the YOLO pyramid's Q = 3190 of S = 6380, on
+# the merged adjoint's banded route in bf16)
+SHARDED_CASES = (("tp2 encoder", 8, None, FLAGSHIP_LEVELS),
+                 ("sp2 encoder", 16, FLAGSHIP_S // 2, FLAGSHIP_LEVELS),
+                 ("sp2 yolo", 16, YOLO_S // 2, YOLO_LEVELS))
+TP_LAYOUTS = ((1, 1, 2), (1, 2, 1))
+# a layout's f32 steps against one process on the same images: the losses
+# and parameters at phase 26's same-shards tolerances (DP_SAME_TOL); the
+# grad norm and the gradients at phase 8's card-vs-CPU ones (the grad norm
+# at the gradients' L2 one, as phase 26 holds its 16-image step): a
+# row-parallel product is summed in halves and then over 'model', another
+# order of the same f32 sums, and a pose head's ReLU pre-activation within
+# a rounding of 0 then takes the other side (one process's rotation-head
+# gradients move by 1.3e-5..2.0e-5 relative L2 under a 1e-7 relative
+# perturbation of the decoder's weights at 64x64 on the CPU; the card gave
+# 1.15e-3 under (1,1,2) at the paper config)
+LAYOUT_TOL = (DP_SAME_TOL[0], TRAIN_F32_L2_RTOL, TRAIN_F32_L2_RTOL, TRAIN_F32_MAX_RTOL,
+              DP_SAME_TOL[4])
+SERVE_DEVICES = ("cuda:0", "cuda:0")
+# two servers' f32 answers on the card, one device against two shards: the
+# same kernels at batch 16 and 8 (cuBLAS and cuDNN may take other
+# algorithms), relative to the output scale
+SERVE_DEVICES_RTOL = 1e-4
+
+
+def layout_name(lay) -> str:
+    return "x".join(map(str, lay))
+
+
+def phase_sharded_kernels(report):
+    """Phase 27a: the forward and the merged adjoint at SHARDED_CASES,
+    through the entry on the routes the rules give, f32 and bf16, against
+    their plain versions (entry_autograd); device ms of each route's kernel
+    from graph replays at the sharded shape and at the unsharded one (H =
+    16, Q = S) in the same call; the sharded shape's bounds."""
+    import torch
+
+    from poet_tpu_torch.ops import deform_attn_cuda as dac
+    from poet_tpu_torch.tools.timing import graph_ms
+
+    forward = {"direct": dac.MS_DEFORM_ATTN_FWD, "slab": dac.MS_DEFORM_ATTN_FWD_SLAB}
+    merged = {"atomic": dac.MS_DEFORM_ATTN_MERGED, "slab": dac.MS_DEFORM_ATTN_MERGED_SLAB,
+              "banded": dac.MS_DEFORM_ATTN_MERGED_BANDED}
+    g = torch.Generator(device=DEVICE).manual_seed(27)
+    D, P, out = 16, 4, {}
+    for name, H, Q, shapes in SHARDED_CASES:
+        S = sum(h * w for h, w in shapes)
+        Q = Q or S
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            routes = entry_autograd(g, f"{name} {dtype}", PATH_B, Q, shapes, dtype, H=H)
+            row = {"routes": routes}
+            for label, (h, q) in (("sharded", (H, Q)), ("unsharded", (16, S))):
+                value, locs, attn = deform_inputs(g, PATH_B, q, h, D, shapes, lo=-0.1, hi=1.1)
+                value = value.to(dt)
+                dout = torch.randn((PATH_B, q, h * D), generator=g, device=DEVICE).to(dt)
+                F = forward[dac.plan_forward(S, D, dt, q, len(shapes), P).route]
+                M = merged[dac.plan_merged(S, D, dt, q, len(shapes), P).route]
+                row[label] = {
+                    "forward_ms": graph_ms(lambda: F(value, shapes, locs, attn), counted=F),
+                    "merged_ms": graph_ms(lambda: M(value, shapes, locs, attn, dout),
+                                          counted=M)}
+                if label == "sharded":
+                    o = F(value, shapes, locs, attn)
+                    grads = M(value, shapes, locs, attn, dout)
+                    row["forward_bound"] = deform_bound(locs, shapes, D, locs, attn, o,
+                                                        value=value)
+                    row["merged_bound"] = merged_bound(value, locs, attn, dout, grads, shapes)
+                    del o, grads
+                del value, locs, attn, dout
+            torch.cuda.empty_cache()
+            out[f"{name} {dtype}"] = row
+            sh, un = row["sharded"], row["unsharded"]
+            log(f"sharded kernels {name} (B={PATH_B} H={H} Q={Q} S={S}) {dtype}: forward "
+                f"{routes[0]} route, merged adjoint {routes[1]} route, held to their plain "
+                f"versions through the entry; device ms forward {sh['forward_ms']:.4f} "
+                f"(bound {row['forward_bound'][0]:.4f}, {row['forward_bound'][1]}) against "
+                f"{un['forward_ms']:.4f} unsharded (H=16 Q=S), merged adjoint "
+                f"{sh['merged_ms']:.4f} (bound {row['merged_bound'][0]:.4f}) against "
+                f"{un['merged_ms']:.4f}")
+    report["sharded_kernels"] = out
+
+
+def tp_worker(rank: int, world: int, port: int, out: str) -> int:
+    """One process of phase 27's gloo group of `world` over CUDA tensors on
+    the one card: under each of TP_LAYOUTS (one data slot: both processes
+    take the first DP_B images of each global batch) the f32 check's two
+    SGD steps, gradients and parameters gathered whole, then the bf16
+    AdamW timing."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from poet_tpu_torch.parallel import mesh, tp
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=DP_TIMEOUT_S // 4))
+    seeded = torch.load(os.path.join(out, "dp_weights.pt"), weights_only=True)
+    batches = dp_batches(rank_rows(0), os.path.join(out, "dp_rotations.npz"))
+    result = {}
+    for lay in TP_LAYOUTS:
+        cfg32, cfg16 = dp_config("float32", False), dp_config("bfloat16", False)
+        layout = mesh.create_layout(*lay, nheads=cfg32.model.nheads,
+                                    dim_feedforward=cfg32.model.dim_feedforward)
+        model = tp.shard_module(dp_model(cfg32, seeded), layout)
+        result[f"f32 {layout_name(lay)}"] = dp_f32_steps(cfg32, model, batches)
+        del model
+        model = tp.shard_module(dp_model(cfg16, seeded), layout)
+        result[f"bf16 {layout_name(lay)}"] = dp_bf16_steps(cfg16, model, rank, rank_rows(0),
+                                                           layout.n_seq)
+        del model
+        torch.cuda.empty_cache()
+    if rank == 0:
+        torch.save(result, os.path.join(out, "tp_gloo.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_serve_devices(report):
+    """Phase 27c: PoseServer(devices=SERVE_DEVICES) at phase 4's config (the
+    paper config, B=16, 480x640): f32 (TF32 off) against the one-device
+    server within SERVE_DEVICES_RTOL of scale, bf16 reported; bf16 p50 of
+    each over REQUESTS requests and the launches of the split one (each
+    shard its forward's)."""
+    import copy
+
+    import torch
+
+    from poet_tpu_torch.engine.serving import PoseServer
+    from poet_tpu_torch.flagship import flagship_batch, flagship_config
+    from poet_tpu_torch.models import build_model
+    from poet_tpu_torch.utils.init import init_weights
+
+    B, (H, W) = PATH_B, FLAGSHIP_HW
+    images, _, t = flagship_batch(B, H, W, seed=0)
+    boxes = (t["boxes"], t["labels"], t["n_boxes"])
+    answers, stats, counts = {}, {}, None
+    for dtype in ("float32", "bfloat16"):
+        cfg = flagship_config(dtype)
+        model = init_weights(build_model(cfg), seed=0)
+        servers = {"one": PoseServer(cfg, copy.deepcopy(model), batch_size=B, image_size=(H, W),
+                                     device=DEVICE),
+                   "split": PoseServer(cfg, model, batch_size=B, image_size=(H, W),
+                                       devices=SERVE_DEVICES)}
+        with tf32_off() if dtype == "float32" else contextlib.nullcontext():
+            for key, server in servers.items():
+                for _ in range(2):                                    # warm-up
+                    server.infer(images, *boxes)
+                server.reset_latency_stats()
+                kernels = all_kernels()
+                for k in kernels:
+                    k.launches = 0
+                answers[dtype, key] = [server.infer(images, *boxes) for _ in range(REQUESTS)][-1]
+                if dtype == "bfloat16" and key == "split":
+                    counts = [k.launches for k in kernels]
+                stats[dtype, key] = server.latency_stats()
+        del servers, model
+        torch.cuda.empty_cache()
+    want = expected(**path_launches(flagship_config("bfloat16"), FLAGSHIP_S,
+                                    REQUESTS * len(SERVE_DEVICES)))
+    if counts != want:
+        raise AssertionError(f"serving over {SERVE_DEVICES}: launches {LAUNCH_NAMES} {counts}, "
+                             f"expected {want}")
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        one, split = answers[dtype, "one"], answers[dtype, "split"]
+        for k in ("translation", "rotation"):
+            if not np.isfinite(split[k]).all() or split[k].shape != one[k].shape:
+                raise AssertionError(f"serving over {SERVE_DEVICES} {dtype}: {k} not finite "
+                                     f"or of shape {split[k].shape}")
+        errs[dtype] = max(float(np.abs(split[k] - one[k]).max())
+                          / max(float(np.abs(one[k]).max()), 1.0)
+                          for k in ("translation", "rotation"))
+    if errs["float32"] > SERVE_DEVICES_RTOL:
+        raise AssertionError(f"serving over {SERVE_DEVICES} f32: {errs['float32']:.2e} of scale "
+                             f"from the one-device server (limit {SERVE_DEVICES_RTOL})")
+    report["serve_devices"] = {"errors": errs, "p50_ms": {k[1]: v["p50_ms"] for k, v in
+                                                           stats.items() if k[0] == "bfloat16"}}
+    report["serve_devices_launches"] = counts
+    log(f"serving over {SERVE_DEVICES} (paper config, B={B} {H}x{W}, {B // len(SERVE_DEVICES)} "
+        f"a replica): f32 (TF32 off) {errs['float32']:.2e} of scale from the one-device "
+        f"server (limit {SERVE_DEVICES_RTOL}), bf16 {errs['bfloat16']:.2e} (reported); bf16 "
+        f"p50 {stats['bfloat16', 'split']['p50_ms']:.1f} ms against "
+        f"{stats['bfloat16', 'one']['p50_ms']:.1f} on one replica, {REQUESTS} requests; "
+        f"launches {LAUNCH_NAMES} {counts} (each shard its forward's)")
+
+
+def phase_multi_device(report):
+    """Phase 27 (see the module docstring), its files in a temporary
+    directory removed afterwards."""
+    import copy
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    phase_sharded_kernels(report)
+    with tempfile.TemporaryDirectory(prefix="poet_layout_") as tmp:
+        out = os.path.join(tmp, "tp")
+        cfg32, cfg16, seeded, model32 = dp_setup(out)
+        batches = dp_batches(rank_rows(0), os.path.join(out, "dp_rotations.npz"))
+        want = dp_f32_steps(cfg32, copy.deepcopy(model32), batches)
+        del model32
+        model16 = dp_model(cfg16, seeded)
+        # the bf16 timing's batch: dp_bf16_steps' (the flagship targets)
+        single, _, history, _ = drive_train("single process B=8", cfg16,
+                                            copy.deepcopy(model16).to(DEVICE),
+                                            dp_batches(rank_rows(0))[0], DP_TIMED_STEPS,
+                                            path_launches(cfg16, FLAGSHIP_S, 1, train=True))
+        del model16
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        got = run_dp_workers(2, out, "--tp-worker", "tp_gloo.pt")
+        t_workers = time.perf_counter() - t1
+    errs, layouts = {}, {}
+    for lay in TP_LAYOUTS:
+        name = layout_name(lay)
+        errs[name] = dp_compare(got[f"f32 {name}"], want, cfg32.optim.lr)
+        layouts[name] = got[f"bf16 {name}"]
+        # the bf16 steps' losses against one process's, the same batch and
+        # dropout masks: partials rounded to bf16 before their reduce (reported)
+        layouts[name]["bf16_loss_gap"] = max(abs(a / b["loss"] - 1) for a, b in
+                                             zip(layouts[name]["loss"], history))
+    report["layouts"] = {"single": single, "errors": errs, "bf16": layouts,
+                         "workers_s": t_workers}
+    report["layout_launches"] = {name: r["launches"] for name, r in layouts.items()}
+    text = "; ".join(
+        f"({name}) losses {e['loss']:.2e}, grad norm {e['grad_norm']:.2e}, gradients L2 "
+        f"{e['grad_l2']:.2e} ({e.get('grad_l2_at')}) / max {e['grad_max']:.2e} "
+        f"({e.get('grad_max_at')}), parameters {e['param']:.2e} lr; bf16 step p50 "
+        f"{layouts[name]['p50_ms']:.1f} ms / busy {layouts[name]['busy_ms']:.2f} ms a "
+        f"process, its losses {layouts[name]['bf16_loss_gap']:.2e} from one process's, "
+        f"launches {layouts[name]['launches']}"
+        for name, e in errs.items())
+    log(f"layouts (paper config, {FLAGSHIP_HW[0]}x{FLAGSHIP_HW[1]}, B={DP_B}, 2 processes in a "
+        f"gloo group on the one card: a rehearsal, not a multi-card figure), f32 SGD 2 steps "
+        f"(TF32 off) against one process on the same images (tolerances {LAYOUT_TOL}): {text} "
+        f"| one process bf16 p50 {single['p50_ms']:.1f} ms / busy {single['busy_ms']:.2f} ms "
+        f"| launches {LAUNCH_NAMES} over {DP_TIMED_STEPS + 1} steps | workers {t_workers:.1f} s")
+    for name, e in errs.items():
+        dp_hold(f"layout {name} f32 against one process on the same {DP_B} images", e,
+                LAYOUT_TOL)
+    phase_serve_devices(report)
+    log(f"phase 27 in {time.perf_counter() - t0:.1f} s")
+
+
 def build_kernels():
     from poet_tpu_torch.ops.deform_attn_cuda import LIBRARIES, build_all
 
@@ -4609,10 +4899,13 @@ def main(argv) -> int:
     if argv[:1] == ["--dp-worker"] and len(argv) == 5:     # phase 26's processes
         sys.path.insert(0, ROOT)
         return dp_worker(int(argv[1]), int(argv[2]), int(argv[3]), argv[4])
+    if argv[:1] == ["--tp-worker"] and len(argv) == 5:     # phase 27's processes
+        sys.path.insert(0, ROOT)
+        return tp_worker(int(argv[1]), int(argv[2]), int(argv[3]), argv[4])
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = {int(n) for n in argv[1].split(",")}
     elif argv:
-        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-26; 1-2 always run)",
+        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-27; 1-2 always run)",
               file=sys.stderr)
         return 2
     try:
@@ -4650,10 +4943,11 @@ def main(argv) -> int:
               19: lambda: phase_dense(report), 20: lambda: phase_paths(report),
               21: lambda: phase_v2(report), 22: lambda: phase_probes(report),
               23: lambda: phase_cli(report), 24: lambda: phase_variants(report),
-              25: lambda: phase_train_detections(report), 26: lambda: phase_data(report)}
+              25: lambda: phase_train_detections(report), 26: lambda: phase_data(report),
+              27: lambda: phase_multi_device(report)}
     spans = []
     for first, last in ((3, 8), (9, 11), (12, 14), (15, 17), (18, 20), (21, 22), (23, 23),
-                        (24, 25), (26, 26)):
+                        (24, 25), (26, 26), (27, 27)):
         t0 = time.perf_counter()
         for n in range(first, last + 1):
             if only is None or n in only:
@@ -4685,7 +4979,10 @@ def main(argv) -> int:
              "train_calibrate": report["train_calibrate_launches"],
              "train_detections_maskrcnn": report["train_detections_maskrcnn_launches"],
              "train_detections_yolov4": report["train_detections_yolov4_launches"],
-             "train_data_parallel": report["dp_launches"]}
+             "train_data_parallel": report["dp_launches"],
+             **{f"train_layout_{name}": counts
+                for name, counts in report["layout_launches"].items()},
+             "serve_devices": report["serve_devices_launches"]}
     roi, nn = report["roi"], report["nn"]
     errs, bounds = report["adjoint_max_abs_err"], report["adjoint_bounds"]
     src, tpu = "poet_tpu_torch/csrc/", "poet_tpu/ops/deform_attn_pallas_v3.py:"

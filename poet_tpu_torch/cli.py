@@ -367,6 +367,7 @@ def main(cfg: PoETConfig):
     # the process group torchrun describes (WORLD_SIZE > 1), or one the caller made
     mesh.init_distributed(dev.type)
     rank, world = get_rank(), mesh.world_size()
+    layout = mesh.data_layout()         # the CLI's layout: every process a data slot
     n_data = mesh.data_axis_size(cfg.runtime.mesh_data, cfg.optim.batch_size,
                                  cfg.optim.eval_batch_size)
     print(f"git:\n  {get_sha()}\n")             # the reference's main.py:195
@@ -374,7 +375,7 @@ def main(cfg: PoETConfig):
         print(f"data parallel: rank {rank} of {n_data} on {dev}, global batch "
               f"{cfg.optim.batch_size * world}"
               + (", ZeRO-1 optimizer state" if cfg.runtime.zero_opt_state else ""))
-    seed = cfg.runtime.seed + rank              # per-process offset (main.py:198-202)
+    seed = cfg.runtime.seed + layout.data_index   # per-slot offset (main.py:198-202)
     np.random.seed(seed)
     torch.manual_seed(seed)
 
@@ -407,7 +408,8 @@ def main(cfg: PoETConfig):
         return PoseDataLoader(
             build_dataset(split, cfg), batch_size=batch_size,
             num_queries=cfg.model.num_queries, shuffle=shuffle, drop_last=shuffle,
-            seed=cfg.runtime.seed, process_index=rank, process_count=world,
+            seed=cfg.runtime.seed, process_index=layout.data_index,
+            process_count=layout.n_data,
             num_workers=cfg.data.num_workers or 4,
             with_jitter=(cfg.model.bbox_mode == "jitter"),
             device_put_fn=device_put_fn, pad_to_full_batch=not shuffle, alloc=alloc)

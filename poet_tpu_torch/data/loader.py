@@ -5,7 +5,9 @@ Replaces DataLoader + DistributedSampler + data_prefetcher
 (data_utils/samplers.py, data_utils/data_prefetcher.py):
   * epoch-seeded shuffle and contiguous-chunk per-process sharding, matching
     DistributedSampler semantics (samplers.py:48-66) with the caller's
-    process index and count,
+    process index and count: the data slot and the number of data slots
+    (`parallel/mesh.py:Layout.data_index`, `n_data`), not the global rank,
+    so every seq and model process of a slot loads the same images,
   * worker threads decode/augment images on the host, each item with its
     own (seed, epoch, index) generator, and copy each image into its row of
     the batch array, which `alloc(shape, dtype)` provides (e.g. pinned

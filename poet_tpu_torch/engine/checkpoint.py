@@ -61,15 +61,19 @@ def save_checkpoint(output_dir: str, names, model: nn.Module, optimizer, epoch: 
     leaves the old checkpoint whole.
 
     Over more than one process every process calls it: a ZeRO-1 optimizer
-    consolidates its shares to rank 0 here (`parallel/zero.py`), and rank 0
-    alone writes (the model is replicated)."""
+    consolidates its shares to rank 0 here (`parallel/zero.py`), a sharded
+    model and its optimizer state are gathered whole over 'model'
+    (`parallel/tp.py:gather_state_dict`), and rank 0 alone writes: the
+    file is the one-process checkpoint whatever the layout."""
+    from poet_tpu_torch.parallel.tp import gather_state_dict
     from poet_tpu_torch.utils.misc import get_rank
 
     opt_state = optimizer.state_dict() if optimizer is not None else None
+    state = gather_state_dict(model)
     paths = [os.path.join(output_dir, n) for n in ([names] if isinstance(names, str) else names)]
     if get_rank() != 0:
         return paths[-1]
-    payload = {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+    payload = {"model": state,
                "optimizer": opt_state, "epoch": int(epoch), "step": int(step),
                "config": cfg.to_json()}
     for path in paths:

@@ -12,16 +12,20 @@ With bf16 compute the bf16-compute weights are cast once at rest
 (`utils/params.py`). A model with the aleatoric heads answers per-axis
 variances beside the poses, `translation_var` and `rotation_var` =
 exp(log sigma^2) of the last decoder layer, for an EKF tracker, in both
-modes and from `stream` too.
+modes and from `stream` too. `devices=[...]` serves one batch across
+several devices, the counterpart of JAX's `mesh=` (`poet_tpu/engine/
+serving.py:46-83`): one replica per device, each request's batch split into
+equal contiguous shards.
 
 Not ported yet (ROADMAP queue A): the portable `export_model` artifact.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from collections import deque
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,38 +36,61 @@ from poet_tpu_torch.utils.params import cast_params_for_inference
 
 
 class PoseServer:
-    """Pose estimation endpoint for a fixed (batch, H, W) on one device.
+    """Pose estimation endpoint for a fixed (batch, H, W) on one device, or
+    split across `devices`.
 
     `model` is a built and initialized PoET module (`models.build_model`
     plus `utils/init.py:init_weights` or `utils/jax_params.py:load_jax_params`);
     the server moves it to `device` (the card unless the caller passes
     another, e.g. "cpu") and owns it from then on. A bbox_mode='backbone'
     model makes a detector-mode server: requests carry images only.
+
+    With `devices` (a list of devices, possibly the same one repeated) the
+    server holds one replica of the model per entry, the first the model
+    itself on `devices[0]`, and splits each request's batch into equal
+    contiguous shards, shard i on replica i: `batch_size` must divide by
+    their number (JAX asserts the same of its 'data' axis). Every shard's
+    forward is enqueued before any is fetched, and the outputs are joined on
+    `devices[0]` in shard order. `device` is then unused.
     """
 
     def __init__(self, cfg: PoETConfig, model: nn.Module, batch_size: int = 1,
                  image_size=(480, 640), latency_window: int = 1000,
-                 device="cuda"):
+                 device="cuda", devices: Optional[Sequence] = None):
         self.cfg = cfg
         self.detector_mode = cfg.model.bbox_mode == "backbone"
-        self.device = torch.device(device)
+        devices = [torch.device(d) for d in (devices if devices else [device])]
+        if batch_size % len(devices):
+            raise ValueError(f"batch_size {batch_size} does not split over {len(devices)} "
+                             "devices")
+        self.device = devices[0]
         self.batch_size = batch_size
         self.image_size = tuple(image_size)
-        model = model.to(self.device).eval()
+        self._shard = batch_size // len(devices)
+        model = model.eval()
         if cfg.model.dtype == "bfloat16":
             cast_params_for_inference(model)
-        if self.device.type == "cuda":
-            # cuDNN's fast bf16 convs want NHWC; the NHWC input is already that
-            model = model.to(memory_format=torch.channels_last)
-        self.model = model
-        B, (H, W) = batch_size, self.image_size
-        self._pad_mask = torch.zeros((B, H, W), dtype=torch.bool, device=self.device)
+        self.replicas = []
+        for i, dev in enumerate(devices):
+            replica = (model if i == 0 else copy.deepcopy(model)).to(dev)
+            if dev.type == "cuda":
+                # cuDNN's fast bf16 convs want NHWC; the NHWC input is already that
+                replica = replica.to(memory_format=torch.channels_last)
+            self.replicas.append((dev, replica))
+        self.model = self.replicas[0][1]
+        H, W = self.image_size
+        self._pad_masks = [torch.zeros((self._shard, H, W), dtype=torch.bool, device=dev)
+                           for dev, _ in self.replicas]
+        self._pad_mask = self._pad_masks[0]
         self._latencies = deque(maxlen=latency_window)
 
-    def _put(self, x: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x)).to(device=self.device, dtype=dtype)
+    @staticmethod
+    def _put(x: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dtype)
 
-    def _targets(self, boxes, labels, n_boxes) -> Optional[Dict[str, torch.Tensor]]:
+    def _targets(self, boxes, labels, n_boxes) -> Optional[Dict[str, np.ndarray]]:
+        """The request's boxes, labels and counts (host arrays; None in
+        detector mode)."""
         B, Q = self.batch_size, self.cfg.model.num_queries
         if self.detector_mode:
             if boxes is not None or labels is not None or n_boxes is not None:
@@ -75,11 +102,9 @@ class PoseServer:
         if boxes.shape != (B, Q, 4):
             raise ValueError(f"boxes {boxes.shape} != {(B, Q, 4)}")
         return {
-            "boxes": self._put(boxes, torch.float32),
-            "labels": self._put(labels if labels is not None else np.ones((B, Q)),
-                                torch.int32),
-            "n_boxes": self._put(n_boxes if n_boxes is not None else np.full(B, Q),
-                                 torch.int32),
+            "boxes": boxes,
+            "labels": np.asarray(labels if labels is not None else np.ones((B, Q))),
+            "n_boxes": np.asarray(n_boxes if n_boxes is not None else np.full(B, Q)),
         }
 
     def _outputs(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -108,10 +133,19 @@ class PoseServer:
         B, (H, W) = self.batch_size, self.image_size
         if tuple(images.shape) != (B, H, W, 3):
             raise ValueError(f"images {tuple(images.shape)} != {(B, H, W, 3)}")
+        dtypes = {"boxes": torch.float32, "labels": torch.int32, "n_boxes": torch.int32}
         with torch.inference_mode():
             targets = self._targets(boxes, labels, n_boxes)
-            img = self._put(images, torch.float32)
-            return self._outputs(self.model(img, self._pad_mask, targets))
+            outs = []
+            for i, (dev, replica) in enumerate(self.replicas):
+                rows = slice(i * self._shard, (i + 1) * self._shard)
+                shard = None if targets is None else {
+                    k: self._put(v[rows], dtypes[k], dev) for k, v in targets.items()}
+                img = self._put(images[rows], torch.float32, dev)
+                outs.append(self._outputs(replica(img, self._pad_masks[i], shard)))
+            if len(outs) == 1:
+                return outs[0]
+            return {k: torch.cat([o[k].to(self.device) for o in outs]) for k in outs[0]}
 
     @staticmethod
     def fetch(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

@@ -16,7 +16,9 @@ Counterpart of `poet_tpu/engine/train.py`:
   * `make_loss_fn` / `make_train_step` — forward with dropout, the shared
     matching, all per-layer losses, backward through the deformable adjoint
     kernels, clip, update; metrics stay on the device; in a process group
-    data parallel (the global matched count, summed gradients);
+    data parallel (the global matched count, summed gradients), and under a
+    model's layout (`parallel/tp.py:shard_module`) sequence and tensor
+    parallel too;
   * `make_eval_forward` — forward and the final-layer match.
 
 Matching: in gt and jitter mode the matched boxes and classes come from the
@@ -186,28 +188,38 @@ class Optimizer:
     """
 
     def __init__(self, cfg: PoETConfig, model: nn.Module, steps_per_epoch: int):
+        from poet_tpu_torch.parallel import tp
+
         o = cfg.optim
         labels = label_params(model, cfg)
         scale = {"main": 1.0, "linear_proj": o.lr_linear_proj_mult,
                  "backbone": o.lr_backbone / o.lr}
-        groups: Dict[str, List[torch.Tensor]] = {}
+        groups: Dict[str, List[Tuple[str, torch.Tensor]]] = {}
         self.clip_params: List[torch.Tensor] = []
+        self.clip_names: List[str] = []
         for name, p in model.named_parameters():
             if p.requires_grad:
                 self.clip_params.append(p)
+                self.clip_names.append(name)
             if labels[name] == "frozen":
                 continue
             if p.dtype != torch.float32:
                 raise TypeError(f"{name} is {p.dtype}: training needs f32 master weights "
                                 "(do not cast the model for inference)")
-            groups.setdefault(labels[name], []).append(p)
+            groups.setdefault(labels[name], []).append((name, p))
         if not groups:
             raise ValueError("every parameter is frozen: calibrate mode trains the aleatoric "
                              "heads alone (calibrate needs aleatoric)")
-        self.param_groups = [{"params": ps, "name": lab, "lr": o.lr * scale[lab],
-                              "lr_scale": scale[lab]} for lab, ps in groups.items()]
+        self.param_groups = [{"params": [p for _, p in ps], "name": lab,
+                              "lr": o.lr * scale[lab], "lr_scale": scale[lab]}
+                             for lab, ps in groups.items()]
         self._scale = scale
         self.params = [p for g in self.param_groups for p in g["params"]]
+        self.param_names = [n for ps in groups.values() for n, _ in ps]
+        # under a layout: the data group of ZeRO, the sharded tensors of the
+        # norm and of the consolidated state
+        self.layout = tp.layout_of(model)
+        self.norm = tp.grad_norm_fn(self.layout, self.clip_names)
         self.torch_opt = self._torch_optimizer(o, self._owned_groups())
         self.accum = max(o.grad_accum_steps, 1)
         # the inner count advances once per update: size StepLR in updates
@@ -275,7 +287,7 @@ class Optimizer:
                 a.zero_()
             self.micro_step = 0
         if self.clip_max_norm > 0:
-            norm = global_norm(grads)
+            norm = self.norm(grads)
             clip = norm >= self.clip_max_norm      # stays on the device: no sync
             div = torch.where(clip, norm, torch.ones_like(norm))
             mul = torch.where(clip, torch.full_like(norm, self.clip_max_norm),
@@ -293,34 +305,45 @@ class Optimizer:
 
     def state_dict(self) -> Dict:
         """Everything a resume needs: the update and micro-step counts, the
-        gradient-accumulation buffer, the torch optimizer's state."""
-        return {"updates": self.updates, "micro_step": self.micro_step,
-                "acc": None if self._acc is None else [a.detach().cpu() for a in self._acc],
-                "torch": self._torch_state()}
+        gradient-accumulation buffer, the torch optimizer's state. Under a
+        model axis its sharded tensors are gathered whole (a collective), so
+        the state is the one-process optimizer's whatever the layout."""
+        from poet_tpu_torch.parallel import tp
+
+        acc = None if self._acc is None else [
+            tp.gather_tensor(a, n, self.layout) for a, n in zip(self._acc, self.clip_names)]
+        return {"updates": self.updates, "micro_step": self.micro_step, "acc": acc,
+                "torch": tp.gather_optimizer_state(self._torch_state(), self.param_names,
+                                                   self.layout)}
 
     def load_state_dict(self, state: Dict) -> None:
-        """Restore `state_dict()`'s output. The rates and decay stay this
-        optimizer's, from the current config (torch's load would put the
-        saved groups' back): the schedule is rebuilt from the command line, as
-        in the JAX package."""
-        self._load_torch_state(state["torch"])
+        """Restore `state_dict()`'s output (written under any layout: a
+        sharded tensor is cut to this process's shard). The rates and decay
+        stay this optimizer's, from the current config (torch's load would
+        put the saved groups' back): the schedule is rebuilt from the command
+        line, as in the JAX package."""
+        from poet_tpu_torch.parallel import tp
+
+        lay = self.layout
+        self._load_torch_state(tp.shard_optimizer_state(state["torch"], self.param_names, lay))
         for group in self.torch_opt.param_groups:
             group["lr_scale"] = self._scale[group["name"]]
             group["weight_decay"] = self.torch_opt.defaults["weight_decay"]
         self.updates = int(state["updates"])
         self.micro_step = int(state["micro_step"])
         dev = self.params[0].device
-        self._acc = (None if state["acc"] is None
-                     else [a.to(dev) for a in state["acc"]])
+        self._acc = (None if state["acc"] is None else [
+            tp.shard_tensor(a, tp.param_spec(n), lay.model_index, lay.n_model).to(dev)
+            for a, n in zip(state["acc"], self.clip_names)])
 
 
 def make_optimizer(cfg: PoETConfig, model: nn.Module, steps_per_epoch: int) -> Optimizer:
-    """`Optimizer`, or with `runtime.zero_opt_state` over more than one
-    process its ZeRO-1 form (`parallel/zero.py`); over one process ZeRO is a
+    """`Optimizer`, or with `runtime.zero_opt_state` over more than one data
+    slot its ZeRO-1 form (`parallel/zero.py`); over one data slot ZeRO is a
     no-op, as JAX's `mesh.shape["data"] > 1` guard makes it."""
-    from poet_tpu_torch.parallel.mesh import world_size
+    from poet_tpu_torch.parallel.tp import layout_of
 
-    if cfg.runtime.zero_opt_state and world_size() > 1:
+    if cfg.runtime.zero_opt_state and layout_of(model).n_data > 1:
         from poet_tpu_torch.parallel.zero import ZeroOptimizer
 
         return ZeroOptimizer(cfg, model, steps_per_epoch)
@@ -410,24 +433,27 @@ def make_loss_fn(model: nn.Module, cfg: PoETConfig,
     return loss_fn
 
 
-def global_count(match: MatchResult) -> torch.Tensor:
-    """The matched count summed over the processes (a collective)."""
+def global_count(match: MatchResult, group=None) -> torch.Tensor:
+    """The matched count summed over the processes of `group` (a
+    collective; None: every process)."""
     import torch.distributed as dist
 
     n = match.num_matched.clone()
-    dist.all_reduce(n)
+    dist.all_reduce(n, group=group)
     return n
 
 
-def reduce_over_processes(grads: List[torch.Tensor], metrics: Dict[str, torch.Tensor]) -> None:
-    """Sum the gradients and the metrics over the processes, in place, in
-    one all-reduce of one flat f32 buffer."""
+def reduce_over_processes(grads: List[torch.Tensor], metrics: Dict[str, torch.Tensor],
+                          group=None) -> None:
+    """Sum the gradients and the metrics over the processes of `group`
+    (None: every process), in place, in one all-reduce of one flat f32
+    buffer."""
     import torch.distributed as dist
 
     values = list(metrics.values())
     flat = torch.cat([g.reshape(-1).float() for g in grads]
                      + [v.reshape(1).float() for v in values])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view(g.shape))
@@ -452,16 +478,28 @@ def make_train_step(model: nn.Module, cfg: PoETConfig, optimizer: Optimizer) -> 
     update run on the summed gradients, identical on every process, and the
     metrics are the global ones.
 
+    Under a model's layout (`parallel/tp.py:shard_module`) the matched count
+    and the metrics are reduced over 'data' only: the seq and model
+    processes of a data slot hold the same images and matches. The encoder
+    layers' gradients, partial over 'seq' (each process ran its own tokens),
+    are summed over 'seq' first; every other gradient is whole on each seq
+    and model process (`parallel/tp.py`'s collectives), so each parameter's
+    gradient is that of the global batch, as `jax.grad` gives.
+
     A model on the GPU is converted to channels_last in place (the
     parameters stay the same objects, so `optimizer` still holds them), as
     `PoseServer` does: cuDNN's fast bf16 convs want NHWC, which the NHWC
     input already is."""
-    from poet_tpu_torch.parallel.mesh import is_distributed
+    from poet_tpu_torch.parallel import tp
 
     if next(model.parameters()).is_cuda:
         model.to(memory_format=torch.channels_last)
-    data_parallel = is_distributed()
-    loss_fn = make_loss_fn(model, cfg, count=global_count if data_parallel else None)
+    layout = tp.layout_of(model)
+    data_parallel = layout.data_collective
+    loss_fn = make_loss_fn(model, cfg, count=(lambda m: global_count(m, layout.data_group))
+                           if data_parallel else None)
+    seq_partial = ([i for i, n in enumerate(optimizer.clip_names) if tp.seq_partial(n)]
+                   if layout.n_seq > 1 else [])
 
     def step(images, pad_mask, targets, match: Optional[MatchResult],
              generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
@@ -471,9 +509,12 @@ def make_train_step(model: nn.Module, cfg: PoETConfig, optimizer: Optimizer) -> 
         total.backward()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
+        grads = optimizer.grads()
+        if seq_partial:
+            reduce_over_processes([grads[i] for i in seq_partial], {}, layout.seq_group)
         if data_parallel:
-            reduce_over_processes(optimizer.grads(), metrics)
-        metrics["grad_norm"] = global_norm(optimizer.grads())
+            reduce_over_processes(grads, metrics, layout.data_group)
+        metrics["grad_norm"] = optimizer.norm(grads)
         optimizer.step()
         return metrics
 

@@ -18,6 +18,13 @@ layer's `dropout` rate, with masks drawn from the `torch.Generator` that the
 caller passes to `forward` (the trainer owns it), never from the global RNG.
 Submodule names follow the reference checkpoint
 (`transformer.encoder.layers.{i}.self_attn.value_proj`, ...).
+
+Under a multi-process layout (`parallel/tp.py:shard_module` sets each
+module's `layout`) the attention modules run on their local heads with the
+row-parallel projections reduced over 'model', and the encoder runs on this
+process's share of the tokens ('seq'); every dropout mask is drawn at the
+one-process model's shape and sliced (`parallel/tp.py`). Without a layout
+nothing changes.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ from poet_tpu_torch.config import deform_route
 from poet_tpu_torch.models.layers import Dense, LayerNorm, variance_scaling_
 from poet_tpu_torch.ops.deform_attn_cuda import ms_deform_attn
 from poet_tpu_torch.ops.deform_attn_dense_cuda import ms_deform_attn_dense
+from poet_tpu_torch.parallel import tp
+from poet_tpu_torch.parallel.mesh import Layout
 
 
 def _rounded(value: float, dtype: torch.dtype) -> float:
@@ -43,11 +52,27 @@ def _rounded(value: float, dtype: torch.dtype) -> float:
     return torch.tensor(value, dtype=dtype).item()
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            seq: Optional[tp.SeqShard] = None, cols: Optional[Layout] = None) -> torch.Tensor:
     """flax `nn.Dropout`: keep with probability 1 - rate, kept values divided
-    by the keep probability in x's dtype, the mask drawn from `generator`."""
+    by the keep probability in x's dtype, the mask drawn from `generator`.
+    Where x holds this process's tokens (`seq`) or its last-dim columns of a
+    column-parallel activation (`cols`: the layout) of the one-process
+    activation, the mask is drawn at that full shape and sliced, so every
+    layout draws the same masks and the generator advances as in one
+    process."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = list(x.shape)
+    part = tp.column_slice(cols, x.shape[-1])
+    if seq is not None:
+        shape[1] = seq.S
+    if part is not None:
+        shape[-1] = x.shape[-1] * cols.n_model
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if seq is not None:
+        mask = seq.local(mask, False)
+    if part is not None:
+        mask = mask[..., part]
     return torch.where(mask, x / _rounded(keep, x.dtype), x.new_zeros(()))
 
 
@@ -68,8 +93,10 @@ class _Dropout(nn.Module):
                              "for inference")
         return True
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-        return dropout(x, self.rate, generator) if self.active(generator) else x
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator],
+                seq: Optional[tp.SeqShard] = None, cols: Optional[Layout] = None
+                ) -> torch.Tensor:
+        return dropout(x, self.rate, generator, seq, cols) if self.active(generator) else x
 
 
 def _grid_init_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
@@ -87,7 +114,10 @@ def _grid_init_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
 class MSDeformAttn(nn.Module):
     """Multi-scale deformable attention: projections around the sampling core.
     `impl` is JAX's name of the core ('pallas' -> the dense kernels, any other
-    -> the gather kernels, with the merged adjoint if `merged_adjoint`)."""
+    -> the gather kernels, with the merged adjoint if `merged_adjoint`). Under
+    a layout `n_heads` are this process's heads, the projections its shards."""
+
+    layout: Optional[Layout] = None
 
     def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8,
                  n_points: int = 4, dtype: torch.dtype = torch.float32, impl: str = "mxu",
@@ -120,15 +150,22 @@ class MSDeformAttn(nn.Module):
                 input_flatten: torch.Tensor,            # (B, S, C)
                 spatial_shapes: Sequence[Tuple[int, int]],
                 input_padding_mask: Optional[torch.Tensor] = None,  # (B, S) True=pad
+                seq: Optional[tp.SeqShard] = None,
                 ) -> torch.Tensor:
-        B, Q, C = query.shape
-        S = input_flatten.shape[1]
+        """With `seq`, `input_flatten` and its mask hold this process's
+        tokens, gathered (projected) before the core."""
+        B, Q, _ = query.shape
         H, L, P = self.n_heads, self.n_levels, self.n_points
+        query = tp.copy_to_model(query, self.layout)
+        input_flatten = tp.copy_to_model(input_flatten, self.layout)
 
         value = self.value_proj(input_flatten)
         if input_padding_mask is not None:
             value = value.masked_fill(input_padding_mask[..., None], 0.0)
-        value = value.view(B, S, H, C // H)
+        if seq is not None:
+            value = seq.gather_for_core(value)
+        S = value.shape[1]
+        value = value.view(B, S, H, -1)
 
         offsets = self.sampling_offsets(query).view(B, Q, H, L, P, 2)
         attn = self.attention_weights(query).view(B, Q, H, L * P)
@@ -141,12 +178,16 @@ class MSDeformAttn(nn.Module):
                 attn.contiguous())
         out = (ms_deform_attn_dense(*args) if self.route == "dense"
                else ms_deform_attn(*args, adjoint=self.adjoint))
-        return self.output_proj(out)
+        return tp.row_parallel(self.output_proj, out, self.layout)
 
 
 class MultiheadAttention(nn.Module):
     """Self-attention with torch's packed `in_proj` layout (nn.MultiheadAttention
-    names) and flax `MultiHeadDotProductAttention` numerics."""
+    names) and flax `MultiHeadDotProductAttention` numerics. Under a layout
+    `num_heads` are this process's heads: the rows of its q, k and v
+    projections and the columns of `out_proj`."""
+
+    layout: Optional[Layout] = None
 
     def __init__(self, embed_dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
                  dropout: float = 0.0):
@@ -167,10 +208,12 @@ class MultiheadAttention(nn.Module):
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.compute_dtype
-        B, Lq, C = q.shape
+        B, Lq, _ = q.shape
         H = self.num_heads
+        q, k, v = (tp.copy_to_model(t, self.layout) for t in (q, k, v))
         w = self.in_proj_weight.to(dt).chunk(3)
         b = self.in_proj_bias.to(dt).chunk(3)
+        C = w[0].shape[0]                   # this process's heads x head width
         qh = F.linear(q.to(dt), w[0], b[0]).view(B, Lq, H, C // H)
         kh = F.linear(k.to(dt), w[1], b[1]).view(B, k.shape[1], H, C // H)
         vh = F.linear(v.to(dt), w[2], b[2]).view(B, v.shape[1], H, C // H)
@@ -184,10 +227,21 @@ class MultiheadAttention(nn.Module):
                               device=weights.device) < keep
             weights = weights * (mask.to(dt) / _rounded(keep, dt))
         out = torch.einsum("bhqk,bkhd->bqhd", weights, vh).reshape(B, Lq, C)
-        return self.out_proj(out)
+        return tp.row_parallel(self.out_proj, out, self.layout)
+
+
+def _ffn(layer: nn.Module, x: torch.Tensor, generator: Optional[torch.Generator],
+         seq: Optional[tp.SeqShard] = None) -> torch.Tensor:
+    """linear2(dropout(relu(linear1(x)))): under a layout linear1 column- and
+    linear2 row-parallel over 'model'."""
+    h = F.relu(layer.linear1(tp.copy_to_model(x, layer.layout)))
+    return tp.row_parallel(layer.linear2, layer.drop(h, generator, seq, layer.layout),
+                           layer.layout)
 
 
 class EncoderLayer(nn.Module):
+    layout: Optional[Layout] = None
+
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
                  n_points: int, dtype: torch.dtype = torch.float32, dropout: float = 0.0,
                  impl: str = "mxu", merged_adjoint: bool = True):
@@ -201,16 +255,22 @@ class EncoderLayer(nn.Module):
         self.norm2 = LayerNorm(d_model, dtype)
 
     def forward(self, src, pos, reference_points, spatial_shapes, padding_mask,
-                generator: Optional[torch.Generator] = None):
-        src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes, padding_mask)
-        src = self.norm1(src + self.drop(src2, generator))
-        src2 = self.linear2(self.drop(F.relu(self.linear1(src)), generator))
-        return self.norm2(src + self.drop(src2, generator))
+                generator: Optional[torch.Generator] = None,
+                seq: Optional[tp.SeqShard] = None):
+        """With `seq` the tokens, their positions, reference points and mask
+        are this process's share."""
+        src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes, padding_mask,
+                              seq)
+        src = self.norm1(src + self.drop(src2, generator, seq))
+        src2 = _ffn(self, src, generator, seq)
+        return self.norm2(src + self.drop(src2, generator, seq))
 
 
 class DecoderLayer(nn.Module):
     """MHA self-attention over the queries (q = k = tgt + pos, v = tgt),
     deformable cross-attention into the memory, then the FFN."""
+
+    layout: Optional[Layout] = None
 
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
                  n_points: int, dtype: torch.dtype = torch.float32, dropout: float = 0.0,
@@ -234,7 +294,7 @@ class DecoderLayer(nn.Module):
         tgt2 = self.cross_attn(tgt + query_pos, reference_points, src, spatial_shapes,
                                src_padding_mask)
         tgt = self.norm1(tgt + self.drop(tgt2, generator))
-        tgt2 = self.linear2(self.drop(F.relu(self.linear1(tgt)), generator))
+        tgt2 = _ffn(self, tgt, generator)
         return self.norm3(tgt + self.drop(tgt2, generator))
 
 
@@ -283,7 +343,13 @@ class DeformableTransformer(nn.Module):
     query table is split and broadcast over the batch; without reference
     points (`learned_reference_points`) the decoder's are
     sigmoid(`reference_points`(qe)), as in JAX (`poet_tpu/models/
-    transformer.py:533-544`)."""
+    transformer.py:533-544`). Under a layout with a 'seq' axis the encoder
+    runs on this process's share of the tokens (`parallel/tp.py`: padded to a
+    multiple of n_seq, pad tokens masked, their reference points at -10) and
+    `memory` is gathered whole, with its pad rows dropped, for the decoder,
+    which every process runs whole."""
+
+    layout: Optional[Layout] = None
 
     def __init__(self, d_model: int = 256, nhead: int = 8, num_encoder_layers: int = 6,
                  num_decoder_layers: int = 6, dim_feedforward: int = 1024,
@@ -327,10 +393,15 @@ class DeformableTransformer(nn.Module):
         valid_ratios = compute_valid_ratios(masks)
 
         enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
-        out = src_flat
+        seq = tp.seq_shard(self.layout, src_flat.shape[1])
+        if seq is None:
+            out, pos_enc, ref_enc, mask_enc = src_flat, pos_flat, enc_ref, mask_flat
+        else:
+            out, pos_enc = seq.split(src_flat), seq.split(pos_flat)
+            ref_enc, mask_enc = seq.local(enc_ref, -10.0), seq.local(mask_flat, True)
         for layer in self.encoder.layers:
-            out = layer(out, pos_flat, enc_ref, spatial_shapes, mask_flat, generator)
-        memory = out
+            out = layer(out, pos_enc, ref_enc, spatial_shapes, mask_enc, generator, seq)
+        memory = out if seq is None else seq.gather(out)
 
         qe, tgt = query_embed.to(self.dtype).split(C, dim=-1)
         if query_embed.dim() == 2:                  # a learned (Q, 2C) table

@@ -1,4 +1,6 @@
-"""Data parallelism over processes (`mesh`) and ZeRO-1 optimizer-state
-sharding (`zero`): the port's counterpart of `poet_tpu/parallel/mesh.py`
-and `zero.py`. Head-sharded TP and sequence parallelism (`tp.py`) are not
-ported (ROADMAP A.6)."""
+"""Multi-process layouts: the counterpart of `poet_tpu/parallel/`. `mesh`:
+the process group, the data-only layout and the ('data', 'seq', 'model')
+layout over processes; `tp`: head-sharded tensor parallelism and sequence
+parallelism over the encoder's tokens; `zero`: ZeRO-1 optimizer-state
+sharding over 'data'; `dryrun`: one train step under a layout (JAX's
+`__graft_entry__.py:dryrun_multichip`)."""

@@ -32,13 +32,19 @@ concatenated global batch.
   * `any_process`: a flag set on any process, for decisions that every
     process must take at the same step (the SIGTERM checkpoint), reduced on
     the CPU through a gloo group (the default one under gloo, a second one
-    under NCCL), so the train loop never waits for the card for it.
+    under NCCL), so the train loop never waits for the card for it;
+  * `Layout`, `create_layout`: the ('data', 'seq', 'model') layout of
+    `poet_tpu/parallel/tp.py:create_mesh_3d` over the processes, one process
+    group per axis; `data_layout` is the data-only layout above (every
+    process a data slot), which a model without a layout trains under.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
@@ -139,3 +145,95 @@ def any_process(flag: bool) -> bool:
     dist.all_reduce(t, op=dist.ReduceOp.MAX,
                     group=_host_group if dist.get_backend() != "gloo" else None)
     return bool(t.item())
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Layout:
+    """A ('data', 'seq', 'model') layout of the processes: batch over
+    'data', the encoder's tokens over 'seq' (sequence parallelism), the
+    attention heads and FFN columns over 'model' (tensor parallelism,
+    `parallel/tp.py`). Ranks are numbered as JAX's reshape of the device list
+    numbers the mesh, 'model' minor: rank = (d * n_seq + s) * n_model + m.
+    Each axis of more than one process has its process group (None: the
+    default group, where the axis spans every process); a size-1 axis has
+    none and no collective runs over it."""
+
+    n_data: int
+    n_seq: int = 1
+    n_model: int = 1
+    data_index: int = 0
+    seq_index: int = 0
+    model_index: int = 0
+    data_group: Any = None
+    seq_group: Any = None
+    model_group: Any = None
+
+    def __deepcopy__(self, memo):          # a copied model keeps its process groups
+        return self
+
+    @property
+    def data_collective(self) -> bool:
+        """Whether the train step reduces over 'data': more than one data
+        slot, or the data-only layout of any size (a one-process group still
+        runs its collectives, as the data-parallel step always has)."""
+        return is_distributed() and (self.n_data > 1 or self.n_seq * self.n_model == 1)
+
+
+def data_layout() -> Layout:
+    """The data-only layout: every process a data slot, the default group."""
+    from poet_tpu_torch.utils.misc import get_rank
+
+    return Layout(n_data=world_size(), data_index=get_rank())
+
+
+def create_layout(n_data: int = -1, n_seq: int = 1, n_model: int = 1,
+                  nheads: Optional[int] = None,
+                  dim_feedforward: Optional[int] = None) -> Layout:
+    """The 3-D layout over the processes of the group (a collective: every
+    process calls it with the same sizes). `n_data` = -1 takes the processes
+    left after 'seq' and 'model'. Raises where the sizes do not multiply to
+    the processes started, or where `nheads` or `dim_feedforward` (when
+    given) do not divide by `n_model` (JAX's tp.py requires the same)."""
+    from poet_tpu_torch.utils.misc import get_rank
+
+    n = world_size()
+    if n_seq < 1 or n_model < 1 or n % (n_seq * n_model):
+        raise ValueError(f"seq {n_seq} x model {n_model} does not divide {n} processes")
+    if n_data == -1:
+        n_data = n // (n_seq * n_model)
+    if n_data * n_seq * n_model != n:
+        raise ValueError(f"data {n_data} x seq {n_seq} x model {n_model} != {n} processes "
+                         "started: a process cannot be left out of the group it joined")
+    for name, size in (("nheads", nheads), ("dim_feedforward", dim_feedforward)):
+        if size is not None and size % n_model:
+            raise ValueError(f"{name} {size} does not divide by the model axis {n_model}")
+    rank = get_rank()
+    d, rest = divmod(rank, n_seq * n_model)
+    s, m = divmod(rest, n_model)
+
+    def rank_of(d, s, m):
+        return (d * n_seq + s) * n_model + m
+
+    def axis_group(size, ranks_of):
+        """This process's group along an axis; every process creates every
+        group of the axis, in the same order, as new_group requires."""
+        if size == 1:
+            return None
+        if size == n:
+            return None                   # the default group
+        mine = None
+        for ranks in ranks_of():
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mine = g
+        return mine
+
+    groups = {
+        "data_group": axis_group(n_data, lambda: ([rank_of(i, j, k) for i in range(n_data)]
+                                                  for j in range(n_seq) for k in range(n_model))),
+        "seq_group": axis_group(n_seq, lambda: ([rank_of(i, j, k) for j in range(n_seq)]
+                                                for i in range(n_data) for k in range(n_model))),
+        "model_group": axis_group(n_model, lambda: ([rank_of(i, j, k) for k in range(n_model)]
+                                                    for i in range(n_data) for j in range(n_seq))),
+    }
+    return Layout(n_data, n_seq, n_model, d, s, m, **groups)

@@ -27,7 +27,14 @@ explicit, under the port's `Optimizer` (`engine/train.py`):
   * `opt_state_bytes_per_device` is the diagnostic of JAX's module: the
     bytes of optimizer state this process holds.
 
-Over one process `engine/train.py:make_optimizer` builds the plain
+Under a model's layout (`parallel/tp.py`) each (seq, model) position's
+state, over its own tensor-parallel shards, is partitioned over its 'data'
+group, and every broadcast and gather runs within that group: JAX's
+`init_zero1_opt_state_tp` (`poet_tpu/parallel/zero.py:94-106`). The
+consolidated state is then gathered over 'model' into the one-process
+layout (`engine/train.py:Optimizer.state_dict`).
+
+Over one data slot `engine/train.py:make_optimizer` builds the plain
 `Optimizer`: ZeRO is then a no-op, as JAX's `mesh.shape["data"] > 1` guard
 makes it.
 """
@@ -41,8 +48,7 @@ import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from poet_tpu_torch.engine.train import Optimizer
-from poet_tpu_torch.parallel.mesh import world_size
-from poet_tpu_torch.utils.misc import get_rank
+from poet_tpu_torch.parallel.tp import layout_of
 
 
 def partition(params: List[torch.Tensor], n: int) -> List[int]:
@@ -58,11 +64,16 @@ def partition(params: List[torch.Tensor], n: int) -> List[int]:
 
 
 class ZeroOptimizer(Optimizer):
-    """`Optimizer` with its state partitioned over the processes (ZeRO-1)."""
+    """`Optimizer` with its state partitioned over the data slots (ZeRO-1)."""
 
     def __init__(self, cfg, model, steps_per_epoch: int):
-        self.world, self.rank = world_size(), get_rank()
+        layout = layout_of(model)
+        self.world, self.rank, self.group = layout.n_data, layout.data_index, layout.data_group
         super().__init__(cfg, model, steps_per_epoch)
+
+    def _global_rank(self, r: int) -> int:
+        """The global rank of data slot `r` of this process's data group."""
+        return r if self.group is None else dist.get_global_rank(self.group, r)
 
     def _owned_groups(self) -> List[Dict]:
         self.owner = dict(zip(map(id, self.params), partition(self.params, self.world)))
@@ -77,7 +88,7 @@ class ZeroOptimizer(Optimizer):
             if not share:
                 continue
             flat = _flatten_dense_tensors([p.data for p in share])
-            dist.broadcast(flat, src=r)
+            dist.broadcast(flat, src=self._global_rank(r), group=self.group)
             if r != self.rank:
                 for p, v in zip(share, _unflatten_dense_tensors(flat, share)):
                     p.data.copy_(v)
@@ -87,8 +98,8 @@ class ZeroOptimizer(Optimizer):
         return {id(p): i for i, p in enumerate(self.params)}
 
     def _torch_state(self):
-        """The consolidated torch state on rank 0 (None elsewhere); a
-        collective: every process calls it."""
+        """The consolidated torch state on data slot 0 (None elsewhere); a
+        collective over 'data': every process calls it."""
         local = self.torch_opt.state_dict()
         index = self._global_index()
         local_params = [p for g in self.torch_opt.param_groups for p in g["params"]]
@@ -96,7 +107,7 @@ class ZeroOptimizer(Optimizer):
                                 for k, v in local["state"][i].items()}
                  for i, p in enumerate(local_params) if i in local["state"]}
         shares = [None] * self.world if self.rank == 0 else None
-        dist.gather_object(share, shares, dst=0)
+        dist.gather_object(share, shares, dst=self._global_rank(0), group=self.group)
         if self.rank != 0:
             return None
         state = {}

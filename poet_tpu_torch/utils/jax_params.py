@@ -26,6 +26,10 @@ layout in torchvision's (C, 7, 7) flatten order). A learned table
 `translation_head_aleatoric.{l}` <- `translation_head_aleatoric_{l}` (and
 the rotation's), the learned reference points `transformer.reference_points`
 <- `transformer/reference_points`, as every Dense.
+
+Into a tensor-parallel module (`parallel/tp.py:shard_module`) the tree is
+read whole and each split tensor cut to the process's shard by the same
+rules (`tp.param_spec`), so every process loads the same file.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch.nn as nn
 from poet_tpu_torch.models.layers import Conv, Dense, Embedding, GroupNorm, LayerNorm
 from poet_tpu_torch.models.resnet_fpn import FrozenBatchNorm
 from poet_tpu_torch.models.transformer import DeformableTransformer, MultiheadAttention
+from poet_tpu_torch.parallel.tp import shard_array
 
 # port module name -> flax module path, applied in order to the dotted name
 _RULES = (
@@ -82,6 +87,7 @@ def load_jax_params(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
         tree = tree["params"]
     flat = _flatten(tree)
     used, assigned = set(), set()
+    layout = getattr(model, "layout", None)
 
     def take(path):
         if path not in flat:
@@ -90,6 +96,7 @@ def load_jax_params(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
         return np.asarray(flat[path], dtype=np.float32)
 
     def put(name, t, arr):
+        arr = shard_array(name, arr, layout)
         if tuple(t.shape) != arr.shape:
             raise ValueError(f"{name}: port shape {tuple(t.shape)} != JAX {arr.shape}")
         t.copy_(torch.from_numpy(np.ascontiguousarray(arr)))

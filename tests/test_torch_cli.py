@@ -16,7 +16,8 @@ decoder layer, 2 heads) on `tests/helpers.make_synthetic_dataset`:
   (`--aleatoric` with the three learned embeddings and `--mu_bf16`) and on
   detections (`--bbox_mode backbone`, the Mask R-CNN of
   `flagship.detector_state_dict`, on a copy of the dataset whose train
-  targets are its own detections; without the clip, ROADMAP C2), each from
+  targets are its own detections; without the clip, ROADMAP C2; 64
+  proposals an image, ROADMAP C7), each from
   a zoo file of a port model with those options; every ported model and
   optimizer flag accepted (`--calibrate` too, held against JAX's train step
   in tests/test_torch_variants.py);
@@ -415,11 +416,13 @@ def _zoo(model, path):
 TRAIN_EPOCH = ["--epochs", "1", "--eval_interval", "5", "--save_interval", "50"]
 # the epochs of the model's options and of training on detections (without
 # the clip: JAX's backbone-mode step puts the Mask R-CNN heads' gradients
-# into the clip's norm, ROADMAP C2)
+# into the clip's norm, ROADMAP C2; 64 proposals an image: JAX's step
+# differentiates through its RoIAlign, whose backward over torchvision's
+# 1000 proposals took the file's peak to 41 GB of memory, ROADMAP C7)
 VARIANT_EPOCHS = {
     "options": ["--aleatoric", "--query_embedding", "learned", "--reference_points", "learned",
                 "--position_embedding", "learned", "--mu_bf16"],
-    "detections": ["--bbox_mode", "backbone", "--clip_max_norm", "0"],
+    "detections": ["--bbox_mode", "backbone", "--clip_max_norm", "0", "--post_nms_top_n", "64"],
 }
 
 

@@ -268,20 +268,20 @@ def start_children(mode: str, n: int, *args):
     return mode, procs
 
 
-def join_children(started):
-    """Each process joined within CHILD_TIMEOUT_S of the call, killed after
-    it; the test fails with their output on a timeout or an error."""
+def join_children(started, timeout=CHILD_TIMEOUT_S):
+    """Each process joined within `timeout` s of the call, killed after it;
+    the test fails with their output on a timeout or an error."""
     mode, procs = started
     outs = []
     try:
         for p in procs:
             try:
-                outs.append(p.communicate(timeout=CHILD_TIMEOUT_S)[0])
+                outs.append(p.communicate(timeout=timeout)[0])
             except subprocess.TimeoutExpired:
                 for q in procs:
                     q.kill()
                 outs.append(p.communicate()[0])
-                pytest.fail(f"{mode}: a process did not finish in {CHILD_TIMEOUT_S} s:\n"
+                pytest.fail(f"{mode}: a process did not finish in {timeout} s:\n"
                             + "\n".join(o[-3000:] for o in outs))
     finally:
         for p in procs:
@@ -336,11 +336,11 @@ def ddp(children):
     return torch.load(os.path.join(out, "results.pt"), weights_only=False)
 
 
-@pytest.fixture(scope="module")
-def jax_steps(children, batches, start):
-    """JAX's `make_train_step` with its SGD on the 8 images, 2 steps, from
-    the processes' shared start: metrics, gradients and parameters after each
-    step, the last two under port names."""
+def jax_sgd_steps(batches, start_state):
+    """JAX's `make_train_step` with its SGD on each of `batches` (host
+    arrays: the global batches), one step each, from the port's
+    `start_state`: metrics, gradients and parameters after each step, the
+    last two under port names."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -364,7 +364,7 @@ def jax_steps(children, batches, start):
                 setattr(getattr(jcfg, sect), k, v)
     jcfg.model.dtype = "float32"
     jcfg.model.enc_remat = "off"
-    sd = state_dict_to_numpy(start[0])
+    sd = state_dict_to_numpy(start_state)
     tree = convert_poet_checkpoint(sd, enc_layers=ENC, dec_layers=DEC, nheads=HEADS)
     tree["backbone"] = {"fpn_body": convert_resnet_fpn(sd, prefix="backbone.backbone.")}
     params = {"params": tree}
@@ -381,14 +381,21 @@ def jax_steps(children, batches, start):
         return {k: v.detach().clone() for k, v in holder.named_parameters()}
 
     out = []
-    for s in range(STEPS):
-        images, pad_mask, targets = batches[0][s]
+    for images, pad_mask, targets in batches:
         state, metrics = step(state, jnp.asarray(images), jnp.asarray(pad_mask),
                               {k: jnp.asarray(v) for k, v in targets.items()},
                               jax.random.PRNGKey(0))
         out.append(({k: float(v) for k, v in metrics.items()},
                     to_port(state.opt_state[1]), to_port(state.params)))
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_steps(children, batches, start):
+    """JAX's `make_train_step` with its SGD on the 8 images, 2 steps, from
+    the processes' shared start: metrics, gradients and parameters after each
+    step, the last two under port names."""
+    return jax_sgd_steps(batches[0][:STEPS], start[0])
 
 
 @pytest.fixture(scope="module")
