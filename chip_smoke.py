@@ -255,7 +255,22 @@ Phases, each raising on failure:
      launches); (c) `PoseServer(devices=("cuda:0", "cuda:0"))` at phase 4's
      config against the one-device server (f32 within SERVE_DEVICES_RTOL of
      scale; bf16 p50 of each; serve_devices: each shard's forward launches).
-Phases 4, 7, 10, 13, 16, 17, 20, 23, 24, 25, 26 and 27's paths each set every kernel's launch
+ 28. the export twin (`engine/serving.py:export_model`, `ExportedPoseServer`):
+     four artifacts at full width, bf16, B=16, 480x640, each traced on the
+     CPU and served through `ExportedPoseServer(device="cuda")` beside a live
+     `PoseServer` of the same weights: tracker mode at phase 4's weights and
+     inputs, tracker mode with 'pallas' (phase 20's serving config), Mask
+     R-CNN detector mode at phase 10's and YOLOv4-CSP at phase 13's; then
+     tracker mode at f32 (B=2, TF32 off). Per artifact: export and load
+     seconds, module.pt2's MB, 8 requests through each server's `infer`
+     (p50/p95 of both); the artifact's launches per request equal to the
+     live server's and to the route rules (10 forward: 5 slab + 5 direct,
+     +1 RoIAlign tiles for Mask R-CNN, +3 stem for YOLO, 10 dense for
+     'pallas'); boxes, classes and n_boxes equal to the live server's, the
+     poses within E2E_RTOL of scale (f32: EXPORT_F32_RTOL). Nothing is
+     caught (serve_exported, serve_pallas_exported, detect_exported,
+     yolo_exported in the report).
+Phases 4, 7, 10, 13, 16, 17, 20, 23, 24, 25, 26, 27 and 28's paths each set every kernel's launch
 count to 0 before they drive their path and read them after, and hold them
 to the wrappers' route rules (`path_launches`, `roi_launches`; the v2
 kernel, the probes, the merged adjoint's atomic route and RoIAlign's gather
@@ -4880,6 +4895,134 @@ def phase_multi_device(report):
     log(f"phase 27 in {time.perf_counter() - t0:.1f} s")
 
 
+# phase 28: requests per artifact and per live server, each through `infer`
+EXPORT_REQUESTS = 8
+# the f32 tracker artifact against the live server on the card (TF32 off),
+# relative to the output scale: one program, the same kernels and cuDNN
+EXPORT_F32_RTOL = 1e-5
+
+
+def export_case(report, tmp, name, cfg, model, images, targets, per_request, tol):
+    """Export `model` at `cfg`, load the artifact through
+    `ExportedPoseServer(device=DEVICE)` and serve EXPORT_REQUESTS requests
+    through it and through a live `PoseServer` of the same model: the
+    artifact's launches per request equal to the live server's and to the
+    route rules' (`per_request`); detections equal, poses within `tol` of
+    scale; both servers' p50/p95 (the artifact's first, the same count)."""
+    import torch
+
+    from poet_tpu_torch.engine.serving import ExportedPoseServer, PoseServer, export_model
+
+    B, (H, W) = images.shape[0], images.shape[1:3]
+    path = os.path.join(tmp, name)
+    t0 = time.perf_counter()
+    export_model(cfg, model, path, batch_size=B, image_size=(H, W))
+    export_s = time.perf_counter() - t0
+    size_mb = os.path.getsize(os.path.join(path, "module.pt2")) / 2**20
+    t0 = time.perf_counter()
+    exported = ExportedPoseServer(path, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    if exported.meta["platforms"] != ["cpu", "cuda"]:
+        raise AssertionError(f"{name}: platforms {exported.meta['platforms']}")
+    live = PoseServer(cfg, model, batch_size=B, image_size=(H, W), device=DEVICE)
+    args = () if targets is None else (targets["boxes"], targets["labels"], targets["n_boxes"])
+    for server in (exported, live):
+        for _ in range(2):                           # warm-up: cuDNN/cuBLAS init
+            server.fetch(server.infer_async(images, *args))
+        server.reset_latency_stats()
+    kernels = all_kernels()
+    expect = expected(**{k: n * EXPORT_REQUESTS for k, n in per_request.items()})
+    answers, counts = {}, {}
+    for label, server in (("exported", exported), ("live", live)):
+        for k in kernels:
+            k.launches = 0
+        answers[label] = [server.infer(images, *args) for _ in range(EXPORT_REQUESTS)]
+        counts[label] = [k.launches for k in kernels]
+        if counts[label] != expect:
+            raise AssertionError(f"{name} {label}: launches {LAUNCH_NAMES} {counts[label]} for "
+                                 f"{EXPORT_REQUESTS} requests, expected {per_request} per "
+                                 f"request and no other")
+    got, want = answers["exported"][0], answers["live"][0]
+    if set(got) != set(want):
+        raise AssertionError(f"{name}: the artifact answers {sorted(got)}, the live server "
+                             f"{sorted(want)}")
+    for res in answers["exported"]:
+        for k in ("boxes", "classes", "n_boxes"):
+            if not np.array_equal(res[k], want[k]):
+                raise AssertionError(f"{name}: the artifact's {k} differ from the live server's")
+    err = 0.0
+    for k in ("translation", "rotation", "translation_var", "rotation_var"):
+        if k in want:
+            scale = max(float(np.abs(want[k]).max()), 1.0)
+            e = max(float(np.abs(r[k] - want[k]).max()) for r in answers["exported"]) / scale
+            if not (np.isfinite(got[k]).all() and e <= tol):
+                raise AssertionError(f"{name}: artifact {k} max err / scale {e} > {tol}")
+            err = max(err, e)
+    rotations_ok(got["rotation"])
+    ex, lv = exported.latency_stats(), live.latency_stats()
+    # the program's operator calls, its loops' and branches' bodies included,
+    # and how many of them are the trace's dtype/device assertions
+    calls = [n.target for m in exported.program.graph_module.modules()
+             if isinstance(m, torch.fx.GraphModule)
+             for n in m.graph.nodes if n.op == "call_function"]
+    asserts = sum("_assert_tensor_metadata" in str(t) for t in calls)
+    log(f"export {name}: {cfg.model.dtype} B={B} {H}x{W} bbox_mode {cfg.model.bbox_mode}: "
+        f"export {export_s:.2f} s, load {load_s:.2f} s, module.pt2 {size_mb:.1f} MB, "
+        f"{len(calls)} operator calls in the program ({asserts} metadata assertions); "
+        f"{EXPORT_REQUESTS} requests each: launches {per_request} per request (the live "
+        f"server's); detections equal, poses within {err:.3e} of scale (tol {tol}); "
+        f"ExportedPoseServer.infer p50 {ex['p50_ms']:.3f} ms p95 {ex['p95_ms']:.3f} ms, "
+        f"PoseServer.infer p50 {lv['p50_ms']:.3f} ms p95 {lv['p95_ms']:.3f} ms")
+    report.setdefault("exported", {})[name] = {
+        "launches": counts["exported"], "export_s": export_s, "load_s": load_s,
+        "artifact_mb": size_mb, "p50_ms": ex["p50_ms"], "p95_ms": ex["p95_ms"],
+        "live_p50_ms": lv["p50_ms"], "live_p95_ms": lv["p95_ms"], "pose_err": err,
+        "program_calls": len(calls), "program_asserts": asserts}
+    del exported, live
+    torch.cuda.empty_cache()
+
+
+def phase_export(report):
+    """Phase 28 (see the module docstring), the artifacts in a temporary
+    directory removed afterwards."""
+    import tempfile
+
+    import torch
+
+    from poet_tpu_torch import flagship
+    from poet_tpu_torch.models import build_model
+    from poet_tpu_torch.utils.init import init_weights
+
+    t0 = time.perf_counter()
+    B, (H, W) = PATH_B, FLAGSHIP_HW
+    images, _, targets = flagship.flagship_batch(B, H, W, seed=0)
+    with tempfile.TemporaryDirectory(prefix="poet_export_") as tmp:
+        for name, impl in (("serve", None), ("serve_pallas", "pallas")):
+            cfg = flagship.flagship_config("bfloat16")
+            if impl:
+                cfg.model.enc_deform_impl = cfg.model.dec_deform_impl = impl
+            export_case(report, tmp, name, cfg, init_weights(build_model(cfg), seed=0), images,
+                        targets, path_launches(cfg, FLAGSHIP_S, 1), E2E_RTOL)
+        cfg = flagship.detect_pose_config("bfloat16")
+        export_case(report, tmp, "detect", cfg, flagship.detect_pose_model(cfg),
+                    flagship.detect_pose_batch(B, H, W, seed=0)[0], None,
+                    {**path_launches(cfg, FLAGSHIP_S, 1), **roi_launches(cfg, 1)}, E2E_RTOL)
+        cfg = flagship.yolo_detect_pose_config("bfloat16")
+        export_case(report, tmp, "yolo", cfg, flagship.yolo_detect_pose_model(cfg),
+                    flagship.yolo_detect_pose_batch(B, H, W, seed=0)[0], None,
+                    {**path_launches(cfg, YOLO_S, 1), "stem": 3}, E2E_RTOL)
+        cfg = flagship.flagship_config("float32")
+        f32_images, _, f32_targets = flagship.flagship_batch(2, H, W, seed=0)
+        with tf32_off():
+            export_case(report, tmp, "serve_f32", cfg, init_weights(build_model(cfg), seed=0),
+                        f32_images, f32_targets, path_launches(cfg, FLAGSHIP_S, 1),
+                        EXPORT_F32_RTOL)
+    report["exported_launches"] = {f"{name}_exported": report["exported"][name]["launches"]
+                                   for name in ("serve", "serve_pallas", "detect", "yolo")}
+    log(f"phase 28 in {time.perf_counter() - t0:.1f} s (peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+
+
 def build_kernels():
     from poet_tpu_torch.ops.deform_attn_cuda import LIBRARIES, build_all
 
@@ -4905,7 +5048,7 @@ def main(argv) -> int:
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = {int(n) for n in argv[1].split(",")}
     elif argv:
-        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-27; 1-2 always run)",
+        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-28; 1-2 always run)",
               file=sys.stderr)
         return 2
     try:
@@ -4944,10 +5087,10 @@ def main(argv) -> int:
               21: lambda: phase_v2(report), 22: lambda: phase_probes(report),
               23: lambda: phase_cli(report), 24: lambda: phase_variants(report),
               25: lambda: phase_train_detections(report), 26: lambda: phase_data(report),
-              27: lambda: phase_multi_device(report)}
+              27: lambda: phase_multi_device(report), 28: lambda: phase_export(report)}
     spans = []
     for first, last in ((3, 8), (9, 11), (12, 14), (15, 17), (18, 20), (21, 22), (23, 23),
-                        (24, 25), (26, 26), (27, 27)):
+                        (24, 25), (26, 26), (27, 27), (28, 28)):
         t0 = time.perf_counter()
         for n in range(first, last + 1):
             if only is None or n in only:
@@ -4982,7 +5125,8 @@ def main(argv) -> int:
              "train_data_parallel": report["dp_launches"],
              **{f"train_layout_{name}": counts
                 for name, counts in report["layout_launches"].items()},
-             "serve_devices": report["serve_devices_launches"]}
+             "serve_devices": report["serve_devices_launches"],
+             **report["exported_launches"]}
     roi, nn = report["roi"], report["nn"]
     errs, bounds = report["adjoint_max_abs_err"], report["adjoint_bounds"]
     src, tpu = "poet_tpu_torch/csrc/", "poet_tpu/ops/deform_attn_pallas_v3.py:"

@@ -13,6 +13,10 @@ at first use; on CPU tensors each entry runs its plain PyTorch version.
 `python -m poet_tpu_torch.cli` trains, evaluates and infers from PNG files
 with the flags of `poet_tpu.cli`; its image decoder and augmentations are
 host C++ under `native/`, built with g++ at first use.
+`engine/serving.py:export_model` writes a `torch.export` artifact of the
+serving forward that `ExportedPoseServer` runs without the model code: the
+kernel entries are custom operators (`torch.ops.poet_tpu_torch.*`), so one
+artifact runs the plain versions on the CPU and the kernels on the card.
 
 This package never imports JAX or `poet_tpu`.
 """

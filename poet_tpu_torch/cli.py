@@ -31,9 +31,12 @@ optimizer state (ZeRO-1, `parallel/zero.py`; a no-op over one process);
 rank 0 writes the checkpoints, log.txt and the evaluation's files.
 `--mesh_data` must be -1 or the number of processes started.
 
-`--export_model` (A.2's export twin) is not ported and raises, naming its
-ROADMAP item. The TPU runtime's flags (`--export_platforms`, `--rng_impl`,
-`--xla_cache_dir`, `--enc_remat`) and the reference's torch-distributed
+`--export_model DIR` writes the serving artifact of the resumed (or
+initialized) model, `engine/serving.py:export_model` at
+`--export_batch_size` and `--export_image_size`, servable on the
+`--export_platforms` ('cpu', 'cuda'; the port has no TPU), and returns DIR;
+`ExportedPoseServer(DIR)` runs it without model code. The TPU runtime's
+flags (`--rng_impl`, `--xla_cache_dir`, `--enc_remat`) and the reference's torch-distributed
 flags (the process group comes from torchrun's environment) are accepted
 and ignored, with one warning line.
 """
@@ -152,11 +155,11 @@ def get_args_parser():
     p.add_argument("--eval", action="store_true")
     p.add_argument("--eval_bop", action="store_true")
     p.add_argument("--export_model", default=None, type=str,
-                   help="not ported yet (ROADMAP A.2): raises")
+                   help="write the serving artifact (torch.export program + weights) here")
     p.add_argument("--export_batch_size", default=1, type=int)
     p.add_argument("--export_image_size", default=[480, 640], type=int, nargs=2)
-    p.add_argument("--export_platforms", default=["cpu", "tpu"], type=str, nargs="+",
-                   help="TPU runtime flag: accepted and ignored")
+    p.add_argument("--export_platforms", default=["cpu", "cuda"], type=str, nargs="+",
+                   help="devices the exported artifact may be served on: cpu, cuda")
     p.add_argument("--num_workers", default=4, type=int)
     p.add_argument("--cache_mode", default=False, action="store_true")
     p.add_argument("--decoded_cache_mb", default=0, type=int,
@@ -260,21 +263,9 @@ def args_to_config(args) -> PoETConfig:
     return cfg
 
 
-# flag -> (its config value, its default, the ROADMAP item that ports it)
-def _unported(cfg):
-    return (("--export_model", cfg.runtime.export_model, None, "A.2 (the export twin)"),)
-
-
-def check_ported(cfg) -> None:
-    """Raise for a feature the port does not have yet, set away from its default."""
-    for flag, value, default, item in _unported(cfg):
-        if value != default:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
-
-
 # flag -> default of the flags accepted and ignored: the TPU runtime's and
 # the reference's torch-distributed ones
-IGNORED_FLAGS = {"export_platforms": ["cpu", "tpu"], "rng_impl": "threefry2x32",
+IGNORED_FLAGS = {"rng_impl": "threefry2x32",
                  "xla_cache_dir": None, "enc_remat": "auto", "gpu": 0,
                  "dist_backend": "nccl", "dist_url": "env://", "world_size": None,
                  "local_rank": None, "distributed": False}
@@ -362,7 +353,6 @@ def main(cfg: PoETConfig):
     from poet_tpu_torch.utils.init import init_weights
     from poet_tpu_torch.utils.misc import get_rank, get_sha
 
-    check_ported(cfg)
     dev = resolve_device(cfg.runtime.device)
     # the process group torchrun describes (WORLD_SIZE > 1), or one the caller made
     mesh.init_distributed(dev.type)
@@ -403,6 +393,21 @@ def main(cfg: PoETConfig):
 
     if cfg.runtime.inference:            # one image directory, one results.json: rank 0
         return inference(model, cfg, device=dev) if rank == 0 else None
+
+    if cfg.runtime.export_model:
+        # the deployment step (the trtexec analogue): the fixed-shape serving
+        # program + weights as an artifact ExportedPoseServer runs without
+        # model code; rank 0 writes it
+        from poet_tpu_torch.engine.serving import export_model
+
+        if rank != 0:
+            return None
+        path = export_model(cfg, model, cfg.runtime.export_model,
+                            batch_size=cfg.runtime.export_batch_size,
+                            image_size=tuple(cfg.runtime.export_image_size),
+                            platforms=tuple(cfg.runtime.export_platforms))
+        print(f"Exported serving artifact to {path}")
+        return path
 
     def make_loader(split, batch_size, shuffle, device_put_fn=None):
         return PoseDataLoader(

@@ -17,11 +17,11 @@ decoder 'auto' resolves by memory length, to 'mxu' at every length it
 measured). `merged_adjoint` is the counterpart of JAX's
 `POET_V3_MERGED_ADJOINT=1`: the gather route's backward in one kernel
 instead of two, the port's default (JAX's is the two-kernel adjoint).
-`enc_remat` has no counterpart: the port's autograd
-Functions save only their inputs, so there is nothing to rematerialize.
+`enc_remat` has no counterpart: the port's deformable
+operators save only their inputs, so there is nothing to rematerialize.
 `lr_backbone_names`, `aux_loss`, the legacy matcher's type and GIoU cost
-and the TPU runtime's fields (`export_platforms`, `rng_impl`,
-`xla_cache_dir`, `donate_step`) are kept for the CLI's flags and the
+and the TPU runtime's fields (`rng_impl`, `xla_cache_dir`,
+`donate_step`) are kept for the CLI's flags and the
 checkpoints' config echo (`mesh_data` and `zero_opt_state` are read by the
 data-parallel CLI, `parallel/`); the detector backbone is
 frozen by its module name, every layer's loss is always taken and only the
@@ -164,7 +164,7 @@ class DataConfig:
     dataset_path: str = "/data"     # root of the splits and the evaluator's assets
     train_set: str = "train"
     eval_set: str = "test"
-    synt_background: Optional[str] = None   # not ported (ROADMAP A.1): raises
+    synt_background: Optional[str] = None   # the 'synt' split's background images
     jitter_probability: float = 0.5
     rgb_augmentation: bool = False
     grayscale: bool = False
@@ -195,10 +195,10 @@ class RuntimeConfig:
     start_epoch: int = 0
     eval: bool = False
     eval_bop: bool = False
-    export_model: Optional[str] = None      # not ported (ROADMAP A.2): raises
+    export_model: Optional[str] = None      # the serving artifact's directory
     export_batch_size: int = 1
     export_image_size: tuple = (480, 640)
-    export_platforms: tuple = ("cpu", "tpu")
+    export_platforms: tuple = ("cpu", "cuda")
     mesh_data: int = -1
     dtype: str = "float32"
     donate_step: bool = True

@@ -17,12 +17,16 @@ several devices, the counterpart of JAX's `mesh=` (`poet_tpu/engine/
 serving.py:46-83`): one replica per device, each request's batch split into
 equal contiguous shards.
 
-Not ported yet (ROADMAP queue A): the portable `export_model` artifact.
+`export_model` writes the portable artifact, a `torch.export` program of the
+fixed-shape forward with its weights, and `ExportedPoseServer` serves it
+without importing any model code (see `export_model`).
 """
 
 from __future__ import annotations
 
 import copy
+import json
+import os
 import time
 from collections import deque
 from typing import Dict, Optional, Sequence
@@ -33,6 +37,27 @@ import torch.nn as nn
 
 from poet_tpu_torch.config import PoETConfig
 from poet_tpu_torch.utils.params import cast_params_for_inference
+
+
+TARGET_DTYPES = {"boxes": torch.float32, "labels": torch.int32, "n_boxes": torch.int32}
+
+
+def serving_outputs(out: Dict[str, torch.Tensor], aleatoric: bool) -> Dict[str, torch.Tensor]:
+    """What a request answers, from the model's forward: the last decoder
+    layer's poses, the boxes and classes they belong to, and with the
+    aleatoric heads the per-axis variances."""
+    res = {
+        "translation": out["translations"][-1],
+        "rotation": out["rotations"][-1],
+        "boxes": out["pred_boxes"],
+        "classes": out["pred_classes"],
+        "n_boxes": out["n_boxes"],
+    }
+    if aleatoric:
+        # s = log sigma^2 -> per-axis variances for the EKF consumer
+        res["translation_var"] = torch.exp(out["translations_aleatoric"][-1])
+        res["rotation_var"] = torch.exp(out["rotations_aleatoric"][-1])
+    return res
 
 
 class PoseServer:
@@ -66,6 +91,7 @@ class PoseServer:
         self.device = devices[0]
         self.batch_size = batch_size
         self.image_size = tuple(image_size)
+        self.num_queries = cfg.model.num_queries
         self._shard = batch_size // len(devices)
         model = model.eval()
         if cfg.model.dtype == "bfloat16":
@@ -91,7 +117,7 @@ class PoseServer:
     def _targets(self, boxes, labels, n_boxes) -> Optional[Dict[str, np.ndarray]]:
         """The request's boxes, labels and counts (host arrays; None in
         detector mode)."""
-        B, Q = self.batch_size, self.cfg.model.num_queries
+        B, Q = self.batch_size, self.num_queries
         if self.detector_mode:
             if boxes is not None or labels is not None or n_boxes is not None:
                 raise ValueError("detector mode finds its own boxes; pass images only")
@@ -108,18 +134,7 @@ class PoseServer:
         }
 
     def _outputs(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        res = {
-            "translation": out["translations"][-1],
-            "rotation": out["rotations"][-1],
-            "boxes": out["pred_boxes"],
-            "classes": out["pred_classes"],
-            "n_boxes": out["n_boxes"],
-        }
-        if self.cfg.model.aleatoric:
-            # s = log sigma^2 -> per-axis variances for the EKF consumer
-            res["translation_var"] = torch.exp(out["translations_aleatoric"][-1])
-            res["rotation_var"] = torch.exp(out["rotations_aleatoric"][-1])
-        return res
+        return serving_outputs(out, self.cfg.model.aleatoric)
 
     def infer_async(self, images: np.ndarray, boxes: Optional[np.ndarray] = None,
                     labels: Optional[np.ndarray] = None,
@@ -133,14 +148,13 @@ class PoseServer:
         B, (H, W) = self.batch_size, self.image_size
         if tuple(images.shape) != (B, H, W, 3):
             raise ValueError(f"images {tuple(images.shape)} != {(B, H, W, 3)}")
-        dtypes = {"boxes": torch.float32, "labels": torch.int32, "n_boxes": torch.int32}
         with torch.inference_mode():
             targets = self._targets(boxes, labels, n_boxes)
             outs = []
             for i, (dev, replica) in enumerate(self.replicas):
                 rows = slice(i * self._shard, (i + 1) * self._shard)
                 shard = None if targets is None else {
-                    k: self._put(v[rows], dtypes[k], dev) for k, v in targets.items()}
+                    k: self._put(v[rows], TARGET_DTYPES[k], dev) for k, v in targets.items()}
                 img = self._put(images[rows], torch.float32, dev)
                 outs.append(self._outputs(replica(img, self._pad_masks[i], shard)))
             if len(outs) == 1:
@@ -205,3 +219,137 @@ class PoseServer:
             "fps": float(self.batch_size / np.mean(arr) * 1e3),
             "frames": len(arr),
         }
+
+
+# ---------------------------------------------------------------------------
+# Portable export: the "engine file" of the TensorRT deployment analogy.
+# ---------------------------------------------------------------------------
+
+PLATFORMS = ("cpu", "cuda")
+
+
+class _ServingForward(nn.Module):
+    """The model's forward reduced to what a request answers (`serving_outputs`)."""
+
+    def __init__(self, model: nn.Module, aleatoric: bool):
+        super().__init__()
+        self.model, self.aleatoric = model, aleatoric
+
+    def forward(self, images, pad_mask, targets=None):
+        return serving_outputs(self.model(images, pad_mask, targets), self.aleatoric)
+
+
+def export_model(cfg: PoETConfig, model: nn.Module, path: str, batch_size: int = 1,
+                 image_size=(480, 640), platforms: Sequence[str] = PLATFORMS) -> str:
+    """Serialize the fixed-shape inference program and its weights to `path`,
+    the counterpart of `poet_tpu/engine/serving.py:export_model`:
+    `module.pt2` (`torch.export.save` of the program, the weights inside)
+    and `meta.json` (batch size, image size, bbox_mode, num_queries,
+    platforms, dtype, aleatoric). `ExportedPoseServer(path)` runs it
+    without importing any model code. Returns `path`.
+
+    The program is PoseServer's forward (eval mode, with bf16 compute the
+    bf16 weights cast at rest) traced by `torch.export.export` on a copy of
+    `model` on the CPU at the fixed (B, H, W): images and pad mask in, and
+    in tracker mode (bbox_mode 'gt'/'jitter') the targets {boxes, labels,
+    n_boxes}; in detector mode (bbox_mode 'backbone': Mask R-CNN or
+    YOLOv4-CSP) images alone. Every hand-written kernel of the path is a
+    custom operator (`torch.ops.poet_tpu_torch.*`: the deformable sampling,
+    the dense 'pallas' forward, RoIAlign's blend, the stem conv) and the
+    detector's NMS fixed points and certificate are the `while_loop` and
+    `cond` operators, so the program holds the kernels' calls and the loops
+    whole (a Python loop reading the host would be traced as one unrolled
+    path), and is moved to a device when it is loaded.
+
+    `platforms` lists the devices the artifact may be served on, 'cpu'
+    and 'cuda'. The departure from JAX: JAX pins 'auto' to the separable
+    XLA path because its Pallas kernel lowers only on a TPU; the port pins
+    nothing, since each custom operator carries a CPU implementation (the
+    plain version) and a CUDA one (the kernel), and one program serves both,
+    launching the hand-written kernels on the card. The port has no TPU:
+    'tpu' raises ValueError.
+    """
+    platforms = tuple(platforms)
+    bad = [p for p in platforms if p not in PLATFORMS]
+    if bad or not platforms:
+        raise ValueError(f"export platforms {list(platforms)}: the port serves {PLATFORMS}"
+                         + (" and has no TPU" if "tpu" in bad else ""))
+    B, (H, W) = batch_size, tuple(image_size)
+    Q = cfg.model.num_queries
+    model = copy.deepcopy(model).cpu().eval()
+    if cfg.model.dtype == "bfloat16":
+        cast_params_for_inference(model)
+    args = (torch.zeros((B, H, W, 3)), torch.zeros((B, H, W), dtype=torch.bool))
+    if cfg.model.bbox_mode != "backbone":
+        args += ({"boxes": torch.zeros((B, Q, 4)),
+                  "labels": torch.ones((B, Q), dtype=torch.int32),
+                  "n_boxes": torch.full((B,), Q, dtype=torch.int32)},)
+    with torch.no_grad():
+        program = torch.export.export(_ServingForward(model, cfg.model.aleatoric), args)
+    os.makedirs(path, exist_ok=True)
+    torch.export.save(program, os.path.join(path, "module.pt2"))
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump({"batch_size": B, "image_size": [H, W], "bbox_mode": cfg.model.bbox_mode,
+                   "num_queries": Q, "platforms": list(platforms), "dtype": cfg.model.dtype,
+                   "aleatoric": bool(cfg.model.aleatoric)}, f)
+    return path
+
+
+class ExportedPoseServer:
+    """Serve an `export_model` artifact on `device` (the card unless the
+    caller passes another), importing no model code: `torch.export.load`,
+    then `move_to_device_pass` to the device, which must be one of the
+    artifact's platforms. Only `poet_tpu_torch.ops` (it registers the custom
+    operators the program calls) and this module are needed.
+
+    Serves the live `PoseServer`'s API: `infer`, `infer_async` / `fetch`,
+    `stream` and `latency_stats`. Each request's inputs are uploaded once,
+    as `PoseServer` does."""
+
+    def __init__(self, path: str, device="cuda", latency_window: int = 1000):
+        import poet_tpu_torch.ops  # noqa: F401  (registers the custom operators)
+        from torch.export.passes import move_to_device_pass
+
+        with open(os.path.join(path, "meta.json")) as f:
+            self.meta = json.load(f)
+        self.device = torch.device(device)
+        if self.device.type not in self.meta["platforms"]:
+            raise ValueError(f"the artifact serves {self.meta['platforms']}, not "
+                             f"{self.device.type}")
+        program = torch.export.load(os.path.join(path, "module.pt2"))
+        self.program = move_to_device_pass(program, self.device)
+        self._call = self.program.module()
+        self.batch_size = self.meta["batch_size"]
+        self.image_size = tuple(self.meta["image_size"])
+        self.num_queries = self.meta["num_queries"]
+        self.detector_mode = self.meta["bbox_mode"] == "backbone"
+        H, W = self.image_size
+        self._pad_mask = torch.zeros((self.batch_size, H, W), dtype=torch.bool,
+                                     device=self.device)
+        self._latencies = deque(maxlen=latency_window)
+
+    def infer_async(self, images: np.ndarray, boxes: Optional[np.ndarray] = None,
+                    labels: Optional[np.ndarray] = None,
+                    n_boxes: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+        """Run one frame (batch) and return device tensors (see
+        `PoseServer.infer_async`); `fetch` materializes them. In detector
+        mode the program's NMS `while_loop`s and the certificate's `cond`
+        read their conditions as the live forward does (one bool per
+        iteration, one for the batch), so the host waits there too."""
+        B, (H, W) = self.batch_size, self.image_size
+        if tuple(images.shape) != (B, H, W, 3):
+            raise ValueError(f"images {tuple(images.shape)} != {(B, H, W, 3)}")
+        targets = self._targets(boxes, labels, n_boxes)
+        with torch.inference_mode():
+            img = PoseServer._put(images, torch.float32, self.device)
+            if targets is None:
+                return self._call(img, self._pad_mask)
+            return self._call(img, self._pad_mask, {
+                k: PoseServer._put(v, TARGET_DTYPES[k], self.device) for k, v in targets.items()})
+
+    _targets = PoseServer._targets
+    fetch = staticmethod(PoseServer.fetch)
+    infer = PoseServer.infer
+    stream = PoseServer.stream
+    reset_latency_stats = PoseServer.reset_latency_stats
+    latency_stats = PoseServer.latency_stats

@@ -84,9 +84,12 @@ class MaskRCNNDetectorBackbone(MaskRCNNDetector):
         self.requires_grad_(False)              # frozen, as in the reference
 
     def forward(self, images: torch.Tensor, pad_mask: torch.Tensor):
-        with torch.no_grad():
-            feats = self.backbone(images)
-            dets = super().forward(feats, tuple(images.shape[1:3]))
+        # frozen: no parameter requires grad and the images none, so autograd
+        # records nothing. No `torch.no_grad()` block here: `torch.export`
+        # fails on a grad-mode region that holds the final NMS's `cond`,
+        # whose exact branch holds the fixed point's `while_loop`.
+        feats = self.backbone(images)
+        dets = super().forward(feats, tuple(images.shape[1:3]))
         return self.outputs(feats, dets, pad_mask)
 
     def outputs(self, feats, dets, pad_mask):

@@ -12,7 +12,8 @@ port batches what JAX vmaps: every image and every RPN level run one NMS
 fixed point (each level's candidates padded to `PRE_NMS_TOP_N` with -inf),
 and the final per-class NMS takes the certified pruned fast path for the
 whole batch, falling back to the exact per-class suppression when any
-image's certificate fails (one host read of the certificates).
+image's certificate fails (the `cond` operator: one host read of the
+certificates; a `torch.export`ed program holds both branches).
 
 Compute dtype (`poet_tpu/models/backbone.py:53-69`): at f32 every head
 runs f32; at bf16 the RPN convs, fc6/fc7 and the predictor run bf16 on the
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch._higher_order_ops.cond import cond_op
 
 from poet_tpu_torch.models.layers import Conv, Dense
 from poet_tpu_torch.ops.detection import (
@@ -39,6 +41,7 @@ from poet_tpu_torch.ops.detection import (
     topk,
 )
 from poet_tpu_torch.ops.roi_align_cuda import multiscale_roi_align
+from poet_tpu_torch.utils.tables import device_table
 
 # torchvision GeneralizedRCNN defaults (used by MaskRCNN in the reference)
 ANCHOR_SIZES = ((32,), (64,), (128,), (256,), (512,))
@@ -76,6 +79,13 @@ def generate_anchors(grid_sizes, strides, sizes=ANCHOR_SIZES, ratios=ASPECT_RATI
     return all_anchors
 
 
+@device_table
+def anchor_grids(grid_sizes, strides, sizes, device) -> Tuple[torch.Tensor, ...]:
+    """`generate_anchors` on `device`, made once per grid, strides and sizes."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in generate_anchors(grid_sizes, strides, sizes=sizes))
+
+
 def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,
                  weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
     """torchvision BoxCoder.decode: (..., 4) deltas + (..., 4) xyxy anchors."""
@@ -101,6 +111,11 @@ def clip_boxes(boxes: torch.Tensor, image_size) -> torch.Tensor:
     x = boxes[..., 0::2].clamp(0, W)
     y = boxes[..., 1::2].clamp(0, H)
     return torch.stack([x[..., 0], y[..., 0], x[..., 1], y[..., 1]], dim=-1)
+
+
+def _pruned_selection(boxes_pc, masked, labels_pc, sel, keep_valid):
+    """The certified pruned selection, as the `cond` branch beside the exact one."""
+    return sel.long(), keep_valid.clone()
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -188,14 +203,10 @@ class MaskRCNNDetector(nn.Module):
         self.roi_heads = nn.ModuleDict({
             "box_head": TwoMLPHead(in_channels, 7, 1024, dtype),
             "box_predictor": FastRCNNPredictor(1024, num_classes, dtype)})
-        self._anchors: Dict[tuple, list] = {}
 
-    def anchors(self, grid_sizes, strides, device) -> list:
-        key = (tuple(grid_sizes), tuple(strides), str(device))
-        if key not in self._anchors:
-            self._anchors[key] = [torch.from_numpy(a).to(device) for a in generate_anchors(
-                grid_sizes, strides, sizes=self.anchor_sizes)]
-        return self._anchors[key]
+    def anchors(self, grid_sizes, strides, device) -> Tuple[torch.Tensor, ...]:
+        return anchor_grids(tuple(grid_sizes), tuple(strides), self.anchor_sizes,
+                            torch.device(device))
 
     def proposals(self, logits, deltas, anchors, image_size):
         """Per image: per-level top-k, decode, clip, min-size, NMS; then the
@@ -234,16 +245,23 @@ class MaskRCNNDetector(nn.Module):
 
     def select(self, boxes_pc, masked, labels_pc):
         """Per-class NMS + top-`max_detections` of (B, PN) candidates ->
-        (sel (B, md) indices, keep_valid (B, md))."""
+        (sel (B, md) indices, keep_valid (B, md)). With the pruned fast path
+        the certificate picks between it and the exact selection through the
+        `cond` operator: one host read for the batch, and a traced program
+        (`torch.export`) holds both branches."""
         md, PN = self.max_detections, masked.shape[1]
         prune_k = self.nms_prune_k
-        if prune_k and PN > prune_k > md:
-            sel, keep_valid, cert = class_nms_select_pruned(
-                boxes_pc, masked, labels_pc, self.nms_thresh, md, prune_k)
-            if bool(cert.all()):              # one host read for the batch
-                return sel.long(), keep_valid
+        if not (prune_k and PN > prune_k > md):
+            return self._exact(boxes_pc, masked, labels_pc)
+        sel, keep_valid, cert = class_nms_select_pruned(
+            boxes_pc, masked, labels_pc, self.nms_thresh, md, prune_k)
+        return cond_op(cert.all(), _pruned_selection, self._exact,
+                       (boxes_pc, masked, labels_pc, sel, keep_valid))
+
+    def _exact(self, boxes_pc, masked, labels_pc, *pruned):
+        """Exact per-class NMS of every candidate + top-`max_detections`."""
         keep = exact_class_nms_mask(boxes_pc, masked, self.num_classes, self.nms_thresh)
-        top_s, sel = topk(torch.where(keep, masked, NEG_INF), md)
+        top_s, sel = topk(torch.where(keep, masked, NEG_INF), self.max_detections)
         keep_valid = torch.isfinite(top_s)
         return torch.where(keep_valid, sel, 0), keep_valid
 

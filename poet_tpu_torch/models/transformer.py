@@ -43,6 +43,7 @@ from poet_tpu_torch.ops.deform_attn_cuda import ms_deform_attn
 from poet_tpu_torch.ops.deform_attn_dense_cuda import ms_deform_attn_dense
 from poet_tpu_torch.parallel import tp
 from poet_tpu_torch.parallel.mesh import Layout
+from poet_tpu_torch.utils.tables import device_table
 
 
 def _rounded(value: float, dtype: torch.dtype) -> float:
@@ -111,6 +112,14 @@ def _grid_init_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
     return grid.reshape(-1).astype(np.float32)
 
 
+@device_table
+def _level_wh(spatial_shapes, device) -> torch.Tensor:
+    """(L, 2) level sizes as (W, H), made once per geometry and device: a
+    host-to-device copy on every call would stall the host on the card."""
+    return torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
+                        device=device)
+
+
 class MSDeformAttn(nn.Module):
     """Multi-scale deformable attention: projections around the sampling core.
     `impl` is JAX's name of the core ('pallas' -> the dense kernels, any other
@@ -134,17 +143,6 @@ class MSDeformAttn(nn.Module):
         self.attention_weights = Dense(d_model, H * L * P, torch.float32,
                                        kernel_init="zeros")
         self.output_proj = Dense(d_model, d_model, dtype)
-        self._wh = {}
-
-    def _level_wh(self, spatial_shapes, device) -> torch.Tensor:
-        """(L, 2) level sizes as (W, H), made once per geometry and device: a
-        host-to-device copy on every call would stall the host on the card."""
-        key = (spatial_shapes, str(device))
-        if key not in self._wh:
-            self._wh[key] = torch.tensor([[w, h] for h, w in spatial_shapes],
-                                         dtype=torch.float32, device=device)
-        return self._wh[key]
-
     def forward(self, query: torch.Tensor,              # (B, Q, C)
                 reference_points: torch.Tensor,         # (B, Q, L, 2) normalized
                 input_flatten: torch.Tensor,            # (B, S, C)
@@ -171,7 +169,7 @@ class MSDeformAttn(nn.Module):
         attn = self.attention_weights(query).view(B, Q, H, L * P)
         attn = F.softmax(attn, dim=-1).view(B, Q, H, L, P)
         # offsets are in feature-map fractions of each level: divide by (W, H)
-        wh = self._level_wh(tuple(spatial_shapes), query.device)
+        wh = _level_wh(tuple(map(tuple, spatial_shapes)), query.device)
         locations = (reference_points.float()[:, :, None, :, None, :]
                      + offsets / wh[None, None, None, :, None, :])
         args = (value.contiguous(), tuple(spatial_shapes), locations.contiguous(),

@@ -24,7 +24,6 @@ stem `optimization_barrier` are not carried over.
 
 from __future__ import annotations
 
-import functools
 import re
 from typing import Any, Dict, List, Sequence, Tuple
 
@@ -36,6 +35,7 @@ from poet_tpu_torch.models.layers import Conv
 from poet_tpu_torch.models.resnet_fpn import FrozenBatchNorm, downsample_mask
 from poet_tpu_torch.ops.conv_stem_cuda import conv_stem, mish  # noqa: F401  (mish re-exported)
 from poet_tpu_torch.ops.detection import NEG_INF, batched_class_nms, nms_padded, topk
+from poet_tpu_torch.utils.tables import device_table
 
 Sections = Tuple[Tuple[Tuple[str, Any], ...], ...]
 
@@ -221,7 +221,7 @@ class DarknetBody(nn.Module):
         return yolo_inputs, yolo_specs, features
 
 
-@functools.lru_cache(maxsize=32)
+@device_table
 def _anchor_table(anchors: Tuple[Tuple[int, int], ...], device: torch.device) -> torch.Tensor:
     """(A, 2) f32 anchors on `device`, made once: a tensor built from a host
     list on every call would be a blocking copy."""

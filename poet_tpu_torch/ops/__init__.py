@@ -4,3 +4,8 @@ from poet_tpu_torch.ops.embeddings import (  # noqa: F401
     bbox_embedding_sine,
     position_embedding_sine,
 )
+# the custom operators (`torch.ops.poet_tpu_torch.*`) a traced program calls:
+# importing the package registers them all
+from poet_tpu_torch.ops.conv_stem_cuda import conv_stem  # noqa: F401,E402
+from poet_tpu_torch.ops.deform_attn_dense_cuda import ms_deform_attn_dense  # noqa: F401,E402
+from poet_tpu_torch.ops.roi_align_cuda import multiscale_roi_align  # noqa: F401,E402

@@ -5,6 +5,8 @@ conv_stem_pallas`: x (B, H, W, C) NHWC, w (kh, kw, C, F) HWIO in x's dtype,
 bias (F,) f32 or None, a stride and zero padding ((pt, pb), (pl, pr));
 f32 accumulation, + bias, the activation in f32 (None, 'relu', the
 one-exp `mish`, 'leaky' 0.1), one rounding to `out_dtype` (default x's):
+  * it is the custom operator `torch.ops.poet_tpu_torch.conv_stem` (a fake
+    implementation for tracing, so a `torch.export`ed detector holds it);
   * CPU tensors run the plain version, `conv_stem_torch`;
   * CUDA tensors launch `csrc/conv_stem_fwd.cu` through `CONV_STEM_FWD`, or
     raise. There is no fallback from one to the other.
@@ -19,7 +21,7 @@ implicit GEMM on the tensor cores for both dtypes (bf16 mma.sync; f32 as
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -131,12 +133,41 @@ class ConvStemForward:
 CONV_STEM_FWD = ConvStemForward()
 
 
+@torch.library.custom_op("poet_tpu_torch::conv_stem", mutates_args=(), device_types="cpu")
+def _conv_stem_op(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], stride: int,
+                  padding: List[int], activation: str,
+                  out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The stem as one operator, `padding` flattened (pt, pb, pl, pr) and ''
+    for no activation: the plain version on the CPU; the kernel on CUDA
+    (below)."""
+    return conv_stem_torch(x, w, bias, **_keywords(stride, padding, activation, out_dtype))
+
+
+def _keywords(stride, padding, activation, out_dtype):
+    pt, pb, pl, pr = padding
+    return {"stride": stride, "padding": ((pt, pb), (pl, pr)),
+            "activation": activation or None, "out_dtype": out_dtype}
+
+
+@_conv_stem_op.register_kernel("cuda")
+def _conv_stem_cuda(x, w, bias, stride, padding, activation, out_dtype):
+    return CONV_STEM_FWD(x, w, bias, **_keywords(stride, padding, activation, out_dtype))
+
+
+@_conv_stem_op.register_fake
+def _conv_stem_fake(x, w, bias, stride, padding, activation, out_dtype):
+    kw = _keywords(stride, padding, activation, out_dtype)
+    Ho, Wo = output_hw(x, w, stride, kw["padding"])
+    return x.new_empty((x.shape[0], Ho, Wo, w.shape[3]), dtype=out_dtype or x.dtype)
+
+
 def conv_stem(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
               stride: int = 1, padding: Padding = ((0, 0), (0, 0)),
               activation: Optional[str] = None,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """The darknet body's stem entry: CPU -> plain version, CUDA -> the
+    """The darknet body's stem entry, the operator
+    `torch.ops.poet_tpu_torch.conv_stem`: CPU -> plain version, CUDA -> the
     hand-written kernel (which raises on what it does not take)."""
-    fn = conv_stem_torch if x.device.type == "cpu" else CONV_STEM_FWD
-    return fn(x, w, bias, stride=stride, padding=padding, activation=activation,
-              out_dtype=out_dtype)
+    _check(x, w, bias, stride, padding, activation, out_dtype)
+    (pt, pb), (pl, pr) = padding
+    return _conv_stem_op(x, w, bias, stride, [pt, pb, pl, pr], activation or "", out_dtype)

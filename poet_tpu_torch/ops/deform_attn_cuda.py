@@ -3,7 +3,10 @@ wrappers and its adjoint.
 
 `ms_deform_attn` is the entry the model calls for every `enc_deform_impl` /
 `dec_deform_impl` but 'pallas' (that one is `ops/deform_attn_dense_cuda.py`;
-the table is `config.DEFORM_IMPLS`). It is a `torch.autograd.Function`:
+the table is `config.DEFORM_IMPLS`). It is the custom operator
+`torch.ops.poet_tpu_torch.ms_deform_attn` (`torch.library.custom_op`, with
+a fake implementation for tracing and its adjoint registered for autograd),
+so eager calls and a `torch.export`ed program take the same path:
   * CPU tensors run the plain PyTorch forward and backward
     (`ops/deform_attn.py`);
   * CUDA tensors launch the hand-written kernels — the forward
@@ -59,7 +62,7 @@ and needs neither nvcc nor a GPU.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -704,50 +707,84 @@ def dloc_adjoint(value, spatial_shapes, locs, attn, dout):
     return kernel(value, spatial_shapes, locs, attn, dout)
 
 
-class _MSDeformAttn(torch.autograd.Function):
-    """Deformable sampling with its adjoint: CPU -> plain versions, CUDA ->
-    the forward on its route and the adjoint chosen by `adjoint` ('pair':
-    d_value and the d_loc/d_attn gather, each on its route; 'merged': one
-    kernel, on its route)."""
+def gather_adjoint(value, spatial_shapes, locs, attn, dout, adjoint: str = "merged"):
+    """The gather route's (d_value, d_loc, d_attn): CPU -> the plain adjoint,
+    CUDA -> by `adjoint`, the merged kernel or the pair, each on its route."""
+    if value.device.type == "cpu":
+        return ms_deform_attn_torch_backward(value, spatial_shapes, locs, attn, dout)
+    if adjoint == "merged":
+        return merged_adjoint(value, spatial_shapes, locs, attn, dout)
+    d_value = dvalue_adjoint(value, spatial_shapes, locs, attn, dout)
+    return (d_value, *dloc_adjoint(value, spatial_shapes, locs, attn, dout))
 
-    @staticmethod
-    def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights, adjoint):
-        ctx.spatial_shapes, ctx.adjoint = spatial_shapes, adjoint
-        ctx.save_for_backward(value, sampling_locations, attention_weights)
-        if value.device.type == "cpu":
-            return ms_deform_attn_torch(value, spatial_shapes, sampling_locations,
-                                        attention_weights)
-        return forward_kernel(value, sampling_locations)(value, spatial_shapes,
-                                                         sampling_locations, attention_weights)
 
-    @staticmethod
-    def backward(ctx, dout):
-        value, locs, attn = ctx.saved_tensors
-        shapes = ctx.spatial_shapes
-        dout = dout.contiguous()
-        if value.device.type == "cpu":
-            d_value, d_loc, d_attn = ms_deform_attn_torch_backward(value, shapes, locs,
-                                                                   attn, dout)
-        elif ctx.adjoint == "merged":
-            d_value, d_loc, d_attn = merged_adjoint(value, shapes, locs, attn, dout)
-        else:
-            d_value = dvalue_adjoint(value, shapes, locs, attn, dout)
-            d_loc, d_attn = dloc_adjoint(value, shapes, locs, attn, dout)
-        return d_value, None, d_loc, d_attn, None
+def level_pairs(flat: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    """The custom ops' flattened (H_0, W_0, H_1, W_1, ...) as (H_l, W_l) pairs."""
+    return tuple(zip(flat[0::2], flat[1::2]))
+
+
+def flat_levels(spatial_shapes: Sequence[Tuple[int, int]]) -> List[int]:
+    """(H_l, W_l) pairs as the custom ops' `int[]` argument."""
+    return [int(v) for hw in spatial_shapes for v in hw]
+
+
+def deform_attn_fake(value, spatial_shapes, sampling_locations, attention_weights, *args):
+    """The output a deformable-attention op gives: (B, Q, H * D) in value's dtype."""
+    B, _, H, D = value.shape
+    return value.new_empty((B, sampling_locations.shape[1], H * D))
+
+
+@torch.library.custom_op("poet_tpu_torch::ms_deform_attn", mutates_args=(), device_types="cpu")
+def _ms_deform_attn_op(value: torch.Tensor, spatial_shapes: List[int],
+                       sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+                       adjoint: str) -> torch.Tensor:
+    """The gather route's forward as one operator: the plain version on the
+    CPU; the kernel on `plan_forward`'s route on CUDA (below)."""
+    return ms_deform_attn_torch(value, level_pairs(spatial_shapes), sampling_locations,
+                                attention_weights).contiguous()
+
+
+@_ms_deform_attn_op.register_kernel("cuda")
+def _ms_deform_attn_cuda(value, spatial_shapes, sampling_locations, attention_weights, adjoint):
+    return forward_kernel(value, sampling_locations)(
+        value, level_pairs(spatial_shapes), sampling_locations, attention_weights)
+
+
+_ms_deform_attn_op.register_fake(deform_attn_fake)
+
+
+def save_operands(ctx, inputs, output):
+    """Both deformable ops' autograd context: the operands and the levels
+    (and the gather route's `adjoint`)."""
+    value, spatial_shapes, locs, attn = inputs[:4]
+    ctx.spatial_shapes = level_pairs(spatial_shapes)
+    ctx.adjoint = inputs[4] if len(inputs) > 4 else None
+    ctx.save_for_backward(value, locs, attn)
+
+
+def _gather_backward(ctx, dout):
+    value, locs, attn = ctx.saved_tensors
+    d_value, d_loc, d_attn = gather_adjoint(value, ctx.spatial_shapes, locs, attn,
+                                            dout.contiguous(), ctx.adjoint)
+    return d_value, None, d_loc, d_attn, None
+
+
+_ms_deform_attn_op.register_autograd(_gather_backward, setup_context=save_operands)
 
 
 def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                    sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
                    adjoint: str = "merged") -> torch.Tensor:
     """The model's deformable-attention entry on the gather kernels
-    (differentiable): CPU -> plain version, CUDA -> the hand-written kernels
-    on the routes `plan_forward`, `plan_merged`, `plan_dvalue` and
-    `plan_dloc` give
+    (differentiable), the operator `torch.ops.poet_tpu_torch.ms_deform_attn`:
+    CPU -> plain version, CUDA -> the hand-written kernels on the routes
+    `plan_forward`, `plan_merged`, `plan_dvalue` and `plan_dloc` give
     (which raise on what they do not take). `adjoint` picks the backward on
     CUDA tensors: 'merged' (one kernel, the faster on the H100) or 'pair'
     (d_value + the d_loc/d_attn gather, each on its route); both compute the same
-    gradients."""
+    gradients. A traced program (`torch.export`) holds the operator itself,
+    so the same kernels run wherever the program is loaded."""
     if adjoint not in ADJOINTS:
         raise ValueError(f"adjoint {adjoint!r} not in {ADJOINTS}")
-    return _MSDeformAttn.apply(value, tuple(spatial_shapes), sampling_locations,
-                               attention_weights, adjoint)
+    return _ms_deform_attn_op(value, flat_levels(spatial_shapes), sampling_locations,
+                              attention_weights, adjoint)

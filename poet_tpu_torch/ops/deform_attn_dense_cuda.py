@@ -30,7 +30,9 @@ more than the products:
   block per (b, h, 256 points) reading device memory inside the d_value
   blocks' launch (the decoder).
 
-`ms_deform_attn_dense` is a `torch.autograd.Function`: CPU tensors run the
+`ms_deform_attn_dense` is the custom operator
+`torch.ops.poet_tpu_torch.ms_deform_attn_dense` (a fake implementation for
+tracing, its adjoint registered for autograd): CPU tensors run the
 plain PyTorch forward and backward (`ops/deform_attn.py`, the same as the
 gather route's), CUDA tensors launch the two kernels or raise. The shared
 memory each launch asks for is planned here (`plan_dense_forward`,
@@ -41,7 +43,7 @@ module builds nothing and needs neither nvcc nor a GPU.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -60,7 +62,11 @@ from poet_tpu_torch.ops.deform_attn_cuda import (
     SMEM_OPTIN_MAX,
     MSDeformAttnDLoc,
     _check_inputs,
+    deform_attn_fake,
+    flat_levels,
+    level_pairs,
     plan_dloc,
+    save_operands,
 )
 
 # the source's block sizes (csrc/ms_deform_attn_dense.cu)
@@ -264,38 +270,51 @@ MS_DEFORM_ATTN_DENSE_DLOC = MSDeformAttnDLoc(DENSE_LIB, "poet_ms_deform_attn_den
 KERNELS = (MS_DEFORM_ATTN_DENSE_FWD, MS_DEFORM_ATTN_DENSE_BWD, MS_DEFORM_ATTN_DENSE_DLOC)
 
 
-class _MSDeformAttnDense(torch.autograd.Function):
-    """Deformable sampling with its adjoint: CPU -> plain versions, CUDA ->
-    the dense kernels."""
+def dense_adjoint(value, spatial_shapes, locs, attn, dout):
+    """The dense route's (d_value, d_loc, d_attn): CPU -> the plain adjoint,
+    CUDA -> the dense adjoint kernel."""
+    if value.device.type == "cpu":
+        return ms_deform_attn_torch_backward(value, spatial_shapes, locs, attn, dout)
+    return MS_DEFORM_ATTN_DENSE_BWD(value, spatial_shapes, locs, attn, dout)
 
-    @staticmethod
-    def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):
-        ctx.spatial_shapes = spatial_shapes
-        ctx.save_for_backward(value, sampling_locations, attention_weights)
-        if value.device.type == "cpu":
-            return ms_deform_attn_torch(value, spatial_shapes, sampling_locations,
-                                        attention_weights)
-        return MS_DEFORM_ATTN_DENSE_FWD(value, spatial_shapes, sampling_locations,
-                                        attention_weights)
 
-    @staticmethod
-    def backward(ctx, dout):
-        value, locs, attn = ctx.saved_tensors
-        dout = dout.contiguous()
-        if value.device.type == "cpu":
-            grads = ms_deform_attn_torch_backward(value, ctx.spatial_shapes, locs, attn, dout)
-        else:
-            grads = MS_DEFORM_ATTN_DENSE_BWD(value, ctx.spatial_shapes, locs, attn, dout)
-        d_value, d_loc, d_attn = grads
-        return d_value, None, d_loc, d_attn
+@torch.library.custom_op("poet_tpu_torch::ms_deform_attn_dense", mutates_args=(),
+                         device_types="cpu")
+def _ms_deform_attn_dense_op(value: torch.Tensor, spatial_shapes: List[int],
+                             sampling_locations: torch.Tensor,
+                             attention_weights: torch.Tensor) -> torch.Tensor:
+    """The dense route's forward as one operator: the plain version on the
+    CPU; the dense forward kernel on CUDA (below)."""
+    return ms_deform_attn_torch(value, level_pairs(spatial_shapes), sampling_locations,
+                                attention_weights).contiguous()
+
+
+@_ms_deform_attn_dense_op.register_kernel("cuda")
+def _ms_deform_attn_dense_cuda(value, spatial_shapes, sampling_locations, attention_weights):
+    return MS_DEFORM_ATTN_DENSE_FWD(value, level_pairs(spatial_shapes), sampling_locations,
+                                    attention_weights)
+
+
+_ms_deform_attn_dense_op.register_fake(deform_attn_fake)
+
+
+def _dense_backward(ctx, dout):
+    value, locs, attn = ctx.saved_tensors
+    d_value, d_loc, d_attn = dense_adjoint(value, ctx.spatial_shapes, locs, attn,
+                                           dout.contiguous())
+    return d_value, None, d_loc, d_attn
+
+
+_ms_deform_attn_dense_op.register_autograd(_dense_backward, setup_context=save_operands)
 
 
 def ms_deform_attn_dense(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                          sampling_locations: torch.Tensor,
                          attention_weights: torch.Tensor) -> torch.Tensor:
     """The 'pallas' deformable-attention entry (differentiable), same
-    contract as `ops/deform_attn_cuda.py:ms_deform_attn`: CPU -> plain
-    version, CUDA -> the dense one-hot kernels (which raise on what they do
-    not take)."""
-    return _MSDeformAttnDense.apply(value, tuple(spatial_shapes), sampling_locations,
+    contract as `ops/deform_attn_cuda.py:ms_deform_attn`, the operator
+    `torch.ops.poet_tpu_torch.ms_deform_attn_dense`: CPU -> plain version,
+    CUDA -> the dense one-hot kernels (which raise on what they do not
+    take)."""
+    return _ms_deform_attn_dense_op(value, flat_levels(spatial_shapes), sampling_locations,
                                     attention_weights)

@@ -7,9 +7,11 @@ RPN levels at once:
 
   * `nms_keep_mask` is the greedy-NMS keep set as the fixed point of
     k_j = valid_j AND NOT any_{i<j}(k_i AND iou_ij > thr) in score order,
-    iterated from k = valid. `lax.while_loop` becomes a Python loop whose
-    convergence test reads one bool per iteration: the host waits on the
-    device once per iteration (`FIXED_POINT` counts iterations and waits).
+    iterated from k = valid. `lax.while_loop` becomes PyTorch's `while_loop`
+    operator: its convergence test reads one bool per iteration (the host
+    waits on the device once per iteration; `FIXED_POINT` counts iterations
+    and waits in eager calls), and a `torch.export`ed program holds the
+    whole loop, which its runtime iterates in the same way.
   * top-k is a stable descending sort: ties keep the lower index first, as
     `jax.lax.top_k` does, so keep sets and selections match JAX exactly;
   * `nms_padded` and `batched_class_nms` (the YOLO detector's agnostic and
@@ -27,13 +29,15 @@ contraction in nvcc could move.
 
 from __future__ import annotations
 
-import functools
 import math
 import time
 from dataclasses import dataclass
 from typing import Sequence, Tuple
 
 import torch
+from torch._higher_order_ops.while_loop import while_loop_op
+
+from poet_tpu_torch.utils.tables import device_table
 
 NEG_INF = float("-inf")
 
@@ -76,29 +80,43 @@ def pairwise_iou_xyxy(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tenso
                                                              device=inter.device))
 
 
+def _fixed_point_continues(t, k, changed, valid, sup):
+    return changed & (t < k.shape[-1])
+
+
+def _fixed_point_step(t, k, changed, valid, sup):
+    k_new = valid & ~(sup & k[..., :, None]).any(dim=-2)
+    return t + 1, k_new, (k_new != k).any()
+
+
 def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
                   iou_threshold: float) -> torch.Tensor:
     """Greedy-NMS keep set of (..., N, 4) boxes -> (..., N) bool in the
     original order; candidates with score -inf are invalid. Every leading
-    problem converges in one shared loop (a converged one stays put)."""
+    problem converges in one shared loop (a converged one stays put).
+
+    The loop is the `while_loop` operator with JAX's condition (`changed &
+    (t < N)`, `poet_tpu/ops/detection.py:104-108`): it reads one bool per
+    iteration, as a Python loop would, and a traced program (`torch.export`)
+    keeps it whole. `FIXED_POINT` counts eager calls only; its iterations
+    are the loop's own `t`."""
     N = boxes.shape[-2]
     s, order = torch.sort(scores, dim=-1, descending=True, stable=True)
     b = torch.gather(boxes, -2, order[..., None].expand(*order.shape, 4))
     valid = s > NEG_INF
     upper = torch.ones(N, N, dtype=torch.bool, device=boxes.device).triu(1)
     sup = upper & (pairwise_iou_xyxy(b, b) > iou_threshold)
-    k = valid
-    FIXED_POINT.calls += 1
+    start = (torch.zeros((), dtype=torch.int64, device=boxes.device), valid.clone(),
+             torch.ones((), dtype=torch.bool, device=boxes.device))
     t0 = time.perf_counter()
-    for t in range(N):
-        k_new = valid & ~(sup & k[..., :, None]).any(dim=-2)
-        changed = bool((k_new != k).any())          # the host waits here
-        k = k_new
-        FIXED_POINT.iterations += 1
-        FIXED_POINT.max_iterations = max(FIXED_POINT.max_iterations, t + 1)
-        if not changed:
-            break
-    FIXED_POINT.seconds += time.perf_counter() - t0
+    t, k, _ = while_loop_op(_fixed_point_continues, _fixed_point_step, start, (valid, sup))
+    if not torch.compiler.is_exporting():
+        # a traced program keeps no count; eagerly the loop has run
+        iterations = int(t)
+        FIXED_POINT.calls += 1
+        FIXED_POINT.iterations += iterations
+        FIXED_POINT.max_iterations = max(FIXED_POINT.max_iterations, iterations)
+        FIXED_POINT.seconds += time.perf_counter() - t0
     return torch.zeros_like(k).scatter(-1, order, k)
 
 
@@ -254,7 +272,7 @@ def _axis(coords: torch.Tensor, size: torch.Tensor):
     return lo.to(torch.int32), torch.stack([(1.0 - frac) * inside, frac * inside], dim=-1)
 
 
-@functools.lru_cache(maxsize=32)
+@device_table
 def _level_table(shapes: Tuple[Tuple[int, int], ...], strides: Tuple[int, ...],
                  device: torch.device) -> torch.Tensor:
     """(3, L) f32 rows H_l, W_l, 1/stride_l on `device`, made once: a

@@ -1,9 +1,12 @@
 """Multi-scale RoIAlign: the entry the detector calls and its Hopper kernel's wrapper.
 
 `multiscale_roi_align` takes per-level (B, H_l, W_l, C) features and
-(B, R, 4) xyxy image-pixel boxes and returns (B, R, o, o, C):
-  * CPU tensors run the plain version (`ops/detection.py:
-    multiscale_roi_align_torch`);
+(B, R, 4) xyxy image-pixel boxes and returns (B, R, o, o, C). It computes
+the geometry, then calls the custom operator
+`torch.ops.poet_tpu_torch.roi_align_blend` (a fake implementation for
+tracing, so a `torch.export`ed detector holds the operator itself):
+  * CPU tensors run the plain version (`ops/detection.py:roi_blend_plain`,
+    what `multiscale_roi_align_torch` blends with);
   * CUDA tensors launch `csrc/roi_align_fwd.cu` on the route `plan_roi`
     gives, or raise. There is no fallback from one to the other.
 The kernel has two routes, each its own wrapper with its own launch count,
@@ -28,12 +31,12 @@ differentiation too, so a CUDA input that requires grad is refused.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
 from poet_tpu_torch.ops.cuda_build import DTYPE_CODE, ROI_LIB, level_hw, stream_of, vec_width
-from poet_tpu_torch.ops.detection import RoiGeometry, multiscale_roi_align_torch, roi_geometry
+from poet_tpu_torch.ops.detection import RoiGeometry, roi_blend_plain, roi_geometry
 
 _MAX_LEVELS = 8                     # POET_ROI_MAX_LEVELS in the source
 # the tiles route's limits (POET_ROI_MAX_OUT, POET_ROI_MAX_S, POET_ROI_MAX_N)
@@ -222,14 +225,38 @@ def roi_align_kernel(features: Sequence[torch.Tensor], output_size: int = 7,
     return ROI_ALIGN_TILES if plan.route == "tiles" else ROI_ALIGN_FWD
 
 
+@torch.library.custom_op("poet_tpu_torch::roi_align_blend", mutates_args=(),
+                         device_types="cpu")
+def _roi_align_blend_op(features: List[torch.Tensor], boxes: torch.Tensor, level: torch.Tensor,
+                        ylo: torch.Tensor, yw: torch.Tensor, xlo: torch.Tensor,
+                        xw: torch.Tensor, output_size: int) -> torch.Tensor:
+    """RoIAlign's gather and blend from `roi_geometry`'s geometry of `boxes`,
+    as one operator: the plain blend on the CPU; the kernel on `plan_roi`'s
+    route on CUDA (below)."""
+    B, R = boxes.shape[:2]
+    return roi_blend_plain(features, RoiGeometry(level, ylo, yw, xlo, xw), B, R, output_size)
+
+
+@_roi_align_blend_op.register_kernel("cuda")
+def _roi_align_blend_cuda(features, boxes, level, ylo, yw, xlo, xw, output_size):
+    kernel = roi_align_kernel(features, output_size, ylo.shape[1] // output_size)
+    return kernel.launch(features, boxes, RoiGeometry(level, ylo, yw, xlo, xw), output_size)
+
+
+@_roi_align_blend_op.register_fake
+def _roi_align_blend_fake(features, boxes, level, ylo, yw, xlo, xw, output_size):
+    B, R = boxes.shape[:2]
+    return features[0].new_empty((B, R, output_size, output_size, features[0].shape[-1]))
+
+
 def multiscale_roi_align(features: Sequence[torch.Tensor], strides: Sequence[int],
                          boxes: torch.Tensor, output_size: int = 7,
                          sampling_ratio: int = 2) -> torch.Tensor:
-    """The detector's RoIAlign entry: CPU -> plain version, CUDA -> the
-    hand-written kernel on the route `plan_roi` gives (which raises on what
-    it does not take)."""
-    if boxes.device.type == "cpu":
-        return multiscale_roi_align_torch(features, strides, boxes, output_size,
-                                          sampling_ratio)
-    kernel = roi_align_kernel(features, output_size, sampling_ratio)
-    return kernel(features, strides, boxes, output_size, sampling_ratio)
+    """The detector's RoIAlign entry: the geometry (`roi_geometry`, torch),
+    then the operator `torch.ops.poet_tpu_torch.roi_align_blend`: CPU ->
+    plain version, CUDA -> the hand-written kernel on the route `plan_roi`
+    gives (which raises on what it does not take)."""
+    geo = roi_geometry([tuple(f.shape[1:3]) for f in features], strides, boxes,
+                       output_size, sampling_ratio)
+    return _roi_align_blend_op(list(features), boxes, geo.level, geo.ylo, geo.yw, geo.xlo,
+                               geo.xw, output_size)

@@ -4,10 +4,11 @@ IoU and GIoU)."""
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import torch
+
+from poet_tpu_torch.utils.tables import device_table
 
 
 def box_cxcywh_to_xyxy(x: torch.Tensor) -> torch.Tensor:
@@ -32,7 +33,7 @@ def box_normalize_cxcywh(x: torch.Tensor, image_size) -> torch.Tensor:
     return x / _image_scale(float(image_size[1]), float(image_size[0]), x.dtype, x.device)
 
 
-@functools.lru_cache(maxsize=16)
+@device_table
 def _image_scale(iw: float, ih: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     # made once per image size and device: a tensor built from a host list
     # on every call would be a blocking copy

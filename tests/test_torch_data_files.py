@@ -313,11 +313,16 @@ def test_config_json_round_trip_and_shared_fields():
     cfg.backbone.anchor_sizes = ((32,), (64, 96))
     cfg.runtime.export_image_size = (96, 128)
     assert PoETConfig.from_json(cfg.to_json()) == cfg
-    # every field the two share has the same default
+    # every field the two share has the same default, but the export's
+    # platforms: the port's artifact serves the CPU and the card, JAX's the
+    # CPU and the TPU
     jd, pd = JConfig().to_dict(), PoETConfig().to_dict()
+    assert (jd["runtime"]["export_platforms"], pd["runtime"]["export_platforms"]) \
+        == (("cpu", "tpu"), ("cpu", "cuda"))
     for section, fields in pd.items():
         for k, v in fields.items():
-            if k in jd.get(section, {}) and k not in ("enc_deform_impl", "dec_deform_impl"):
+            if k in jd.get(section, {}) and k not in ("enc_deform_impl", "dec_deform_impl",
+                                                      "export_platforms"):
                 assert jd[section][k] == v, f"{section}.{k}"
 
 
