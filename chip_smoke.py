@@ -159,21 +159,29 @@ Phases, each raising on failure:
      the decoder) per step and no other), each beside phase 4's or
      7's p50 and img/s; one f32 train step of each at B=2 on the card against
      the CPU port, as phase 8;
- 21. the v2 slab forward (`ms_deform_attn_v2`, on no model path) against the
-     plain version: phase 3's geometries, the YOLO pyramid (f32 in four row
-     bands, bf16 in two), small shapes at a band budget of one or two rows
-     (16 and 6 bands, scalar loads), NaN locations; the entry on CUDA tensors
-     and its refusal of inputs that require grad; v2, kernel 1 and plain ms
-     (and the whole slab in one band where the default takes two); the bound
-     of the TPU kernel's products on the tensor cores, the gather form's f32
-     bound beside it;
+ 21. the v2 forward (`ms_deform_attn_v2`, on no model path): TMA stages the
+     zero-bordered slab of a (b, h) into each of its CTAs, by multicast
+     where two CTAs form a cluster; against the plain version on phase 3's
+     geometries, the YOLO pyramid at B=16 (f32 in four double-buffered
+     bands, bf16 in one) and the encoder at B=4 (a multicast cluster of
+     two), small shapes at a band budget of one to three rows (many bands;
+     more queries than one CTA holds), NaN locations; what TMA cannot describe (D=6:
+     rows off 16 bytes; a base off 16 bytes) staged by the CTAs' threads;
+     the entry on CUDA tensors and its refusal of inputs that require grad;
+     each case's plan (staging, bands, buffers, cluster, passes) and the
+     bytes a (b, h) stages beside the design before it (the plans'
+     arithmetic); v2, kernel 1's direct and slab routes and plain ms; the
+     bound and v2's share of it, the bound of the TPU kernel's products on
+     the tensor cores beside it;
  22. the probes at reduced sizes: the chained mma.sync products against the
      plain chain at R = 1, 2 for every K of the sweep, then ms and TFLOP/s
      per K at R=64 G=66 with torch.matmul of one product; every variant of
      the forward kernel against its plain definition at the encoder shape
      (base bit-equal to kernel 1) with ms per variant; the four gather cases
      exactly equal to the plain version, device ms from a CUDA-graph replay
-     beside torch.gather, and an index out of range that must raise.
+     and ms per host launch beside torch.gather's, the host's microseconds
+     of each step of one gather call, and an index out of range that must
+     raise.
  23. the CLI path (`poet_tpu_torch.cli`, in process, JAX's flag names) on PNG
      files: a PoET-format dataset of 48 train and 16 test 480x640 PNGs
      written by this script's zlib encoder (all five row filters, several
@@ -2982,14 +2990,19 @@ def phase_paths(report):
 
 
 V2_GEOMETRIES = GEOMETRIES + [
-    ("yolo pyramid", 2, 6380, 16, 16, YOLO_LEVELS, 0.0, 1.0, 0),
+    ("yolo pyramid", 16, 6380, 16, 16, YOLO_LEVELS, 0.0, 1.0, 0),
+    # B H = 64: two CTAs a (b, h), the one plan that multicasts over a cluster
+    ("encoder B=4", 4, 1600, 16, 16, FLAGSHIP_LEVELS, 0.0, 1.0, 0),
 ]
-# (name, B, Q, H, D, levels, loc range, band budget in widest padded rows):
+# (name, B, Q, H, D, levels, loc range, band budget in widest pitched rows):
 # a budget of one row's bytes forces a band per row or two
 V2_BAND_CASES = [
     ("many bands, f32 D=8", 2, 37, 2, 8, ((6, 9), (4, 5), (2, 3)), -0.2, 1.2, 1),
     ("many bands, D=6 (scalar loads)", 2, 9, 3, 6, ((5, 7), (3, 4)), -0.2, 1.2, 2),
+    ("many bands, more queries than one CTA holds", 1, 2100, 1, 16, ((3, 4), (2, 2)),
+     -0.2, 1.2, 3),
 ]
+V2_TIMED = ("encoder", "decoder", "yolo pyramid", "encoder B=4")
 
 
 def v2_bounds(value, locs, attn, out, shapes):
@@ -3009,36 +3022,64 @@ def v2_bounds(value, locs, attn, out, shapes):
     return deform_bound(locs, shapes, D, locs, attn, out, value=value), tpu_form
 
 
+def v2_earlier_staged_bytes(B, H, Q, D, shapes, itemsize, sms=132):
+    """Bytes a (b, h) staged through the L2 in the design this kernel replaced,
+    by that design's plan (its arithmetic, for the log line; nothing runs
+    it): its whole padded slab (packed, no pitch) once per block of a query
+    chunk (512 threads of D / (16 / itemsize) slices, fewer where the grid
+    would not fill the card)."""
+    slices = D * itemsize // 16
+    qc = max(1, min(Q, 512 // slices))
+    blocks_per_bh = -(-sms // max(1, B * H))
+    if B * H * -(-Q // qc) < sms and blocks_per_bh > 1:
+        qc = max(1, min(qc, Q // blocks_per_bh))
+    cells = sum((h + 2) * (w + 2) for h, w in shapes)
+    return -(-Q // qc) * cells * D * itemsize
+
+
+def v2_plan_text(plan) -> str:
+    staging = ("TMA multicast" if plan.cluster > 1 else "TMA") if plan.tma else "threads"
+    return (f"{staging}, {plan.n_bands} band(s) in {plan.buffers} buffer(s), "
+            f"cluster {plan.cluster} x "
+            f"{plan.clusters}, {plan.threads} threads x {plan.passes} pass(es)"
+            f"{', points kept' if plan.keep else ''}")
+
+
 def phase_v2(report):
-    """Phase 21: the v2 slab kernel against the plain version on the card:
-    phase 3's geometries, the YOLO pyramid (f32 in four bands, bf16 in two),
-    small shapes at a band budget of a row or two, NaN locations; times
-    against kernel 1 and the plain version; the bounds."""
+    """Phase 21: the v2 kernel against the plain version on the card: phase
+    3's geometries, the YOLO pyramid at B=16 (f32 in four double-buffered
+    bands, bf16 in one), the encoder at B=4 (a multicast cluster of two),
+    small shapes at a band budget of a row or a few (many bands, several
+    CTAs per (b, h)), NaN locations;
+    what TMA cannot describe (D x itemsize not a multiple of 16 bytes, a
+    base off 16 bytes) staged by the threads; each plan and the bytes a
+    (b, h) stages; times against kernel 1's two routes and the plain
+    version; the bounds."""
     import torch
 
     from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch as plain
     from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_FWD as K1
+    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_FWD_SLAB as K1S
+    from poet_tpu_torch.ops.deform_attn_cuda import SMEM_OPTIN_MAX as K1_SLAB_MAX
     from poet_tpu_torch.ops.deform_attn_v2_cuda import MS_DEFORM_ATTN_V2 as V2
-    from poet_tpu_torch.ops.deform_attn_v2_cuda import (
-        DEFAULT_SMEM_BUDGET,
-        SMEM_OPTIN_MAX,
-        ms_deform_attn_v2,
-        padded_rows,
-        plan_bands,
-    )
+    from poet_tpu_torch.ops.deform_attn_v2_cuda import ms_deform_attn_v2, row_geometry
 
     g = torch.Generator(device=DEVICE).manual_seed(21)
     worst = 0.0
     V2.launches = 0                                  # this phase's own launches
     cases = [c + (None,) for c in V2_GEOMETRIES] + [c[:8] + (0, c[8]) for c in V2_BAND_CASES]
+    by_threads, multicast = [], []
     for name, B, Q, H, D, shapes, lo, hi, _, rows in cases:
         value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=lo, hi=hi)
+        if name == "yolo pyramid":
+            yolo = (value.bfloat16(), shapes, locs, attn)
         line = f"v2-vs-plain {name}: B={B} Q={Q} H={H} D={D} levels={shapes}"
         for dt in (torch.float32, torch.bfloat16):
             v = value.to(dt)
-            budget = (rows * max(padded_rows(shapes)) * D * v.element_size() if rows
-                      else DEFAULT_SMEM_BUDGET)
-            bands = len(plan_bands(shapes, D, v.element_size(), budget)) - 1
+            tag = "f32" if dt == torch.float32 else "bf16"
+            budget = (rows * max(r[3] for r in row_geometry(shapes, D, v.element_size()))
+                      if rows else None)
+            plan = V2.plan(v, shapes, locs, budget)
             with torch.inference_mode():
                 ref = plain(v.float(), shapes, locs, attn)
                 out = V2(v, shapes, locs, attn, smem_budget=budget)
@@ -3049,32 +3090,45 @@ def phase_v2(report):
             tol = BF16_ATOL + BF16_RTOL * ref.abs() if dt == torch.bfloat16 else F32_ATOL
             if not bool((err <= tol).all()):
                 raise AssertionError(f"v2 {name} {dt}: max |kernel - plain| "
-                                     f"{err.max().item():.3e} in {bands} bands")
+                                     f"{err.max().item():.3e}; {v2_plan_text(plan)}")
             if dt == torch.float32:
                 worst = max(worst, err.max().item())
-            line += (f" | {'f32' if dt == torch.float32 else 'bf16'} {bands} band(s) "
-                     f"max_abs_err {err.max().item():.2e}")
-        if name in ("encoder", "decoder", "yolo pyramid"):
-            t = {}
+            if plan.cluster > 1:
+                multicast.append(f"{name} {tag}")
+            if not plan.tma:
+                by_threads.append(f"{name} {tag}")
+            if plan.tma != (D * v.element_size() % 16 == 0):
+                raise AssertionError(f"v2 {name} {tag}: D={D} staged by "
+                                     f"{'TMA' if plan.tma else 'threads'}")
+            line += f" | {tag} {v2_plan_text(plan)}, max_abs_err {err.max().item():.2e}"
+        if name in V2_TIMED:
+            t, staged = {}, {}
             for dt in (torch.float32, torch.bfloat16):
                 v = value.to(dt)
                 args = (v, shapes, locs, attn)
-                n_default = len(plan_bands(shapes, D, v.element_size())) - 1
-                n_whole = len(plan_bands(shapes, D, v.element_size(), SMEM_OPTIN_MAX)) - 1
+                plan = V2.plan(v, shapes, locs)
+                tag = "bf16" if dt == torch.bfloat16 else "f32"
                 with torch.inference_mode():
-                    ms = {"v2": cuda_ms(lambda: V2(*args)), "kernel1": cuda_ms(lambda: K1(*args)),
-                          "plain": cuda_ms(lambda: plain(*args), iters=5)}
-                    if n_default > 1 and n_whole == 1:   # the whole slab in one band
-                        ms["v2_one_band"] = cuda_ms(lambda: V2(*args, smem_budget=SMEM_OPTIN_MAX))
-                t["bf16" if dt == torch.bfloat16 else "f32"] = ms
-            line += "".join(f" | ms {dt}: " + ", ".join(f"{k} {x:.4f}" for k, x in ms.items())
-                            for dt, ms in t.items())
+                    ms = {"v2": cuda_ms(lambda: V2(*args)), "kernel1": cuda_ms(lambda: K1(*args))}
+                    if v.shape[1] * D * v.element_size() <= K1_SLAB_MAX:
+                        ms["kernel1_slab"] = cuda_ms(lambda: K1S(*args))
+                    ms["plain"] = cuda_ms(lambda: plain(*args), iters=5)
+                ms["plan"] = v2_plan_text(plan)
+                t[tag] = ms
+                # the plans' arithmetic, not a measurement: for the log line only
+                staged[tag] = (plan.staged_bytes_per_bh(),
+                               v2_earlier_staged_bytes(B, H, Q, D, shapes, v.element_size()))
+            line += "".join(
+                f" | ms {dt}: " + ", ".join(f"{k} {x:.4f}" for k, x in ms.items()
+                                            if isinstance(x, float))
+                + f"; staged per (b, h) by the plan {staged[dt][0]} B (the earlier design's "
+                  f"plan: {staged[dt][1]} B)" for dt, ms in t.items())
             v = value.bfloat16()
             with torch.inference_mode():
                 t["bounds"] = v2_bounds(v, locs, attn, V2(v, shapes, locs, attn), shapes)
-            line += (f" | bound {t['bounds'][0][0]:.4f} ({t['bounds'][0][1]}); the TPU form's "
-                     f"products on the bf16 tensor cores {t['bounds'][1][0]:.4f} "
-                     f"({t['bounds'][1][1]})")
+            line += (f" | bound {t['bounds'][0][0]:.4f} ({t['bounds'][0][1]}; bf16 v2 at "
+                     f"{t['bounds'][0][0] / t['bf16']['v2']:.1%}); the TPU form's products on "
+                     f"the bf16 tensor cores {t['bounds'][1][0]:.4f} ({t['bounds'][1][1]})")
             report[f"v2_{name}"] = t
         log(line)
 
@@ -3088,6 +3142,26 @@ def phase_v2(report):
     with torch.inference_mode():
         n_nan = nan_agrees("v2, NaN", V2(value, shapes, locs, attn),
                            plain(value, shapes, locs, attn), F32_ATOL)
+    # the YOLO pyramid's plan again after smaller ones: its 223 KB of shared
+    # memory must still be granted (a later, smaller plan never lowers it)
+    with torch.inference_mode():
+        ref = plain(yolo[0].float(), *yolo[1:])
+        err = (V2(*yolo).float() - ref).abs()
+    if not bool((err <= BF16_ATOL + BF16_RTOL * ref.abs()).all()):
+        raise AssertionError(f"v2 yolo pyramid again: max |kernel - plain| {err.max().item():.3e}")
+    # a value whose base is off 16 bytes: TMA cannot take it, the threads stage it
+    flat = torch.empty(value.numel() + 1, device=DEVICE)
+    shifted = flat[1:].view(value.shape)
+    shifted.copy_(value)
+    if V2.plan(shifted, shapes, locs).tma:
+        raise AssertionError("v2 planned TMA for a value whose base is not 16-byte aligned")
+    with torch.inference_mode():
+        err = (V2(shifted, shapes, locs.nan_to_num(0.5), attn)
+               - plain(value, shapes, locs.nan_to_num(0.5), attn)).abs().max().item()
+    if not err <= F32_ATOL:
+        raise AssertionError(f"v2, a base off 16 bytes: max |kernel - plain| {err:.3e}")
+    worst = max(worst, err)
+    by_threads.append("a base off 16 bytes f32")
     # the entry: CUDA tensors launch the kernel; inputs that require grad raise
     n0 = V2.launches
     with torch.inference_mode():
@@ -3100,17 +3174,23 @@ def phase_v2(report):
         pass
     else:
         raise AssertionError("ms_deform_attn_v2 took a value that requires grad")
+    if not multicast:
+        raise AssertionError("no v2 case ran a cluster of more than one CTA (no multicast)")
     report["v2_max_abs_err"] = worst
     report["v2_launches"] = V2.launches
     log(f"v2 kernel: f32 max |kernel - plain| {worst:.3e} over {len(cases)} geometries (tol "
         f"{F32_ATOL}; bf16 {BF16_ATOL} + 2^-8 |ref|); NaN locations: NaN at {n_nan} places "
-        f"as the plain version; the entry launches on CUDA tensors and refuses requires_grad")
+        f"as the plain version; staged by TMA multicast over a cluster: {', '.join(multicast)}; "
+        f"staged by the threads, as TMA cannot describe the value: {', '.join(by_threads)}; "
+        f"the entry launches on CUDA tensors and refuses requires_grad")
 
 
 # the probes at reduced sizes (the tools run them at full size)
 # G = 66: 60 row strips x 66 = 3960 tasks, whole waves at 1 or 2 blocks per SM
 KPAD_M, KPAD_N, KPAD_R, KPAD_G = 960, 512, 64, 66
 KPAD_RTOL = 1e-5      # the chained products vs plain: f32 sums in another order, of scale
+GATHER_HOST_ITERS = 200          # back-to-back calls per host-launch time
+GATHER_BREAKDOWN_CALLS = 10000   # calls per step of the gather's host breakdown
 
 
 def phase_probes(report):
@@ -3206,7 +3286,7 @@ def phase_probes(report):
         # device time (replayed from a CUDA graph, the replays' launches
         # counted) and time per call launched from the host, which at these
         # sizes is the launch's
-        gat[cname] = dg.time_case(table, idx) | {
+        gat[cname] = dg.time_case(table, idx, iters=GATHER_HOST_ITERS) | {
             "bound": bound(nbytes(idx, got) + distinct * table.element_size(), 0.0)}
     table, idx = dg.case_inputs(512, 64, torch.float32, device=DEVICE)
     idx[3, 7] = 512
@@ -3224,6 +3304,12 @@ def phase_probes(report):
     if dg.TAKE_ALONG_AXIS.launches - n0 != 1 + 3 * (2 + 1):
         raise AssertionError(f"gather: {dg.TAKE_ALONG_AXIS.launches - n0} launches counted "
                              f"over a warm-up call and 3 replays of 3 calls, not 10")
+    table, idx = dg.case_inputs(4800, 4800, torch.float32, device=DEVICE)
+    breakdown = dg.host_breakdown(table, idx, calls=GATHER_BREAKDOWN_CALLS)
+    report["gather_host_breakdown"] = breakdown
+    log("gather host us per call, each step alone over "
+        f"{GATHER_BREAKDOWN_CALLS} calls (the 4800-row case, no range check): "
+        + ", ".join(f"{k} {x:.3f}" for k, x in breakdown.items()))
     log("gather: kernel == plain on " + ", ".join(
         f"{k} (device ms kernel {x['ms']:.4f}, plain {x['plain_ms']:.4f}, torch.gather "
         f"{x['library_ms']:.4f}, bound {x['bound'][0]:.4f}; per host launch "
@@ -5296,13 +5382,19 @@ def main(argv) -> int:
          "replaces": "poet_tpu/ops/deform_attn_pallas_v2.py:54", **launched("v2"),
          "phase_launches": probes["v2"], "max_abs_err": report["v2_max_abs_err"],
          **timed(v2["v2"], v2["plain"], v2_enc["bounds"][0]),
-         "kernel1_ms": v2["kernel1"], "tpu_form_bound_ms": v2_enc["bounds"][1][0],
+         "kernel1_ms": v2["kernel1"], "kernel1_slab_ms": v2["kernel1_slab"],
+         "tpu_form_bound_ms": v2_enc["bounds"][1][0], "plan": v2["plan"],
+         "f32_ms": v2_enc["f32"]["v2"], "decoder_ms": report["v2_decoder"]["bf16"]["v2"],
          "yolo_ms": report["v2_yolo pyramid"]["bf16"]["v2"],
-         "yolo_kernel1_ms": report["v2_yolo pyramid"]["bf16"]["kernel1"],
+         "yolo_kernel1_slab_ms": report["v2_yolo pyramid"]["bf16"]["kernel1_slab"],
+         "yolo_bound_ms": report["v2_yolo pyramid"]["bounds"][0][0],
          "bound_is": "bytes against 8 D operations per in-map point on the f32 pipes; "
                      "tpu_form_bound_ms: bytes against the TPU kernel's two one-hot products "
                      "per point on the bf16 tensor cores, which this kernel does not do",
-         "ms_are": "the encoder shape, bf16 (yolo_ms: the YOLO pyramid at B=2)"},
+         "card": card,
+         "ms_are": "the encoder shape, bf16, CUDA events over back-to-back launches; "
+                   "kernel1(_slab)_ms: kernel 1's direct (slab) route on the same inputs; "
+                   "yolo: the YOLO pyramid at B=16"},
         {"name": "probe_kpad", "route": "cuda", "source": src + "probe_kpad.cu",
          "replaces": "scripts/bench_kpad.py:33", **launched("kpad"),
          "phase_launches": probes["kpad"], "max_abs_err": kpad["max_abs_err"],
@@ -5337,8 +5429,11 @@ def main(argv) -> int:
          "library_is": "torch.gather(table, 0, idx)",
          "host_ms": gat["host_ms"], "plain_host_ms": gat["plain_host_ms"],
          "library_host_ms": gat["library_host_ms"],
+         "host_breakdown_us": report["gather_host_breakdown"], "card": card,
          "ms_are": "the 4800-row f32 case, (4800, 128) table and index; device time, "
-                   "replayed from a CUDA graph (host_ms: per call launched from the host)"},
+                   "replayed from a CUDA graph (host_ms: per call launched from the host, "
+                   "CUDA events over back-to-back calls; host_breakdown_us: each step of one "
+                   "call alone on the host's clock over 10 000 calls)"},
         {"name": "ms_deform_attn_fwd_slab", "route": "cuda",
          "source": src + "ms_deform_attn_fwd.cu", "replaces": tpu + "221",
          **launched("fwd_slab"), "max_abs_err": report["max_abs_err"],

@@ -26,7 +26,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from poet_tpu_torch.ops.cuda_build import DTYPE_CODE, STEM_LIB, stream_of
+from poet_tpu_torch.ops.cuda_build import DTYPE_CODE, STEM_LIB, device_guard, stream_of
 
 Padding = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -120,7 +120,7 @@ class ConvStemForward:
         lib = STEM_LIB.build()
         out = torch.empty((B, Ho, Wo, Fo), dtype=out_dt, device=x.device)
         (pt, _), (pl, _) = padding
-        with torch.cuda.device(x.device):
+        with device_guard(x):
             rc = lib.poet_conv_stem_fwd(
                 x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
                 out.data_ptr(), DTYPE_CODE[x.dtype], DTYPE_CODE[out_dt], B, H, W, C, Fo,

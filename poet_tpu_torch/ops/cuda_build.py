@@ -10,7 +10,9 @@ GPU.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -120,19 +122,48 @@ class CudaLibrary:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream on `t`'s device (a cudaStream_t as
+    an int), read without building a `torch.cuda.Stream` for each call."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+_ALREADY_CURRENT = contextlib.nullcontext()
+
+
+def device_guard(t: torch.Tensor):
+    """A context in which `t`'s device is the current one: `torch.cuda.device`
+    where another device is current, else a no-op (entering the guard costs
+    microseconds a launch, and the device is nearly always current)."""
+    index = t.get_device()
+    if torch._C._cuda_getDevice() == index:
+        return _ALREADY_CURRENT
+    return torch.cuda.device(index)
+
+
+def slice_width(n: int, itemsize: int, *pointers: int) -> int:
+    """Elements per thread: one 16-byte slice where the count `n` and every
+    pointer allow it, else 1."""
+    width = 16 // itemsize
+    return width if n % width == 0 and all(p % 16 == 0 for p in pointers) else 1
 
 
 def vec_width(t: torch.Tensor, n: int) -> int:
     """Channels per thread: one 16-byte load where the channel count `n`
     and the pointer allow, else 1."""
-    width = 16 // t.element_size()
-    return width if n % width == 0 and t.data_ptr() % 16 == 0 else 1
+    return slice_width(n, t.element_size(), t.data_ptr())
+
+
+@functools.lru_cache(maxsize=64)
+def _level_hw(shapes) -> ctypes.Array:
+    return (ctypes.c_int * (2 * len(shapes)))(*[int(x) for hw in shapes for x in hw])
 
 
 def level_hw(shapes) -> ctypes.Array:
-    """(H_l, W_l) per level as the kernels' host array of 2 L ints."""
-    return (ctypes.c_int * (2 * len(shapes)))(*[int(x) for hw in shapes for x in hw])
+    """(H_l, W_l) per level as the kernels' host array of 2 L ints: one
+    array per pyramid, kept (building it took 2-4 us a launch; the kernels
+    only read it). The cache is keyed on the levels as Python ints, whatever
+    they were given as (lists, tensors)."""
+    return _level_hw(tuple((int(h), int(w)) for h, w in shapes))
 
 
 FWD_LIB = CudaLibrary(CSRC / "ms_deform_attn_fwd.cu", {
@@ -159,14 +190,14 @@ DENSE_LIB = CudaLibrary(CSRC / "ms_deform_attn_dense.cu", {
     "poet_ms_deform_attn_dense_bwd": [P] * 7 + [I] * 8 + [INTS, I, I, P],
     "poet_ms_deform_attn_dense_dloc_slab": [P] * 6 + [I] * 8 + [INTS, I, P]})
 V2_LIB = CudaLibrary(CSRC / "ms_deform_attn_v2.cu", {
-    "poet_ms_deform_attn_v2_fwd": [P] * 4 + [I] * 8 + [INTS, I, INTS, I, I, I, P]})
+    "poet_ms_deform_attn_v2_fwd": [P] * 4 + [I] * 8 + [INTS, INTS] + [I] * 8 + [P]})
 # the probes (poet_tpu_torch/tools/)
 KPAD_LIB = CudaLibrary(CSRC / "probe_kpad.cu", {
     "poet_probe_kpad": [P] * 3 + [I] * 5 + [P]})
 VARIANTS_LIB = CudaLibrary(CSRC / "ms_deform_attn_fwd_variants.cu", {
     "poet_ms_deform_attn_fwd_variant": [P] * 4 + [I] * 8 + [INTS, P]})
 GATHER_LIB = CudaLibrary(CSRC / "take_along_axis.cu", {
-    "poet_take_along_axis": [P] * 3 + [I] * 4 + [P]})
+    "poet_take_along_axis": [P] * 3 + [I] * 5 + [P]})
 LIBRARIES = (FWD_LIB, BWD_LIB, ROI_LIB, STEM_LIB, NN_LIB, DENSE_LIB, V2_LIB, KPAD_LIB,
              VARIANTS_LIB, GATHER_LIB)
 

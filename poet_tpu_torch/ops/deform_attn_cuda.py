@@ -75,6 +75,7 @@ from poet_tpu_torch.ops.cuda_build import (  # noqa: F401  (re-exported)
     NVCC_FLAGS,
     CudaLibrary,
     build_all,
+    device_guard,
     level_hw,
     stream_of,
     vec_width,
@@ -352,7 +353,7 @@ class MSDeformAttnForward:
                                             attention_weights)
         lib = FWD_LIB.build()
         out = torch.empty((B, Q, H * D), dtype=value.dtype, device=value.device)
-        with torch.cuda.device(value.device):
+        with device_guard(value):
             rc = lib.poet_ms_deform_attn_fwd(
                 value.data_ptr(), sampling_locations.data_ptr(),
                 attention_weights.data_ptr(), out.data_ptr(), DTYPE_CODE[value.dtype],
@@ -386,7 +387,7 @@ class MSDeformAttnForwardSlab:
                              f"{SMEM_OPTIN_MAX} B of shared memory a block may use")
         lib = FWD_LIB.build()
         out = torch.empty((B, Q, H * D), dtype=value.dtype, device=value.device)
-        with torch.cuda.device(value.device):
+        with device_guard(value):
             rc = lib.poet_ms_deform_attn_fwd_slab(
                 value.data_ptr(), sampling_locations.data_ptr(),
                 attention_weights.data_ptr(), out.data_ptr(), DTYPE_CODE[value.dtype],
@@ -419,7 +420,7 @@ class MSDeformAttnDValue:
         # one thread per 4 channels: a 16-byte slice of the f32 accumulator,
         # one float4 atomic per corner
         vec = 4 if D % 4 == 0 and dout.data_ptr() % (4 * dout.element_size()) == 0 else 1
-        with torch.cuda.device(value.device):
+        with device_guard(value):
             rc = lib.poet_ms_deform_attn_bwd_dvalue(
                 sampling_locations.data_ptr(), attention_weights.data_ptr(),
                 dout.data_ptr(), d_value.data_ptr(), DTYPE_CODE[value.dtype],
@@ -461,7 +462,7 @@ class MSDeformAttnDValueSlab:
         d_value = torch.empty_like(value)         # every row written by the kernel
         vec = next(n for n in (8, 4, 1) if group % n == 0
                    and dout.data_ptr() % (n * dout.element_size()) == 0)
-        with torch.cuda.device(value.device):
+        with device_guard(value):
             rc = lib.poet_ms_deform_attn_bwd_dvalue_slab(
                 sampling_locations.data_ptr(), attention_weights.data_ptr(),
                 dout.data_ptr(), d_value.data_ptr(), DTYPE_CODE[value.dtype],
@@ -506,7 +507,7 @@ class MSDeformAttnDLoc:
         # a staged slab's rows are packed and 16-byte aligned: there only
         # dout's loads need its pointer aligned for VEC channels a load
         vec = vec_width(dout, D) if self.slab else min(vec_width(value, D), vec_width(dout, D))
-        with torch.cuda.device(value.device):
+        with device_guard(value):
             rc = getattr(lib, self.entry)(
                 value.data_ptr(), sampling_locations.data_ptr(),
                 attention_weights.data_ptr(), dout.data_ptr(), d_loc.data_ptr(),
@@ -545,7 +546,7 @@ class MSDeformAttnMergedAdjoint:
         # 4 channels per lane for both dtypes: one float4 atomic per corner
         aligned = all(t.data_ptr() % (4 * t.element_size()) == 0 for t in (value, dout))
         vec = 4 if D % 4 == 0 and aligned else 1
-        with torch.cuda.device(value.device):
+        with device_guard(value):
             rc = lib.poet_ms_deform_attn_bwd_merged(
                 value.data_ptr(), sampling_locations.data_ptr(),
                 attention_weights.data_ptr(), dout.data_ptr(), d_value.data_ptr(),
@@ -593,7 +594,7 @@ class MSDeformAttnMergedSlab:
         # at D = 16), else 4, else 1
         vec = next(n for n in (8, 4, 1) if D % n == 0 and all(
             t.data_ptr() % (n * t.element_size()) == 0 for t in (value, dout)))
-        with torch.cuda.device(value.device):
+        with device_guard(value):
             rc = lib.poet_ms_deform_attn_bwd_merged_slab(
                 value.data_ptr(), sampling_locations.data_ptr(),
                 attention_weights.data_ptr(), dout.data_ptr(), d_value.data_ptr(),
@@ -646,7 +647,7 @@ class MSDeformAttnMergedBanded:
         # at D = 16), else 4, else 1: the slab route's
         vec = next(n for n in (8, 4, 1) if D % n == 0 and all(
             t.data_ptr() % (n * t.element_size()) == 0 for t in (value, dout)))
-        with torch.cuda.device(value.device):
+        with device_guard(value):
             rc = lib.poet_ms_deform_attn_bwd_merged_banded(
                 value.data_ptr(), sampling_locations.data_ptr(),
                 attention_weights.data_ptr(), dout.data_ptr(), d_value.data_ptr(),

@@ -50,6 +50,7 @@ import torch
 from poet_tpu_torch.ops.cuda_build import (
     DENSE_LIB,
     DTYPE_CODE,
+    device_guard,
     level_hw,
     stream_of,
     vec_width,
@@ -190,7 +191,7 @@ class MSDeformAttnDenseForward:
                                                       P).smem_bytes)
         lib = DENSE_LIB.build()
         out = torch.empty((B, Q, H * D), dtype=value.dtype, device=value.device)
-        with torch.cuda.device(value.device):
+        with device_guard(value):
             rc = lib.poet_ms_deform_attn_dense_fwd(
                 value.data_ptr(), sampling_locations.data_ptr(),
                 attention_weights.data_ptr(), out.data_ptr(), DTYPE_CODE[value.dtype],
@@ -245,7 +246,7 @@ class MSDeformAttnDenseAdjoint:
         # with the staged d_loc blocks this launch keeps the d_value blocks
         own = "d_value" if stage and part == "all" else part
         if not (stage and part == "d_loc"):
-            with torch.cuda.device(value.device):
+            with device_guard(value):
                 rc = lib.poet_ms_deform_attn_dense_bwd(
                     value.data_ptr(), sampling_locations.data_ptr(),
                     attention_weights.data_ptr(), dout.data_ptr(), d_value.data_ptr(),

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from poet_tpu_torch.ops.cuda_build import NN_LIB, stream_of
+from poet_tpu_torch.ops.cuda_build import NN_LIB, device_guard, stream_of
 
 # elements of the plain version's (P, N, chunk) temporaries: 2^26 f32, 256 MB each
 PLAIN_CHUNK_ELEMENTS = 1 << 26
@@ -83,7 +83,7 @@ class MinDistSq:
         if P == 0 or N == 0:
             return out
         lib = NN_LIB.build()
-        with torch.cuda.device(gt.device):
+        with device_guard(gt):
             rc = lib.poet_min_dist_sq_fwd(gt.data_ptr(), est.data_ptr(), out.data_ptr(),
                                           P, N, est.shape[1], stream_of(gt))
         NN_LIB.check(rc, "min_dist_sq_fwd")

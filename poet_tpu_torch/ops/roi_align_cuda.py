@@ -35,7 +35,14 @@ from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
-from poet_tpu_torch.ops.cuda_build import DTYPE_CODE, ROI_LIB, level_hw, stream_of, vec_width
+from poet_tpu_torch.ops.cuda_build import (
+    DTYPE_CODE,
+    ROI_LIB,
+    device_guard,
+    level_hw,
+    stream_of,
+    vec_width,
+)
 from poet_tpu_torch.ops.detection import RoiGeometry, roi_blend_plain, roi_geometry
 
 _MAX_LEVELS = 8                     # POET_ROI_MAX_LEVELS in the source
@@ -166,7 +173,7 @@ class RoIAlignForward:
                           device=boxes.device)
         vec = min(vec_width(t, C) for t in list(features) + [out])
         ptrs = (ctypes.c_void_p * len(features))(*[f.data_ptr() for f in features])
-        with torch.cuda.device(boxes.device):
+        with device_guard(boxes):
             rc = lib.poet_roi_align_fwd(
                 ptrs, level_hw(shapes), len(features), geo.level.data_ptr(),
                 geo.ylo.data_ptr(), geo.yw.data_ptr(), geo.xlo.data_ptr(),
@@ -202,7 +209,7 @@ class RoIAlignTiles(RoIAlignForward):
         vec = min(vec_width(t, chunk) for t in list(features) + [out])
         ptrs = (ctypes.c_void_p * len(features))(*[f.data_ptr() for f in features])
         shapes = [tuple(f.shape[1:3]) for f in features]
-        with torch.cuda.device(boxes.device):
+        with device_guard(boxes):
             rc = lib.poet_roi_align_tiles(
                 ptrs, level_hw(shapes), len(features), geo.level.data_ptr(),
                 geo.ylo.data_ptr(), geo.yw.data_ptr(), geo.xlo.data_ptr(),

@@ -27,7 +27,7 @@ import sys
 
 import torch
 
-from poet_tpu_torch.ops.cuda_build import KPAD_LIB, stream_of
+from poet_tpu_torch.ops.cuda_build import KPAD_LIB, device_guard, stream_of
 from poet_tpu_torch.tools.timing import cuda_ms, graph_ms
 
 KS = (128, 112, 96, 80, 64, 40, 32, 16, 27, 8)
@@ -78,7 +78,7 @@ class KPadChain:
         M, N, K = _check(a, b, R, G)
         lib = KPAD_LIB.build()
         out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-        with torch.cuda.device(a.device):
+        with device_guard(a):
             rc = lib.poet_probe_kpad(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, R, G,
                                      stream_of(a))
         KPAD_LIB.check(rc, "probe_kpad")

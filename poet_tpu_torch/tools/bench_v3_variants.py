@@ -38,7 +38,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from poet_tpu_torch.ops.cuda_build import VARIANTS_LIB, level_hw, stream_of
+from poet_tpu_torch.ops.cuda_build import VARIANTS_LIB, device_guard, level_hw, stream_of
 from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch, nonfinite_points
 from poet_tpu_torch.ops.deform_attn_cuda import _check_inputs
 
@@ -140,7 +140,7 @@ class MSDeformAttnVariant:
         B, S, Q, H, D, L, P = _check_inputs(value, spatial_shapes, locs, attn)
         lib = VARIANTS_LIB.build()
         out = torch.empty((B, Q, H * D), dtype=value.dtype, device=value.device)
-        with torch.cuda.device(value.device):
+        with device_guard(value):
             rc = lib.poet_ms_deform_attn_fwd_variant(
                 value.data_ptr(), locs.data_ptr(), attn.data_ptr(), out.data_ptr(),
                 VARIANTS.index(variant), B, S, Q, H, D, L, P, level_hw(spatial_shapes),

@@ -27,7 +27,13 @@ import sys
 
 import torch
 
-from poet_tpu_torch.ops.cuda_build import DTYPE_CODE, GATHER_LIB, stream_of
+from poet_tpu_torch.ops.cuda_build import (
+    DTYPE_CODE,
+    GATHER_LIB,
+    device_guard,
+    slice_width,
+    stream_of,
+)
 
 # (name, table rows, index rows, dtype): the script's four cases, 128 columns
 CASES = (("same shape (512, 128) f32", 512, 512, torch.float32),
@@ -35,6 +41,7 @@ CASES = (("same shape (512, 128) f32", 512, 512, torch.float32),
          ("bf16 table", 512, 512, torch.bfloat16),
          ("4800-row table", 4800, 4800, torch.float32))
 COLUMNS = 128
+THREADS, BLOCKS_PER_SM = 256, 8          # kThreads, kBlocksPerSm in the source
 
 
 def take_along_axis_torch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -43,44 +50,60 @@ def take_along_axis_torch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tenso
 
 
 def _check(table, idx, check_range=True):
-    if table.dim() != 2 or idx.dim() != 2 or idx.shape[1] != table.shape[1]:
-        raise ValueError(f"expected table (T, C) and idx (R, C), got {tuple(table.shape)}, "
-                         f"{tuple(idx.shape)}")
+    t_shape, i_shape = table.shape, idx.shape
+    if len(t_shape) != 2 or len(i_shape) != 2 or i_shape[1] != t_shape[1]:
+        raise ValueError(f"expected table (T, C) and idx (R, C), got {tuple(t_shape)}, "
+                         f"{tuple(i_shape)}")
     if idx.dtype != torch.int32:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
-    if idx.device != table.device:
+    if idx.get_device() != table.get_device() or idx.device.type != table.device.type:
         raise ValueError(f"table and idx on two devices: {table.device}, {idx.device}")
-    if table.shape[0] < 1:
+    if t_shape[0] < 1:
         raise ValueError("an empty table has no row to take")
     if check_range and not bool(((idx >= 0) & (idx < table.shape[0])).all()):
         raise IndexError(f"an index outside [0, {table.shape[0]})")
 
 
+def grid_blocks(R: int, C: int, vec: int, sms: int) -> int:
+    """Blocks of THREADS the source launches: one thread a slice, at most
+    BLOCKS_PER_SM on each of the card's `sms` SMs (the rest walked)."""
+    return min(-(-R * (C // vec) // THREADS), sms * BLOCKS_PER_SM)
+
+
 class TakeAlongAxis:
     """Launches the gather kernel (`csrc/take_along_axis.cu`); `launches`
     counts its launches (a call captured into a CUDA graph launches nothing:
-    `timing.graph_ms` counts the replays)."""
+    `timing.graph_ms` counts the replays). The library is built and its C
+    function bound at the first call."""
 
     def __init__(self):
         self.launches = 0
+        self._fn = None
 
     def __call__(self, table: torch.Tensor, idx: torch.Tensor,
                  check_range: bool = True) -> torch.Tensor:
         """`check_range=False` skips the range check and its host sync (for
         timing the kernel alone on indices already checked)."""
         _check(table, idx, check_range)
-        if table.dtype not in DTYPE_CODE:
+        code = DTYPE_CODE.get(table.dtype)
+        if code is None:
             raise TypeError(f"table dtype {table.dtype} not in (float32, bfloat16)")
         if table.device.type != "cuda":
             raise ValueError(f"the CUDA kernel takes CUDA tensors, got {table.device}")
-        table, idx = table.contiguous(), idx.contiguous()
+        if not table.is_contiguous():
+            table = table.contiguous()
+        if not idx.is_contiguous():
+            idx = idx.contiguous()
+        if self._fn is None:
+            self._fn = GATHER_LIB.build().poet_take_along_axis
         (T, C), R = table.shape, idx.shape[0]
-        lib = GATHER_LIB.build()
-        out = torch.empty((R, C), dtype=table.dtype, device=table.device)
-        with torch.cuda.device(table.device):
-            rc = lib.poet_take_along_axis(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                                          DTYPE_CODE[table.dtype], T, R, C, stream_of(table))
-        GATHER_LIB.check(rc, "take_along_axis")
+        out = torch.empty_like(idx, dtype=table.dtype)
+        t_ptr, i_ptr, o_ptr = table.data_ptr(), idx.data_ptr(), out.data_ptr()
+        vec = slice_width(C, table.element_size(), t_ptr, i_ptr, o_ptr)
+        with device_guard(table):
+            rc = self._fn(t_ptr, i_ptr, o_ptr, code, T, R, C, vec, stream_of(table))
+        if rc:
+            GATHER_LIB.check(rc, "take_along_axis")
         if not torch.cuda.is_current_stream_capturing():
             self.launches += 1
         return out
@@ -121,6 +144,54 @@ def time_case(table: torch.Tensor, idx: torch.Tensor, iters: int = 50) -> dict:
     return ({f"{k}ms": graph_ms(fn, counted=TAKE_ALONG_AXIS if k == "" else None)
              for k, fn in fns.items()}
             | {f"{k}host_ms": cuda_ms(fn, iters=iters) for k, fn in fns.items()})
+
+
+def host_breakdown(table: torch.Tensor, idx: torch.Tensor, calls: int = 10000) -> dict:
+    """Host microseconds of each step of one `TakeAlongAxis` call without
+    its range check, each step timed alone over `calls` calls
+    (`timing.host_us`), in the call's order, then the whole call; the forms
+    the call used before (marked "was:") and `torch.gather` beside them."""
+    from poet_tpu_torch.tools.timing import host_us
+
+    (T, C), R = table.shape, idx.shape[0]
+    fn = GATHER_LIB.build().poet_take_along_axis
+    out = torch.empty((R, C), dtype=table.dtype, device=table.device)
+    ptrs = (table.data_ptr(), idx.data_ptr(), out.data_ptr())
+    vec = slice_width(C, table.element_size(), *ptrs)
+    code, stream = DTYPE_CODE[table.dtype], stream_of(table)
+    idx64 = idx.long()
+
+    def guard():
+        with device_guard(table):
+            pass
+
+    def old_guard():
+        with torch.cuda.device(table.device):
+            pass
+
+    steps = {
+        "_check": lambda: _check(table, idx, False),
+        "dtype, device and contiguity tests": lambda: (
+            DTYPE_CODE.get(table.dtype), table.device.type, table.is_contiguous(),
+            idx.is_contiguous()),
+        "torch.empty_like": lambda: torch.empty_like(idx, dtype=table.dtype),
+        "data_ptr x3, slice_width": lambda: slice_width(
+            C, table.element_size(), table.data_ptr(), idx.data_ptr(), out.data_ptr()),
+        "device_guard (device current)": guard,
+        "stream_of (raw handle)": lambda: stream_of(table),
+        "ctypes call (launch)": lambda: fn(*ptrs, code, T, R, C, vec, stream),
+        "is_current_stream_capturing": torch.cuda.is_current_stream_capturing,
+        "whole call": lambda: TAKE_ALONG_AXIS(table, idx, False),
+        "was: .contiguous() x2": lambda: (table.contiguous(), idx.contiguous()),
+        "was: GATHER_LIB.build()": GATHER_LIB.build,
+        "was: torch.cuda.device context": old_guard,
+        "was: torch.empty((R, C), dtype=, device=)": lambda: torch.empty(
+            (R, C), dtype=table.dtype, device=table.device),
+        "was: torch.cuda.current_stream(device).cuda_stream": lambda: torch.cuda.current_stream(
+            table.device).cuda_stream,
+        "torch.gather, whole call": lambda: torch.gather(table, 0, idx64),
+    }
+    return {name: host_us(step, calls) for name, step in steps.items()}
 
 
 def main(argv=None) -> int:

@@ -6,10 +6,13 @@ per call, host launch overhead included where it exceeds the device work.
 device time per call without the host's launch overhead (the calls must not
 synchronize with the host). A kernel wrapper counts no call made while a
 stream captures, since nothing launches then; `graph_ms` adds the launches
-its replays make to the count of the wrapper it is given.
+its replays make to the count of the wrapper it is given. `host_us` times
+the host's side of a call alone: what a launch costs the caller's thread.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -57,3 +60,21 @@ def graph_ms(fn, iters: int = 20, replays: int = 5, counted=None) -> float:
     if counted is not None:
         counted.launches += iters * (replays + 1)
     return ms
+
+
+def host_us(fn, calls: int = 10000, run: int = 50, warmup: int = 100) -> float:
+    """Mean host microseconds per call of `fn` (time.perf_counter_ns):
+    `calls` calls in runs of `run`, each run timed alone, the device
+    synchronised between runs outside the timed span so that the launch
+    queue never fills and the host never waits for the card."""
+    for _ in range(warmup):
+        fn()
+    total = 0
+    for _ in range(max(1, calls // run)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(run):
+            fn()
+        total += time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return total / (max(1, calls // run) * run) / 1e3

@@ -17,6 +17,11 @@ metric file, and the BOP CSV row for row except the time column.
 import csv
 import io
 import json
+import os
+import pickle
+import subprocess
+import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +30,7 @@ import torch
 
 from tests.test_torch_modules import one_torch_thread  # noqa: F401  (autouse)
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, ENC, DEC, HEADS = 2, 2, 2, 4
 # poses relative to the output scale: f32 through ResNet-50 and two layers
 # of each transformer stack, summed in other orders by XLA and torch (as
@@ -49,10 +55,24 @@ def _configs(root):
     return jcfg, tcfg
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+# JAX's side runs in a process of its own. In a pytest worker that ran
+# JAX's Pallas ADD-S kernel in interpret mode earlier
+# (tests/test_torch_eval.py::test_adi_errors_match_jax[pallas]), JAX's eval
+# forward failed here with "Execution supplied 408 buffers but compiled
+# program expected 412"; clearing JAX's caches, its runtime tokens and the
+# interpreter's shared memory did not help, so nothing is shared.
+JAX_TIMEOUT_S = 600
+EVALUATOR_STATE = ("classes", "num", "poses_img", "poses_gt", "poses_pred")
+LOADER_KW = dict(shuffle=False, drop_last=False, pad_to_full_batch=True, num_workers=2)
+
+
+def _jax_side(root: Path) -> None:
+    """JAX's `pose_evaluate` and `bop_evaluate` on the tree in
+    root/tree.pkl; the evaluator's state and the CSV path go to
+    root/jax.pkl."""
     import jax
 
+    jax.config.update("jax_platforms", "cpu")
     from poet_tpu.data.dataset import PoseDataset
     from poet_tpu.data.loader import PoseDataLoader as JLoader
     from poet_tpu.data.transforms import make_pose_estimation_transform
@@ -60,6 +80,29 @@ def runs(tmp_path_factory):
     from poet_tpu.engine.train import make_eval_forward as jforward
     from poet_tpu.evaluation import build_pose_evaluator as jbuild_evaluator
     from poet_tpu.models import build_model as jbuild
+
+    jcfg, _ = _configs(root / "data")
+    tree = pickle.loads((root / "tree.pkl").read_bytes())
+    ds = PoseDataset(str(root / "data" / "test_all"),
+                     str(root / "data" / "annotations" / "test.json"),
+                     transforms=make_pose_estimation_transform("test"))
+    jmodel = jbuild(jcfg)
+    forward = jforward(jmodel, jcfg)          # one trace for both JAX loops
+    jev.make_eval_forward = lambda m, c: forward
+    jeval = jbuild_evaluator(jcfg)
+    jev.pose_evaluate(jmodel, {"params": tree}, jeval, JLoader(ds, B, 10, **LOADER_KW),
+                      jcfg, "test", output_dir=str(root / "jax"))
+    jcsv = jev.bop_evaluate(jmodel, {"params": tree}, JLoader(ds, B, 10, **LOADER_KW),
+                            jcfg, "test", output_dir=str(root / "jax"))
+    state = {k: getattr(jeval, k) for k in EVALUATOR_STATE}
+    (root / "jax.pkl").write_bytes(pickle.dumps((state, jcsv)))
+
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    from poet_tpu.data.dataset import PoseDataset
+    from poet_tpu.data.transforms import make_pose_estimation_transform
     from poet_tpu.utils.torch_import import (
         convert_poet_checkpoint,
         convert_resnet_fpn,
@@ -75,34 +118,26 @@ def runs(tmp_path_factory):
 
     root = tmp_path_factory.mktemp("eval_slice")
     make_synthetic_dataset(str(root / "data"), n_train=0, n_test=5, H=96, W=128, seed=3)
-    jcfg, tcfg = _configs(root / "data")
+    _, tcfg = _configs(root / "data")
     sd = state_dict_to_numpy(init_weights(build_model(tcfg), seed=0).state_dict())
     tree = convert_poet_checkpoint(sd, enc_layers=ENC, dec_layers=DEC, nheads=HEADS)
     tree["backbone"] = {"fpn_body": convert_resnet_fpn(sd, prefix="backbone.backbone.")}
+    (root / "tree.pkl").write_bytes(pickle.dumps(tree))
+    child = subprocess.run([sys.executable, __file__, str(root)], cwd=ROOT,
+                           env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+                           text=True, timeout=JAX_TIMEOUT_S)
+    assert child.returncode == 0, child.stdout[-4000:] + child.stderr[-4000:]
+    state, jcsv = pickle.loads((root / "jax.pkl").read_bytes())
+    jeval = types.SimpleNamespace(**state)
+
     model = load_jax_params(build_model(tcfg), tree)
     ds = PoseDataset(str(root / "data" / "test_all"),
                      str(root / "data" / "annotations" / "test.json"),
                      transforms=make_pose_estimation_transform("test"))
-    loader_kw = dict(shuffle=False, drop_last=False, pad_to_full_batch=True, num_workers=2)
-
-    jmodel = jbuild(jcfg)
-    forward = jforward(jmodel, jcfg)          # one trace for both JAX loops
-    jev_module_forward = jev.make_eval_forward
-    jev.make_eval_forward = lambda m, c: forward
-    try:
-        jeval = jbuild_evaluator(jcfg)
-        jev.pose_evaluate(jmodel, {"params": tree}, jeval, JLoader(ds, B, 10, **loader_kw),
-                          jcfg, "test", output_dir=str(root / "jax"))
-        jcsv = jev.bop_evaluate(jmodel, {"params": tree}, JLoader(ds, B, 10, **loader_kw),
-                                jcfg, "test", output_dir=str(root / "jax"))
-    finally:
-        jev.make_eval_forward = jev_module_forward
-    jax.clear_caches()
-
     teval = build_pose_evaluator(tcfg)
-    pose_evaluate(model, teval, PoseDataLoader(ds, B, 10, **loader_kw), tcfg, "test",
+    pose_evaluate(model, teval, PoseDataLoader(ds, B, 10, **LOADER_KW), tcfg, "test",
                   output_dir=str(root / "port"), device="cpu")
-    tcsv = bop_evaluate(model, PoseDataLoader(ds, B, 10, **loader_kw), tcfg, "test",
+    tcsv = bop_evaluate(model, PoseDataLoader(ds, B, 10, **LOADER_KW), tcfg, "test",
                         output_dir=str(root / "port"), device="cpu")
     return root, (jeval, jcsv), (teval, tcsv)
 
@@ -254,3 +289,7 @@ def test_bf16_weights_are_cast_for_the_loop_and_restored(tmp_path):
     after = model.state_dict()
     for k, v in before.items():
         assert after[k].dtype == v.dtype and torch.equal(after[k], v), k
+
+
+if __name__ == "__main__":
+    _jax_side(Path(sys.argv[1]))

@@ -23,6 +23,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -107,8 +108,83 @@ def test_take_along_axis_refuses():
         take_along_axis(table, torch.zeros((2, 4), dtype=torch.int32))
     with pytest.raises(TypeError, match="table dtype"):
         TAKE_ALONG_AXIS(table.double(), torch.zeros((2, 3), dtype=torch.int32))
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        TAKE_ALONG_AXIS(table, torch.zeros((2, 3), dtype=torch.int32))
+    for device in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            TAKE_ALONG_AXIS(table.to(device), torch.zeros((2, 3), dtype=torch.int32,
+                                                          device=device), check_range=False)
+    assert TAKE_ALONG_AXIS.launches == 0 and TAKE_ALONG_AXIS._fn is None
+
+
+def _gather_walk(R, C, vec, blocks):
+    """The kernel's walk (csrc/take_along_axis.cu): each thread starts at its
+    global index split into (row, slice) and steps by the grid's stride,
+    itself split once into rows and slices. Returns the slices each thread
+    visits, as (thread, row, first column)."""
+    from poet_tpu_torch.tools.dyn_gather import THREADS
+
+    slices, stride = C // vec, blocks * THREADS
+    dr, ds = divmod(stride, slices)
+    visits = []
+    for start in range(stride):
+        r, s = divmod(start, slices)
+        while r < R:
+            visits.append((start, r, s * vec))
+            r, s = r + dr, s + ds
+            if s >= slices:
+                r, s = r + 1, s - slices
+    return visits
+
+
+@settings(max_examples=40, deadline=None)
+@given(R=st.integers(0, 70), C=st.integers(1, 40), itemsize=st.sampled_from([4, 2]),
+       sms=st.integers(1, 3), misaligned=st.booleans())
+def test_gather_walk_takes_every_slice_once(R, C, itemsize, sms, misaligned):
+    """The kernel's slice plan on the CPU: 16-byte slices where C and the
+    pointers allow (4 f32 / 8 bf16 columns), scalar columns else; the grid
+    sized to the SMs; every (row, slice) taken by exactly one thread once;
+    the gather the walk computes equals the plain version."""
+    from poet_tpu_torch.tools.dyn_gather import (
+        BLOCKS_PER_SM,
+        THREADS,
+        grid_blocks,
+        slice_width,
+        take_along_axis_torch,
+    )
+
+    ptrs = (4096, 8192 + 4 * misaligned, 512)
+    vec = slice_width(C, itemsize, *ptrs)
+    wide = 16 // itemsize
+    assert vec == (wide if C % wide == 0 and not misaligned else 1)
+    if R == 0:
+        return
+    blocks = grid_blocks(R, C, vec, sms)
+    assert 1 <= blocks <= sms * BLOCKS_PER_SM
+    assert blocks * THREADS >= min(R * C // vec, sms * BLOCKS_PER_SM * THREADS)
+    visits = _gather_walk(R, C, vec, blocks)
+    taken = sorted((r, c) for _, r, c in visits)
+    assert taken == [(r, s * vec) for r in range(R) for s in range(C // vec)]
+    rng = np.random.default_rng(R * 41 + C)
+    table = torch.from_numpy(rng.normal(size=(7, C)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 7, size=(R, C)).astype(np.int32))
+    out = torch.empty((R, C))
+    for _, r, c in visits:
+        out[r, c:c + vec] = table[idx[r, c:c + vec].long(), torch.arange(c, c + vec)]
+    assert torch.equal(out, take_along_axis_torch(table, idx))
+
+
+def test_gather_plan_at_the_cases():
+    """The script's four cases take 16-byte slices, one a thread: the
+    4800-row case's 153 600 slices fill 600 of the 1056 blocks the card's
+    132 SMs hold at once; more rows than that are walked."""
+    from poet_tpu_torch.tools.dyn_gather import CASES, COLUMNS, THREADS, grid_blocks, slice_width
+
+    for _, T, R, dtype in CASES:
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        vec = slice_width(COLUMNS, itemsize, 0, 0, 0)
+        assert vec == 16 // itemsize
+    assert grid_blocks(4800, COLUMNS, 4, 132) * THREADS == 4800 * COLUMNS // 4
+    assert grid_blocks(64, COLUMNS, 4, 132) * THREADS == 64 * COLUMNS // 4
+    assert grid_blocks(9600, COLUMNS, 4, 132) == 132 * 8
 
 
 def _jax_kpad_chain(a, b, R):
