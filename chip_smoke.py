@@ -3186,8 +3186,9 @@ def phase_v2(report):
 
 
 # the probes at reduced sizes (the tools run them at full size)
-# G = 66: 60 row strips x 66 = 3960 tasks, whole waves at 1 or 2 blocks per SM
+# G = 66: 15 strips of 64 rows x 66 = 990 tasks, 7.5 waves of one CTA an SM
 KPAD_M, KPAD_N, KPAD_R, KPAD_G = 960, 512, 64, 66
+KPAD_G_WHOLE = 88     # 1320 tasks: 10 whole waves over the 132 SMs (G = 66: 7.5)
 KPAD_RTOL = 1e-5      # the chained products vs plain: f32 sums in another order, of scale
 GATHER_HOST_ITERS = 200          # back-to-back calls per host-launch time
 GATHER_BREAKDOWN_CALLS = 10000   # calls per step of the gather's host breakdown
@@ -3195,12 +3196,16 @@ GATHER_BREAKDOWN_CALLS = 10000   # calls per step of the gather's host breakdown
 
 def phase_probes(report):
     """Phase 22: the three probes' kernels against their plain versions,
-    at reduced sizes: the chained mma products (R = 1 and 2, then a timed K
-    sweep at G = 66), every variant of the forward kernel at the encoder
-    shape (base bit-equal to kernel 1), the four gather cases, an index
-    out of range, and the launch count of a gather captured in a CUDA graph."""
+    at reduced sizes: the chained wgmma products (both warpgroup designs at
+    R = 1 and 2 over every K of the sweep, then a timed K sweep at G = 66
+    and G = 88; ptxas serialized no wgmma, the SASS holds HGMMA and
+    UTMALDG), every variant of the forward kernel on its TMA-staged slab at
+    the encoder shape (base bit-equal to kernel 1, and staged by cp.async
+    too; the SASS holds UTMALDG), the four gather cases, an index out of
+    range, and the launch count of a gather captured in a CUDA graph."""
     import torch
 
+    from poet_tpu_torch.ops.cuda_build import KPAD_LIB, VARIANTS_LIB
     from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch
     from poet_tpu_torch.tools import bench_kpad as kp
     from poet_tpu_torch.tools import bench_v3_variants as bv
@@ -3209,45 +3214,71 @@ def phase_probes(report):
 
     for k in (kp.KPAD_CHAIN, bv.MS_DEFORM_ATTN_VARIANT, dg.TAKE_ALONG_AXIS):
         k.launches = 0                               # this phase's own launches
-    # a. kpad: kernel vs plain at R = 1, 2, then the sweep
-    sweep, worst, worst_abs = {}, 0.0, 0.0
+    # the designs are what ran: wgmma products ptxas did not serialize, and
+    # the instructions in the machine code
+    ptxas = KPAD_LIB.ptxas_log()
+    if "probe_kpad_kernel" not in ptxas:
+        raise AssertionError("kpad: no ptxas report for probe_kpad_kernel")
+    if "serialized" in ptxas:
+        raise AssertionError("kpad: ptxas serialized wgmma products: " + " | ".join(
+            ln.strip() for ln in ptxas.splitlines() if "serialized" in ln))
+    for lib, ops in ((KPAD_LIB, ("HGMMA", "UTMALDG")), (VARIANTS_LIB, ("UTMALDG",))):
+        sass = lib.sass()
+        missing = [op for op in ops if op not in sass]
+        if missing:
+            raise AssertionError(f"{lib.source.name}: SASS has no {missing}")
+    log("kpad: ptxas reports no serialized wgmma; SASS: probe_kpad HGMMA + UTMALDG, "
+        "variants UTMALDG; ptxas " + "; ".join(
+            ln.strip() for ln in ptxas.splitlines() if "registers" in ln or "spill" in ln))
+    # a. kpad: both designs vs plain at R = 1, 2, then the sweeps
+    sweep, sweep88, worst, worst_abs = {}, {}, 0.0, 0.0
     with tf32_off():
         for K in kp.KS:
             a, b = kp.operands(K, KPAD_M, KPAD_N, device=DEVICE)
             for R in (1, 2):
                 ref = kp.kpad_chain_torch(a, b, R)
-                got = kp.KPAD_CHAIN(a, b, R, 2)
-                torch.cuda.synchronize()
-                err_abs = (got - ref).abs().max().item()
-                err = err_abs / ref.abs().max().item()
-                if not err <= KPAD_RTOL:
-                    raise AssertionError(f"kpad K={K} R={R}: max |kernel - plain| / max|plain| "
-                                         f"{err:.3e} > {KPAD_RTOL}")
-                worst, worst_abs = max(worst, err), max(worst_abs, err_abs)
+                for wg in kp.WARPGROUPS:
+                    got = kp.KPAD_CHAIN(a, b, R, 2, wg)
+                    torch.cuda.synchronize()
+                    err_abs = (got - ref).abs().max().item()
+                    err = err_abs / ref.abs().max().item()
+                    if not err <= KPAD_RTOL:
+                        raise AssertionError(f"kpad K={K} R={R} warpgroups={wg}: max |kernel - "
+                                             f"plain| / max|plain| {err:.3e} > {KPAD_RTOL}")
+                    worst, worst_abs = max(worst, err), max(worst_abs, err_abs)
             sweep[K] = kp.bench_k(K, KPAD_M, KPAD_N, KPAD_R, KPAD_G)
+            sweep88[K] = kp.bench_k(K, KPAD_M, KPAD_N, KPAD_R, KPAD_G_WHOLE)
+        designs = {f"K{K}_{wg}_warpgroups_G{G}": kp.bench_k(K, KPAD_M, KPAD_N, KPAD_R, G,
+                                                            warpgroups=wg)["ms"]
+                   for K in (128, 27) for G in (KPAD_G, KPAD_G_WHOLE) for wg in kp.WARPGROUPS}
         a, b = kp.operands(128, KPAD_M, KPAD_N, device=DEVICE)
         plain_ms = cuda_ms(lambda: [kp.kpad_chain_torch(a, b, KPAD_R) for _ in range(KPAD_G)],
                            iters=2, warmup=1)
-    log(f"kpad: M={KPAD_M} N={KPAD_N} bf16, kernel vs plain at R=1,2 max rel err {worst:.2e} "
-        f"(tol {KPAD_RTOL}); R={KPAD_R} G={KPAD_G}, ms and TFLOP/s at the true K / K padded "
-        f"to 16: " + ", ".join(
-            f"K={K} {r['ms']:.4f} {r['tflops']:.1f}/{r['tflops_pad16']:.1f} "
-            f"(matmul {r['matmul_ms']:.4f})" for K, r in sweep.items())
-        + f"; plain at K=128 {plain_ms:.3f} ms")
+    for G, sw in ((KPAD_G, sweep), (KPAD_G_WHOLE, sweep88)):
+        log(f"kpad: M={KPAD_M} N={KPAD_N} R={KPAD_R} G={G} ({sw[128]['waves']:.2f} waves of "
+            f"tasks), the design by K (default_warpgroups), ms, TFLOP/s at the true K / K "
+            f"padded to 16 and share of the bound: " + ", ".join(
+                f"K={K} {r['ms']:.4f} {r['tflops']:.1f}/{r['tflops_pad16']:.1f} "
+                f"{100 * r['share']:.1f}%" for K, r in sw.items()))
+    log(f"kpad: kernel vs plain at R=1,2 (both designs) max rel err {worst:.2e} (tol "
+        f"{KPAD_RTOL}); ms by design: " + ", ".join(
+            f"{k} {x:.4f}" for k, x in designs.items())
+        + f"; torch.matmul of one product "
+        f"{sweep[128]['matmul_ms']:.4f}; plain at K=128 {plain_ms:.3f} ms")
     # the K=128 chain: its products on the bf16 tensor cores against its bytes
     t_ops = sweep[128]["bound_ms"]
     t_bytes = (nbytes(a, b) + KPAD_M * KPAD_N * 4) / HBM_BYTES_PER_S * 1e3
-    report["kpad"] = {"sweep": sweep, "plain_ms": plain_ms, "max_rel_err": worst,
-                      "max_abs_err": worst_abs,
+    report["kpad"] = {"sweep": sweep, "sweep_whole_waves": sweep88, "designs_ms": designs,
+                      "plain_ms": plain_ms, "max_rel_err": worst, "max_abs_err": worst_abs,
                       "bound": (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")}
 
-    # b. the variants at the encoder shape, bf16
+    # b. the variants at the encoder shape, bf16, on the TMA-staged slab
     g = torch.Generator(device=DEVICE).manual_seed(22)
     name, B, Q, H, D, shapes, lo, hi, _ = GEOMETRIES[0]
     value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=lo, hi=hi)
     v16 = value.bfloat16()
     args = (v16, shapes, locs, attn)
-    var = bv.time_variants(*args)
+    var = bv.time_variants(*args)        # base by cp.async too: bit-equal to kernel 1 or raises
     with torch.inference_mode():
         for vname in bv.VARIANTS:
             out = var[vname].pop("out")
@@ -3267,11 +3298,17 @@ def phase_probes(report):
             var[vname]["max_abs_err"] = err.max().item()
         var["plain_ms"] = cuda_ms(lambda: ms_deform_attn_torch(*args), iters=5)
     var["bound"] = deform_bound(locs, shapes, D, locs, attn, out, value=v16)   # out: kernel 1's
-    log(f"variants at the encoder shape (B={B} Q={Q} H={H} D={D} L=P=4, bf16), ms: "
-        + ", ".join(f"{k} {x['ms']:.4f} (err {x['max_abs_err']:.1e}"
-                    f"{', = kernel 1' if x['bit_equal_kernel1'] else ''})"
-                    for k, x in var.items() if isinstance(x, dict))
-        + f"; kernel 1 {var['kernel1_ms']:.4f}, plain {var['plain_ms']:.4f}")
+    slab = bv.plan_slab(v16.shape[1], D)
+    log(f"variants at the encoder shape (B={B} Q={Q} H={H} D={D} L=P=4, bf16; a (b, h)'s slab "
+        f"{slab['slab_bytes']} B in {slab['n_boxes']} TMA boxes of {slab['box_tokens']} "
+        f"tokens), ms: " + ", ".join(f"{k} {x['ms']:.4f} (err {x['max_abs_err']:.1e}"
+                                     f"{', = kernel 1' if x['bit_equal_kernel1'] else ''})"
+                                     for k, x in var.items() if isinstance(x, dict))
+        + f"; base staged by cp.async {var['base_cp_async_ms']:.4f} (= kernel 1); staging alone "
+        f"(one query a (b, h)) TMA {var['staging_tma_ms']:.4f}, cp.async "
+        f"{var['staging_cp_async_ms']:.4f}; kernel 1 "
+        f"direct {var['kernel1_ms']:.4f}, slab {var['kernel1_slab_ms']:.4f}; plain "
+        f"{var['plain_ms']:.4f}; bound {var['bound'][0]:.4f} ({var['bound'][1]})")
     report["variants"] = var
 
     # c. the dynamic gather: the script's four cases, exact; out of range raises
@@ -5407,8 +5444,15 @@ def main(argv) -> int:
          "matmul_is": "torch.matmul of one (M, K) @ (K, N) bf16 product, device time",
          "matmul_x_products_ms": kpad["sweep"][128]["matmul_ms"] * KPAD_R * KPAD_G,
          "tflops_by_k": {K: [r["tflops"], r["tflops_pad16"]] for K, r in kpad["sweep"].items()},
-         "ms_are": f"K=128, M={KPAD_M} N={KPAD_N} R={KPAD_R} G={KPAD_G}, bf16 -> f32; "
-                   f"max_rel_err relative to max |plain|; plain_ms: G plain chains"},
+         "ms_by_k": {K: r["ms"] for K, r in kpad["sweep"].items()},
+         "whole_waves_ms_by_k": {K: r["ms"] for K, r in kpad["sweep_whole_waves"].items()},
+         "whole_waves_bound_ms": kpad["sweep_whole_waves"][128]["bound_ms"],
+         "designs_ms": kpad["designs_ms"], "card": card,
+         "ms_are": f"K=128, M={KPAD_M} N={KPAD_N} R={KPAD_R} G={KPAD_G} (7.5 waves of tasks), "
+                   f"bf16 -> f32, the design by K (four warpgroups to K=64, two above); "
+                   f"whole_waves: G={KPAD_G_WHOLE} (10 waves); designs_ms: K=128 and K=27 by "
+                   f"warpgroups and G; max_rel_err relative "
+                   f"to max |plain|; plain_ms: G plain chains"},
         {"name": "ms_deform_attn_fwd_variants", "route": "cuda",
          "source": src + "ms_deform_attn_fwd_variants.cu",
          "replaces": "scripts/bench_v3_variants.py:44", **launched("variants"),
@@ -5418,9 +5462,15 @@ def main(argv) -> int:
          "variant_max_abs_err": {k: x["max_abs_err"] for k, x in var.items()
                                  if isinstance(x, dict)},
          **timed(var["base"]["ms"], var["plain_ms"], var["bound"]),
-         "kernel1_ms": var["kernel1_ms"],
+         "kernel1_ms": var["kernel1_ms"], "kernel1_slab_ms": var["kernel1_slab_ms"],
+         "base_cp_async_ms": var["base_cp_async_ms"], "staging_tma_ms": var["staging_tma_ms"],
+         "staging_cp_async_ms": var["staging_cp_async_ms"],
          "variant_ms": {k: x["ms"] for k, x in var.items() if isinstance(x, dict)},
-         "ms_are": "variant base at the encoder shape, bf16"},
+         "card": card,
+         "ms_are": "variant base on its TMA-staged slab at the encoder shape, bf16, CUDA events; "
+                   "kernel1(_slab)_ms: kernel 1's direct (slab) route, base_cp_async_ms: base "
+                   "staged by cp.async, same inputs and call; staging_*_ms: base at one query a "
+                   "(b, h), the staging alone, device time from graph replays"},
         {"name": "take_along_axis", "route": "cuda", "source": src + "take_along_axis.cu",
          "replaces": "scripts/test_dyn_gather.py:12", **launched("gather"),
          "phase_launches": probes["gather"], "max_abs_err": 0.0,

@@ -81,12 +81,13 @@
 // crosses the L2 once: ~15 MB at that shape, where one staging per 256-query
 // block moved ~108 MB.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: libcuda is reached at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <mutex>
+
+#include "tma_sm90.cuh"
 
 #define POET_MAX_LEVELS 8
 #define POET_V2_MAX_BANDS 64
@@ -175,34 +176,11 @@ struct Vec<__nv_bfloat16, 8> {
   }
 };
 
-// ---- PTX: shared addresses, mbarriers, the cluster barrier, TMA ----------
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
+// ---- PTX: the cluster barrier, TMA (shared addresses and mbarriers: tma_sm90.cuh)
+using tma_sm90::mbar_expect_tx;
+using tma_sm90::mbar_init;
+using tma_sm90::mbar_wait;
+using tma_sm90::shared_addr;
 
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
@@ -530,25 +508,9 @@ ms_deform_attn_v2_kernel(const __grid_constant__ Maps maps, const T* __restrict_
   cluster_sync();  // no CTA leaves while a box it issued may still land in a peer
 }
 
-// ---- host: libcuda's tensor-map encoder, the plan check, the launch ----
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
+// ---- host: the plan check, the launch (the encoder: tma_sm90.cuh) ----
+using tma_sm90::EncodeTiled;
+using tma_sm90::encoder;
 
 // the launch configurations whose cluster occupancy was checked, and the
 // shared memory granted each kernel, per device (ctypes releases the

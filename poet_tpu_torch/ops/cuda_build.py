@@ -114,6 +114,28 @@ class CudaLibrary:
         self.build_seconds = time.perf_counter() - t0
         return lib
 
+    def ptxas_log(self) -> str:
+        """ptxas's report on this source (`-Xptxas -v`: registers, spills,
+        and its warnings, such as wgmma products it serialized): the build's
+        own, or, where the library was loaded from an earlier build, that of
+        the source compiled alone to a cubin."""
+        if self.build_log:
+            return self.build_log
+        flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+        with tempfile.TemporaryDirectory() as tmp:
+            proc = subprocess.run([_find_nvcc(), *flags, "-cubin", "-o",
+                                   os.path.join(tmp, "k.cubin"), str(self.source)],
+                                  capture_output=True, text=True, check=True)
+        return proc.stdout + proc.stderr
+
+    def sass(self) -> str:
+        """The built library's machine code (`cuobjdump -sass`, beside nvcc),
+        to show which instructions its kernels run."""
+        cuobjdump = os.path.join(os.path.dirname(_find_nvcc()), "cuobjdump")
+        self.build()
+        return subprocess.run([cuobjdump, "-sass", str(self.library_path())],
+                              capture_output=True, text=True, check=True).stdout
+
     def check(self, rc: int, what: str) -> None:
         if rc != 0:
             why = (self._lib.poet_cuda_error_string(rc).decode() if rc > 0
@@ -193,9 +215,9 @@ V2_LIB = CudaLibrary(CSRC / "ms_deform_attn_v2.cu", {
     "poet_ms_deform_attn_v2_fwd": [P] * 4 + [I] * 8 + [INTS, INTS] + [I] * 8 + [P]})
 # the probes (poet_tpu_torch/tools/)
 KPAD_LIB = CudaLibrary(CSRC / "probe_kpad.cu", {
-    "poet_probe_kpad": [P] * 3 + [I] * 5 + [P]})
+    "poet_probe_kpad": [P] * 3 + [I] * 6 + [P]})
 VARIANTS_LIB = CudaLibrary(CSRC / "ms_deform_attn_fwd_variants.cu", {
-    "poet_ms_deform_attn_fwd_variant": [P] * 4 + [I] * 8 + [INTS, P]})
+    "poet_ms_deform_attn_fwd_variant": [P] * 4 + [I] * 8 + [INTS, I, P]})
 GATHER_LIB = CudaLibrary(CSRC / "take_along_axis.cu", {
     "poet_take_along_axis": [P] * 3 + [I] * 5 + [P]})
 LIBRARIES = (FWD_LIB, BWD_LIB, ROI_LIB, STEM_LIB, NN_LIB, DENSE_LIB, V2_LIB, KPAD_LIB,

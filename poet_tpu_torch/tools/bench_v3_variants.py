@@ -1,51 +1,98 @@
 """Where the deformable-attention forward kernel's time goes, by ablation.
 
-    python3 -m poet_tpu_torch.tools.bench_v3_variants [--shapes rcnn|yolo]
-        [--variants base,unroll,qt256,treey,bf16y,noy,nox] [--iters 20]
+    python3 poet_tpu_torch/tools/bench_v3_variants.py [--root DIR]
+        [--shapes rcnn|yolo] [--variants base,unroll,qt256,treey,bf16y,noy,nox]
+        [--iters 20]
 
 The Hopper counterpart of `scripts/bench_v3_variants.py`. Its kernels
 (`csrc/ms_deform_attn_fwd_variants.cu`) take the per-point body of the
 forward kernel from the header both include (`csrc/ms_deform_attn_point.cuh`)
-and the direct route's layout (`csrc/ms_deform_attn_fwd.cu`, bf16, 8
-channels per thread), with one template parameter per variant, mapping the
-TPU ablations onto the gather design:
+and the layout of its slab route (`csrc/ms_deform_attn_fwd.cu`, which
+`plan_forward` gives the encoder: a CTA per (b, h) on its (S, D) value slab,
+staged here by TMA, one (q, 8-channel slice) a thread), with one template
+parameter per variant, mapping the TPU ablations onto that design:
 
-  base    the forward kernel's arithmetic (its direct route's output, bit
-          for bit);
+  base    the forward kernel's arithmetic (kernel 1's output, bit for bit);
   unroll  L = P = 4 as constants, loops unrolled;
   qt256   two queries per thread;
   treey   one partial sum per level, added pairwise at the end;
   bf16y   the corner sums in packed bf16 (`__hfma2`): approximate;
   noy     no bilinear weights: each in-map corner weighted by the attention
           weight alone;
-  nox     no gather: every corner reads its level's token 0.
+  nox     every corner reads its level's token 0 in shared memory (a
+          broadcast): the arithmetic and the loop without the corner reads.
 
 It prints ms per layer call for each variant at B=16, H=16, D=16, L=P=4,
 bf16, Q = S, over the rcnn pyramid (30,40),(15,20),(8,10),(4,5) (S=1600) or
-`--shapes yolo` (60,80),(30,40),(15,20),(8,10) (S=6380), with kernel 1's
-direct route's time in the same call. Needs one CUDA device.
+`--shapes yolo` (60,80),(30,40),(15,20),(8,10) (S=6380), with, in the same
+call, kernel 1's direct and slab routes and `base` staged by kernel 1's
+16-byte cp.async instead of TMA (where the package has that staging).
+
+`--root` times the package under DIR (default: this checkout; another
+checkout, such as a parent commit unpacked beside it, for parent, change,
+change, parent in one call). Run it as a script path: `-m` imports this
+checkout's package whatever `--root` says. The card's name and power limit
+come first. Needs one CUDA device.
 
 `ms_deform_attn_variant` is the entry: CPU tensors run the variant's plain
-definition (`plain_variant`), CUDA tensors the kernel, or raise.
+definition (`plain_variant`), CUDA tensors the kernel, or raise (a slab
+over the shared memory a block may use among what it refuses).
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
+import inspect
+import math
+import os
 import subprocess
 import sys
 from typing import Sequence, Tuple
 
-import torch
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(os.path.dirname(HERE))
 
-from poet_tpu_torch.ops.cuda_build import VARIANTS_LIB, device_guard, level_hw, stream_of
-from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch, nonfinite_points
-from poet_tpu_torch.ops.deform_attn_cuda import _check_inputs
+
+if __name__ == "__main__":      # a script path: the package under --root first
+    _pre = argparse.ArgumentParser(add_help=False)
+    _pre.add_argument("--root", default=REPO)
+    sys.path.insert(0, os.path.abspath(_pre.parse_known_args()[0].root))
+
+import torch  # noqa: E402
+
+from poet_tpu_torch.ops.cuda_build import (  # noqa: E402
+    VARIANTS_LIB,
+    device_guard,
+    level_hw,
+    stream_of,
+)
+from poet_tpu_torch.ops.deform_attn import ms_deform_attn_torch, nonfinite_points  # noqa: E402
+from poet_tpu_torch.ops.deform_attn_cuda import SMEM_OPTIN_MAX, _check_inputs  # noqa: E402
 
 VARIANTS = ("base", "unroll", "qt256", "treey", "bf16y", "noy", "nox")
 EXACT = ("base", "unroll", "qt256", "treey")     # the forward kernel's function
 SHAPES = {"rcnn": ((30, 40), (15, 20), (8, 10), (4, 5)),
           "yolo": ((60, 80), (30, 40), (15, 20), (8, 10))}
+STAGINGS = ("tma", "cp.async")
+MAX_BOX = 256          # a TMA box's extent in one dimension: tokens, and D
+BOX_ALIGN = 128        # bytes: a box's shared-memory destination
+
+
+def plan_slab(S: int, D: int, itemsize: int = 2) -> dict:
+    """The staged slab of one (b, h) (`csrc/ms_deform_attn_fwd_variants.cu:
+    plan_slab`): boxes of `box_tokens` <= 256 tokens, as few as that allows,
+    each rounded up so that every box lands 128-byte aligned; the tail box's
+    tokens past S fill padding. `smem`: the bytes a CTA asks for (128 of
+    alignment slack, the slab, the mbarrier)."""
+    row = D * itemsize
+    align = BOX_ALIGN // math.gcd(BOX_ALIGN, row)      # tokens a box is rounded to
+    per_box = -(-S // -(-S // MAX_BOX))
+    box = -(-per_box // align) * align
+    n_boxes = -(-S // box)
+    slab = n_boxes * box * row
+    return {"box_tokens": box, "n_boxes": n_boxes, "slab_bytes": slab,
+            "smem": BOX_ALIGN + slab + 16}
 
 
 def _corners(value, spatial_shapes, locs, attn):
@@ -125,18 +172,29 @@ def _check_variant(locs, variant):
 
 class MSDeformAttnVariant:
     """Launches a variant kernel (`csrc/ms_deform_attn_fwd_variants.cu`);
-    `launches` counts its launches, over every variant."""
+    `launches` counts its launches, over every variant and staging (a call
+    captured into a CUDA graph launches nothing: `tools/timing.py:graph_ms`
+    counts its replays)."""
 
     def __init__(self):
         self.launches = 0
 
-    def __call__(self, value, spatial_shapes, locs, attn, variant: str) -> torch.Tensor:
+    def __call__(self, value, spatial_shapes, locs, attn, variant: str,
+                 staging: str = "tma") -> torch.Tensor:
         _check_variant(locs, variant)
+        if staging not in STAGINGS:
+            raise ValueError(f"staging {staging!r} not in {STAGINGS}")
         if value.dtype != torch.bfloat16:
             raise TypeError(f"the variant kernels take a bfloat16 value, got {value.dtype}")
         if value.shape[-1] % 8 or value.data_ptr() % 16:
             raise ValueError(f"the variant kernels take D % 8 == 0 and a 16-byte aligned "
                              f"value, got D={value.shape[-1]}")
+        S, D = value.shape[1], value.shape[-1]
+        slab = plan_slab(S, D)
+        if D > MAX_BOX or slab["smem"] > SMEM_OPTIN_MAX:
+            raise ValueError(f"the variant kernels stage a (b, h)'s value slab: S={S} D={D} "
+                             f"takes {slab['smem']} B of shared memory (at most "
+                             f"{SMEM_OPTIN_MAX}) and D <= {MAX_BOX}; over the budget")
         B, S, Q, H, D, L, P = _check_inputs(value, spatial_shapes, locs, attn)
         lib = VARIANTS_LIB.build()
         out = torch.empty((B, Q, H * D), dtype=value.dtype, device=value.device)
@@ -144,9 +202,10 @@ class MSDeformAttnVariant:
             rc = lib.poet_ms_deform_attn_fwd_variant(
                 value.data_ptr(), locs.data_ptr(), attn.data_ptr(), out.data_ptr(),
                 VARIANTS.index(variant), B, S, Q, H, D, L, P, level_hw(spatial_shapes),
-                stream_of(value))
+                STAGINGS.index(staging), stream_of(value))
         VARIANTS_LIB.check(rc, f"ms_deform_attn_fwd_variant {variant}")
-        self.launches += 1
+        if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+            self.launches += 1
         return out
 
 
@@ -175,45 +234,76 @@ def inputs(spatial_shapes, B=16, H=16, D=16, P=4, seed=0, device="cuda"):
     return value, locs, attn
 
 
-def time_variants(value, spatial_shapes, locs, attn, names=VARIANTS, iters: int = 20) -> dict:
-    """Kernel 1 and each named variant on the card, in one call:
-    {"kernel1_ms": ms, name: {"out": the variant's output, "ms": ms per
-    layer call, "bit_equal_kernel1": bool}}."""
-    from poet_tpu_torch.ops.deform_attn_cuda import MS_DEFORM_ATTN_FWD
-    from poet_tpu_torch.tools.timing import cuda_ms
+def time_variants(value, spatial_shapes, locs, attn, names=VARIANTS, iters: int = 20,
+                  package=None) -> dict:
+    """Kernel 1's two routes and each named variant on the card, in one
+    call: {"kernel1_ms": the direct route's ms, "kernel1_slab_ms": the slab
+    route's (None where its slab does not fit), "base_cp_async_ms": base
+    staged by cp.async, "staging_tma_ms" / "staging_cp_async_ms": base at
+    one query a (b, h), the slab's staging alone, device time from CUDA-graph
+    replays (each None where the package has one staging), name: {"out":
+    the variant's output, "ms":
+    ms per layer call, "bit_equal_kernel1": bool}}. `package`: the module
+    whose MS_DEFORM_ATTN_VARIANT is timed (default: this one)."""
+    from poet_tpu_torch.ops.deform_attn_cuda import (MS_DEFORM_ATTN_FWD,
+                                                     MS_DEFORM_ATTN_FWD_SLAB)
+    from poet_tpu_torch.tools.timing import cuda_ms, graph_ms
 
+    variant = (package or sys.modules[__name__]).MS_DEFORM_ATTN_VARIANT
+    staged = "staging" in inspect.signature(variant.__call__).parameters
     args = (value, spatial_shapes, locs, attn)
+    S, D = value.shape[1], value.shape[3]
     with torch.inference_mode():
         k1 = MS_DEFORM_ATTN_FWD(*args)
-        res = {"kernel1_ms": cuda_ms(lambda: MS_DEFORM_ATTN_FWD(*args), iters=iters)}
+        res = {"kernel1_ms": cuda_ms(lambda: MS_DEFORM_ATTN_FWD(*args), iters=iters),
+               "kernel1_slab_ms": None, "base_cp_async_ms": None, "staging_tma_ms": None,
+               "staging_cp_async_ms": None}
+        if S * D * value.element_size() <= SMEM_OPTIN_MAX:
+            res["kernel1_slab_ms"] = cuda_ms(lambda: MS_DEFORM_ATTN_FWD_SLAB(*args), iters=iters)
+        if staged and "base" in names:
+            out = variant(*args, "base", staging="cp.async")
+            if not torch.equal(out, k1):
+                raise AssertionError("base staged by cp.async is not bit-equal to kernel 1")
+            res["base_cp_async_ms"] = cuda_ms(lambda: variant(*args, "base", staging="cp.async"),
+                                              iters=iters)
+            one = (value, spatial_shapes, locs[:, :1].contiguous(), attn[:, :1].contiguous())
+            for st in STAGINGS:
+                res[f"staging_{st.replace('.', '_')}_ms"] = graph_ms(
+                    lambda: variant(*one, "base", staging=st), iters=iters, counted=variant)
         for name in names:
-            out = MS_DEFORM_ATTN_VARIANT(*args, name)
-            res[name] = {"out": out,
-                         "ms": cuda_ms(lambda: MS_DEFORM_ATTN_VARIANT(*args, name), iters=iters),
+            out = variant(*args, name)
+            res[name] = {"out": out, "ms": cuda_ms(lambda: variant(*args, name), iters=iters),
                          "bit_equal_kernel1": torch.equal(out, k1)}
     return res
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=REPO)
     ap.add_argument("--shapes", choices=tuple(SHAPES), default="rcnn")
     ap.add_argument("--variants", default=",".join(VARIANTS))
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
+    bv = importlib.import_module("poet_tpu_torch.tools.bench_v3_variants")  # the package under test
     if not torch.cuda.is_available():
         print("bench_v3_variants: no CUDA device", file=sys.stderr)
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
+    print(card.splitlines()[0], flush=True)
     shapes = SHAPES[args.shapes]
     value, locs, attn = inputs(shapes)
-    print(f"{card}; {args.shapes} pyramid {shapes} (S={value.shape[1]} = Q), B=16 H=16 D=16 "
-          f"L=P=4, bf16")
-    res = time_variants(value, shapes, locs, attn, args.variants.split(","), args.iters)
-    print(f"kernel 1 (csrc/ms_deform_attn_fwd.cu): {res.pop('kernel1_ms'):.4f} ms/layer-call")
+    print(f"package: {os.path.dirname(os.path.dirname(bv.__file__))}; {args.shapes} pyramid "
+          f"{shapes} (S={value.shape[1]} = Q), B=16 H=16 D=16 L=P=4, bf16", flush=True)
+    res = time_variants(value, shapes, locs, attn, args.variants.split(","), args.iters,
+                        package=bv)
+    for key in ("kernel1_ms", "kernel1_slab_ms", "base_cp_async_ms", "staging_tma_ms",
+                "staging_cp_async_ms"):
+        x = res.pop(key)
+        print(f"{key}: " + ("not run" if x is None else f"{x:.4f} ms/layer-call"), flush=True)
     for name, r in res.items():
         same = " (bit-equal to kernel 1)" if r["bit_equal_kernel1"] else ""
-        print(f"variant={name}: {r['ms']:.4f} ms/layer-call{same}")
+        print(f"variant={name}: {r['ms']:.4f} ms/layer-call{same}", flush=True)
     return 0
 
 

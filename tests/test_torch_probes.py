@@ -342,4 +342,15 @@ def test_variant_kernels_refuse():
         MS_DEFORM_ATTN_VARIANT(*args(), "nox")
     with pytest.raises(ValueError, match="CUDA tensors"):
         MS_DEFORM_ATTN_VARIANT(*args(device="cpu"), "base")
+    # over the budget: a (b, h) slab past the shared memory a block may use,
+    # or a head wider than a TMA box
+    big = (torch.empty((1, 7300, 1, 16), dtype=torch.bfloat16, device="meta"), ((73, 100),),
+           torch.empty((1, 3, 1, 1, 4, 2), device="meta"),
+           torch.empty((1, 3, 1, 1, 4), device="meta"))
+    with pytest.raises(ValueError, match="over the budget"):
+        MS_DEFORM_ATTN_VARIANT(*big, "base")
+    with pytest.raises(ValueError, match="over the budget"):
+        MS_DEFORM_ATTN_VARIANT(*args(D=264), "base")
+    with pytest.raises(ValueError, match="staging"):
+        MS_DEFORM_ATTN_VARIANT(*args(), "base", staging="ldg")
     assert MS_DEFORM_ATTN_VARIANT.launches == 0
