@@ -177,7 +177,12 @@ Phases, each raising on failure:
      plain chain at R = 1, 2 for every K of the sweep, then ms and TFLOP/s
      per K at R=64 G=66 with torch.matmul of one product; every variant of
      the forward kernel against its plain definition at the encoder shape
-     (base bit-equal to kernel 1) with ms per variant; the four gather cases
+     and at the YOLO pyramid (B=16, Q=S=6380; base bit-equal to kernel 1)
+     with ms per variant, the first points of each level moved next to the
+     cell edges where loc * size - 0.5 floors differently as one rounding
+     and as two (ROADMAP C8), and at both shapes the count of such points
+     and of the points where noy's kernel left its plain definition (run
+     with the attention on one point at a time), which must be 0; the four gather cases
      exactly equal to the plain version, device ms from a CUDA-graph replay
      and ms per host launch beside torch.gather's, the host's microseconds
      of each step of one gather call, and an index out of range that must
@@ -257,7 +262,10 @@ Phases, each raising on failure:
      (`chip_smoke.py --tp-worker`) under the layouts (1,1,2) and (1,2,1) at
      the paper config, 480x640, B=8 (one data slot): 2 f32 SGD steps, the
      gradients and parameters gathered whole, against one process on the
-     same images (LAYOUT_TOL), then bf16 AdamW steps (p50, device busy ms
+     same images (LAYOUT_TOL), the gap from one process by gradient tensor
+     (relative L2, the TP_GAP_TOP largest) and, in both runs, the ReLU
+     pre-activations of the first step within one f32 rounding of 0 (the
+     pose heads' hidden layers and the FFNs' linear1), then bf16 AdamW steps (p50, device busy ms
      and the launches of the route rules per process; a rehearsal, not a
      multi-card figure: train_layout_1x1x2, train_layout_1x2x1, rank 0's
      launches); (c) `PoseServer(devices=("cuda:0", "cuda:0"))` at phase 4's
@@ -278,8 +286,22 @@ Phases, each raising on failure:
      poses within E2E_RTOL of scale (f32: EXPORT_F32_RTOL). Nothing is
      caught (serve_exported, serve_pallas_exported, detect_exported,
      yolo_exported in the report).
-Phases 4, 7, 10, 13, 16, 17, 20, 23, 24, 25, 26, 27 and 28's paths each set every kernel's launch
-count to 0 before they drive their path and read them after, and hold them
+ 29. the last functions of poet_tpu: (a) one Mask R-CNN detect+pose request
+     at phase 10's config with the final NMS capped at NMS_CAP candidates
+     (`nms_candidates`; its launches, finite answers; detect_capped in the
+     report), and the capped selection on that request's candidates, boxes
+     snapped to whole pixels, on the card against the CPU port (the same
+     indices), beside the exact selection; (b) `ops/detection.py:roi_align`
+     on the card against the CPU port (aligned or not, sampling ratio 1
+     and 2, f32) and the single-image `multiscale_roi_align` view (one
+     kernel launch); (c) YOLOv4-CSP in gt mode, bf16, B=16, 480x640: 8
+     requests through PoseServer and train steps, with no decode and no NMS
+     fixed point and the route rules' launches (serve_yolo_gt,
+     train_yolo_gt), then p50 against the parent commit's path (the decode
+     and NMS run, unread) in turns (parent, change, change, parent, twice),
+     and the fixed-point iterations the parent's path runs a request.
+Phases 4, 7, 10, 13, 16, 17, 20, 23, 24, 25, 26, 27, 28 and 29's paths each
+set every kernel's launch count to 0 before they drive their path and read them after, and hold them
 to the wrappers' route rules (`path_launches`, `roi_launches`; the v2
 kernel, the probes, the merged adjoint's atomic route and RoIAlign's gather
 route: 0 on every path; the first two add their phase's own launches). Every kernel's entry in
@@ -3200,9 +3222,10 @@ def phase_probes(report):
     R = 1 and 2 over every K of the sweep, then a timed K sweep at G = 66
     and G = 88; ptxas serialized no wgmma, the SASS holds HGMMA and
     UTMALDG), every variant of the forward kernel on its TMA-staged slab at
-    the encoder shape (base bit-equal to kernel 1, and staged by cp.async
-    too; the SASS holds UTMALDG), the four gather cases, an index out of
-    range, and the launch count of a gather captured in a CUDA graph."""
+    the encoder shape and the YOLO pyramid (base bit-equal to kernel 1, and
+    staged by cp.async too; the SASS holds UTMALDG) with C8's counts first,
+    the four gather cases, an index out of range, and the launch count of a
+    gather captured in a CUDA graph."""
     import torch
 
     from poet_tpu_torch.ops.cuda_build import KPAD_LIB, VARIANTS_LIB
@@ -3272,44 +3295,61 @@ def phase_probes(report):
                       "plain_ms": plain_ms, "max_rel_err": worst, "max_abs_err": worst_abs,
                       "bound": (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")}
 
-    # b. the variants at the encoder shape, bf16, on the TMA-staged slab
+    # b. the variants at the encoder shape and the YOLO pyramid, bf16, on the
+    # TMA-staged slab, the first points of each level next to the cell edges
+    # where one rounding and two part; first C8's counts: those points, and
+    # the points where noy's kernel left its plain definition
     g = torch.Generator(device=DEVICE).manual_seed(22)
-    name, B, Q, H, D, shapes, lo, hi, _ = GEOMETRIES[0]
-    value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=lo, hi=hi)
-    v16 = value.bfloat16()
-    args = (v16, shapes, locs, attn)
-    var = bv.time_variants(*args)        # base by cp.async too: bit-equal to kernel 1 or raises
-    with torch.inference_mode():
-        for vname in bv.VARIANTS:
-            out = var[vname].pop("out")
-            # on the bf16 values in f32: the plain result unrounded (bf16y's
-            # plain definition sums in bf16 itself), as phase 3 holds kernel 1
-            ref = bv.plain_variant(v16.float(), shapes, locs, attn, vname)
-            err = (out.float() - ref).abs()
-            if vname == "bf16y":   # each step rounds to bf16; the plain one through f32
-                tol = 2.0 ** -7 * ref.abs().max().item()
-            else:
-                tol = BF16_ATOL + BF16_RTOL * ref.abs()
-            if not bool((err <= tol).all()):
-                raise AssertionError(f"variant {vname}: max |kernel - plain| "
-                                     f"{err.max().item():.3e}")
-            if vname == "base" and not var[vname]["bit_equal_kernel1"]:
-                raise AssertionError("variant base is not bit-equal to kernel 1")
-            var[vname]["max_abs_err"] = err.max().item()
-        var["plain_ms"] = cuda_ms(lambda: ms_deform_attn_torch(*args), iters=5)
-    var["bound"] = deform_bound(locs, shapes, D, locs, attn, out, value=v16)   # out: kernel 1's
-    slab = bv.plan_slab(v16.shape[1], D)
-    log(f"variants at the encoder shape (B={B} Q={Q} H={H} D={D} L=P=4, bf16; a (b, h)'s slab "
-        f"{slab['slab_bytes']} B in {slab['n_boxes']} TMA boxes of {slab['box_tokens']} "
-        f"tokens), ms: " + ", ".join(f"{k} {x['ms']:.4f} (err {x['max_abs_err']:.1e}"
-                                     f"{', = kernel 1' if x['bit_equal_kernel1'] else ''})"
-                                     for k, x in var.items() if isinstance(x, dict))
-        + f"; base staged by cp.async {var['base_cp_async_ms']:.4f} (= kernel 1); staging alone "
-        f"(one query a (b, h)) TMA {var['staging_tma_ms']:.4f}, cp.async "
-        f"{var['staging_cp_async_ms']:.4f}; kernel 1 "
-        f"direct {var['kernel1_ms']:.4f}, slab {var['kernel1_slab_ms']:.4f}; plain "
-        f"{var['plain_ms']:.4f}; bound {var['bound'][0]:.4f} ({var['bound'][1]})")
-    report["variants"] = var
+    yolo = next(geo for geo in ROUTE_GEOMETRIES if geo[0] == "yolo pyramid")
+    for name, B, Q, H, D, shapes, lo, hi, _ in (GEOMETRIES[0], yolo):
+        value, locs, attn = deform_inputs(g, B, Q, H, D, shapes, lo=lo, hi=hi)
+        locs = bv.with_edge_points(locs, shapes)     # points where the two roundings part
+        v16 = value.bfloat16()
+        args = (v16, shapes, locs, attn)
+        floors = bv.floor_counts(v16, shapes, locs)
+        log(f"C8 at the {name} (B={B} Q={Q} H={H} L=P=4): points whose floor of "
+            f"loc * size - 0.5 one rounding and two part: {floors['one_rounding']}; points "
+            f"where noy's kernel left its plain definition: {floors['kernel']}")
+        if floors["kernel"]:
+            raise AssertionError(f"C8: noy's kernel floored {floors['kernel']} points at the "
+                                 f"{name} otherwise than its plain definition")
+        var = bv.time_variants(*args)    # base by cp.async too: bit-equal to kernel 1 or raises
+        var["floor_counts"] = floors
+        with torch.inference_mode():
+            for vname in bv.VARIANTS:
+                out = var[vname].pop("out")
+                # on the bf16 values in f32: the plain result unrounded (bf16y's
+                # plain definition sums in bf16 itself), as phase 3 holds kernel 1
+                ref = bv.plain_variant(v16.float(), shapes, locs, attn, vname)
+                err = (out.float() - ref).abs()
+                if vname == "bf16y":   # each step rounds to bf16; the plain one through f32
+                    tol = 2.0 ** -7 * ref.abs().max().item()
+                else:
+                    tol = BF16_ATOL + BF16_RTOL * ref.abs()
+                if not bool((err <= tol).all()):
+                    raise AssertionError(f"variant {vname} at the {name}: max |kernel - plain| "
+                                         f"{err.max().item():.3e}")
+                if vname == "base" and not var[vname]["bit_equal_kernel1"]:
+                    raise AssertionError(f"variant base is not bit-equal to kernel 1 at the {name}")
+                var[vname]["max_abs_err"] = err.max().item()
+                del out, ref, err
+            var["plain_ms"] = cuda_ms(lambda: ms_deform_attn_torch(*args), iters=5)
+            plain_out = ms_deform_attn_torch(*args)
+        var["bound"] = deform_bound(locs, shapes, D, locs, attn, plain_out, value=v16)
+        slab = bv.plan_slab(v16.shape[1], D)
+        log(f"variants at the {name} (B={B} Q={Q} H={H} D={D} L=P=4, bf16; a (b, h)'s slab "
+            f"{slab['slab_bytes']} B in {slab['n_boxes']} TMA boxes of {slab['box_tokens']} "
+            f"tokens), ms: " + ", ".join(f"{k} {x['ms']:.4f} (err {x['max_abs_err']:.1e}"
+                                         f"{', = kernel 1' if x['bit_equal_kernel1'] else ''})"
+                                         for k, x in var.items()
+                                         if isinstance(x, dict) and "ms" in x)
+            + f"; base staged by cp.async {var['base_cp_async_ms']:.4f} (= kernel 1); staging "
+            f"alone (one query a (b, h)) TMA {var['staging_tma_ms']:.4f}, cp.async "
+            f"{var['staging_cp_async_ms']:.4f}; kernel 1 "
+            f"direct {var['kernel1_ms']:.4f}, slab {var['kernel1_slab_ms']:.4f}; plain "
+            f"{var['plain_ms']:.4f}; bound {var['bound'][0]:.4f} ({var['bound'][1]})")
+        report["variants" if name == "encoder" else "variants_yolo"] = var
+        del value, locs, attn, v16, args, plain_out
 
     # c. the dynamic gather: the script's four cases, exact; out of range raises
     gat = {}
@@ -4380,6 +4420,52 @@ def midpoint_rotations(model, batch):
     return np.where(valid[..., None, None], mid, targets["relative_rotation"]).astype(np.float32)
 
 
+# the linears whose outputs a ReLU takes: the pose heads' hidden layers and
+# the FFNs' linear1 (column-parallel under 'model')
+RELU_INPUTS = r"(_head(_aleatoric)?\.\d+\.layers\.[01]|\.linear1)$"
+# phase 27's per-tensor gradient gaps printed, largest first
+TP_GAP_TOP = 10
+
+
+@contextlib.contextmanager
+def relu_near_zero(model):
+    """Forward hooks on RELU_INPUTS' modules: {name: count} of the
+    pre-activations of each module's first call that lie within one f32
+    rounding of 0, |z| <= 2^-24 (|x| |W|^T + |b|) (the size of one rounding
+    of the dot product's terms), filled while the context is open."""
+    import re
+
+    import torch
+    import torch.nn.functional as F
+
+    counts, handles = {}, []
+
+    def hook(name):
+        def record(module, args, out):
+            if name not in counts:
+                with torch.no_grad():
+                    scale = F.linear(args[0].abs().to(out.dtype), module.weight.abs().to(out.dtype),
+                                     module.bias.abs().to(out.dtype))
+                    counts[name] = int((out.abs() <= 2.0 ** -24 * scale).sum())
+        return record
+
+    for name, module in model.named_modules():
+        if re.search(RELU_INPUTS, name):
+            handles.append(module.register_forward_hook(hook(name)))
+    try:
+        yield counts
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def grad_gaps(got, want):
+    """[(relative L2 of got - want, name)] of each gradient tensor, largest
+    first (dp_f32_steps' gradients)."""
+    return sorted(((float((got[n] - w).norm()) / max(float(w.norm()), 1e-30), n)
+                   for n, w in want.items()), reverse=True)
+
+
 def dp_f32_steps(cfg, model, batches):
     """Two f32 steps on the card, TF32 off: (metrics per step, the first
     update's gradients by name, the parameters after the second, on the CPU;
@@ -4877,7 +4963,13 @@ def tp_worker(rank: int, world: int, port: int, out: str) -> int:
         layout = mesh.create_layout(*lay, nheads=cfg32.model.nheads,
                                     dim_feedforward=cfg32.model.dim_feedforward)
         model = tp.shard_module(dp_model(cfg32, seeded), layout)
-        result[f"f32 {layout_name(lay)}"] = dp_f32_steps(cfg32, model, batches)
+        with relu_near_zero(model) as near:
+            result[f"f32 {layout_name(lay)}"] = dp_f32_steps(cfg32, model, batches)
+        # a sharded linear1's columns are split over the processes, the heads replicated
+        ranks = [None] * world
+        dist.all_gather_object(ranks, near)
+        result[f"relu {layout_name(lay)}"] = {
+            n: sum(r[n] for r in ranks) if n.endswith("linear1") else near[n] for n in near}
         del model
         model = tp.shard_module(dp_model(cfg16, seeded), layout)
         result[f"bf16 {layout_name(lay)}"] = dp_bf16_steps(cfg16, model, rank, rank_rows(0),
@@ -4973,8 +5065,10 @@ def phase_multi_device(report):
         out = os.path.join(tmp, "tp")
         cfg32, cfg16, seeded, model32 = dp_setup(out)
         batches = dp_batches(rank_rows(0), os.path.join(out, "dp_rotations.npz"))
-        want = dp_f32_steps(cfg32, copy.deepcopy(model32), batches)
-        del model32
+        one = copy.deepcopy(model32)
+        with relu_near_zero(one) as relu_one:
+            want = dp_f32_steps(cfg32, one, batches)
+        del model32, one
         model16 = dp_model(cfg16, seeded)
         # the bf16 timing's batch: dp_bf16_steps' (the flagship targets)
         single, _, history, _ = drive_train("single process B=8", cfg16,
@@ -4995,8 +5089,23 @@ def phase_multi_device(report):
         # dropout masks: partials rounded to bf16 before their reduce (reported)
         layouts[name]["bf16_loss_gap"] = max(abs(a / b["loss"] - 1) for a, b in
                                              zip(layouts[name]["loss"], history))
+    gaps = {name: grad_gaps(got[f"f32 {name}"][1], want[1]) for name in errs}
+    relu = {"one process": relu_one, **{name: got[f"relu {name}"] for name in errs}}
+    for name, gap in gaps.items():
+        log(f"layout {name}: gradient gap from one process by tensor (relative L2, the "
+            f"{TP_GAP_TOP} largest of {len(gap)}): "
+            + ", ".join(f"{n} {x:.2e}" for x, n in gap[:TP_GAP_TOP]))
+    log("ReLU pre-activations within one f32 rounding of 0 (|z| <= 2^-24 (|x| |W|^T + |b|)) "
+        "in the first step's forward, by run (pose heads' hidden layers / FFN linear1, "
+        "summed over layers; the heads and their nonzero counts by name): " + "; ".join(
+            f"{run}: {sum(c for n, c in r.items() if 'head' in n)} / "
+            f"{sum(c for n, c in r.items() if n.endswith('linear1'))} "
+            f"({', '.join(f'{n} {c}' for n, c in r.items() if c and 'head' in n) or 'none'})"
+            for run, r in relu.items()))
     report["layouts"] = {"single": single, "errors": errs, "bf16": layouts,
-                         "workers_s": t_workers}
+                         "workers_s": t_workers, "grad_gaps": {k: v[:TP_GAP_TOP]
+                                                               for k, v in gaps.items()},
+                         "relu_near_zero": relu}
     report["layout_launches"] = {name: r["launches"] for name, r in layouts.items()}
     text = "; ".join(
         f"({name}) losses {e['loss']:.2e}, grad norm {e['grad_norm']:.2e}, gradients L2 "
@@ -5146,6 +5255,260 @@ def phase_export(report):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
 
 
+# phase 29: the final NMS's candidate cap on the Mask R-CNN request; the
+# YOLO gt requests and train steps per timing round, and the rounds' order:
+# the parent commit's path (the backbone's decode and NMS run though nothing
+# reads them) against this one's, in turns
+NMS_CAP = 1000
+YOLO_GT_REQUESTS, YOLO_GT_STEPS = 8, 4
+YOLO_GT_ROUNDS = ("parent", "change", "change", "parent") * 2
+# roi_align card (plain torch) against the CPU, f32, relative to max |feature|:
+# the same f32 arithmetic
+ROI_SINGLE = (120, 160, 256, 1000)           # (H, W, C) of the stride-4 level, boxes
+
+
+@contextlib.contextmanager
+def counting_calls(obj, *names):
+    """{name: calls} of the methods `names` of `obj` while the context is open."""
+    calls = {n: 0 for n in names}
+
+    def wrap(n, fn):
+        def counted(*args, **kwargs):
+            calls[n] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for n in names:
+        setattr(obj, n, wrap(n, getattr(obj, n)))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            delattr(obj, n)
+
+
+@contextlib.contextmanager
+def detections_forced(backbone):
+    """The backbone decodes and runs its NMS whatever its caller asks: the
+    parent commit's gt/jitter path, for phase 29's timing rounds."""
+    forward = backbone.forward
+    backbone.forward = lambda images, pad_mask, detections=True: forward(images, pad_mask, True)
+    try:
+        yield
+    finally:
+        del backbone.forward
+
+
+def phase_capped_detect(report):
+    """Phase 29a: one Mask R-CNN detect+pose request with the final NMS
+    capped at NMS_CAP candidates (the launches of phase 10's path, finite
+    answers); the capped selection on the request's own candidates, boxes
+    snapped to whole pixels, on the card against the CPU port."""
+    import torch
+
+    from poet_tpu_torch.engine.serving import PoseServer
+    from poet_tpu_torch.flagship import detect_pose_batch, detect_pose_config, detect_pose_model
+
+    B, (H, W) = 16, FLAGSHIP_HW
+    cfg = detect_pose_config("bfloat16")
+    Q = cfg.model.num_queries
+    server = PoseServer(cfg, detect_pose_model(cfg), batch_size=B, image_size=(H, W))
+    detector = server.model.backbone
+    detector.nms_candidates = NMS_CAP
+    images, _ = detect_pose_batch(B, H, W, seed=0)
+    server.infer(images)                             # warm-up
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    seen = []
+    select = detector.select
+    detector.select = lambda *a: seen.append([t.detach().clone() for t in a]) or select(*a)
+    try:
+        res = server.infer(images)
+    finally:
+        del detector.select
+    counts = [k.launches for k in kernels]
+    want = expected(**path_launches(cfg, FLAGSHIP_S, 1), **roi_launches(cfg, 1))
+    if counts != want:
+        raise AssertionError(f"capped detect: launches {LAUNCH_NAMES} {counts}, expected {want}")
+    check_detect_outputs(res, B, Q)
+    boxes_pc, masked, labels_pc = seen[0]
+    boxes_pc = boxes_pc.round()                      # shared whole-pixel boxes
+    card = detector.select(boxes_pc, masked, labels_pc)
+    cpu = detector.select(boxes_pc.cpu(), masked.cpu(), labels_pc.cpu())
+    valid = cpu[1]
+    if not (torch.equal(card[1].cpu(), valid)
+            and torch.equal(torch.where(valid, card[0].cpu(), 0), torch.where(valid, cpu[0], 0))):
+        raise AssertionError("capped NMS: the card's selection differs from the CPU port's on "
+                             "the same whole-pixel candidates")
+    detector.nms_candidates = None
+    sel, keep = (t.cpu() for t in detector.select(boxes_pc, masked, labels_pc))
+    same = (keep == valid).all(-1) & (torch.where(keep, sel, -1)
+                                      == torch.where(valid, cpu[0], -1)).all(-1)
+    differ = int((~same).sum())
+    log(f"capped detect: Mask R-CNN detect+pose bf16 B={B} {H}x{W}, the final NMS capped at "
+        f"{NMS_CAP} of {masked.shape[1]} candidates: launches {LAUNCH_NAMES} {counts}, "
+        f"{int(res['n_boxes'].sum())} selected queries, finite, SO(3); the capped selection on "
+        f"the request's candidates snapped to whole pixels: card == CPU port, "
+        f"{int(valid.sum())} detections; images whose capped selection differs from the "
+        f"exact one: {differ} of {B}")
+    report["capped_detect"] = {"launches": counts, "detections": int(valid.sum()),
+                               "images_differing_from_exact": differ}
+    del server, detector
+    torch.cuda.empty_cache()
+
+
+def phase_roi_single():
+    """Phase 29b: `ops/detection.py:roi_align` (single level, plain torch)
+    on the card against the CPU port, aligned and not, sampling ratios 1 and
+    2; the single-image `multiscale_roi_align` view (the kernel) against its
+    CPU plain version, f32."""
+    import torch
+
+    from poet_tpu_torch.ops.detection import multiscale_roi_align, roi_align
+
+    g = torch.Generator(device=DEVICE).manual_seed(29)
+    H, W, C, R = ROI_SINGLE
+    feats = torch.randn((H, W, C), generator=g, device=DEVICE)
+    boxes = roi_boxes(g, 1, R, *FLAGSHIP_HW, "proposals")[0]
+    scale = float(feats.abs().max())
+    errs = {}
+    with tf32_off():
+        for aligned in (False, True):
+            for ratio in (1, 2):
+                got = roi_align(feats, boxes, 7, 0.25, ratio, aligned)
+                ref = roi_align(feats.cpu(), boxes.cpu(), 7, 0.25, ratio, aligned)
+                errs[f"aligned={aligned} ratio={ratio}"] = float(
+                    (got.cpu() - ref).abs().max()) / scale
+        levels = [torch.randn((h, w, 16), generator=g, device=DEVICE)
+                  for h, w in ((120, 160), (60, 80), (30, 40), (15, 20))]
+        n0 = all_kernels()
+        before = [k.launches for k in n0]
+        got = multiscale_roi_align(levels, ROI_STRIDES, boxes)
+        ref = multiscale_roi_align([f.cpu() for f in levels], ROI_STRIDES, boxes.cpu())
+        errs["multiscale view"] = float((got.cpu() - ref).abs().max()) / max(
+            float(f.abs().max()) for f in levels)
+        launched = sum(k.launches for k in n0) - sum(before)
+    bad = {k: e for k, e in errs.items() if not e <= ROI_F32_RTOL}
+    if bad or launched != 1:
+        raise AssertionError(f"roi_align card vs CPU over {ROI_F32_RTOL} of max |feature|: {bad}; "
+                             f"the multiscale view launched {launched} kernels, not 1")
+    log(f"roi_align (single level {H}x{W} C={C}, {R} proposals, f32): card vs CPU port, max "
+        f"err / max |feature|: " + ", ".join(f"{k} {e:.1e}" for k, e in errs.items())
+        + f" (tol {ROI_F32_RTOL}); the multiscale view one RoIAlign kernel launch")
+
+
+def phase_yolo_gt(report):
+    """Phase 29c: YOLOv4-CSP in gt mode: requests through PoseServer and
+    train steps, neither calling the backbone's decode nor its NMS (no fixed
+    point runs), the launches of the path (the stem's three, the
+    deformable ones); p50 against the parent commit's path, which decodes
+    and runs the NMS it does not read, in turns (YOLO_GT_ROUNDS)."""
+    import torch
+
+    from poet_tpu_torch.engine.serving import PoseServer
+    from poet_tpu_torch.flagship import (
+        flagship_batch,
+        yolo_detect_pose_config,
+        yolo_detect_pose_model,
+    )
+    from poet_tpu_torch.ops.detection import FIXED_POINT
+
+    B, (H, W) = 16, FLAGSHIP_HW
+    cfg = yolo_detect_pose_config("bfloat16")
+    cfg.model.bbox_mode = "gt"
+    images, pad_mask, targets = flagship_batch(B, H, W, seed=0)
+    boxes = (targets["boxes"], targets["labels"], targets["n_boxes"])
+    server = PoseServer(cfg, yolo_detect_pose_model(cfg), batch_size=B, image_size=(H, W))
+    backbone = server.model.backbone
+    for _ in range(2):                               # warm-up: cuDNN/cuBLAS init
+        server.infer(images, *boxes)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    FIXED_POINT.reset()
+    with counting_calls(backbone, "decode", "detect") as calls:
+        results = [server.infer(images, *boxes) for _ in range(YOLO_GT_REQUESTS)]
+    counts = [k.launches for k in kernels]
+    want = expected(**path_launches(cfg, YOLO_S, YOLO_GT_REQUESTS), stem=3 * YOLO_GT_REQUESTS)
+    if counts != want:
+        raise AssertionError(f"yolo gt serve: launches {LAUNCH_NAMES} {counts}, expected {want}")
+    if any(calls.values()) or FIXED_POINT.calls or FIXED_POINT.iterations:
+        raise AssertionError(f"yolo gt serve: the backbone decoded or ran its NMS: {calls}, "
+                             f"{FIXED_POINT.calls} fixed points")
+    for res in results:
+        for k in ("translation", "rotation"):
+            if not np.isfinite(res[k]).all():
+                raise AssertionError(f"yolo gt serve: non-finite {k}")
+        rotations_ok(res["rotation"])
+
+    def p50s(run, n, backbone):
+        out = {}
+        for mode in YOLO_GT_ROUNDS:
+            with detections_forced(backbone) if mode == "parent" else contextlib.nullcontext():
+                run()                                # one untimed
+                ms = []
+                for _ in range(n):
+                    t0 = time.perf_counter()
+                    run()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            out.setdefault(mode, []).append(float(np.percentile(ms, 50)))
+        return out
+
+    FIXED_POINT.reset()
+    serve = p50s(lambda: server.infer(images, *boxes), YOLO_GT_REQUESTS, backbone)
+    # the parent's rounds alone run fixed points: what the change skips
+    parent_requests = (YOLO_GT_REQUESTS + 1) * YOLO_GT_ROUNDS.count("parent")
+    skipped = (FIXED_POINT.iterations / parent_requests,
+               FIXED_POINT.seconds * 1e3 / parent_requests)
+    del server, backbone
+    torch.cuda.empty_cache()
+
+    model = yolo_detect_pose_model(cfg).to(DEVICE)
+    FIXED_POINT.reset()
+    with counting_calls(model.backbone, "decode", "detect") as calls:
+        stats, launches, history, opt = drive_train(
+            "yolo gt train", cfg, model, (images, pad_mask, targets), YOLO_GT_STEPS,
+            {**path_launches(cfg, YOLO_S, 1, train=True), "stem": 3})
+    if any(calls.values()) or FIXED_POINT.calls:
+        raise AssertionError(f"yolo gt train: the backbone decoded or ran its NMS: {calls}, "
+                             f"{FIXED_POINT.calls} fixed points")
+    from poet_tpu_torch.engine.train import fetch_metrics, make_train_step, prepare_batch
+
+    step = make_train_step(model, cfg, opt)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    steps = p50s(lambda: fetch_metrics(step(*prepare_batch(cfg, images, pad_mask, targets,
+                                                           DEVICE), gen)), YOLO_GT_STEPS,
+                  model.backbone)
+    for label, x in (("serve", serve), ("train", steps)):
+        log(f"yolo gt {label} p50 ms by round ({', '.join(YOLO_GT_ROUNDS)}; parent: the "
+            f"backbone's decode and NMS run as the parent commit runs them): parent "
+            f"{x['parent']}, change {x['change']}; medians parent "
+            f"{np.median(x['parent']):.3f}, change {np.median(x['change']):.3f}")
+    log(f"yolo gt: the parent's path ran {skipped[0]:.1f} NMS fixed-point iterations a request "
+        f"(one host wait each), {skipped[1]:.3f} ms in the loops: what the change skips")
+    log(f"yolo gt: YOLOv4-CSP paper config bf16 B={B} {H}x{W} in gt mode: {YOLO_GT_REQUESTS} "
+        f"requests, launches {LAUNCH_NAMES} {counts}; {YOLO_GT_STEPS + 1} train steps, "
+        f"launches {launches}, loss {history[0]['loss']:.4f} -> {history[-1]['loss']:.4f}, "
+        f"busy {stats['busy_ms']:.2f} ms; no decode, no NMS fixed point; finite, SO(3)")
+    report["yolo_gt"] = {"serve_launches": counts, "train_launches": launches,
+                         "serve_p50_ms": serve, "train_p50_ms": steps,
+                         "parent_nms_iterations_per_request": skipped[0],
+                         "parent_nms_loop_ms_per_request": skipped[1],
+                         "train_busy_ms": stats["busy_ms"]}
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
+def phase_leftovers(report):
+    """Phase 29 (see the module docstring)."""
+    t0 = time.perf_counter()
+    phase_capped_detect(report)
+    phase_roi_single()
+    phase_yolo_gt(report)
+    log(f"phase 29 in {time.perf_counter() - t0:.1f} s")
+
+
 def build_kernels():
     from poet_tpu_torch.ops.deform_attn_cuda import LIBRARIES, build_all
 
@@ -5171,7 +5534,7 @@ def main(argv) -> int:
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = {int(n) for n in argv[1].split(",")}
     elif argv:
-        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-28; 1-2 always run)",
+        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-29; 1-2 always run)",
               file=sys.stderr)
         return 2
     try:
@@ -5210,10 +5573,11 @@ def main(argv) -> int:
               21: lambda: phase_v2(report), 22: lambda: phase_probes(report),
               23: lambda: phase_cli(report), 24: lambda: phase_variants(report),
               25: lambda: phase_train_detections(report), 26: lambda: phase_data(report),
-              27: lambda: phase_multi_device(report), 28: lambda: phase_export(report)}
+              27: lambda: phase_multi_device(report), 28: lambda: phase_export(report),
+              29: lambda: phase_leftovers(report)}
     spans = []
     for first, last in ((3, 8), (9, 11), (12, 14), (15, 17), (18, 20), (21, 22), (23, 23),
-                        (24, 25), (26, 26), (27, 27), (28, 28)):
+                        (24, 25), (26, 26), (27, 27), (28, 28), (29, 29)):
         t0 = time.perf_counter()
         for n in range(first, last + 1):
             if only is None or n in only:
@@ -5249,7 +5613,10 @@ def main(argv) -> int:
              **{f"train_layout_{name}": counts
                 for name, counts in report["layout_launches"].items()},
              "serve_devices": report["serve_devices_launches"],
-             **report["exported_launches"]}
+             **report["exported_launches"],
+             "detect_capped": report["capped_detect"]["launches"],
+             "serve_yolo_gt": report["yolo_gt"]["serve_launches"],
+             "train_yolo_gt": report["yolo_gt"]["train_launches"]}
     roi, nn = report["roi"], report["nn"]
     errs, bounds = report["adjoint_max_abs_err"], report["adjoint_bounds"]
     src, tpu = "poet_tpu_torch/csrc/", "poet_tpu/ops/deform_attn_pallas_v3.py:"
@@ -5259,7 +5626,7 @@ def main(argv) -> int:
     dense_tpu = "poet_tpu/ops/deform_attn_pallas.py:"
     v2_enc = report["v2_encoder"]
     v2 = v2_enc["bf16"]
-    kpad, var = report["kpad"], report["variants"]
+    kpad, var, var_yolo = report["kpad"], report["variants"], report["variants_yolo"]
     gat = report["gather"]["4800-row table"]
     probes = {"v2": report["v2_launches"], **report["probe_launches"]}
 
@@ -5460,17 +5827,25 @@ def main(argv) -> int:
          # the exact variants against the plain version; each variant's own beside
          "max_abs_err": max(var[k]["max_abs_err"] for k in ("base", "unroll", "qt256", "treey")),
          "variant_max_abs_err": {k: x["max_abs_err"] for k, x in var.items()
-                                 if isinstance(x, dict)},
+                                 if isinstance(x, dict) and "ms" in x},
+         "yolo_variant_max_abs_err": {k: x["max_abs_err"] for k, x in var_yolo.items()
+                                      if isinstance(x, dict) and "ms" in x},
+         "floor_counts": {"encoder": var["floor_counts"], "yolo": var_yolo["floor_counts"]},
          **timed(var["base"]["ms"], var["plain_ms"], var["bound"]),
          "kernel1_ms": var["kernel1_ms"], "kernel1_slab_ms": var["kernel1_slab_ms"],
          "base_cp_async_ms": var["base_cp_async_ms"], "staging_tma_ms": var["staging_tma_ms"],
          "staging_cp_async_ms": var["staging_cp_async_ms"],
-         "variant_ms": {k: x["ms"] for k, x in var.items() if isinstance(x, dict)},
+         "variant_ms": {k: x["ms"] for k, x in var.items() if isinstance(x, dict) and "ms" in x},
+         "yolo_variant_ms": {k: x["ms"] for k, x in var_yolo.items()
+                             if isinstance(x, dict) and "ms" in x},
+         "yolo_bound_ms": var_yolo["bound"][0],
          "card": card,
          "ms_are": "variant base on its TMA-staged slab at the encoder shape, bf16, CUDA events; "
                    "kernel1(_slab)_ms: kernel 1's direct (slab) route, base_cp_async_ms: base "
                    "staged by cp.async, same inputs and call; staging_*_ms: base at one query a "
-                   "(b, h), the staging alone, device time from graph replays"},
+                   "(b, h), the staging alone, device time from graph replays; yolo_*: the YOLO "
+                   "pyramid (B=16, Q=S=6380); floor_counts: C8's points floored otherwise by "
+                   "one rounding and two, and by noy's kernel and its plain definition"},
         {"name": "take_along_axis", "route": "cuda", "source": src + "take_along_axis.cu",
          "replaces": "scripts/test_dyn_gather.py:12", **launched("gather"),
          "phase_launches": probes["gather"], "max_abs_err": 0.0,

@@ -157,8 +157,8 @@ enum class Pt { MISS, HIT, NONFINITE };
 __device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fc00000); }
 
 __device__ __forceinline__ Pt corner_terms(float2 loc, int Hl, int Wl, Corners* c) {
-  const float x = loc.x * (float)Wl - 0.5f;
-  const float y = loc.y * (float)Hl - 0.5f;
+  const float x = deform_point::pixel_coord(loc.x, Wl);   // two roundings (C8)
+  const float y = deform_point::pixel_coord(loc.y, Hl);
   if (!(isfinite(x) && isfinite(y))) return Pt::NONFINITE;
   const float x0f = floorf(x);
   const float y0f = floorf(y);

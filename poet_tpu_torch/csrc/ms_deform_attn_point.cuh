@@ -151,12 +151,20 @@ struct Footprint {
 // NaN for the C1 rule's output rows and gradients.
 __device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fc00000); }
 
+// A point's pixel coordinate, loc * size - 0.5, rounded twice (__fmul_rn,
+// __fsub_rn) as the plain versions and JAX compute it: nvcc would otherwise
+// contract it into one FMA, and a point within an ulp of a cell edge would
+// floor into the neighbouring cell (C8).
+__device__ __forceinline__ float pixel_coord(float loc, int size) {
+  return __fsub_rn(__fmul_rn(loc, (float)size), 0.5f);
+}
+
 // The footprint of the point at normalized (lx, ly) on an Hl x Wl level.
 // False when it misses the map entirely (also for a NaN or infinite
 // coordinate); otherwise f is filled and x0, y0 lie in [-1, size - 1].
 __device__ __forceinline__ bool footprint(float lx, float ly, int Hl, int Wl, Footprint* f) {
-  const float x = lx * (float)Wl - 0.5f;
-  const float y = ly * (float)Hl - 0.5f;
+  const float x = pixel_coord(lx, Wl);
+  const float y = pixel_coord(ly, Hl);
   if (!(x > -1.f && x < (float)Wl && y > -1.f && y < (float)Hl)) return false;
   const float x0f = floorf(x);
   const float y0f = floorf(y);
@@ -177,7 +185,7 @@ __device__ __forceinline__ bool footprint(float lx, float ly, int Hl, int Wl, Fo
 // infinite (the C1 rule), false when it lies off the map. Asked only on that
 // path, so a point in the map costs nothing more.
 __device__ __forceinline__ bool nonfinite(float lx, float ly, int Hl, int Wl) {
-  return !(isfinite(lx * (float)Wl - 0.5f) && isfinite(ly * (float)Hl - 0.5f));
+  return !(isfinite(pixel_coord(lx, Wl)) && isfinite(pixel_coord(ly, Hl)));
 }
 
 // d_attn and d_loc of a point that samples nothing: 0 off the map, NaN for a

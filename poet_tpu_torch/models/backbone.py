@@ -44,7 +44,8 @@ class MaskRCNNFeatureBackbone(nn.Module):
         self.backbone = ResNetFPN(dtype=dtype, levels=self.return_layers)
         self.backbone.requires_grad_(False)     # frozen, as in the reference
 
-    def forward(self, images: torch.Tensor, pad_mask: torch.Tensor):
+    def forward(self, images: torch.Tensor, pad_mask: torch.Tensor, detections: bool = False):
+        # no detector: no detections, whatever the caller asks
         # frozen: no autograd graph, so no activations kept for a backward
         # (poet_tpu/models/backbone.py:49 stop_gradient)
         with torch.no_grad():
@@ -83,19 +84,21 @@ class MaskRCNNDetectorBackbone(MaskRCNNDetector):
         self.backbone = ResNetFPN(dtype=dtype)
         self.requires_grad_(False)              # frozen, as in the reference
 
-    def forward(self, images: torch.Tensor, pad_mask: torch.Tensor):
+    def forward(self, images: torch.Tensor, pad_mask: torch.Tensor, detections: bool = True):
         # frozen: no parameter requires grad and the images none, so autograd
         # records nothing. No `torch.no_grad()` block here: `torch.export`
         # fails on a grad-mode region that holds the final NMS's `cond`,
         # whose exact branch holds the fixed point's `while_loop`.
         feats = self.backbone(images)
+        if not detections:                  # a caller that reads none: no RPN, heads or NMS
+            return self.outputs(feats, None, pad_mask)
         dets = super().forward(feats, tuple(images.shape[1:3]))
         return self.outputs(feats, dets, pad_mask)
 
     def outputs(self, feats, dets, pad_mask):
         """(features, masks, detections) of the return layers, the LM-O
         remap applied."""
-        if self.obj_id_map is not None:
+        if self.obj_id_map is not None and dets is not None:
             raw = dets["labels"]
             mapped = torch.full_like(raw, -1)
             for src, dst in self.obj_id_map:

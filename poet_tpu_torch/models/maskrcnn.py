@@ -35,6 +35,7 @@ from torch._higher_order_ops.cond import cond_op
 from poet_tpu_torch.models.layers import Conv, Dense
 from poet_tpu_torch.ops.detection import (
     NEG_INF,
+    batched_class_nms,
     class_nms_select_pruned,
     exact_class_nms_mask,
     nms_keep_mask,
@@ -184,11 +185,16 @@ class MaskRCNNDetector(nn.Module):
 
     `nms_prune_k` sizes the certified pruned fast path of the final NMS (0
     disables it); the output is the exact per-class NMS either way.
+    `nms_candidates` (None or 0: off, the default) is JAX's opt-in cap: the
+    final NMS suppresses only the score-top-`nms_candidates` candidates,
+    with no exactness fallback, so a saturated cap can keep other boxes
+    than the exact NMS would (`poet_tpu/models/maskrcnn.py:455-470`).
     """
 
     def __init__(self, num_classes: int, max_detections: int = DETECTIONS_PER_IMG,
                  score_thresh: float = BOX_SCORE_THRESH, nms_thresh: float = BOX_NMS_THRESH,
                  post_nms_top_n: int = POST_NMS_TOP_N, nms_prune_k: int = 1024,
+                 nms_candidates: Optional[int] = None,
                  anchor_sizes: Optional[Tuple[Tuple[int, ...], ...]] = None,
                  in_channels: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -197,6 +203,7 @@ class MaskRCNNDetector(nn.Module):
         self.score_thresh, self.nms_thresh = score_thresh, nms_thresh
         self.post_nms_top_n = post_nms_top_n
         self.nms_prune_k = nms_prune_k
+        self.nms_candidates = nms_candidates
         self.anchor_sizes = tuple(anchor_sizes or ANCHOR_SIZES)
         n_anchors = len(self.anchor_sizes[0]) * len(ASPECT_RATIOS)
         self.rpn = nn.ModuleDict({"head": RPNHead(in_channels, n_anchors, dtype)})
@@ -248,8 +255,11 @@ class MaskRCNNDetector(nn.Module):
         (sel (B, md) indices, keep_valid (B, md)). With the pruned fast path
         the certificate picks between it and the exact selection through the
         `cond` operator: one host read for the batch, and a traced program
-        (`torch.export`) holds both branches."""
+        (`torch.export`) holds both branches. With `nms_candidates` set, the
+        capped selection instead."""
         md, PN = self.max_detections, masked.shape[1]
+        if self.nms_candidates:
+            return self._capped(boxes_pc, masked, labels_pc)
         prune_k = self.nms_prune_k
         if not (prune_k and PN > prune_k > md):
             return self._exact(boxes_pc, masked, labels_pc)
@@ -264,6 +274,16 @@ class MaskRCNNDetector(nn.Module):
         top_s, sel = topk(torch.where(keep, masked, NEG_INF), self.max_detections)
         keep_valid = torch.isfinite(top_s)
         return torch.where(keep_valid, sel, 0), keep_valid
+
+    def _capped(self, boxes_pc, masked, labels_pc):
+        """Class-offset NMS over the score-top-`nms_candidates` candidates
+        alone, their indices mapped back (an invalid slot holds the top
+        candidate's index, as in JAX)."""
+        cand_scores, cand_i = topk(masked, min(self.nms_candidates, masked.shape[1]))
+        keep_idx, keep_valid = batched_class_nms(
+            _gather_rows(boxes_pc, cand_i), cand_scores, labels_pc[cand_i],
+            torch.isfinite(cand_scores), self.nms_thresh, self.max_detections)
+        return torch.gather(cand_i, 1, keep_idx.long()), keep_valid
 
     def forward(self, fpn_feats: Dict[str, torch.Tensor], image_size) -> Dict[str, torch.Tensor]:
         feats = [fpn_feats[k] for k in LEVELS]

@@ -1,10 +1,12 @@
 """Pose matcher — bipartite prediction/target assignment.
 
-Counterpart of `poet_tpu/models/matcher.py:match_poses`: the same costs per
+Counterpart of `poet_tpu/models/matcher.py`. `match_poses`: the same costs per
 bbox_mode (gt: L1 of full boxes; jitter: class mismatch; backbone: center
 L1 + class mismatch, then the GIoU / class post-filter), the same square
 padding with BIG_COST, the same certified identity shortcut and the same JV
 solver (`ops/hungarian.py`), so the port and `poet_tpu` pick the same pairs.
+`match_hungarian`: the legacy DETR matcher, which no path of either
+package calls.
 
 One matching serves every decoder layer (the matcher reads only the boxes
 and classes the layers share). In gt and jitter mode those depend only on
@@ -20,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from poet_tpu_torch.ops.hungarian import hungarian
-from poet_tpu_torch.utils.boxes import box_cxcywh_to_xyxy
+from poet_tpu_torch.utils.boxes import box_cxcywh_to_xyxy, generalized_box_iou
 
 BIG_COST = 1e6
 
@@ -104,6 +106,45 @@ def match_poses(
             valid &= pred_classes == torch.gather(tgt_labels, 1, idx)
 
     return MatchResult(tgt_idx=tgt_idx, valid=valid)
+
+
+def match_hungarian(
+    pred_logits: torch.Tensor,    # (B, Q, n_classes)
+    pred_boxes: torch.Tensor,     # (B, Q, 4) cxcywh normalized
+    tgt_boxes: torch.Tensor,      # (B, Q, 4)
+    tgt_labels: torch.Tensor,     # (B, Q) int
+    n_tgt: torch.Tensor,          # (B,)
+    cost_class: float = 1.0,
+    cost_bbox: float = 1.0,
+    cost_giou: float = 2.0,
+) -> MatchResult:
+    """The legacy DETR-style matcher. Counterpart of
+    `poet_tpu/models/matcher.py:match_hungarian`: a focal class cost (alpha
+    0.25, gamma 2) at each target's label clipped to the classes, the L1 of
+    the cxcywh boxes and the GIoU of the boxes clipped at 0; columns past
+    n_tgt cost BIG_COST. Every prediction is a candidate. The solver runs
+    on the host (`ops/hungarian.py`); the result lies where the inputs do."""
+    B, Q = pred_boxes.shape[:2]
+    dev = pred_boxes.device
+    f32 = torch.float32
+    alpha, gamma = 0.25, 2.0
+    prob = torch.sigmoid(pred_logits.to(f32))                          # (B, Q, C)
+    labels = torch.clamp(tgt_labels.long(), 0, pred_logits.shape[-1] - 1)
+    p = torch.gather(prob, 2, labels[:, None, :].expand(B, Q, labels.shape[1]))
+    neg = (1 - alpha) * (p ** gamma) * (-torch.log(1 - p + 1e-8))
+    pos = alpha * ((1 - p) ** gamma) * (-torch.log(p + 1e-8))
+    cls_cost = pos - neg
+
+    l1 = (pred_boxes[:, :, None] - tgt_boxes[:, None]).abs().sum(-1)
+    pb, tb = torch.clamp(pred_boxes, min=0), torch.clamp(tgt_boxes, min=0)
+    giou = torch.stack([generalized_box_iou(box_cxcywh_to_xyxy(pb[b]), box_cxcywh_to_xyxy(tb[b]))
+                        for b in range(B)])
+
+    cost = (cost_bbox * l1 + cost_class * cls_cost - cost_giou * giou).to(f32)
+    cols = torch.arange(Q, device=dev)[None, None, :]
+    cost = torch.where(cols >= n_tgt[:, None, None], torch.full_like(cost, BIG_COST), cost)
+    tgt_idx = hungarian(cost).to(dev)
+    return MatchResult(tgt_idx=tgt_idx, valid=tgt_idx < n_tgt[:, None])
 
 
 def pairwise_diag_giou(boxes1_cxcywh: torch.Tensor, boxes2_cxcywh: torch.Tensor) -> torch.Tensor:

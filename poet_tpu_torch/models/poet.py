@@ -146,7 +146,10 @@ class PoET(nn.Module):
         cfg = self.cfg
         C, Q = cfg.hidden_dim, cfg.num_queries
 
-        features, masks, backbone_dets = self.backbone(images, pad_mask)
+        # gt and jitter mode read no detections: the backbone skips its
+        # decode and NMS (XLA drops them as dead code from poet_tpu's step)
+        features, masks, backbone_dets = self.backbone(
+            images, pad_mask, detections=cfg.bbox_mode == "backbone")
         pos = [self._embed_level(m) for m in masks]
 
         # ---- query construction -------------------------------------------

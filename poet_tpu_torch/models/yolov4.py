@@ -347,11 +347,16 @@ class YOLOv4Backbone(nn.Module):
                 raise ValueError("encoder_min_stride dropped every feature map")
         return features, [downsample_mask(pad_mask, f.shape[1:3]) for f in features]
 
-    def forward(self, images: torch.Tensor, pad_mask: torch.Tensor):
+    def forward(self, images: torch.Tensor, pad_mask: torch.Tensor, detections: bool = True):
+        """`detections=False` (PoET in gt and jitter mode, which reads none)
+        skips the decode and the NMS and returns None for them, as XLA's
+        dead-code elimination drops them from poet_tpu's jitted step."""
         # frozen: no autograd graph (poet_tpu's stop_gradient)
         with torch.no_grad():
             yolo_inputs, yolo_specs, features = self.body(images)
-            boxes, scores = self.decode(yolo_inputs, yolo_specs, images.shape[1])
-            dets = self.detect(boxes, scores)
+            dets = None
+            if detections:
+                boxes, scores = self.decode(yolo_inputs, yolo_specs, images.shape[1])
+                dets = self.detect(boxes, scores)
         features, masks = self.outputs(features, pad_mask, images.shape[1])
         return features, masks, dets

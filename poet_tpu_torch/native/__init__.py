@@ -36,6 +36,13 @@ What cannot be decoded raises `ValueError`: an interlaced (Adam7) PNG, a
 CMYK or YCCK JPEG (libjpeg converts neither to RGB, and neither does the
 JAX package's native decoder), any other format, a corrupt file. There is
 no fallback.
+
+The batch entry points of `poet_tpu/native/__init__.py` sit on these
+decoders: `probe_image` (height, width and the natural channel count),
+`decode_batch_f32` (same-sized files into one (N, H, W, 3) f32 batch on
+worker threads; the decoders run outside the GIL) and `u8_to_f32` (x / 255
+in f32). `lapjv` is the host's float64 Jonker-Volgenant solver, the port's
+copy of `poet_tpu/native/lapjv.cpp`, built the same way at first use.
 """
 
 from __future__ import annotations
@@ -48,6 +55,8 @@ import subprocess
 import tempfile
 import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -73,6 +82,9 @@ _COLOR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
 _lock = threading.Lock()
 _lib = None
 _jpeg = None              # (route, library), or the RuntimeError of the builds
+_lapjv = None
+# x / 255 in f32 for every byte: the f32 division rounds once, as JAX's table
+_U8_F32 = np.arange(256, dtype=np.float32) / np.float32(255)
 
 
 def library_path(sources=_SOURCES, libs=(), name="poet_native") -> str:
@@ -431,3 +443,89 @@ def load_image_rgb_f32(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         blob = f.read()
     return decode_image(blob, 3).astype(np.float32) / 255.0
+
+
+def probe_image(blob: bytes) -> Tuple[int, int, int]:
+    """(height, width, channels) from a PNG's or JPEG's header: channels 4
+    for a PNG with an alpha channel or a `tRNS` chunk, else 3 (as JAX's
+    `native.probe_image`)."""
+    if _format(blob) == "jpeg":
+        h, w, _ = _probe_jpeg(blob)
+        return h, w, 3
+    w, h = png_size(blob)
+    alpha = blob[25] in (4, 6)                  # IHDR's colour type: gray or RGB + alpha
+    for ctype, _ in _chunks(blob):
+        if ctype == b"tRNS":
+            alpha = True
+        if ctype in (b"tRNS", b"IDAT"):          # tRNS comes before the pixel data
+            break
+    return h, w, 4 if alpha else 3
+
+
+def u8_to_f32(arr: np.ndarray) -> np.ndarray:
+    """uint8 -> float32 in [0, 1], exactly x / 255."""
+    return _U8_F32[np.asarray(arr, dtype=np.uint8)]
+
+
+def decode_batch_f32(blobs: List[bytes], height: int, width: int,
+                     out: Optional[np.ndarray] = None,
+                     n_threads: Optional[int] = None) -> np.ndarray:
+    """Same-sized PNG or JPEG files -> one (N, height, width, 3) float32 batch
+    in [0, 1] (RGB, x / 255), decoded on `n_threads` worker threads (default:
+    one per file, at most the CPU count). `out`, when given, is filled and
+    returned. Raises `ValueError` naming the first file that does not decode
+    or has another size."""
+    n = len(blobs)
+    if out is None:
+        out = np.empty((n, height, width, 3), dtype=np.float32)
+    elif (out.shape != (n, height, width, 3) or out.dtype != np.float32
+          or not out.flags.c_contiguous):
+        raise ValueError(f"out must be a C-contiguous float32 array of shape "
+                         f"{(n, height, width, 3)}, got {out.dtype} {out.shape}")
+
+    def one(i):
+        img = decode_image(blobs[i], 3)
+        if img.shape[:2] != (height, width):
+            raise ValueError(f"{img.shape[1]}x{img.shape[0]}, not {width}x{height}")
+        out[i] = _U8_F32[img]
+
+    if n:
+        workers = max(1, min(n, n_threads or os.cpu_count() or 1))
+        with ThreadPoolExecutor(workers) as pool:
+            futures = [pool.submit(one, i) for i in range(n)]
+        for i, fut in enumerate(futures):
+            if fut.exception() is not None:
+                raise ValueError(f"batch decode failed at image {i}: {fut.exception()}")
+    return out
+
+
+def _load_lapjv():
+    global _lapjv
+    if _lapjv is None:
+        with _lock:
+            if _lapjv is None:
+                lib = _build((os.path.join(_HERE, "lapjv.cpp"),), name="poet_lapjv")
+                lib.lapjv.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p]
+                lib.lapjv.restype = ctypes.c_double
+                lib.lapjv_batch.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+                                            ctypes.c_void_p]
+                lib.lapjv_batch.restype = None
+                _lapjv = lib
+    return _lapjv
+
+
+def lapjv(cost: np.ndarray) -> np.ndarray:
+    """Min-cost assignment of a square (n, n) or batched (b, n, n) cost
+    matrix, solved in float64 on the host. Returns col_of_row, int32 (n,) or
+    (b, n): the column assigned to each row."""
+    cost = np.ascontiguousarray(cost, dtype=np.float64)
+    if cost.ndim not in (2, 3) or cost.shape[-1] != cost.shape[-2]:
+        raise ValueError(f"lapjv takes a square (n, n) or (b, n, n) cost, got {cost.shape}")
+    lib = _load_lapjv()
+    n = cost.shape[-1]
+    out = np.zeros(cost.shape[:-1], dtype=np.int32)
+    if cost.ndim == 2:
+        lib.lapjv(cost.ctypes.data, n, out.ctypes.data)
+    else:
+        lib.lapjv_batch(cost.ctypes.data, cost.shape[0], n, out.ctypes.data)
+    return out

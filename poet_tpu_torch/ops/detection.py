@@ -24,7 +24,10 @@ and the two bilinear weights of each axis, in torch for both versions; then
 `_multiscale_roi_align_flat` computes) or the CUDA kernel
 (`ops/roi_align_cuda.py`) only gathers and blends. Computing the geometry
 once keeps the kernel free of the cell-edge and level decisions that FMA
-contraction in nvcc could move.
+contraction in nvcc could move. `multiscale_roi_align` is JAX's single-image
+view of the batched entry (`ops/roi_align_cuda.py`), and `roi_align` its
+single-level RoIAlign with the `aligned` flag, in plain torch as in JAX (an
+XLA op there, not a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -356,3 +359,68 @@ def multiscale_roi_align_torch(features: Sequence[torch.Tensor], strides: Sequen
     geo = roi_geometry([tuple(f.shape[1:3]) for f in features], strides, boxes,
                        output_size, sampling_ratio)
     return roi_blend_plain(features, geo, B, R, output_size)
+
+
+def roi_align(features: torch.Tensor, boxes: torch.Tensor, output_size: int,
+              spatial_scale: float, sampling_ratio: int = 2,
+              aligned: bool = False) -> torch.Tensor:
+    """Single-level, single-image RoIAlign with torchvision's semantics
+    (`poet_tpu/ops/detection.py:roi_align`): (H, W, C) features and (R, 4)
+    xyxy image-pixel boxes -> (R, output_size, output_size, C), the mean of
+    `sampling_ratio`^2 bilinear samples per bin. `aligned` shifts by -0.5
+    pixel (the legacy False does not). A sample within one pixel outside
+    the map is clamped into it, farther out it is 0; the lower corner is
+    clipped to size - 2."""
+    H, W, C = features.shape
+    R = boxes.shape[0]
+    off = 0.5 if aligned else 0.0
+    b = boxes * spatial_scale
+    x0, y0 = b[:, 0] - off, b[:, 1] - off
+    floor = 1e-6 if aligned else 1.0
+    # true divisions, as JAX's: CUDA multiplies by the reciprocal of a
+    # Python number, an ulp off the CPU's quotient
+    out_n = torch.full((), float(output_size), dtype=b.dtype, device=b.device)
+    s = sampling_ratio
+    bin_w = torch.clamp(b[:, 2] - off - x0, min=floor) / out_n
+    bin_h = torch.clamp(b[:, 3] - off - y0, min=floor) / out_n
+    ii = torch.arange(output_size, dtype=b.dtype, device=b.device)
+    kk = (torch.arange(s, dtype=b.dtype, device=b.device) + 0.5) / torch.full(
+        (), float(s), dtype=b.dtype, device=b.device)
+    grid = ii[None, :, None] + kk[None, None, :]                         # (1, out, s)
+    ys = (y0[:, None, None] + grid * bin_h[:, None, None]).reshape(R, output_size * s)
+    xs = (x0[:, None, None] + grid * bin_w[:, None, None]).reshape(R, output_size * s)
+
+    def lin(coords, size):
+        c = torch.clamp(coords, 0.0, size - 1.0)
+        lo = torch.clamp(torch.floor(c), 0, size - 2).long()
+        return lo, c - lo, (coords < -1.0) | (coords > size)
+
+    ylo, wy, y_out = lin(ys, H)                                          # (R, N)
+    xlo, wx, x_out = lin(xs, W)
+    rows = ylo[:, :, None] * W                                           # (R, N, 1)
+    flat = features.reshape(H * W, C)
+
+    def corner(dy, dx):
+        return flat[(rows + dy * W + xlo[:, None, :] + dx).reshape(-1)].reshape(
+            R, ys.shape[1], xs.shape[1], C)
+
+    wy, wx = wy[:, :, None, None], wx[:, None, :, None]
+    out = (corner(0, 0) * (1 - wy) * (1 - wx) + corner(0, 1) * (1 - wy) * wx
+           + corner(1, 0) * wy * (1 - wx) + corner(1, 1) * wy * wx)
+    out = out * ((~y_out)[:, :, None] & (~x_out)[:, None, :])[..., None]
+    return out.reshape(R, output_size, s, output_size, s, C).mean(dim=(2, 4))
+
+
+def multiscale_roi_align(features: Sequence[torch.Tensor], strides: Sequence[int],
+                         boxes: torch.Tensor, output_size: int = 7,
+                         sampling_ratio: int = 2, canonical_scale: int = 224,
+                         canonical_level: int = 4) -> torch.Tensor:
+    """torchvision MultiScaleRoIAlign on one image: per-level (H_l, W_l, C)
+    features and (R, 4) xyxy image-pixel boxes -> (R, o, o, C). The
+    single-image view of `ops/roi_align_cuda.py:multiscale_roi_align`: the
+    plain version on the CPU, on CUDA the kernel on the route `plan_roi`
+    gives."""
+    from poet_tpu_torch.ops.roi_align_cuda import multiscale_roi_align as batched
+
+    return batched([f[None] for f in features], strides, boxes[None], output_size,
+                   sampling_ratio, canonical_scale, canonical_level)[0]

@@ -258,12 +258,13 @@ def _roi_align_blend_fake(features, boxes, level, ylo, yw, xlo, xw, output_size)
 
 def multiscale_roi_align(features: Sequence[torch.Tensor], strides: Sequence[int],
                          boxes: torch.Tensor, output_size: int = 7,
-                         sampling_ratio: int = 2) -> torch.Tensor:
+                         sampling_ratio: int = 2, canonical_scale: int = 224,
+                         canonical_level: int = 4) -> torch.Tensor:
     """The detector's RoIAlign entry: the geometry (`roi_geometry`, torch),
     then the operator `torch.ops.poet_tpu_torch.roi_align_blend`: CPU ->
     plain version, CUDA -> the hand-written kernel on the route `plan_roi`
     gives (which raises on what it does not take)."""
     geo = roi_geometry([tuple(f.shape[1:3]) for f in features], strides, boxes,
-                       output_size, sampling_ratio)
+                       output_size, sampling_ratio, canonical_scale, canonical_level)
     return _roi_align_blend_op(list(features), boxes, geo.level, geo.ylo, geo.yw, geo.xlo,
                                geo.xw, output_size)

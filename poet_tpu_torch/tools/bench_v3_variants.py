@@ -2,7 +2,7 @@
 
     python3 poet_tpu_torch/tools/bench_v3_variants.py [--root DIR]
         [--shapes rcnn|yolo] [--variants base,unroll,qt256,treey,bf16y,noy,nox]
-        [--iters 20]
+        [--iters 20] [--floors]
 
 The Hopper counterpart of `scripts/bench_v3_variants.py`. Its kernels
 (`csrc/ms_deform_attn_fwd_variants.cu`) take the per-point body of the
@@ -34,6 +34,14 @@ change, parent in one call). Run it as a script path: `-m` imports this
 checkout's package whatever `--root` says. The card's name and power limit
 come first. Needs one CUDA device.
 
+`--floors` prints, instead of times, `floor_counts` at the chosen pyramid,
+the first points of each level moved next to the cell edges where the
+rounding matters (`with_edge_points`): the sampling points whose pixel
+coordinate loc * size - 0.5 floors differently as one rounding (a
+contracted FMA) and as two (the plain version's), and the points where
+`noy`'s kernel took its corners from another cell than its plain
+definition (ROADMAP C8).
+
 `ms_deform_attn_variant` is the entry: CPU tensors run the variant's plain
 definition (`plain_variant`), CUDA tensors the kernel, or raise (a slab
 over the shared memory a block may use among what it refuses).
@@ -59,6 +67,7 @@ if __name__ == "__main__":      # a script path: the package under --root first
     _pre.add_argument("--root", default=REPO)
     sys.path.insert(0, os.path.abspath(_pre.parse_known_args()[0].root))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from poet_tpu_torch.ops.cuda_build import (  # noqa: E402
@@ -108,7 +117,7 @@ def _corners(value, spatial_shapes, locs, attn):
     start = 0
     for l, (Hl, Wl) in enumerate(spatial_shapes):
         for p in range(P):
-            x = locs[:, :, :, l, p, 0] * Wl - 0.5
+            x = locs[:, :, :, l, p, 0] * Wl - 0.5         # two roundings, as the kernels
             y = locs[:, :, :, l, p, 1] * Hl - 0.5
             a = attn[:, :, :, l, p].float()
             point = (x > -1) & (x < Wl) & (y > -1) & (y < Hl)   # False for NaN
@@ -234,6 +243,81 @@ def inputs(spatial_shapes, B=16, H=16, D=16, P=4, seed=0, device="cuda"):
     return value, locs, attn
 
 
+def edge_coords(size: int) -> list:
+    """f32 normalized coordinates on an axis of `size` cells whose pixel
+    coordinate loc * size - 0.5 floors differently as one rounding and as
+    two. Two roundings give fl(loc * size) - 0.5 (the subtraction is exact),
+    one rounding fl(loc * size - 0.5): the two grids differ only where the
+    difference falls into a finer binade than the product, next to the cell
+    edge at 0 and at each power of two; a few f32 steps either side of
+    (k + 0.5) / size hold such coordinates."""
+    out = []
+    for k in [0] + [2 ** m for m in range(size.bit_length()) if 2 ** m < size]:
+        loc = np.float32((k + 0.5) / size)
+        below = above = loc
+        for _ in range(16):
+            below, above = np.nextafter(below, np.float32(0)), np.nextafter(above, np.float32(1))
+            for x in (below, above):
+                once = np.float32(np.float64(x) * size - 0.5)
+                twice = np.float32(x * np.float32(size)) - np.float32(0.5)
+                if np.floor(once) != np.floor(twice):
+                    out.append(float(x))
+    return out
+
+
+def with_edge_points(locs, spatial_shapes):
+    """`locs` (B, Q, H, L, P, 2) with, on each level, the first points of the
+    flattened (B, Q, H, P) grid (from query 0 on) moved onto `edge_coords` of
+    that level's width (x) and height (y): points C8's rounding parts."""
+    locs = locs.clone()
+    B, Q, H, L, P, _ = locs.shape
+    for l, (Hl, Wl) in enumerate(spatial_shapes):
+        for c, size in ((0, Wl), (1, Hl)):
+            edges = torch.tensor(edge_coords(size), dtype=locs.dtype, device=locs.device)
+            level = locs[:, :, :, l, :, c].permute(1, 0, 2, 3).reshape(-1)   # queries first
+            level[:len(edges)] = edges
+            locs[:, :, :, l, :, c] = level.view(Q, B, H, P).permute(1, 0, 2, 3)
+    return locs
+
+
+def floor_counts(value, spatial_shapes, locs, package=None) -> dict:
+    """C8's counts on the card at these inputs (bf16 value, (B, Q, H, L, P, 2)
+    locations): "one_rounding": the points whose floor of loc * size - 0.5
+    differs, in x or y, between one rounding (the product exact in f64, then
+    the subtraction rounded once: a contracted FMA) and two (the plain
+    version's: the f32 product, then the f32 subtraction); "kernel": the
+    points where `noy`'s kernel, run with the attention weight 1 on that
+    point alone, departs from its plain definition by more than the output's
+    bf16 rounding, i.e. summed the corners of another cell. `package`: the
+    module whose MS_DEFORM_ATTN_VARIANT runs (default: this one)."""
+    variant = (package or sys.modules[__name__]).MS_DEFORM_ATTN_VARIANT
+    B, Q, H, L, P, _ = locs.shape
+    D = value.shape[-1]
+    one_rounding = torch.zeros((B, Q, H, L, P), dtype=torch.bool, device=locs.device)
+    for l, (Hl, Wl) in enumerate(spatial_shapes):
+        for c, size in ((0, Wl), (1, Hl)):
+            x = locs[:, :, :, l, :, c]
+            once = (x.double() * size - 0.5).float()
+            one_rounding[:, :, :, l] |= torch.floor(once) != torch.floor(x * size - 0.5)
+    v = value.float()
+    kernel = 0
+    with torch.inference_mode():
+        sums = torch.zeros((B, Q, H, D), dtype=torch.float32, device=value.device)
+        ones = torch.ones(locs.shape[:-1], dtype=torch.float32, device=locs.device)
+        for i, (v_c, _, _, _, ok) in enumerate(_corners(v, spatial_shapes, locs, ones)):
+            sums += torch.where(ok, 1.0, 0.0)[..., None] * v_c
+            if i % 4 < 3:
+                continue
+            l, p = divmod(i // 4, P)          # the point's four corners are summed
+            attn = torch.zeros_like(ones)
+            attn[:, :, :, l, p] = 1.0
+            got = variant(value, spatial_shapes, locs, attn, "noy").float().view(B, Q, H, D)
+            tol = 2e-5 + 2.0 ** -8 * sums.abs()
+            kernel += int(((got - sums).abs() > tol).any(-1).sum())
+            sums.zero_()
+    return {"one_rounding": int(one_rounding.sum()), "kernel": kernel}
+
+
 def time_variants(value, spatial_shapes, locs, attn, names=VARIANTS, iters: int = 20,
                   package=None) -> dict:
     """Kernel 1's two routes and each named variant on the card, in one
@@ -283,6 +367,7 @@ def main(argv=None) -> int:
     ap.add_argument("--shapes", choices=tuple(SHAPES), default="rcnn")
     ap.add_argument("--variants", default=",".join(VARIANTS))
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--floors", action="store_true")
     args = ap.parse_args(argv)
     bv = importlib.import_module("poet_tpu_torch.tools.bench_v3_variants")  # the package under test
     if not torch.cuda.is_available():
@@ -293,8 +378,16 @@ def main(argv=None) -> int:
     print(card.splitlines()[0], flush=True)
     shapes = SHAPES[args.shapes]
     value, locs, attn = inputs(shapes)
+    if args.floors:
+        locs = with_edge_points(locs, shapes)
     print(f"package: {os.path.dirname(os.path.dirname(bv.__file__))}; {args.shapes} pyramid "
           f"{shapes} (S={value.shape[1]} = Q), B=16 H=16 D=16 L=P=4, bf16", flush=True)
+    if args.floors:
+        counts = floor_counts(value, shapes, locs, package=bv)
+        print(f"points floored differently by one rounding and two: {counts['one_rounding']}; "
+              f"points where noy's kernel left its plain definition: {counts['kernel']}",
+              flush=True)
+        return 0
     res = time_variants(value, shapes, locs, attn, args.variants.split(","), args.iters,
                         package=bv)
     for key in ("kernel1_ms", "kernel1_slab_ms", "base_cp_async_ms", "staging_tma_ms",

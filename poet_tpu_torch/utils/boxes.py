@@ -1,6 +1,6 @@
-"""Bounding-box math. Counterpart of `poet_tpu/utils/boxes.py:13-85`: what
-the matcher and the detector need (cxcywh <-> xyxy, normalization, pairwise
-IoU and GIoU)."""
+"""Bounding-box math. Counterpart of `poet_tpu/utils/boxes.py`: cxcywh <->
+xyxy, normalization and rescaling by the image size, pairwise IoU and GIoU,
+and the boxes of binary masks."""
 
 from __future__ import annotations
 
@@ -31,6 +31,22 @@ def box_normalize_cxcywh(x: torch.Tensor, image_size) -> torch.Tensor:
     dyadic box embedding (`ops/embeddings.py:bbox_embedding_sine`, up to
     2^31 x the coordinate) turns one ulp into another pose."""
     return x / _image_scale(float(image_size[1]), float(image_size[0]), x.dtype, x.device)
+
+
+def box_rescale_cxcywh(x: torch.Tensor, image_size) -> torch.Tensor:
+    """(..., 4) normalized cxcywh back to pixels of the image's (H, W)."""
+    return x * _image_scale(float(image_size[1]), float(image_size[0]), x.dtype, x.device)
+
+
+def box_normalize_xyxy(x: torch.Tensor, image_size) -> torch.Tensor:
+    """Normalize (..., 4) xyxy by the image's (H, W), a true division as
+    `box_normalize_cxcywh`'s."""
+    return x / _image_scale(float(image_size[1]), float(image_size[0]), x.dtype, x.device)
+
+
+def box_rescale_xyxy(x: torch.Tensor, image_size) -> torch.Tensor:
+    """(..., 4) normalized xyxy back to pixels of the image's (H, W)."""
+    return x * _image_scale(float(image_size[1]), float(image_size[0]), x.dtype, x.device)
 
 
 @device_table
@@ -65,3 +81,21 @@ def generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Ten
     wh = torch.clamp(rb - lt, min=0)
     area = wh[..., 0] * wh[..., 1]
     return iou - (area - union) / area
+
+
+def masks_to_boxes(masks: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) binary masks -> (N, 4) xyxy f32 boxes of their set pixels;
+    (0, 4) for no masks. An empty mask's minima stay at the 1e8 sentinel and
+    its maxima at 0, as in JAX."""
+    if masks.numel() == 0:
+        return torch.zeros((0, 4), dtype=torch.float32, device=masks.device)
+    n, (h, w) = masks.shape[0], masks.shape[-2:]
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=masks.device),
+                            torch.arange(w, dtype=torch.float32, device=masks.device),
+                            indexing="ij")
+    m, on = masks.float(), masks.bool()
+    x_max = (m * xx).reshape(n, -1).amax(-1)
+    y_max = (m * yy).reshape(n, -1).amax(-1)
+    x_min = torch.where(on, xx, 1e8).reshape(n, -1).amin(-1)
+    y_min = torch.where(on, yy, 1e8).reshape(n, -1).amin(-1)
+    return torch.stack([x_min, y_min, x_max, y_max], dim=1)

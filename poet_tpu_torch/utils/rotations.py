@@ -1,6 +1,7 @@
 """SO(3) math. Counterpart of `poet_tpu/utils/rotations.py`: 6D decoding
-(`:17-35`) and the log map the aleatoric rotation loss needs (`:51-126`),
-branch-free with gradient-safe denominators as in the JAX package."""
+(`:17-35`), the hat maps, the exp and log maps (`:37-126`) and the geodesic
+and evaluator rotation errors (`:129-153`), branch-free with gradient-safe
+denominators as in the JAX package."""
 
 from __future__ import annotations
 
@@ -26,6 +27,15 @@ def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """v / max(||v||, eps), as torch.nn.functional.normalize."""
     n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     return v / torch.clamp(n, min=eps)
+
+
+def hat(v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 3) skew-symmetric: hat(v) @ w = v x w."""
+    x, y, z = v.unbind(-1)
+    zero = torch.zeros_like(x)
+    return torch.stack([torch.stack([zero, -z, y], dim=-1),
+                        torch.stack([z, zero, -x], dim=-1),
+                        torch.stack([-y, x, zero], dim=-1)], dim=-2)
 
 
 def hat_inv(h: torch.Tensor) -> torch.Tensor:
@@ -72,3 +82,32 @@ def so3_log_map(R: torch.Tensor, eps: float = 1e-4, cos_bound: float = 1e-4) -> 
     phi_factor = torch.where(ok, phi / (2.0 * safe_sin), 0.5 + (phi * phi) / 12.0)
     log_rot_hat = phi_factor[..., None, None] * (R - R.transpose(-1, -2))
     return hat_inv(log_rot_hat)
+
+
+def so3_exp_map(log_rot: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+    """Rodrigues' formula, (..., 3) -> (..., 3, 3); the angle's square is
+    clamped at `eps` from below, as JAX's is."""
+    nrms = (log_rot * log_rot).sum(-1)
+    rot_angles = torch.sqrt(torch.clamp(nrms, min=eps))
+    inv = 1.0 / rot_angles
+    fac1 = inv * torch.sin(rot_angles)
+    fac2 = inv * inv * (1.0 - torch.cos(rot_angles))
+    skews = hat(log_rot)
+    eye = torch.eye(3, dtype=log_rot.dtype, device=log_rot.device)
+    return fac1[..., None, None] * skews + fac2[..., None, None] * (skews @ skews) + eye
+
+
+def geodesic_distance(R1: torch.Tensor, R2: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Geodesic angle between rotation matrices, radians: arccos of
+    (trace(R1 R2^T) - 1) / 2 clamped to +-(1 - eps), as the rotation loss."""
+    prod = R1 @ R2.transpose(-1, -2)
+    trace = prod[..., 0, 0] + prod[..., 1, 1] + prod[..., 2, 2]
+    return torch.arccos(torch.clamp(0.5 * (trace - 1.0), -1.0 + eps, 1.0 - eps))
+
+
+def rotation_error_deg(R_pred: torch.Tensor, R_gt: torch.Tensor) -> torch.Tensor:
+    """The evaluator's rotation error in degrees: the trace of R_pred R_gt^T
+    clamped to [-1, 3] (not +-(1 - eps)) before the arccos."""
+    rot = R_pred @ R_gt.transpose(-1, -2)
+    trace = torch.clamp(rot[..., 0, 0] + rot[..., 1, 1] + rot[..., 2, 2], -1.0, 3.0)
+    return torch.rad2deg(torch.arccos(0.5 * (trace - 1.0)))
