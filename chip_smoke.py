@@ -263,9 +263,15 @@ Phases, each raising on failure:
      the paper config, 480x640, B=8 (one data slot): 2 f32 SGD steps, the
      gradients and parameters gathered whole, against one process on the
      same images (LAYOUT_TOL), the gap from one process by gradient tensor
-     (relative L2, the TP_GAP_TOP largest) and, in both runs, the ReLU
-     pre-activations of the first step within one f32 rounding of 0 (the
-     pose heads' hidden layers and the FFNs' linear1), then bf16 AdamW steps (p50, device busy ms
+     (relative L2 / max, the TP_GAP_TOP largest); C9's measurements of
+     (1,1,2) (c9_checks): per decoder layer the valid pairs' angles to their
+     targets (smallest sin^2, clamp counts), the gaps of the rotations, of
+     their gradient and of each layer's output, the corner flips per
+     deformable-attention call, each loss term's gradient gap, on the
+     midpoint targets and on conditioned ones (every pair 20-160 degrees
+     from its target), with the sampling locations pinned to one process's
+     and not, beside one process in TP's order of sums (tp_order: held at
+     CONDITIONED_TOL) and a one-ulp control; then bf16 AdamW steps (p50, device busy ms
      and the launches of the route rules per process; a rehearsal, not a
      multi-card figure: train_layout_1x1x2, train_layout_1x2x1, rank 0's
      launches); (c) `PoseServer(devices=("cuda:0", "cuda:0"))` at phase 4's
@@ -4393,25 +4399,30 @@ def rank_rows(rank: int) -> slice:
     return slice(rank * DP_B, (rank + 1) * DP_B)
 
 
-def midpoint_rotations(model, batch):
-    """The batch's target rotations with each valid query's the geodesic
-    midpoint of the first and last decoder layers' predicted rotations (an
-    f32 forward on the card, TF32 off): the geodesic loss's arccos is
-    ill-conditioned as a pair's angle nears pi, where the flagship batch's
-    uniform rotations put some pair, and two orders of the same f32 sums
-    then part by more than the tolerance (tests/test_torch_variants.py,
-    tests/test_torch_ddp.py do the same)."""
+def predicted_rotations(model, batch) -> np.ndarray:
+    """(n_layers, B, Q, 3, 3) f64: every decoder layer's predicted rotations
+    of the batch, from an f32 eval forward of a copy of `model` on the card,
+    TF32 off (the forward both target sets are built from)."""
     import copy
 
     import torch
-    from scipy.spatial.transform import Rotation
 
     images, pad_mask, targets = batch
     with torch.no_grad(), tf32_off():
         m = copy.deepcopy(model).to(DEVICE).eval()
         rot = m(torch.from_numpy(images).to(DEVICE), torch.from_numpy(pad_mask).to(DEVICE),
                 {k: torch.from_numpy(v).to(DEVICE) for k, v in targets.items()})["rotations"]
-    rot = rot.double().cpu().numpy()
+    return rot.double().cpu().numpy()
+
+
+def midpoint_rotations(rot: np.ndarray, targets) -> np.ndarray:
+    """The batch's target rotations with each valid query's the geodesic
+    midpoint of the first and last decoder layers' predictions `rot`
+    (`predicted_rotations`): those two layers' pairs lie at most 90 degrees
+    from the target, the middle layers' are left where their heads put them
+    (tests/test_torch_variants.py, tests/test_torch_ddp.py do the same)."""
+    from scipy.spatial.transform import Rotation
+
     first, last = rot[0], rot[-1]
     half = Rotation.from_rotvec(Rotation.from_matrix(
         np.swapaxes(first, -1, -2).reshape(-1, 3, 3) @ last.reshape(-1, 3, 3)).as_rotvec() / 2)
@@ -4420,50 +4431,311 @@ def midpoint_rotations(model, batch):
     return np.where(valid[..., None, None], mid, targets["relative_rotation"]).astype(np.float32)
 
 
-# the linears whose outputs a ReLU takes: the pose heads' hidden layers and
-# the FFNs' linear1 (column-parallel under 'model')
-RELU_INPUTS = r"(_head(_aleatoric)?\.\d+\.layers\.[01]|\.linear1)$"
 # phase 27's per-tensor gradient gaps printed, largest first
 TP_GAP_TOP = 10
 
 
+# phase 27's C9 measurements (ROADMAP C9: TP's gradients against one
+# process's). The conditioned targets' file and seed (dp_setup); the layout
+# measured, and where one process's sampling outputs go for its pinned run;
+# its tolerances against one process taking TP's order of sums (tp_order) on
+# the conditioned targets, phase 26's same-shards ones (losses 1e-6, grad
+# norm 1e-4, gradients 1e-5 relative L2 / 1e-4 of max, parameters 1e-3 lr):
+# pinned on every tensor, unpinned on the first step outside the layers
+# where a sampling coordinate's corner parts between the two runs
+CONDITIONED_FILE, CONDITIONED_SEED = "dp_conditioned.npz", 27
+C9_LAYOUT, PINNED_FILE = (1, 1, 2), "pinned_sampling.pt"
+CONDITIONED_TOL = DP_SAME_TOL
+# the rotation loss's clamp: 0.5 (tr - 1) within this of -1 or 1
+ARCCOS_CLAMP = 1e-6
+SAMPLING_OUTPUTS = r"\.(sampling_offsets|attention_weights)$"
+
+
+def corner_index(locs, shapes):
+    """floor(fl(fl(loc * size) - 0.5)) of every sampling coordinate, int32
+    (B, Q, H, L, P, 2): the corner `csrc/ms_deform_attn_point.cuh:
+    pixel_coord` rounds twice to (eager torch rounds the product and the
+    difference each)."""
+    import torch
+
+    size = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device=locs.device)
+    return torch.floor(locs.detach().float() * size[:, None, :] - 0.5).to(torch.int32)
+
+
 @contextlib.contextmanager
-def relu_near_zero(model):
-    """Forward hooks on RELU_INPUTS' modules: {name: count} of the
-    pre-activations of each module's first call that lie within one f32
-    rounding of 0, |z| <= 2^-24 (|x| |W|^T + |b|) (the size of one rounding
-    of the dot product's terms), filled while the context is open."""
+def layout_probes(model):
+    """Records of the model's first forward and backward, filled while the
+    context is open: 'rotations' (n_layers, B, Q, 3, 3) and 'd_rotations'
+    (the loss's gradient of them, a tensor hook), f64 on the CPU;
+    'corners', per deformable-attention call in order (the encoder layers,
+    then the decoder's), `corner_index` of its sampling locations with the
+    heads gathered whole over 'model'; 'layers', each encoder and decoder
+    layer's output, f32 on the CPU. A collective over 'model' under a TP
+    layout (every process must open it)."""
+    import torch
+
+    import poet_tpu_torch.models.transformer as tmod
+    from poet_tpu_torch.parallel import tp
+
+    layout = getattr(model, "layout", None)
+    n_calls = len(model.transformer.encoder.layers) + len(model.transformer.decoder.layers)
+    rec = {"corners": [], "layers": {}}
+    handles, cores = [], {"ms_deform_attn": tmod.ms_deform_attn,
+                          "ms_deform_attn_dense": tmod.ms_deform_attn_dense}
+
+    def on_grad(g):
+        rec.setdefault("d_rotations", g.detach().double().cpu())
+
+    def on_model(module, args, out):
+        if "rotations" not in rec:
+            r = out["rotations"]
+            rec["rotations"] = r.detach().double().cpu()
+            if r.requires_grad:
+                r.register_hook(on_grad)
+
+    def on_layer(name):
+        def record(module, args, out):
+            rec["layers"].setdefault(name, out.detach().float().cpu())
+        return record
+
+    def counted(core):
+        def call(value, shapes, locs, *args, **kwargs):
+            if len(rec["corners"]) < n_calls:
+                c = corner_index(locs, shapes)
+                if layout is not None and layout.n_model > 1:
+                    c = torch.cat(tp._all_gather(c.contiguous(), layout.model_group,
+                                                 layout.n_model), dim=2)
+                rec["corners"].append(c.cpu())
+            return core(value, shapes, locs, *args, **kwargs)
+        return call
+
+    handles.append(model.register_forward_hook(on_model))
+    for stack in ("encoder", "decoder"):
+        for i, layer in enumerate(getattr(model.transformer, stack).layers):
+            handles.append(layer.register_forward_hook(on_layer(f"{stack}.{i}")))
+    for name, core in cores.items():
+        setattr(tmod, name, counted(core))
+    try:
+        yield rec
+    finally:
+        for h in handles:
+            h.remove()
+        for name, core in cores.items():
+            setattr(tmod, name, core)
+
+
+@contextlib.contextmanager
+def sampling_pin(model, saved=None):
+    """Forward hooks on the deformable attention's `sampling_offsets` and
+    `attention_weights` (SAMPLING_OUTPUTS). Without `saved`: yields
+    {module name: [each call's output, on the CPU]}. With `saved` (such a
+    record from one process): each call's output becomes `out + (s -
+    out).detach()`, s the record's call sliced to this process's heads
+    (their block of the output's columns under 'model'), so the forward
+    takes one process's sampling locations and weights and the gradient
+    passes straight through."""
     import re
 
     import torch
-    import torch.nn.functional as F
 
-    counts, handles = {}, []
+    layout = getattr(model, "layout", None)
+    rec, calls, handles = {}, {}, []
 
     def hook(name):
-        def record(module, args, out):
-            if name not in counts:
-                with torch.no_grad():
-                    scale = F.linear(args[0].abs().to(out.dtype), module.weight.abs().to(out.dtype),
-                                     module.bias.abs().to(out.dtype))
-                    counts[name] = int((out.abs() <= 2.0 ** -24 * scale).sum())
-        return record
+        def swap(module, args, out):
+            i = calls[name] = calls.get(name, -1) + 1
+            if saved is None:
+                rec.setdefault(name, []).append(out.detach().cpu())
+                return None
+            s = saved[name][i]
+            if layout is not None and layout.n_model > 1:
+                s = s.chunk(layout.n_model, dim=-1)[layout.model_index]
+            s = s.to(out.device)
+            if s.shape != out.shape:
+                raise AssertionError(f"pinned {name} call {i}: {tuple(s.shape)} for "
+                                     f"{tuple(out.shape)}")
+            return out + (s - out).detach()
+        return swap
 
     for name, module in model.named_modules():
-        if re.search(RELU_INPUTS, name):
+        if re.search(SAMPLING_OUTPUTS, name):
             handles.append(module.register_forward_hook(hook(name)))
     try:
-        yield counts
+        yield rec
     finally:
         for h in handles:
             h.remove()
 
 
-def grad_gaps(got, want):
-    """[(relative L2 of got - want, name)] of each gradient tensor, largest
-    first (dp_f32_steps' gradients)."""
-    return sorted(((float((got[n] - w).norm()) / max(float(w.norm()), 1e-30), n)
-                   for n, w in want.items()), reverse=True)
+def nudged(model, seed=CONDITIONED_SEED):
+    """`model` with every trained tensor moved one f32 ulp up or down at
+    random (from `seed`), in place: a forward perturbed by roundings, in one
+    process, against which a layout's other order of the same sums is read."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.requires_grad:
+                up = torch.rand(p.shape, generator=g) < 0.5
+                p.copy_(torch.nextafter(p, torch.where(up, math.inf, -math.inf)))
+    return model
+
+
+@contextlib.contextmanager
+def tp_order(model, n):
+    """One process (no layout) taking a TP layout's order of sums over `n`
+    model processes: each column-parallel projection (`tp.param_spec`
+    Spec(0): value_proj, sampling_offsets, attention_weights, linear1; the
+    MHA's q, k and v products, through `models/transformer.py`'s F) as `n`
+    products on the shards' weights, concatenated; each row-parallel one
+    (output_proj, linear2, the MHA's out_proj) as `n` partial products on the
+    shards' columns, summed in model order, then the bias. Every operand is a
+    contiguous shard of the parameter (`tp.shard_tensor`, differentiable),
+    as a process holds it. C9's control: what TP's arithmetic alone does to
+    one process's result, without its collectives or its sharded state."""
+    import types
+
+    import torch
+    import torch.nn.functional as F
+
+    import poet_tpu_torch.models.transformer as tmod
+    from poet_tpu_torch.models.layers import Dense
+    from poet_tpu_torch.parallel import tp
+
+    def column(name):
+        def hook(module, args, out):
+            x, dt = args[0].to(module.compute_dtype), module.compute_dtype
+            w = [tp.shard_tensor(module.weight, tp.param_spec(f"{name}.weight"), i, n)
+                 for i in range(n)]
+            b = [tp.shard_tensor(module.bias, tp.param_spec(f"{name}.bias"), i, n)
+                 for i in range(n)]
+            return torch.cat([F.linear(x, wi.to(dt), bi.to(dt)) for wi, bi in zip(w, b)], -1)
+        return hook
+
+    def row(name):
+        def hook(module, args, out):
+            dt = module.compute_dtype
+            xs = args[0].to(dt).chunk(n, dim=-1)
+            y = None
+            for i, x in enumerate(xs):
+                w = tp.shard_tensor(module.weight, tp.param_spec(f"{name}.weight"), i, n)
+                part = F.linear(x.contiguous(), w.to(dt))
+                y = part if y is None else y + part
+            return y + module.bias.to(dt)
+        return hook
+
+    def in_proj(x, w, b=None):
+        return torch.cat([F.linear(x, wi, bi) for wi, bi in zip(w.chunk(n), b.chunk(n))], -1)
+
+    handles = []
+    for name, module in model.named_modules():
+        spec = tp.param_spec(f"{name}.weight")
+        if isinstance(module, Dense) and spec.dim is not None:
+            handles.append(module.register_forward_hook((column if spec.dim == 0 else row)(name)))
+    functional = tmod.F
+    tmod.F = types.SimpleNamespace(**{k: getattr(F, k) for k in dir(F) if not k.startswith("__")})
+    tmod.F.linear = in_proj
+    try:
+        yield
+    finally:
+        tmod.F = functional
+        for h in handles:
+            h.remove()
+
+
+def term_grads(cfg, model, batch):
+    """The first step's gradient of each loss term alone, on `batch` (host
+    arrays), f32 on the CPU by name, a sharded tensor gathered whole:
+    'translation' (every decoder layer's translation loss) and 'rotation
+    {l}' per decoder layer; one forward, one backward per term, TF32 off (a
+    collective over 'model' under a TP layout)."""
+    import torch
+
+    from poet_tpu_torch.engine.train import make_loss_fn, prepare_batch
+    from poet_tpu_torch.parallel.tp import gather_tensor
+
+    model = model.to(DEVICE).to(memory_format=torch.channels_last).train()
+    layout = getattr(model, "layout", None)
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    n_dec = cfg.model.dec_layers
+    out = {}
+    with tf32_off():
+        _, losses = make_loss_fn(model, cfg)(*prepare_batch(cfg, *batch, DEVICE), None)
+        terms = {"translation": sum(v for k, v in losses.items() if k.startswith("loss_trans"))}
+        terms.update({f"rotation {l}": losses["loss_rot" + ("" if l == n_dec - 1 else f"_{l}")]
+                      for l in range(n_dec)})
+        for t, loss in terms.items():
+            grads = torch.autograd.grad(loss, [p for _, p in named], retain_graph=True,
+                                        allow_unused=True)
+            out[t] = {n: gather_tensor(torch.zeros_like(p) if g is None else g, n,
+                                       layout).float()
+                      for (n, p), g in zip(named, grads)}
+    return out
+
+
+def rel_l2(got, want, floor=0.0) -> float:
+    """|got - want| / (|want| + floor), in f64."""
+    return float((got.double() - want.double()).norm()) / (float(want.double().norm()) + floor)
+
+
+def pair_report(rotations, targets, d_rotations=None):
+    """Per decoder layer, over the valid pairs (gt mode: query q against
+    target q) of the first step's forward `rotations` (n_layers, B, Q, 3,
+    3): the angles (degrees), the smallest sin^2 of the angle and that
+    pair's angle, and the pairs on the rotation loss's clamp."""
+    from poet_tpu_torch.flagship import pair_angles
+
+    rot = rotations.numpy()
+    valid = np.arange(rot.shape[2])[None, :] < targets["n_boxes"][:, None]
+    theta = pair_angles(rot, targets["relative_rotation"])[:, valid]          # (L, pairs)
+    cos = np.cos(theta)
+    out = []
+    for l, t in enumerate(theta):
+        s2 = np.sin(t) ** 2
+        i = int(np.argmin(s2))
+        out.append({"n": int(t.size), "deg": np.degrees(t).round(2).tolist(),
+                    "min_sin2": float(s2[i]), "min_sin2_deg": float(np.degrees(t[i])),
+                    "clamped": int((np.abs(cos[l]) >= 1.0 - ARCCOS_CLAMP).sum())})
+    return out
+
+
+def layout_gaps(got, want, targets, n_enc):
+    """C9's per-layer comparison of two `layout_probes` records (a layout's
+    against one process's): each decoder layer's relative L2 gap of the
+    predicted rotations and of the loss's gradient of them over the valid
+    pairs, each encoder and decoder layer's output gap, and, per
+    deformable-attention call, the sampling points whose corner index
+    differs in either coordinate (flips)."""
+    valid = np.arange(got["rotations"].shape[2])[None, :] < targets["n_boxes"][:, None]
+    rows = {}
+    for key in ("rotations", "d_rotations"):
+        rows[key] = [rel_l2(g[valid], w[valid]) for g, w in zip(got[key], want[key])]
+    rows["layers"] = {n: rel_l2(got["layers"][n], w) for n, w in want["layers"].items()}
+    rows["flips"] = {}
+    for i, (g, w) in enumerate(zip(got["corners"], want["corners"])):
+        name = f"encoder.{i}" if i < n_enc else f"decoder.{i - n_enc}"
+        rows["flips"][name] = int((g != w).any(-1).sum())
+    return rows
+
+
+def term_gaps(got, want):
+    """{term: (the largest relative L2 gap over the tensors with a nonzero
+    gradient, floored at GRAD_FLOOR of the term's largest element, that
+    tensor)} of two `term_grads` results."""
+    out = {}
+    for t, w in want.items():
+        floor = GRAD_FLOOR * max(float(v.abs().max()) for v in w.values())
+        gaps = [(rel_l2(got[t][n], v, floor), n) for n, v in w.items() if v.abs().max() > 0]
+        out[t] = max(gaps)
+    return out
+
+
+def flipped_layer(name: str, flips) -> bool:
+    """Whether parameter `name` belongs to an encoder or decoder layer where
+    `flips` (layout_gaps') counted a corner flip."""
+    return any(c and f".{layer.split('.')[0]}.layers.{layer.split('.')[1]}." in name
+               for layer, c in flips.items())
 
 
 def dp_f32_steps(cfg, model, batches):
@@ -4752,12 +5024,15 @@ def run_dp_workers(world: int, out: str, flag="--dp-worker", result="dp_gloo.pt"
 
 def dp_setup(out):
     """Phases 26 and 27's inputs in `out`: the seeded paper-config weights
-    (dp_weights.pt) and the two global batches' midpoint target rotations
-    (dp_rotations.npz). Returns (f32 config, bf16 config, the weights, the
-    f32 model holding them)."""
+    (dp_weights.pt) and the two global batches' target rotations, midpoints
+    (dp_rotations.npz) and conditioned (CONDITIONED_FILE: every decoder
+    layer's valid pair 20-160 degrees from its target,
+    `flagship.conditioned_rotations` from CONDITIONED_SEED), both from one
+    f32 forward (`predicted_rotations`). Returns (f32 config, bf16 config,
+    the weights, the f32 model holding them)."""
     import torch
 
-    from poet_tpu_torch.flagship import flagship_batch
+    from poet_tpu_torch.flagship import conditioned_rotations, flagship_batch
     from poet_tpu_torch.models import build_model
     from poet_tpu_torch.utils.init import init_weights
 
@@ -4767,8 +5042,12 @@ def dp_setup(out):
     torch.save(seeded, os.path.join(out, "dp_weights.pt"))
     model32 = dp_model(cfg32, seeded)
     one = [flagship_batch(DP_B * DP_RANKS, *FLAGSHIP_HW, seed=seed) for seed in (0, 1)]
-    rotations = {f"batch{s}": midpoint_rotations(model32, b) for s, b in enumerate(one)}
-    np.savez(os.path.join(out, "dp_rotations.npz"), **rotations)
+    rot = [predicted_rotations(model32, b) for b in one]
+    np.savez(os.path.join(out, "dp_rotations.npz"),
+             **{f"batch{s}": midpoint_rotations(r, b[2]) for s, (r, b) in enumerate(zip(rot, one))})
+    np.savez(os.path.join(out, CONDITIONED_FILE),
+             **{f"batch{s}": conditioned_rotations(r, b[2], CONDITIONED_SEED + s)
+                for s, (r, b) in enumerate(zip(rot, one))})
     return cfg32, cfg16, seeded, model32
 
 
@@ -4865,13 +5144,19 @@ TP_LAYOUTS = ((1, 1, 2), (1, 2, 1))
 # a layout's f32 steps against one process on the same images: the losses
 # and parameters at phase 26's same-shards tolerances (DP_SAME_TOL); the
 # grad norm and the gradients at phase 8's card-vs-CPU ones (the grad norm
-# at the gradients' L2 one, as phase 26 holds its 16-image step): a
-# row-parallel product is summed in halves and then over 'model', another
-# order of the same f32 sums, and a pose head's ReLU pre-activation within
-# a rounding of 0 then takes the other side (one process's rotation-head
-# gradients move by 1.3e-5..2.0e-5 relative L2 under a 1e-7 relative
-# perturbation of the decoder's weights at 64x64 on the CPU; the card gave
-# 1.15e-3 under (1,1,2) at the paper config)
+# at the gradients' L2 one). Measured cause of the gap (C9; NVIDIA H100 80GB
+# HBM3, 700.00 W): TP sums a row-parallel product in halves and then over
+# 'model', and cuBLAS takes the column-parallel ones at half the width, so
+# every layer's output parts from one process's by 3e-7..8e-7 relative;
+# one process taking that order (tp_order) reproduces TP's forward bit for
+# bit and its gradients within 1.2e-6. The gradients amplify it: on the
+# midpoint targets decoder layer 3 holds a pair 179.81 degrees from its
+# target, where the arccos's gradient -1/sin(theta) moves the loss's
+# gradient of that layer's rotations by 5.3e-3 (rotation_head.3: 8.45e-4);
+# on targets 20-160 degrees away the encoder's sampling offsets, input
+# projections and level embedding, sums over 12 800 tokens that cancel,
+# part by up to 1.2e-4 with the sampling locations pinned, 3.1e-4 where 1-2
+# points cross a cell edge
 LAYOUT_TOL = (DP_SAME_TOL[0], TRAIN_F32_L2_RTOL, TRAIN_F32_L2_RTOL, TRAIN_F32_MAX_RTOL,
               DP_SAME_TOL[4])
 SERVE_DEVICES = ("cuda:0", "cuda:0")
@@ -4962,15 +5247,34 @@ def tp_worker(rank: int, world: int, port: int, out: str) -> int:
         cfg32, cfg16 = dp_config("float32", False), dp_config("bfloat16", False)
         layout = mesh.create_layout(*lay, nheads=cfg32.model.nheads,
                                     dim_feedforward=cfg32.model.dim_feedforward)
-        model = tp.shard_module(dp_model(cfg32, seeded), layout)
-        with relu_near_zero(model) as near:
+
+        def sharded():
+            return tp.shard_module(dp_model(cfg32, seeded), layout)
+
+        model = sharded()
+        probed = lay == C9_LAYOUT
+        with layout_probes(model) if probed else contextlib.nullcontext() as probe:
             result[f"f32 {layout_name(lay)}"] = dp_f32_steps(cfg32, model, batches)
-        # a sharded linear1's columns are split over the processes, the heads replicated
-        ranks = [None] * world
-        dist.all_gather_object(ranks, near)
-        result[f"relu {layout_name(lay)}"] = {
-            n: sum(r[n] for r in ranks) if n.endswith("linear1") else near[n] for n in near}
         del model
+        if probed:
+            # C9: the midpoint run's records, the conditioned targets with
+            # and without one process's sampling locations, each term alone
+            cond = dp_batches(rank_rows(0), os.path.join(out, CONDITIONED_FILE))
+            result["c9 midpoint"] = {"probe": probe,
+                                     "terms": term_grads(cfg32, sharded(), batches[0])}
+            model = sharded()
+            with layout_probes(model) as probe:
+                result["c9 conditioned"] = {"steps": dp_f32_steps(cfg32, model, cond),
+                                            "probe": probe,
+                                            "terms": term_grads(cfg32, sharded(), cond[0])}
+            model = sharded()
+            with layout_probes(model) as probe, \
+                    sampling_pin(model, torch.load(os.path.join(out, PINNED_FILE),
+                                                   weights_only=True)):
+                result["c9 pinned"] = {"steps": dp_f32_steps(cfg32, model, cond)}
+            result["c9 pinned"]["probe"] = probe
+            del model
+            torch.cuda.empty_cache()
         model = tp.shard_module(dp_model(cfg16, seeded), layout)
         result[f"bf16 {layout_name(lay)}"] = dp_bf16_steps(cfg16, model, rank, rank_rows(0),
                                                            layout.n_seq)
@@ -5051,6 +5355,145 @@ def phase_serve_devices(report):
         f"launches {LAUNCH_NAMES} {counts} (each shard its forward's)")
 
 
+def per_tensor_gaps(got, want):
+    """[(relative L2, relative max, name)] of each first-step gradient
+    tensor, largest L2 first; dp_compare's floor (GRAD_FLOOR of the largest
+    element) under each denominator."""
+    floor = GRAD_FLOOR * max(float(v.abs().max()) for v in want.values())
+    return sorted(((float((got[n] - v).norm()) / (float(v.norm()) + floor),
+                    float((got[n] - v).abs().max()) / (float(v.abs().max()) + floor), n)
+                   for n, v in want.items()), reverse=True)
+
+
+def c9_checks(cfg, want, got, mid_targets, cond_targets):
+    """Phase 27's C9 lines and holds. `want`: this process's records
+    (phase_multi_device: one process on the midpoint and the conditioned
+    targets, the one-ulp control, one process in TP's order of sums with and
+    without the pin); `got`: the workers' ("c9 ..." entries of tp_worker);
+    the first batch's targets of each set. Prints, for each target set, the
+    pairs' angles per decoder layer (every angle of the midpoint run), the
+    per-layer gaps of C9_LAYOUT from one process (rotations, their
+    gradient, layer outputs, corner flips per deformable-attention call)
+    and each loss term's gradient gap; then, on the conditioned targets,
+    each run's per-tensor gaps from one process and C9_LAYOUT's from one
+    process in its order of sums. Holds the conditioned pairs in their
+    band, C9_LAYOUT against one process in its order of sums at
+    CONDITIONED_TOL (pinned: every tensor; unpinned: the first step outside
+    the layers where the two runs' corners part), and the conditioned runs
+    against one process at LAYOUT_TOL, as the midpoint run. Returns the
+    numbers for the report."""
+    from poet_tpu_torch.flagship import CONDITIONED_BAND_DEG
+
+    lay = layout_name(C9_LAYOUT)
+    n_enc = cfg.model.enc_layers
+    out = {}
+    for key, tg in (("midpoint", mid_targets), ("conditioned", cond_targets)):
+        w, g = want[key], got[f"c9 {key}"]
+        pairs = {"one process": pair_report(w["probe"]["rotations"], tg),
+                 lay: pair_report(g["probe"]["rotations"], tg)}
+        gaps = layout_gaps(g["probe"], w["probe"], tg, n_enc)
+        terms = term_gaps(g["terms"], w["terms"])
+        out[key] = {"pairs": pairs, "gaps": gaps, "terms": terms}
+        log(f"C9 {key} targets, the first step's forward: per decoder layer, valid pairs / "
+            f"smallest sin^2 of the angle to the target (that angle, degrees) / pairs on the "
+            f"arccos clamp (0.5 (tr - 1) within {ARCCOS_CLAMP} of +-1): " + "; ".join(
+                f"{run}: " + ", ".join(f"L{l} {p['n']} / {p['min_sin2']:.3e} "
+                                       f"({p['min_sin2_deg']:.3f}) / {p['clamped']}"
+                                       for l, p in enumerate(rows))
+                for run, rows in pairs.items()))
+        if key == "midpoint":
+            log("C9 midpoint targets, every valid pair's angle to its target (degrees, one "
+                "process, first step): " + "; ".join(
+                    f"L{l} {p['deg']}" for l, p in enumerate(pairs["one process"])))
+        log(f"C9 {key} targets, ({lay}) against one process, first step: per decoder layer, "
+            f"relative L2 gap of the predicted rotations / of the loss's gradient of them "
+            f"(valid pairs): " + gap_text(gaps)
+            + " | each loss term's gradient alone, largest relative L2 gap (tensor): "
+            + ", ".join(f"{t} {x:.2e} ({n})" for t, (x, n) in terms.items()))
+    lo, hi = CONDITIONED_BAND_DEG
+    for run, rows in out["conditioned"]["pairs"].items():
+        worst = [(min(p["deg"]), max(p["deg"])) for p in rows]
+        if any(a < lo or b > hi for a, b in worst):
+            raise AssertionError(f"C9 conditioned targets ({run}): a pair outside {lo}-{hi} "
+                                 f"degrees, per layer (min, max) {worst}")
+
+    # the conditioned runs by tensor: against one process, and C9_LAYOUT
+    # against one process in its order of sums
+    lr, ref = cfg.optim.lr, want["conditioned"]["steps"]
+    runs = {f"({lay}) pinned": got["c9 pinned"], f"({lay})": got["c9 conditioned"],
+            "TP's order pinned": want["tp order pinned"], "TP's order": want["tp order"],
+            "one-ulp control": want["control"]}
+    errs = {}
+    for label, run in runs.items():
+        errs[label] = dp_compare(run["steps"], ref, lr)
+        top = per_tensor_gaps(run["steps"][1], ref[1])[:TP_GAP_TOP]
+        log(f"C9 conditioned targets, {label} against one process (pinned: the sampling "
+            f"offsets and weights of one process's run): {dp_text(errs[label])} | by tensor "
+            f"(relative L2 / max, the {TP_GAP_TOP} largest): "
+            + ", ".join(f"{n} {a:.2e} / {b:.2e}" for a, b, n in top))
+    for label, run in (("pinned", "tp order pinned"), ("unpinned", "tp order")):
+        log(f"C9 conditioned targets, one process in TP's order of sums, {label}, against one "
+            f"process, first step: " + gap_text(layout_gaps(
+                want[run]["probe"], want["conditioned"]["probe"], cond_targets, n_enc)))
+    control = layout_gaps(want["control"]["probe"], want["conditioned"]["probe"],
+                          cond_targets, n_enc)
+    log(f"C9 one-ulp control (every trained tensor one ulp up or down at random, pinned) "
+        f"against one process, first step: " + gap_text(control))
+    same = {}
+    for label, mine, theirs in (("pinned", "c9 pinned", "tp order pinned"),
+                                ("unpinned", "c9 conditioned", "tp order")):
+        gaps = layout_gaps(got[mine]["probe"], want[theirs]["probe"], cond_targets, n_enc)
+        errs_same = dp_compare(got[mine]["steps"], want[theirs]["steps"], lr)
+        tensors = per_tensor_gaps(got[mine]["steps"][1], want[theirs]["steps"][1])
+        flips = gaps["flips"]
+        held = [(a, b, n) for a, b, n in tensors if not flipped_layer(n, flips)]
+        loss1 = max(abs(got[mine]["steps"][0][0][k] - v) / max(abs(v), 1e-12)
+                    for k, v in want[theirs]["steps"][0][0].items() if k != "grad_norm")
+        same[label] = {"errors": errs_same, "flips": flips, "held": len(held),
+                       "top": tensors[:TP_GAP_TOP], "loss_step1": loss1}
+        log(f"C9 conditioned targets, ({lay}) {label} against one process in its order of "
+            f"sums (tolerances {CONDITIONED_TOL}): {dp_text(errs_same)}; first-step losses "
+            f"{loss1:.2e}; {len(held)} of {len(tensors)} tensors outside the layers whose "
+            f"corners part: largest L2 {max([a for a, _, _ in held] or [0.0]):.2e} / max "
+            f"{max([b for _, b, _ in held] or [0.0]):.2e} | first step: " + gap_text(gaps)
+            + f" | by tensor (the {TP_GAP_TOP} largest): "
+            + ", ".join(f"{n} {a:.2e} / {b:.2e}" for a, b, n in tensors[:TP_GAP_TOP]))
+    out.update({"errors": errs, "tp_order": same,
+                "control_layers": control["layers"]})
+    for label in (f"({lay}) pinned", f"({lay})"):
+        dp_hold(f"layout {lay} conditioned targets {label} against one process", errs[label],
+                LAYOUT_TOL)
+    dp_hold(f"layout {lay} conditioned targets pinned against one process in its order of sums",
+            same["pinned"]["errors"], CONDITIONED_TOL)
+    over = [(a, b, n) for a, b, n in per_tensor_gaps(got["c9 conditioned"]["steps"][1],
+                                                     want["tp order"]["steps"][1])
+            if not flipped_layer(n, same["unpinned"]["flips"])
+            and (a > CONDITIONED_TOL[2] or b > CONDITIONED_TOL[3])]
+    if same["unpinned"]["loss_step1"] > CONDITIONED_TOL[0] or over:
+        raise AssertionError(f"layout {lay} conditioned targets against one process in its "
+                             f"order of sums: first-step losses "
+                             f"{same['unpinned']['loss_step1']:.2e}; tensors outside the layers "
+                             f"whose corners part over {CONDITIONED_TOL[2:4]}: {over[:5]}")
+    return out
+
+
+def gap_text(gaps) -> str:
+    """layout_gaps' numbers as one line."""
+    return (", ".join(f"L{l} {a:.2e} / {b:.2e}" for l, (a, b) in
+                      enumerate(zip(gaps["rotations"], gaps["d_rotations"])))
+            + " | layer outputs: " + ", ".join(f"{n} {x:.2e}" for n, x in gaps["layers"].items())
+            + " | sampling points whose corner floor(fl(fl(loc*size) - 0.5)) differs, per "
+              "deformable-attention call: " + ", ".join(f"{n} {c}" for n, c in
+                                                        gaps["flips"].items()))
+
+
+def dp_text(e) -> str:
+    """dp_compare's errors as one phrase."""
+    return (f"losses {e['loss']:.2e}, grad norm {e['grad_norm']:.2e}, gradients L2 "
+            f"{e['grad_l2']:.2e} ({e.get('grad_l2_at')}) / max {e['grad_max']:.2e} "
+            f"({e.get('grad_max_at')}), parameters {e['param']:.2e} lr")
+
+
 def phase_multi_device(report):
     """Phase 27 (see the module docstring), its files in a temporary
     directory removed afterwards."""
@@ -5065,10 +5508,27 @@ def phase_multi_device(report):
         out = os.path.join(tmp, "tp")
         cfg32, cfg16, seeded, model32 = dp_setup(out)
         batches = dp_batches(rank_rows(0), os.path.join(out, "dp_rotations.npz"))
+        cond = dp_batches(rank_rows(0), os.path.join(out, CONDITIONED_FILE))
         one = copy.deepcopy(model32)
-        with relu_near_zero(one) as relu_one:
+        with layout_probes(one) as probe:
             want = dp_f32_steps(cfg32, one, batches)
-        del model32, one
+        c9 = {"midpoint": {"probe": probe,
+                           "terms": term_grads(cfg32, copy.deepcopy(model32), batches[0])}}
+        one = copy.deepcopy(model32)
+        with layout_probes(one) as probe, sampling_pin(one) as sampling:
+            c9["conditioned"] = {"steps": dp_f32_steps(cfg32, one, cond), "probe": probe,
+                                 "terms": term_grads(cfg32, copy.deepcopy(model32), cond[0])}
+        torch.save(sampling, os.path.join(out, PINNED_FILE))
+        one = nudged(copy.deepcopy(model32))
+        with layout_probes(one) as probe, sampling_pin(one, sampling):
+            c9["control"] = {"steps": dp_f32_steps(cfg32, one, cond), "probe": probe}
+        for pin in (None, sampling):
+            one = copy.deepcopy(model32)
+            with layout_probes(one) as probe, tp_order(one, C9_LAYOUT[2]), \
+                    sampling_pin(one, pin):
+                c9["tp order" if pin is None else "tp order pinned"] = {
+                    "steps": dp_f32_steps(cfg32, one, cond), "probe": probe}
+        del model32, one, sampling
         model16 = dp_model(cfg16, seeded)
         # the bf16 timing's batch: dp_bf16_steps' (the flagship targets)
         single, _, history, _ = drive_train("single process B=8", cfg16,
@@ -5089,23 +5549,14 @@ def phase_multi_device(report):
         # dropout masks: partials rounded to bf16 before their reduce (reported)
         layouts[name]["bf16_loss_gap"] = max(abs(a / b["loss"] - 1) for a, b in
                                              zip(layouts[name]["loss"], history))
-    gaps = {name: grad_gaps(got[f"f32 {name}"][1], want[1]) for name in errs}
-    relu = {"one process": relu_one, **{name: got[f"relu {name}"] for name in errs}}
+    gaps = {name: per_tensor_gaps(got[f"f32 {name}"][1], want[1])[:TP_GAP_TOP]
+            for name in errs}
     for name, gap in gaps.items():
-        log(f"layout {name}: gradient gap from one process by tensor (relative L2, the "
-            f"{TP_GAP_TOP} largest of {len(gap)}): "
-            + ", ".join(f"{n} {x:.2e}" for x, n in gap[:TP_GAP_TOP]))
-    log("ReLU pre-activations within one f32 rounding of 0 (|z| <= 2^-24 (|x| |W|^T + |b|)) "
-        "in the first step's forward, by run (pose heads' hidden layers / FFN linear1, "
-        "summed over layers; the heads and their nonzero counts by name): " + "; ".join(
-            f"{run}: {sum(c for n, c in r.items() if 'head' in n)} / "
-            f"{sum(c for n, c in r.items() if n.endswith('linear1'))} "
-            f"({', '.join(f'{n} {c}' for n, c in r.items() if c and 'head' in n) or 'none'})"
-            for run, r in relu.items()))
+        log(f"layout {name}, midpoint targets: gradient gap from one process by tensor "
+            f"(relative L2 / max, the {TP_GAP_TOP} largest): "
+            + ", ".join(f"{n} {a:.2e} / {b:.2e}" for a, b, n in gap))
     report["layouts"] = {"single": single, "errors": errs, "bf16": layouts,
-                         "workers_s": t_workers, "grad_gaps": {k: v[:TP_GAP_TOP]
-                                                               for k, v in gaps.items()},
-                         "relu_near_zero": relu}
+                         "workers_s": t_workers, "grad_gaps": gaps}
     report["layout_launches"] = {name: r["launches"] for name, r in layouts.items()}
     text = "; ".join(
         f"({name}) losses {e['loss']:.2e}, grad norm {e['grad_norm']:.2e}, gradients L2 "
@@ -5123,6 +5574,7 @@ def phase_multi_device(report):
     for name, e in errs.items():
         dp_hold(f"layout {name} f32 against one process on the same {DP_B} images", e,
                 LAYOUT_TOL)
+    report["layouts"]["c9"] = c9_checks(cfg32, c9, got, batches[0][2], cond[0][2])
     phase_serve_devices(report)
     log(f"phase 27 in {time.perf_counter() - t0:.1f} s")
 

@@ -298,9 +298,10 @@ def resolve_device(name: str):
 
 def load_backbone_weights(model, cfg):
     """--backbone_weights into the model's backbone: a torchvision-named
-    detector .pth (strict=False, with merge_params' report) or, for yolov4, a
-    darknet .weights file (strict, through utils/darknet_import.py)."""
-    from poet_tpu_torch.engine.checkpoint import _torch_load, merge_params
+    detector .pth or .npz (strict=False, with merge_params' report; read by
+    `engine/checkpoint.py:load_state_dict_file`) or, for yolov4, a darknet
+    .weights file (strict, through utils/darknet_import.py)."""
+    from poet_tpu_torch.engine.checkpoint import load_state_dict_file, merge_params
 
     path = cfg.backbone.weights
     if path.endswith(".weights"):
@@ -314,14 +315,7 @@ def load_backbone_weights(model, cfg):
             load_cfg_sections(cfg.backbone.cfg_path), path))
         print(f"Loaded backbone weights from {path}")
         return
-    sd = _torch_load(path)
-    if isinstance(sd, dict):
-        for key in ("model", "state_dict", "model_state_dict"):
-            if isinstance(sd.get(key), dict):
-                sd = sd[key]
-                break
-    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
-    missing, unexpected = merge_params(model.backbone, sd)
+    missing, unexpected = merge_params(model.backbone, load_state_dict_file(path))
     print(f"Loaded backbone weights from {path}")
     if missing:
         print("Backbone missing keys:", missing)

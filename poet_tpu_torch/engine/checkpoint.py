@@ -19,8 +19,13 @@ Parity target: the reference's main.py:285-317,357-369:
     so it resumes with or without `--zero_opt_state`, over any number of
     processes.
 
-`--resume` also takes a reference model-zoo `.pth` and an http(s) or file://
-URL to either. A zoo file keeps its detector under `backbone.0.` (the port
+`--resume` also takes a reference model-zoo file and an http(s) or file://
+URL to either. A zoo file is read as `poet_tpu/utils/torch_import.py:
+load_state_dict_file` reads it (`load_state_dict_file`): a `.pth`/`.pt`
+through `torch.load`, a `.npz` through numpy; the state dict under
+"model", "state_dict" or "model_state_dict", or the bare dict; DDP's
+`module.` prefix dropped. `--backbone_weights` reads its `.pth`/`.npz` the
+same way. A zoo file keeps its detector under `backbone.0.` (the port
 names it `backbone.`) and a learned position embedding under `backbone.1.`
 (the port: `position_embedding.`); its aleatoric heads
 (`{translation,rotation}_head_aleatoric.*`) are read only for an aleatoric
@@ -38,12 +43,15 @@ import re
 import urllib.request
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 # the reference's Joiner: Sequential(detector, position embedding)
 ZOO_PREFIX = "backbone.0."
 ZOO_POSITION_PREFIX = "backbone.1."
+# the keys a zoo file may hold its state dict under, in the order they are tried
+ZOO_PAYLOAD_KEYS = ("model", "state_dict", "model_state_dict")
 
 
 def _torch_load(path: str):
@@ -110,17 +118,51 @@ def fetch_checkpoint(path: str) -> str:
     return dest
 
 
-def load_checkpoint(path: str) -> Tuple[Dict, int]:
-    """A checkpoint file -> (payload, start epoch = its epoch + 1)."""
+def _refuse_directory(path: str) -> None:
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory: an orbax checkpoint written by poet_tpu, which the port "
             "cannot read without orbax. Resume from a .pth: the port's own checkpoint or a "
             "reference model-zoo file")
+
+
+def load_checkpoint(path: str) -> Tuple[Dict, int]:
+    """A checkpoint file -> (payload, start epoch = its epoch + 1)."""
+    _refuse_directory(path)
     payload = _torch_load(path)
     if not isinstance(payload, dict) or "model" not in payload:
         raise ValueError(f"{path} holds no 'model' state dict")
     return payload, int(payload.get("epoch", -1)) + 1
+
+
+def _read_file(path: str):
+    """A `.npz` as {name: tensor}, any other file through `_torch_load`."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return {k: torch.from_numpy(z[k]) for k in z.files}
+    return _torch_load(path)
+
+
+def _zoo_state_dict(obj) -> Dict:
+    """The state dict of a loaded zoo file: under the first of
+    ZOO_PAYLOAD_KEYS that holds a dict, else the file's dict itself; DDP's
+    `module.` prefix dropped."""
+    if isinstance(obj, dict):
+        for key in ZOO_PAYLOAD_KEYS:
+            if isinstance(obj.get(key), dict):
+                obj = obj[key]
+                break
+    if not isinstance(obj, dict):
+        raise ValueError(f"a zoo file holds a state dict, not a {type(obj).__name__}")
+    return {k[len("module."):] if k.startswith("module.") else k: v for k, v in obj.items()}
+
+
+def load_state_dict_file(path: str) -> Dict:
+    """A reference zoo or detector file (`.pth`/`.pt`/`.npz`) -> its flat
+    state dict, as `poet_tpu/utils/torch_import.py:load_state_dict_file`
+    reads it."""
+    _refuse_directory(path)
+    return _zoo_state_dict(_read_file(path))
 
 
 def zoo_to_port(sd: Dict, aleatoric: bool = False) -> Dict:
@@ -147,14 +189,16 @@ def zoo_to_port(sd: Dict, aleatoric: bool = False) -> Dict:
 
 def load_resume(path: str, aleatoric: bool = False) -> Tuple[Dict, int]:
     """`--resume` dispatcher: the port's checkpoint (parameters, optimizer
-    state, epoch) or a reference zoo `.pth` (parameters only, through
+    state, epoch) or a reference zoo file (parameters only, through
     `zoo_to_port`: training starts at epoch 0 with a fresh optimizer), a
     local path or a URL. Returns (payload, start_epoch); payload["model"] is
     in the port's names."""
-    payload, start = load_checkpoint(fetch_checkpoint(path))
-    if "config" in payload:                           # the port's own file
-        return payload, start
-    return {"model": zoo_to_port(payload["model"], aleatoric)}, 0
+    local = fetch_checkpoint(path)
+    _refuse_directory(local)
+    obj = _read_file(local)
+    if isinstance(obj, dict) and "config" in obj and "model" in obj:   # the port's own file
+        return obj, int(obj.get("epoch", -1)) + 1
+    return {"model": zoo_to_port(_zoo_state_dict(obj), aleatoric)}, 0
 
 
 def merge_params(module: nn.Module, state_dict: Dict[str, torch.Tensor]):

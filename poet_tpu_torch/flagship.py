@@ -63,6 +63,55 @@ def flagship_batch(B: int, H: int = 480, W: int = 640, seed: int = 0
     return images, pad_mask, targets
 
 
+# the band of angles, in degrees, that `conditioned_rotations` puts every
+# decoder layer's valid pair in, and the candidates it draws per query
+CONDITIONED_BAND_DEG = (20.0, 160.0)
+CONDITIONED_CANDIDATES = 64
+
+
+def pair_angles(rotations: np.ndarray, targets: np.ndarray) -> np.ndarray:
+    """The geodesic angle (radians, f64) between each predicted rotation
+    (..., B, Q, 3, 3) and its target (B, Q, 3, 3) (gt mode: query q is
+    matched to target q), unclamped: the angle the rotation loss's arccos
+    takes before its clamp."""
+    rel = np.asarray(rotations, np.float64) @ np.swapaxes(np.asarray(targets, np.float64),
+                                                          -1, -2)
+    cos = 0.5 * (np.trace(rel, axis1=-2, axis2=-1) - 1.0)
+    return np.arccos(np.clip(cos, -1.0, 1.0))
+
+
+def conditioned_rotations(rotations: np.ndarray, targets: Dict[str, np.ndarray], seed: int,
+                          band_deg: Tuple[float, float] = CONDITIONED_BAND_DEG) -> np.ndarray:
+    """Target rotations (B, Q, 3, 3) f32 on which every decoder layer's
+    prediction of each valid query lies `band_deg` from its target.
+
+    The rotation loss is arccos(0.5 (tr(R T^T) - 1)): its gradient is
+    -1 / sin(theta), so a pair near 0 or pi turns a rounding of the forward
+    into a large change of the gradient. `rotations` are the model's
+    predictions (n_layers, B, Q, 3, 3); for each valid query (q <
+    n_boxes[b]) CONDITIONED_CANDIDATES uniform rotations are drawn from
+    `seed` and the first one whose angle to every layer's prediction lies in
+    the band is taken (ValueError if none does). Other slots keep the
+    batch's targets."""
+    rot = np.asarray(rotations, np.float64)
+    B, Q = rot.shape[1:3]
+    K = CONDITIONED_CANDIDATES
+    quat = np.random.default_rng(seed).normal(size=(B, Q, K, 4))
+    w, x, y, z = np.moveaxis(quat / np.linalg.norm(quat, axis=-1, keepdims=True), -1, 0)
+    cand = np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+                     2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+                     2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+                    -1).reshape(B, Q, K, 3, 3)
+    theta = np.degrees(pair_angles(rot[:, :, :, None], cand))            # (L, B, Q, K)
+    ok = ((theta >= band_deg[0]) & (theta <= band_deg[1])).all(0)       # (B, Q, K)
+    valid = np.arange(Q)[None, :] < targets["n_boxes"][:, None]
+    if not ok.any(-1)[valid].all():
+        raise ValueError(f"no candidate of {K} puts every layer within {band_deg} degrees")
+    pick = np.take_along_axis(cand, ok.argmax(-1)[..., None, None, None], 2)[:, :, 0]
+    return np.where(valid[..., None, None], pick,
+                    targets["relative_rotation"]).astype(np.float32)
+
+
 def detect_pose_config(dtype: str = "bfloat16") -> PoETConfig:
     """`bench.py:bench_maskrcnn_detect_pose`'s config: the paper config in
     bbox_mode='backbone' (n_classes 21 -> 22 detector classes)."""
