@@ -306,7 +306,18 @@ Phases, each raising on failure:
      train_yolo_gt), then p50 against the parent commit's path (the decode
      and NMS run, unread) in turns (parent, change, change, parent, twice),
      and the fixed-point iterations the parent's path runs a request.
-Phases 4, 7, 10, 13, 16, 17, 20, 23, 24, 25, 26, 27, 28 and 29's paths each
+ 30. resume from poet_tpu's orbax checkpoint: libzstd's path and version;
+     the committed fixture (tests/data/orbax_resume: one poet_tpu SGD step
+     of the YOLOv4-CSP mini cfg under a hidden-32 1+1-layer transformer, gt
+     mode) read by `utils/orbax_format.py:read_pytree` (ms, median of 5,
+     warm file cache), every leaf's SHA-256 against its digests.json; the
+     port's config from the checkpoint's config.json, the model and the
+     optimizer resumed (`load_resume`, `Optimizer.load_optax_state`) on the
+     card and on the CPU, one f32 step each (B=2, 128x128, TF32 off): the
+     losses within 1e-5 relative and every parameter within 1e-3 of lr; the
+     card step's launches held to the route rules (its stem convs and its
+     forward and merged-adjoint launches: train_orbax_resume).
+Phases 4, 7, 10, 13, 16, 17, 20, 23, 24, 25, 26, 27, 28, 29 and 30's paths each
 set every kernel's launch count to 0 before they drive their path and read them after, and hold them
 to the wrappers' route rules (`path_launches`, `roi_launches`; the v2
 kernel, the probes, the merged adjoint's atomic route and RoIAlign's gather
@@ -5961,6 +5972,168 @@ def phase_leftovers(report):
     log(f"phase 29 in {time.perf_counter() - t0:.1f} s")
 
 
+# phase 30: poet_tpu's orbax checkpoint (tests/data/orbax_resume, written by
+# tests/test_torch_orbax_resume.py:write_resume_fixture) resumed for one step
+ORBAX_FIXTURE = os.path.join(ROOT, "tests", "data", "orbax_resume")
+ORBAX_B, ORBAX_HW, ORBAX_SEED = 2, 128, 5
+ORBAX_LOSS_RTOL = 1e-5            # ROADMAP C's train-step tolerances: losses
+ORBAX_PARAM_LR = 1e-3             # and every parameter within this share of lr
+
+
+def orbax_batch(cfg, seed=ORBAX_SEED):
+    """ORBAX_B ORBAX_HW x ORBAX_HW images and gt targets of the config's
+    queries and classes, cut from `flagship.flagship_batch`'s draw."""
+    from poet_tpu_torch.flagship import flagship_batch
+
+    Q, ncls = cfg.model.num_queries, cfg.model.n_classes
+    images, pad_mask, t = flagship_batch(ORBAX_B, ORBAX_HW, ORBAX_HW, seed)
+    n = np.minimum(t["n_boxes"], Q).astype(np.int32)
+    valid = np.arange(Q)[None] < n[:, None]
+    labels = (t["labels"][:, :Q] - 1) % ncls + 1
+    targets = {"boxes": np.where(valid[..., None], t["boxes"][:, :Q], -1.0).astype(np.float32),
+               "labels": np.where(valid, labels, -1).astype(np.int32), "n_boxes": n,
+               "relative_position": t["relative_position"][:, :Q],
+               "relative_rotation": t["relative_rotation"][:, :Q]}
+    return images, pad_mask, targets
+
+
+def orbax_config():
+    """The port's config of the fixture, from the checkpoint's own
+    config.json (poet_tpu's), its darknet cfg path made absolute."""
+    from poet_tpu_torch.config import PoETConfig
+
+    with open(os.path.join(ORBAX_FIXTURE, "checkpoint", "config.json")) as f:
+        cfg = PoETConfig.from_json(f.read())
+    cfg.backbone.cfg_path = os.path.join(ROOT, cfg.backbone.cfg_path)
+    return cfg
+
+
+def orbax_resumed_step(cfg, device, batch):
+    """The model and optimizer resumed from the fixture on `device`, then
+    (model, stem calls, encoder tokens, a function running one step and
+    returning its metrics): the resume itself is outside the step."""
+    import torch
+
+    from poet_tpu_torch.engine.checkpoint import load_resume, merge_params
+    from poet_tpu_torch.engine.train import (fetch_metrics, make_optimizer, make_train_step,
+                                             prepare_batch)
+    from poet_tpu_torch.models import build_model
+
+    ckpt = os.path.join(ORBAX_FIXTURE, "checkpoint")
+    model = build_model(cfg)
+    payload, start = load_resume(ckpt, model=model, cfg=cfg)
+    missing, unexpected = merge_params(model, payload["model"])
+    if missing or unexpected or start != 1:
+        raise AssertionError(f"orbax resume: missing {missing}, unexpected {unexpected}, "
+                             f"start epoch {start}")
+    model.to(device)
+    opt = make_optimizer(cfg, model, steps_per_epoch=1000)
+    opt.load_optax_state(payload["optax"], payload["step"])
+    step = make_train_step(model, cfg, opt)
+    gen = torch.Generator(device=device).manual_seed(0)
+    seen = {"stem": 0, "tokens": 0}
+    body, stem = model.backbone.body, model.backbone.body._stem
+
+    def counted_stem(*a, **k):
+        seen["stem"] += 1
+        return stem(*a, **k)
+
+    def tokens(mod, args, out):                     # a level's map, NCHW
+        seen["tokens"] += out.shape[-2] * out.shape[-1]
+
+    def run():
+        body._stem = counted_stem
+        hooks = [p.register_forward_hook(tokens) for p in model.input_proj]
+        try:
+            return fetch_metrics(step(*prepare_batch(cfg, *batch, device), gen))
+        finally:
+            del body._stem
+            for h in hooks:
+                h.remove()
+
+    return model, seen, run
+
+
+def phase_orbax_resume(report):
+    """Phase 30: resume from poet_tpu's orbax checkpoint."""
+    import torch
+
+    from poet_tpu_torch import native
+    from poet_tpu_torch.utils.orbax_format import read_pytree, tree_digests
+
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"orbax: libzstd {native.zstd_library_path()}, version {native.zstd_version()}")
+    ckpt = os.path.join(ORBAX_FIXTURE, "checkpoint")
+    read_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        tree = read_pytree(ckpt)
+        read_ms.append((time.perf_counter() - t) * 1e3)
+    with open(os.path.join(ORBAX_FIXTURE, "digests.json")) as f:
+        want = json.load(f)
+    got = tree_digests(tree)
+    bad = sorted(k for k in set(want) | set(got) if want.get(k) != got.get(k))
+    if bad:
+        raise AssertionError(f"orbax: {len(bad)} leaves differ from digests.json: {bad[:5]}")
+    n_bytes = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(ckpt) for f in fs)
+    log(f"orbax: read {ckpt} ({n_bytes} bytes, {len(got)} array leaves) in "
+        f"{float(np.median(read_ms)):.2f} ms (median of 5 on the host; warm file cache), "
+        f"every leaf's SHA-256 equal to digests.json; {card}")
+
+    cfg = orbax_config()
+    batch = orbax_batch(cfg)
+    kernels = all_kernels()
+    n0 = [k.launches for k in kernels]
+    cpu_model, cpu_seen, cpu_run = orbax_resumed_step(cfg, "cpu", batch)
+    cpu_metrics = cpu_run()
+    if [k.launches for k in kernels] != n0:
+        raise AssertionError("orbax: the CPU step launched a CUDA kernel")
+    with tf32_off():
+        card_model, card_seen, card_run = orbax_resumed_step(cfg, DEVICE, batch)
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        t = time.perf_counter()
+        card_metrics = card_run()
+        step_ms = (time.perf_counter() - t) * 1e3
+        launches = [k.launches for k in kernels]
+    S = cpu_seen["tokens"]
+    want_launches = expected(**path_launches(cfg, S, 1, train=True), stem=cpu_seen["stem"])
+    if launches != want_launches or card_seen["stem"] != cpu_seen["stem"]:
+        raise AssertionError(f"orbax: the resumed card step launched {LAUNCH_NAMES} {launches}, "
+                             f"expected {want_launches} (S={S}, {cpu_seen['stem']} stem convs)")
+    if not cpu_seen["stem"]:
+        raise AssertionError("orbax: the fixture's darknet ran no stem conv")
+    loss_err = max(abs(card_metrics[k] - v) / max(abs(v), 1e-12)
+                   for k, v in cpu_metrics.items() if k != "grad_norm")
+    lr = cfg.optim.lr
+    cpu_p = dict(cpu_model.named_parameters())
+    param_err, worst = 0.0, ""
+    for name, p in card_model.named_parameters():
+        err = float((p.detach().cpu().double() - cpu_p[name].detach().double()).abs().max())
+        if err > param_err:
+            param_err, worst = err, name
+    if not (loss_err <= ORBAX_LOSS_RTOL and param_err <= ORBAX_PARAM_LR * lr):
+        raise AssertionError(f"orbax: resumed step card vs CPU: losses max rel err {loss_err:.3e} "
+                             f"(tol {ORBAX_LOSS_RTOL}), parameters max err {param_err:.3e} "
+                             f"({worst}; tol {ORBAX_PARAM_LR} x lr = {ORBAX_PARAM_LR * lr:.1e})")
+    log(f"orbax: one step resumed from poet_tpu's checkpoint (YOLOv4-CSP mini + hidden "
+        f"{cfg.model.hidden_dim} {cfg.model.enc_layers}+{cfg.model.dec_layers} layers, gt, f32, "
+        f"SGD, B={ORBAX_B}, {ORBAX_HW}x{ORBAX_HW}, S={S}, TF32 off), card vs CPU port: losses "
+        f"max rel err {loss_err:.3e} (tol {ORBAX_LOSS_RTOL}), parameters max err "
+        f"{param_err:.3e} = {param_err / lr:.2e} x lr ({worst}; tol {ORBAX_PARAM_LR} x lr); "
+        f"loss {cpu_metrics['loss']:.5f}; launches {LAUNCH_NAMES} {launches}; "
+        f"step {step_ms:.1f} ms (host clock, first call); {card}")
+    report["orbax_resume"] = {"launches": launches, "read_ms": float(np.median(read_ms)),
+                              "loss_rel_err": loss_err, "param_err_over_lr": param_err / lr}
+    del cpu_model, card_model
+    torch.cuda.empty_cache()
+    log(f"phase 30 in {time.perf_counter() - t0:.1f} s")
+
+
 def build_kernels():
     from poet_tpu_torch.ops.deform_attn_cuda import LIBRARIES, build_all
 
@@ -5986,7 +6159,7 @@ def main(argv) -> int:
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = {int(n) for n in argv[1].split(",")}
     elif argv:
-        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-29; 1-2 always run)",
+        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-30; 1-2 always run)",
               file=sys.stderr)
         return 2
     try:
@@ -6026,10 +6199,10 @@ def main(argv) -> int:
               23: lambda: phase_cli(report), 24: lambda: phase_variants(report),
               25: lambda: phase_train_detections(report), 26: lambda: phase_data(report),
               27: lambda: phase_multi_device(report), 28: lambda: phase_export(report),
-              29: lambda: phase_leftovers(report)}
+              29: lambda: phase_leftovers(report), 30: lambda: phase_orbax_resume(report)}
     spans = []
     for first, last in ((3, 8), (9, 11), (12, 14), (15, 17), (18, 20), (21, 22), (23, 23),
-                        (24, 25), (26, 26), (27, 27), (28, 28), (29, 29)):
+                        (24, 25), (26, 26), (27, 27), (28, 28), (29, 29), (30, 30)):
         t0 = time.perf_counter()
         for n in range(first, last + 1):
             if only is None or n in only:
@@ -6068,7 +6241,8 @@ def main(argv) -> int:
              **report["exported_launches"],
              "detect_capped": report["capped_detect"]["launches"],
              "serve_yolo_gt": report["yolo_gt"]["serve_launches"],
-             "train_yolo_gt": report["yolo_gt"]["train_launches"]}
+             "train_yolo_gt": report["yolo_gt"]["train_launches"],
+             "train_orbax_resume": report["orbax_resume"]["launches"]}
     roi, nn = report["roi"], report["nn"]
     errs, bounds = report["adjoint_max_abs_err"], report["adjoint_bounds"]
     src, tpu = "poet_tpu_torch/csrc/", "poet_tpu/ops/deform_attn_pallas_v3.py:"

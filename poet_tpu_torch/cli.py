@@ -8,7 +8,11 @@ reference's main.py:33-189): every option string of its `get_args_parser`
 is accepted, `args_to_config` fills the same config fields, and `main`
 follows `poet_tpu/cli.py:main`: train (default), `--eval`, `--eval_bop`,
 `--inference`, `--resume`, with the same checkpoints' schedule, log.txt,
-eval interval, NaN gate and SIGTERM checkpoint. It runs on the card
+eval interval, NaN gate and SIGTERM checkpoint. `--resume` takes the
+port's `checkpoint.pth`, a reference zoo file, a URL to either, or the
+orbax directory `poet_tpu` writes (`output_dir/checkpoint`: its
+parameters, optax's optimizer state, step and epoch; `--eval`,
+`--eval_bop`, `--inference` and `--export_model` take it too). It runs on the card
 (`--device cuda`, the default) and raises without one, unless the caller
 asks for the CPU (`--device cpu`).
 
@@ -375,7 +379,9 @@ def main(cfg: PoETConfig):
 
     resume_payload = None
     if cfg.runtime.resume:
-        resume_payload, start_epoch = load_resume(cfg.runtime.resume, cfg.model.aleatoric)
+        # the port's .pth, a zoo .pth/.npz, a URL to either, or poet_tpu's orbax directory
+        resume_payload, start_epoch = load_resume(cfg.runtime.resume, cfg.model.aleatoric,
+                                                  model=model, cfg=cfg)
         missing, unexpected = merge_params(model, resume_payload["model"])
         if missing:
             print("Missing Keys:", missing)
@@ -442,6 +448,10 @@ def main(cfg: PoETConfig):
     host_step = 0          # train steps taken (JAX's state.step)
     if resume_payload is not None and resume_payload.get("optimizer") is not None:
         optimizer.load_state_dict(resume_payload["optimizer"])
+        host_step = int(resume_payload["step"])
+    elif resume_payload is not None and resume_payload.get("optax") is not None:
+        # poet_tpu's orbax checkpoint: optax's state mapped onto the port's optimizer
+        optimizer.load_optax_state(resume_payload["optax"], int(resume_payload["step"]))
         host_step = int(resume_payload["step"])
     step_fn = make_train_step(model, cfg, optimizer)
     # dropout masks: a generator of the model's device, seeded per run

@@ -30,18 +30,31 @@ names it `backbone.`) and a learned position embedding under `backbone.1.`
 (the port: `position_embedding.`); its aleatoric heads
 (`{translation,rotation}_head_aleatoric.*`) are read only for an aleatoric
 model and required there, as `poet_tpu/engine/checkpoint.py:load_resume`
-converts them. Orbax directories written by `poet_tpu` cannot be read
-without orbax, which the port does not use: they raise.
+converts them.
+
+`--resume`, `--eval`, `--eval_bop`, `--inference` and `--export_model`
+also take the orbax directory that `poet_tpu` writes (its
+`engine/checkpoint.py:save_checkpoint`: {params, opt_state, step, epoch}
+and a config.json beside), read without orbax by
+`utils/orbax_format.py:read_pytree` (`load_orbax`): the parameters into
+the port's names through `utils/jax_params.py:jax_state_dict` (merged with
+the report, as `poet_tpu` merges them), optax's state kept raw for
+`engine/train.py:Optimizer.load_optax_state`, the step, and the start epoch
+= its epoch + 1. Its config.json is read only to print the model widths
+that differ from the command line's. A directory without `_METADATA`, or
+with zarr v3 arrays, raises. Directories are local: a URL names a file.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
+import json
 import os
 import re
 import urllib.request
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -119,16 +132,54 @@ def fetch_checkpoint(path: str) -> str:
 
 
 def _refuse_directory(path: str) -> None:
+    """A zoo or detector file is a file: a directory raises."""
     if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory: an orbax checkpoint written by poet_tpu, which the port "
-            "cannot read without orbax. Resume from a .pth: the port's own checkpoint or a "
-            "reference model-zoo file")
+        raise ValueError(f"{path} is a directory: a state-dict file (.pth/.pt/.npz) is read "
+                         "here; an orbax checkpoint directory is read by --resume")
 
 
-def load_checkpoint(path: str) -> Tuple[Dict, int]:
-    """A checkpoint file -> (payload, start epoch = its epoch + 1)."""
-    _refuse_directory(path)
+# the model fields whose difference from the command line load_orbax reports
+WIDTH_FIELDS = ("hidden_dim", "dim_feedforward", "enc_layers", "dec_layers", "nheads",
+                "num_queries", "num_feature_levels", "enc_n_points", "dec_n_points",
+                "n_classes", "aleatoric", "reference_points", "query_embedding")
+
+
+def load_orbax(path: str, model: nn.Module, cfg=None) -> Tuple[Dict, int]:
+    """An orbax checkpoint directory written by `poet_tpu` -> (payload,
+    start epoch = its epoch + 1), as `poet_tpu/engine/checkpoint.py:
+    load_checkpoint` restores it without a template. payload: "model" the
+    parameters in `model`'s names (strict=False: a leaf the model lacks is
+    kept under its flax path, for merge_params to report), "optax" the raw
+    optimizer state (None when there is none), "step" and "epoch". With
+    `cfg`, one line names the model widths in which the checkpoint's
+    config.json differs from it."""
+    from poet_tpu_torch.utils.jax_params import jax_state_dict
+    from poet_tpu_torch.utils.orbax_format import read_pytree
+
+    tree = read_pytree(path)
+    if "params" not in tree:
+        raise ValueError(f"{path} holds no 'params': not a poet_tpu checkpoint")
+    cfg_path = os.path.join(path, "config.json")
+    if cfg is not None and os.path.isfile(cfg_path):
+        with open(cfg_path) as f:
+            saved = json.load(f).get("model", {})
+        now = dataclasses.asdict(cfg.model)
+        diff = [f"{k} {saved[k]!r} != {now[k]!r}" for k in WIDTH_FIELDS
+                if k in saved and saved[k] != now[k]]
+        if diff:
+            print(f"note: {cfg_path} differs from the command line in model "
+                  f"{', '.join(diff)}; the command line's model is built")
+    payload = {"model": jax_state_dict(model, tree["params"], strict=False),
+               "optax": tree.get("opt_state"), "step": int(tree.get("step", 0)),
+               "epoch": int(tree.get("epoch", -1))}
+    return payload, payload["epoch"] + 1
+
+
+def load_checkpoint(path: str, model: Optional[nn.Module] = None) -> Tuple[Dict, int]:
+    """A checkpoint file, or with `model` an orbax directory (`load_orbax`)
+    -> (payload, start epoch = its epoch + 1)."""
+    if os.path.isdir(path):
+        return _load_directory(path, model)
     payload = _torch_load(path)
     if not isinstance(payload, dict) or "model" not in payload:
         raise ValueError(f"{path} holds no 'model' state dict")
@@ -187,14 +238,28 @@ def zoo_to_port(sd: Dict, aleatoric: bool = False) -> Dict:
     return out
 
 
-def load_resume(path: str, aleatoric: bool = False) -> Tuple[Dict, int]:
+def _load_directory(path: str, model: Optional[nn.Module], cfg=None) -> Tuple[Dict, int]:
+    from poet_tpu_torch.utils.orbax_format import read_metadata
+
+    read_metadata(path)                # raises naming what is missing or refused
+    if model is None:
+        raise ValueError(f"{path} is an orbax checkpoint: reading it needs the model whose "
+                         "names its parameters take")
+    return load_orbax(path, model, cfg)
+
+
+def load_resume(path: str, aleatoric: bool = False, model: Optional[nn.Module] = None,
+                cfg=None) -> Tuple[Dict, int]:
     """`--resume` dispatcher: the port's checkpoint (parameters, optimizer
-    state, epoch) or a reference zoo file (parameters only, through
+    state, epoch), a reference zoo file (parameters only, through
     `zoo_to_port`: training starts at epoch 0 with a fresh optimizer), a
-    local path or a URL. Returns (payload, start_epoch); payload["model"] is
-    in the port's names."""
+    local path or a URL; or, given `model`, an orbax directory written by
+    `poet_tpu` (`load_orbax`: parameters, optax's state, step, epoch).
+    Returns (payload, start_epoch); payload["model"] is in the port's
+    names."""
     local = fetch_checkpoint(path)
-    _refuse_directory(local)
+    if os.path.isdir(local):
+        return _load_directory(local, model, cfg)
     obj = _read_file(local)
     if isinstance(obj, dict) and "config" in obj and "model" in obj:   # the port's own file
         return obj, int(obj.get("epoch", -1)) + 1

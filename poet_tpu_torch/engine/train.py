@@ -210,12 +210,15 @@ class Optimizer:
         if not groups:
             raise ValueError("every parameter is frozen: calibrate mode trains the aleatoric "
                              "heads alone (calibrate needs aleatoric)")
+        self.group_names = {lab: [n for n, _ in ps] for lab, ps in groups.items()}
         self.param_groups = [{"params": [p for _, p in ps], "name": lab,
                               "lr": o.lr * scale[lab], "lr_scale": scale[lab]}
                              for lab, ps in groups.items()]
         self._scale = scale
         self.params = [p for g in self.param_groups for p in g["params"]]
         self.param_names = [n for ps in groups.values() for n, _ in ps]
+        self.model = model          # its module names map optax's trees (load_optax_state)
+        self.sgd, self.mu_bf16 = o.sgd, o.mu_bf16
         # under a layout: the data group of ZeRO, the sharded tensors of the
         # norm and of the consolidated state
         self.layout = tp.layout_of(model)
@@ -335,6 +338,82 @@ class Optimizer:
         self._acc = (None if state["acc"] is None else [
             tp.shard_tensor(a, tp.param_spec(n), lay.model_index, lay.n_model).to(dev)
             for a, n in zip(state["acc"], self.clip_names)])
+
+    def load_optax_state(self, tree, step: int) -> None:
+        """Restore the optax state that `poet_tpu/engine/train.py:
+        make_optimizer` builds, as `utils/orbax_format.py:read_pytree` reads
+        it from an orbax checkpoint (masked leaves None), at train step
+        `step`. Its layers, outermost first:
+          * `MultiStepsState` when grad_accum_steps > 1: `mini_step` ->
+            `micro_step`, `acc_grads` -> the accumulation buffer (by
+            `clip_names`); `gradient_step` counts the updates, as the
+            inner count does;
+          * a chain [clip's empty state, ...] when clip_max_norm > 0;
+          * `multi_transform`'s `inner_states[label].inner_state` for
+            'main', 'linear_proj' and 'backbone' ('frozen' has none): AdamW
+            [ScaleByAdamState(count, mu, nu), decay's empty state,
+            ScaleByScheduleState(count)] -> `step`, `exp_avg`, `exp_avg_sq`
+            (a bf16 `mu` under mu_bf16), SGD [decay's empty state,
+            [TraceState(trace), ScaleByScheduleState(count)]] ->
+            `momentum_buffer`.
+        `updates` takes the schedule's count, which StepLR reads; with the
+        micro-steps it must make up `step` (JAX's `TrainState.step`), else
+        the tree is not the one this configuration builds (ValueError). Each
+        moment tree goes through the parameters' layout rules
+        (`utils/jax_params.py:jax_state_dict`: transposes, MHA's packed
+        in_proj). The state built is the one-process optimizer's;
+        `load_state_dict` cuts it to this process's layout."""
+        from poet_tpu_torch.utils.jax_params import jax_state_dict
+
+        def named(sub):
+            return jax_state_dict(self.model, sub)
+
+        multi = isinstance(tree, dict) and "mini_step" in tree
+        if multi != (self.accum > 1):
+            raise ValueError(f"the checkpoint's optimizer state {'is' if multi else 'is not'} "
+                             f"optax MultiSteps', grad_accum_steps is {self.accum}")
+        micro_step, acc = 0, None
+        if multi:
+            micro_step = int(tree["mini_step"])
+            grads = named(tree["acc_grads"])
+            acc = [torch.from_numpy(grads[n]) for n in self.clip_names]
+            tree = tree["inner_opt_state"]
+        if self.clip_max_norm > 0:
+            if not (isinstance(tree, list) and len(tree) == 2 and tree[0] is None):
+                raise ValueError("clip_max_norm > 0: optax's state should be the chain "
+                                 "[clip_by_global_norm's empty state, multi_transform's]")
+            tree = tree[1]
+        partition = tree["inner_states"]
+        index = {n: i for i, n in enumerate(self.param_names)}
+        state, groups, updates = {}, [], 0
+        for g, tg in zip(self.param_groups, self.torch_opt.param_groups):
+            label = g["name"]
+            inner = partition[label]["inner_state"]
+            ids = [index[n] for n in self.group_names[label]]
+            if self.sgd:
+                count = int(inner[1][1]["count"])
+                bufs = named(inner[1][0]["trace"])
+                for i in ids:
+                    state[i] = {"momentum_buffer": torch.from_numpy(bufs[self.param_names[i]])}
+            else:
+                count = int(inner[2]["count"])
+                adam = inner[0]
+                mu, nu = named(adam["mu"]), named(adam["nu"])
+                n_adam = int(adam["count"])
+                for i in ids:
+                    name = self.param_names[i]
+                    m = torch.from_numpy(mu[name])
+                    state[i] = {"step": n_adam if self.mu_bf16 else
+                                torch.tensor(float(n_adam), dtype=torch.float32),
+                                "exp_avg": m.to(torch.bfloat16) if self.mu_bf16 else m,
+                                "exp_avg_sq": torch.from_numpy(nu[name])}
+            updates = count             # every group's schedule counts the same updates
+            groups.append({**{k: v for k, v in tg.items() if k != "params"}, "params": ids})
+        if updates * self.accum + micro_step != step:
+            raise ValueError(f"the optimizer state counts {updates} updates and {micro_step} "
+                             f"micro-steps of {self.accum}, the checkpoint {step} steps")
+        self.load_state_dict({"updates": updates, "micro_step": micro_step, "acc": acc,
+                              "torch": {"state": state, "param_groups": groups}})
 
 
 def make_optimizer(cfg: PoETConfig, model: nn.Module, steps_per_epoch: int) -> Optimizer:

@@ -529,3 +529,122 @@ def lapjv(cost: np.ndarray) -> np.ndarray:
     else:
         lib.lapjv_batch(cost.ctypes.data, cost.shape[0], n, out.ctypes.data)
     return out
+
+
+# libzstd, bound through ctypes with no header: the sonames tried in order
+ZSTD_LIBRARIES = ("libzstd.so.1",)
+_zstd = None
+# ZSTD_getFrameContentSize's two sentinels
+_ZSTD_CONTENTSIZE_UNKNOWN = 2**64 - 1
+_ZSTD_CONTENTSIZE_ERROR = 2**64 - 2
+
+
+class _ZstdBuffer(ctypes.Structure):
+    """ZSTD_inBuffer and ZSTD_outBuffer: {pointer, size, pos}."""
+    _fields_ = [("ptr", ctypes.c_void_p), ("size", ctypes.c_size_t), ("pos", ctypes.c_size_t)]
+
+
+def zstd_library() -> ctypes.CDLL:
+    """The system's libzstd (the first of ZSTD_LIBRARIES that loads), bound
+    once. ImportError naming the library when none loads: there is no other
+    zstd route."""
+    global _zstd
+    if _zstd is not None:
+        return _zstd
+    with _lock:
+        if _zstd is None:
+            errors = []
+            for name in ZSTD_LIBRARIES:
+                try:
+                    lib = ctypes.CDLL(name)
+                    break
+                except OSError as e:
+                    errors.append(f"{name}: {e}")
+            else:
+                raise ImportError("libzstd is not available (tried " + "; ".join(errors) +
+                                  "): the orbax checkpoint reader decompresses with it")
+            size_t, vp = ctypes.c_size_t, ctypes.c_void_p
+            lib.ZSTD_versionNumber.restype = ctypes.c_uint
+            lib.ZSTD_isError.argtypes = [size_t]
+            lib.ZSTD_isError.restype = ctypes.c_uint
+            lib.ZSTD_getErrorName.argtypes = [size_t]
+            lib.ZSTD_getErrorName.restype = ctypes.c_char_p
+            lib.ZSTD_getFrameContentSize.argtypes = [vp, size_t]
+            lib.ZSTD_getFrameContentSize.restype = ctypes.c_ulonglong
+            lib.ZSTD_decompress.argtypes = [vp, size_t, vp, size_t]
+            lib.ZSTD_decompress.restype = size_t
+            lib.ZSTD_createDCtx.restype = vp
+            lib.ZSTD_freeDCtx.argtypes = [vp]
+            lib.ZSTD_freeDCtx.restype = size_t
+            lib.ZSTD_decompressStream.argtypes = [vp, ctypes.POINTER(_ZstdBuffer),
+                                                  ctypes.POINTER(_ZstdBuffer)]
+            lib.ZSTD_decompressStream.restype = size_t
+            _zstd = lib
+    return _zstd
+
+
+def zstd_version() -> str:
+    """libzstd's version, e.g. '1.5.5'."""
+    v = zstd_library().ZSTD_versionNumber()
+    return f"{v // 10000}.{v // 100 % 100}.{v % 100}"
+
+
+def zstd_library_path() -> str:
+    """The file the loaded libzstd was mapped from (its soname where the
+    process's map does not say)."""
+    zstd_library()
+    try:
+        with open("/proc/self/maps") as f:
+            for line in f:
+                path = line.split()[-1]
+                if "libzstd" in os.path.basename(path):
+                    return path
+    except OSError:
+        pass
+    return ZSTD_LIBRARIES[0]
+
+
+def _zstd_check(lib, ret: int, what: str) -> int:
+    if lib.ZSTD_isError(ret):
+        raise ValueError(f"zstd {what}: {lib.ZSTD_getErrorName(ret).decode()}")
+    return ret
+
+
+def zstd_decompress(frame: bytes, size_hint: Optional[int] = None) -> bytes:
+    """Decompress one or more zstd frames. With `size_hint` (the decoded
+    size, known from the caller's metadata) in one call into a buffer of that
+    size, which the frames must fill exactly; without it by streaming, as a
+    frame need not state its size. ValueError on any libzstd error or a
+    truncated frame."""
+    lib = zstd_library()
+    src = bytes(frame)
+    if size_hint is None:
+        size = lib.ZSTD_getFrameContentSize(src, len(src))
+        if size not in (_ZSTD_CONTENTSIZE_UNKNOWN, _ZSTD_CONTENTSIZE_ERROR):
+            size_hint = size
+    if size_hint is not None:
+        out = ctypes.create_string_buffer(max(int(size_hint), 1))
+        n = _zstd_check(lib, lib.ZSTD_decompress(out, size_hint, src, len(src)), "decompress")
+        if n != size_hint:
+            raise ValueError(f"zstd frame holds {n} bytes, expected {size_hint}")
+        return out.raw[:n]
+    dctx = lib.ZSTD_createDCtx()
+    if not dctx:
+        raise MemoryError("ZSTD_createDCtx failed")
+    try:
+        src_buf = ctypes.create_string_buffer(src, len(src))
+        inp = _ZstdBuffer(ctypes.cast(src_buf, ctypes.c_void_p), len(src), 0)
+        parts, cap = [], max(4 * len(src), 1 << 16)
+        ret = 1
+        while inp.pos < inp.size or ret != 0:
+            dst = ctypes.create_string_buffer(cap)
+            out = _ZstdBuffer(ctypes.cast(dst, ctypes.c_void_p), cap, 0)
+            ret = _zstd_check(lib, lib.ZSTD_decompressStream(dctx, ctypes.byref(out),
+                                                             ctypes.byref(inp)), "stream")
+            parts.append(dst.raw[:out.pos])
+            if ret != 0 and inp.pos == inp.size and out.pos < cap:   # wants input: none left
+                raise ValueError("zstd frame is truncated")
+            cap *= 2
+        return b"".join(parts)
+    finally:
+        lib.ZSTD_freeDCtx(dctx)

@@ -5,7 +5,12 @@ numpy arrays (nested dicts, optionally wrapped in {"params": ...}) and
 fills every parameter and buffer of `model`; it raises if a port tensor is
 left unset, if a leaf of the tree is left unused, or on any shape mismatch.
 It works on the whole PoET module and on any ported submodule whose tree
-is passed (e.g. one EncoderLayer and its flax subtree).
+is passed (e.g. one EncoderLayer and its flax subtree). The conversion
+itself is `jax_state_dict(model, tree)`: the arrays by port name, whole,
+with the model untouched; it also carries a tree shaped like the
+parameters, such as an optax moment (`engine/train.py:Optimizer.
+load_optax_state`), and, not strict, a checkpoint merged with a report
+(`engine/checkpoint.py:load_orbax`).
 
 Conversions (the inverse of `poet_tpu/utils/torch_import.py`):
   * flax Dense kernel (in, out) -> Linear weight (out, in),
@@ -81,26 +86,47 @@ def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[s
     return flat
 
 
-@torch.no_grad()
-def load_jax_params(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
+def jax_state_dict(model: nn.Module, tree: Dict[str, Any],
+                   strict: bool = True) -> Dict[str, Any]:
+    """The JAX tree converted by the rules above into `model`'s state-dict
+    names, each array whole (not cut to a shard) and float32, without
+    touching the model. A tensor whose leaves are all None stays None (an
+    optax moment tree's masked leaves). `strict`: a missing leaf or one left
+    unused raises KeyError; otherwise a port tensor whose leaves are missing
+    is left out and each unused leaf is kept under its '/'-joined flax path
+    (a state-dict merge then reports both)."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     flat = _flatten(tree)
-    used, assigned = set(), set()
-    layout = getattr(model, "layout", None)
+    used = set()
+    out: Dict[str, Any] = {}
+
+    class Missing(Exception):
+        pass
 
     def take(path):
         if path not in flat:
-            raise KeyError(f"the JAX tree has no {'/'.join(path)}")
+            if strict:
+                raise KeyError(f"the JAX tree has no {'/'.join(path)}")
+            raise Missing
         used.add(path)
-        return np.asarray(flat[path], dtype=np.float32)
+        return None if flat[path] is None else np.asarray(flat[path], dtype=np.float32)
 
-    def put(name, t, arr):
-        arr = shard_array(name, arr, layout)
-        if tuple(t.shape) != arr.shape:
-            raise ValueError(f"{name}: port shape {tuple(t.shape)} != JAX {arr.shape}")
-        t.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
-        assigned.add(name)
+    def put(name, convert, *paths):
+        """out[name] = convert(*leaves); None when every leaf is None."""
+        try:
+            leaves = [take(p) for p in paths]
+        except Missing:
+            return
+        if all(x is None for x in leaves):
+            out[name] = None
+        elif any(x is None for x in leaves):
+            raise ValueError(f"{name}: some of its JAX leaves are None, some are not")
+        else:
+            out[name] = convert(*leaves)
+
+    def packed(*qkv):
+        return np.concatenate([x.reshape(x.shape[0], -1).T for x in qkv])
 
     handled_by_parent = set()
     for name, m in model.named_modules():
@@ -109,37 +135,52 @@ def load_jax_params(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
         pre = f"{name}." if name else ""
         path = flax_path(name)
         if isinstance(m, MultiheadAttention):
-            C = m.in_proj_weight.shape[1]
-            put(pre + "in_proj_weight", m.in_proj_weight, np.concatenate(
-                [take(path + (p, "kernel")).reshape(C, C).T for p in ("query", "key", "value")]))
-            put(pre + "in_proj_bias", m.in_proj_bias, np.concatenate(
-                [take(path + (p, "bias")).reshape(C) for p in ("query", "key", "value")]))
-            put(pre + "out_proj.weight", m.out_proj.weight,
-                take(path + ("out", "kernel")).reshape(C, C).T)
-            put(pre + "out_proj.bias", m.out_proj.bias, take(path + ("out", "bias")))
+            qkv = ("query", "key", "value")
+            put(pre + "in_proj_weight", packed, *(path + (p, "kernel") for p in qkv))
+            put(pre + "in_proj_bias", lambda *b: np.concatenate([x.reshape(-1) for x in b]),
+                *(path + (p, "bias") for p in qkv))
+            put(pre + "out_proj.weight", lambda k: k.reshape(-1, k.shape[-1]).T,
+                path + ("out", "kernel"))
+            put(pre + "out_proj.bias", lambda b: b, path + ("out", "bias"))
             handled_by_parent.add(pre + "out_proj")
         elif isinstance(m, Dense):
-            put(pre + "weight", m.weight, take(path + ("kernel",)).T)
-            put(pre + "bias", m.bias, take(path + ("bias",)))
+            put(pre + "weight", lambda k: k.T, path + ("kernel",))
+            put(pre + "bias", lambda b: b, path + ("bias",))
         elif isinstance(m, Conv):
-            put(pre + "weight", m.weight, take(path + ("kernel",)).transpose(3, 2, 0, 1))
+            put(pre + "weight", lambda k: k.transpose(3, 2, 0, 1), path + ("kernel",))
             if m.bias is not None:
-                put(pre + "bias", m.bias, take(path + ("bias",)))
+                put(pre + "bias", lambda b: b, path + ("bias",))
         elif isinstance(m, (LayerNorm, GroupNorm)):
-            put(pre + "weight", m.weight, take(path + ("scale",)))
-            put(pre + "bias", m.bias, take(path + ("bias",)))
+            put(pre + "weight", lambda s: s, path + ("scale",))
+            put(pre + "bias", lambda b: b, path + ("bias",))
         elif isinstance(m, FrozenBatchNorm):
             for b in ("weight", "bias", "running_mean", "running_var"):
-                put(pre + b, getattr(m, b), take(path + (b,)))
+                put(pre + b, lambda v: v, path + (b,))
         elif isinstance(m, Embedding):
-            put(pre + "weight", m.weight, take(path))
+            put(pre + "weight", lambda w: w, path)
         elif isinstance(m, DeformableTransformer):
-            put(pre + "level_embed", m.level_embed, take(path + ("level_embed",)))
+            put(pre + "level_embed", lambda e: e, path + ("level_embed",))
 
-    missing = sorted(set(model.state_dict()) - assigned)
+    unused = sorted("/".join(p) for p in set(flat) - used)
+    if unused and strict:
+        raise KeyError(f"JAX leaves with no port tensor: {unused[:8]}")
+    for p in unused:
+        out[p] = flat[tuple(p.split("/"))]
+    return out
+
+
+@torch.no_grad()
+def load_jax_params(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
+    layout = getattr(model, "layout", None)
+    own = model.state_dict()
+    converted = jax_state_dict(model, tree)
+    for name, arr in converted.items():
+        t = own[name]
+        arr = shard_array(name, arr, layout)
+        if tuple(t.shape) != arr.shape:
+            raise ValueError(f"{name}: port shape {tuple(t.shape)} != JAX {arr.shape}")
+        t.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+    missing = sorted(set(own) - set(converted))
     if missing:
         raise KeyError(f"port tensors not set from the JAX tree: {missing[:8]}")
-    unused = sorted("/".join(p) for p in set(flat) - used)
-    if unused:
-        raise KeyError(f"JAX leaves with no port tensor: {unused[:8]}")
     return model

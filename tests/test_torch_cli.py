@@ -8,8 +8,8 @@ decoder layer, 2 heads) on `tests/helpers.make_synthetic_dataset`:
   without them trains, and `--mesh_data 2` raises;
 * checkpoints: a bit-exact round trip, two epochs straight equal to one, a
   resume and one more, a port checkpoint read by JAX's converter giving
-  JAX's forward, the zoo remap, orbax directories refused, the NaN gate and
-  the SIGTERM checkpoint;
+  JAX's forward, the zoo remap, a directory without _METADATA and a zarr v3
+  one refused, the NaN gate and the SIGTERM checkpoint;
 * CLI against CLI: one reference-zoo `.pth` resumed by both: --eval metric
   JSONs within 1e-5, the BOP CSV rows equal, one train epoch's log.txt
   losses within 1e-4 relative; the same epoch with the model's options
@@ -22,7 +22,12 @@ decoder layer, 2 heads) on `tests/helpers.make_synthetic_dataset`:
   optimizer flag accepted (`--calibrate` too, held against JAX's train step
   in tests/test_torch_variants.py);
 * --inference's results.json against `PoseServer` in detector mode on the
-  same decoded images.
+  same decoded images;
+* poet_tpu's orbax `checkpoint` directory (the one its CLI wrote after the
+  train epoch above) resumed by both CLIs for one more epoch: the epoch's
+  log line within 1e-4 relative, the final parameters and AdamW moments
+  within 1e-4 of scale (a moment's: its kind's largest); --eval from it: the metric files within 1e-5; the
+  port's --inference and --export_model take it.
 """
 
 import argparse
@@ -273,6 +278,10 @@ def test_merge_params_reports(tmp_path):
 
 
 def test_zoo_remap_and_orbax_refusal(tmp_path, monkeypatch):
+    """The zoo remap through a file:// URL; a directory that is not an
+    orbax checkpoint (no _METADATA), or one of zarr v3 arrays, raises naming
+    what it lacks (poet_tpu's own directories resume: the orbax tests
+    below)."""
     from poet_tpu_torch.engine.checkpoint import load_resume
 
     monkeypatch.setenv("HOME", str(tmp_path))          # fetch_checkpoint's cache
@@ -285,7 +294,11 @@ def test_zoo_remap_and_orbax_refusal(tmp_path, monkeypatch):
                                                      "transformer.level_embed"}
     assert len(os.listdir(tmp_path / ".cache" / "poet_tpu_torch" / "checkpoints")) == 1
     (tmp_path / "orbax").mkdir()
-    with pytest.raises(ValueError, match="orbax"):
+    with pytest.raises(ValueError, match="holds no _METADATA: it is not an orbax checkpoint"):
+        load_resume(str(tmp_path / "orbax"))
+    (tmp_path / "orbax" / "_METADATA").write_text(json.dumps(
+        {"tree_metadata": {}, "use_ocdbt": True, "use_zarr3": True}))
+    with pytest.raises(ValueError, match="zarr v3"):
         load_resume(str(tmp_path / "orbax"))
 
 
@@ -624,3 +637,121 @@ def test_inference_matches_pose_server(data, tmp_path):
             np.testing.assert_allclose(row[str(d)]["rot"], out["rotation"][0, d], atol=1e-6)
             np.testing.assert_allclose(row[str(d)]["box"], out["boxes"][0, d], atol=1e-6)
             assert row[str(d)]["class"] == int(out["classes"][0, d])
+
+
+# ---------------------------------------------------------------- orbax resume
+ORBAX_EPOCH = ["--epochs", "2", "--eval_interval", "5", "--save_interval", "50"]
+ORBAX_STATE_TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def orbax_runs(both, data, tmp_path_factory):
+    """poet_tpu's orbax checkpoint after `both`'s train epoch, resumed by
+    both CLIs: one more epoch, and --eval."""
+    root = tmp_path_factory.mktemp("orbax")
+    ckpt = os.path.join(both["jax", "train"], "checkpoint")
+    base = ["--dataset_path", data, "--resume", ckpt] + SMALL
+    runs = _both_clis(root, [("train", base + ORBAX_EPOCH), ("eval", base + ["--eval"])])
+    runs["checkpoint"] = ckpt
+    return runs
+
+
+def test_orbax_resumed_epoch_matches_jax(orbax_runs):
+    """The resumed epoch's log line within 1e-4 relative; the final
+    parameters and AdamW moments of the port (its checkpoint.pth) against
+    poet_tpu's final orbax checkpoint through the layout rules, within
+    ORBAX_STATE_TOL: of each parameter's scale (at least 1), of the largest
+    moment of each kind."""
+    from poet_tpu.engine.checkpoint import load_checkpoint as jax_load
+
+    from poet_tpu_torch.engine.train import make_optimizer
+    from poet_tpu_torch.models import build_model
+    from poet_tpu_torch.utils.jax_params import jax_state_dict
+
+    want, got = ([json.loads(ln) for ln in open(os.path.join(orbax_runs[k, "train"],
+                                                             "log.txt"))]
+                 for k in ("jax", "port"))
+    assert [ln["epoch"] for ln in got] == [ln["epoch"] for ln in want] == [1]
+    losses = [k for k in want[0] if k.startswith("train_loss")]
+    assert losses and set(losses) == {k for k in got[0] if k.startswith("train_loss")}
+    for k in losses + ["train_lr"]:
+        assert got[0][k] == pytest.approx(want[0][k], rel=1e-4), k
+
+    final, start = jax_load(os.path.join(orbax_runs["jax", "train"], "checkpoint"))
+    assert start == 2
+    port = torch.load(os.path.join(orbax_runs["port", "train"], "checkpoint.pth"),
+                      weights_only=True)
+    assert port["step"] == int(final["step"]) and port["epoch"] == 1
+    cfg, model = _small_model()
+    jparams = jax_state_dict(model, final["params"])
+    for name, v in port["model"].items():
+        ref = torch.from_numpy(jparams[name])
+        scale = max(float(ref.abs().max()), 1.0)
+        assert float((v - ref).abs().max()) <= ORBAX_STATE_TOL * scale, name
+    # the AdamW moments: the port's torch state by parameter index
+    names = make_optimizer(cfg, model, steps_per_epoch=1).param_names
+    inner = final["opt_state"][1]["inner_states"]
+    assert port["optimizer"]["updates"] == int(inner["main"]["inner_state"][2]["count"])
+    moments = {}
+    for label in ("main", "linear_proj"):
+        adam = inner[label]["inner_state"][0]
+        for key, tree in (("exp_avg", adam["mu"]), ("exp_avg_sq", adam["nu"])):
+            for n, arr in jax_state_dict(model, tree).items():
+                if arr is not None:
+                    moments[n, key] = arr
+    # a moment's scale is its kind's largest: the gradient of a conv bias
+    # before a GroupNorm is f32 rounding residue (~1e-14), of either sign
+    scale = {key: max(float(np.abs(v).max()) for (_, k), v in moments.items() if k == key)
+             for key in ("exp_avg", "exp_avg_sq")}
+    for i, st in port["optimizer"]["torch"]["state"].items():
+        for key in ("exp_avg", "exp_avg_sq"):
+            ref = torch.from_numpy(moments[names[i], key])
+            assert float((st[key] - ref).abs().max()) <= ORBAX_STATE_TOL * scale[key], \
+                (names[i], key)
+
+
+def test_orbax_eval_matches_jax(orbax_runs):
+    """--eval from poet_tpu's checkpoint directory: every metric file within
+    1e-5, as from a zoo file."""
+    for metric in ("add/add", "adi/adds", "adds/adds", "avg_t_error/avg_t_error",
+                   "avg_rot_error/avg_rot_error"):
+        files = [os.path.join(orbax_runs[k, "eval"], "eval_test_gt", metric + ".json")
+                 for k in ("jax", "port")]
+        want, got = (dict(_leaves(json.load(open(f)))) for f in files)
+        assert set(got) == set(want)
+        for k, v in want.items():
+            if isinstance(v, float) and np.isnan(v):
+                assert np.isnan(got[k]), (metric, k)
+            elif isinstance(v, (int, float)) and not isinstance(v, bool):
+                assert got[k] == pytest.approx(v, rel=1e-5, abs=1e-5), (metric, k)
+
+
+def test_orbax_inference_and_export_take_the_directory(orbax_runs, data, tmp_path):
+    """--inference and --export_model from poet_tpu's checkpoint directory:
+    one results.json row per image; the artifact's answers equal a live
+    server's on the checkpoint's weights."""
+    from poet_tpu_torch.engine.checkpoint import load_resume, merge_params
+    from poet_tpu_torch.engine.serving import ExportedPoseServer, PoseServer
+
+    ckpt = orbax_runs["checkpoint"]
+    img_dir = tmp_path / "images"
+    img_dir.mkdir()
+    src = os.path.join(data, "test_all", "000001", "rgb", "000000.png")
+    (img_dir / "000000.png").write_bytes(open(src, "rb").read())
+    rows = _port(["--dataset_path", data, "--inference", "--inference_path", str(img_dir),
+                  "--inference_output", str(tmp_path / "inf"), "--resume", ckpt] + SMALL)
+    assert len(rows) == 1 and (tmp_path / "inf" / "results.json").exists()
+    path = _port(["--dataset_path", data, "--resume", ckpt, "--export_model",
+                  str(tmp_path / "engine"), "--export_platforms", "cpu",
+                  "--export_batch_size", "1", "--export_image_size", "64", "64"] + SMALL)
+    assert os.path.exists(os.path.join(path, "module.pt2"))
+    # the artifact serves what the checkpoint's weights serve live
+    cfg, model = _small_model()
+    payload, _ = load_resume(ckpt, model=model, cfg=cfg)
+    assert merge_params(model, payload["model"]) == ([], [])
+    images = np.random.default_rng(0).uniform(size=(1, 64, 64, 3)).astype(np.float32)
+    boxes = np.tile(np.asarray([[0.5, 0.5, 0.3, 0.3]], np.float32), (1, 4, 1))
+    res = ExportedPoseServer(path, device="cpu").infer(images, boxes=boxes)
+    live = PoseServer(cfg, model, batch_size=1, image_size=(64, 64), device="cpu")
+    for k, v in live.infer(images, boxes=boxes).items():
+        np.testing.assert_array_equal(res[k], v, err_msg=k)

@@ -10,7 +10,8 @@ a `.npz`, as a bare `.pth`, and as a `.pth` under each of "model",
 goes through JAX's `load_resume` / `load_backbone_weights` and the port's;
 JAX's tree is loaded into a port model with `load_jax_params`, and the two
 port models' state dicts must be equal bit for bit. The port's own
-checkpoint (it carries "config") and a directory behave as before.
+checkpoint (it carries "config") behaves as before; a directory that is not
+an orbax checkpoint raises.
 """
 
 import argparse
@@ -153,12 +154,23 @@ def test_port_checkpoint_resumes_as_before(files, tmp_path):
 
 
 def test_directory_still_raises(tmp_path):
+    """--resume reads poet_tpu's orbax directories (tests/test_torch_orbax_*):
+    a directory without _METADATA, or of zarr v3 arrays, still raises,
+    naming what it lacks; --backbone_weights reads a file, never a
+    directory."""
+    import json
+
     from poet_tpu_torch.engine.checkpoint import load_resume, load_state_dict_file
 
     (tmp_path / "orbax").mkdir()
-    for read in (load_resume, load_state_dict_file):
-        with pytest.raises(ValueError, match="is a directory: an orbax checkpoint"):
-            read(str(tmp_path / "orbax"))
+    with pytest.raises(ValueError, match="holds no _METADATA: it is not an orbax checkpoint"):
+        load_resume(str(tmp_path / "orbax"), model=_model())
+    with pytest.raises(ValueError, match="is a directory: a state-dict file"):
+        load_state_dict_file(str(tmp_path / "orbax"))
+    (tmp_path / "orbax" / "_METADATA").write_text(json.dumps(
+        {"tree_metadata": {}, "use_ocdbt": True, "use_zarr3": True}))
+    with pytest.raises(ValueError, match="zarr v3"):
+        load_resume(str(tmp_path / "orbax"), model=_model())
 
 
 def test_module_prefix_and_key_order(files, tmp_path):
