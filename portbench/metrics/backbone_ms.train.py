@@ -1,0 +1,8 @@
+"""Device ms a step of the operations launched inside the frozen backbone's
+forward (the configuration's `backbone` span), from the trace."""
+
+from portbench.lib import readers
+
+
+def read(run):
+    return readers.span_device_ms(run, "backbone")
