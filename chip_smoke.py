@@ -1754,8 +1754,8 @@ def phase_detect(report):
         f"stream {stream_fps:.2f} img/s; peak mem {peak:.2f} GiB")
     log(f"detect+pose exact-NMS fallback (nms_prune_k=0, one request): {exact_ms:.3f} ms, "
         f"peak mem {exact_peak:.2f} GiB, NMS fixed points {FIXED_POINT.calls} calls, "
-        f"{FIXED_POINT.iterations} iterations ({FIXED_POINT.seconds * 1e3:.3f} ms in the "
-        f"loops); boxes, classes, n_boxes equal to the pruned path's, poses within "
+        f"{FIXED_POINT.iterations} iterations; boxes, classes, n_boxes equal to the pruned "
+        f"path's, poses within "
         f"{exact_pose_err:.2e}")
     report["detect"] = {"launches": [a + b for a, b in zip(counts, counts_stream)],
                         "p50_ms": stats["p50_ms"],
@@ -2007,8 +2007,7 @@ def phase_yolo(report):
     res_infer, counts, _, det_infer = run("infer", lambda: [server.infer(images)
                                                              for _ in range(YOLO_REQUESTS)])
     stats = server.latency_stats()
-    fp = (FIXED_POINT.calls, FIXED_POINT.iterations, FIXED_POINT.max_iterations,
-          FIXED_POINT.seconds)
+    fp = (FIXED_POINT.calls, FIXED_POINT.iterations, FIXED_POINT.max_iterations)
     res_stream, counts_stream, wall, _ = run("stream", lambda: list(server.stream(
         images for _ in range(YOLO_REQUESTS))))
     for a, b in zip(res_infer, res_stream):
@@ -2026,8 +2025,8 @@ def phase_yolo(report):
         f"mean {det_infer.mean():.2f} max {det_infer.max()} (of "
         f"{cfg.backbone.max_detections}); selected queries per image mean {n_boxes.mean():.2f} "
         f"min {n_boxes.min()} max {n_boxes.max()} (of {Q}); finite, SO(3), boxes inside the "
-        f"image; NMS fixed points {fp[0]} calls, {fp[1]} iterations, longest {fp[2]}, "
-        f"{fp[3] * 1e3 / YOLO_REQUESTS:.3f} ms per request in the loops; infer p50 "
+        f"image; NMS fixed points {fp[0]} calls, {fp[1]} iterations, longest {fp[2]}; "
+        f"infer p50 "
         f"{stats['p50_ms']:.3f} ms, p95 {stats['p95_ms']:.3f} ms, {stats['fps']:.2f} img/s; "
         f"stream {stream_fps:.2f} img/s; peak mem {peak:.2f} GiB")
     report["yolo"] = {"launches": [a + b for a, b in zip(counts, counts_stream)],
@@ -5922,8 +5921,7 @@ def phase_yolo_gt(report):
     serve = p50s(lambda: server.infer(images, *boxes), YOLO_GT_REQUESTS, backbone)
     # the parent's rounds alone run fixed points: what the change skips
     parent_requests = (YOLO_GT_REQUESTS + 1) * YOLO_GT_ROUNDS.count("parent")
-    skipped = (FIXED_POINT.iterations / parent_requests,
-               FIXED_POINT.seconds * 1e3 / parent_requests)
+    skipped = FIXED_POINT.iterations / parent_requests
     del server, backbone
     torch.cuda.empty_cache()
 
@@ -5948,16 +5946,15 @@ def phase_yolo_gt(report):
             f"backbone's decode and NMS run as the parent commit runs them): parent "
             f"{x['parent']}, change {x['change']}; medians parent "
             f"{np.median(x['parent']):.3f}, change {np.median(x['change']):.3f}")
-    log(f"yolo gt: the parent's path ran {skipped[0]:.1f} NMS fixed-point iterations a request "
-        f"(one host wait each), {skipped[1]:.3f} ms in the loops: what the change skips")
+    log(f"yolo gt: the parent's path ran {skipped:.1f} NMS fixed-point iterations a request "
+        f"(one host wait each): what the change skips")
     log(f"yolo gt: YOLOv4-CSP paper config bf16 B={B} {H}x{W} in gt mode: {YOLO_GT_REQUESTS} "
         f"requests, launches {LAUNCH_NAMES} {counts}; {YOLO_GT_STEPS + 1} train steps, "
         f"launches {launches}, loss {history[0]['loss']:.4f} -> {history[-1]['loss']:.4f}, "
         f"busy {stats['busy_ms']:.2f} ms; no decode, no NMS fixed point; finite, SO(3)")
     report["yolo_gt"] = {"serve_launches": counts, "train_launches": launches,
                          "serve_p50_ms": serve, "train_p50_ms": steps,
-                         "parent_nms_iterations_per_request": skipped[0],
-                         "parent_nms_loop_ms_per_request": skipped[1],
+                         "parent_nms_iterations_per_request": skipped,
                          "train_busy_ms": stats["busy_ms"]}
     del model, opt, step
     torch.cuda.empty_cache()

@@ -201,7 +201,9 @@ def get_args_parser():
     p.add_argument("--rng_impl", default="threefry2x32", type=str,
                    choices=("threefry2x32", "rbg"), help="TPU runtime flag: accepted and ignored")
     p.add_argument("--profile_dir", default=None, type=str,
-                   help="write a torch.profiler Chrome trace of the first train epoch here")
+                   help="write a torch.profiler Chrome trace of the first train epoch "
+                        "here (trace.json), and the program's spans beside it "
+                        "(spans.jsonl, one record a line, on the trace's clock)")
     p.add_argument("--xla_cache_dir", default=None, type=str,
                    help="TPU runtime flag: accepted and ignored")
     return p
@@ -348,6 +350,7 @@ def main(cfg: PoETConfig):
     from poet_tpu_torch.evaluation.pose_evaluator import build_pose_evaluator
     from poet_tpu_torch.models import build_model
     from poet_tpu_torch.parallel import mesh
+    from poet_tpu_torch.utils import tracing
     from poet_tpu_torch.utils.init import init_weights
     from poet_tpu_torch.utils.misc import get_rank, get_sha
 
@@ -474,6 +477,7 @@ def main(cfg: PoETConfig):
     profile_dir = getattr(cfg, "profile_dir", None)
     prof = None
     if profile_dir:
+        tracing.clear()
         acts = [torch.profiler.ProfilerActivity.CPU]
         if dev.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -526,6 +530,9 @@ def main(cfg: PoETConfig):
                 os.makedirs(profile_dir, exist_ok=True)
                 prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
                 prof = None
+                with open(os.path.join(profile_dir, "spans.jsonl"), "w") as f:
+                    for record in tracing.recorded():
+                        f.write(json.dumps(record) + "\n")
 
             if output_dir:               # every process: a ZeRO-1 state is gathered
                 save_checkpoint(str(output_dir),

@@ -20,6 +20,11 @@ equal contiguous shards.
 `export_model` writes the portable artifact, a `torch.export` program of the
 fixed-shape forward with its weights, and `ExportedPoseServer` serves it
 without importing any model code (see `export_model`).
+
+While a profiler records, a request is a `serve.request` span (`unit` its
+number), holding `serve.upload` (its bytes) and `serve.forward`; `fetch` is
+a `serve.fetch` span (the bytes it brought back) of the same `unit`
+(`utils/tracing.py`).
 """
 
 from __future__ import annotations
@@ -37,9 +42,21 @@ import torch.nn as nn
 
 from poet_tpu_torch.config import PoETConfig
 from poet_tpu_torch.utils.params import cast_params_for_inference
+from poet_tpu_torch.utils.tracing import span
 
 
 TARGET_DTYPES = {"boxes": torch.float32, "labels": torch.int32, "n_boxes": torch.int32}
+
+
+class Answer(dict):
+    """A request's device tensors (`infer_async`), and `unit`, the server's
+    number of the request, which `fetch`'s span carries."""
+
+    __slots__ = ("unit",)
+
+    def __init__(self, tensors: Dict[str, torch.Tensor], unit: int):
+        super().__init__(tensors)
+        self.unit = unit
 
 
 def serving_outputs(out: Dict[str, torch.Tensor], aleatoric: bool) -> Dict[str, torch.Tensor]:
@@ -109,10 +126,24 @@ class PoseServer:
                            for dev, _ in self.replicas]
         self._pad_mask = self._pad_masks[0]
         self._latencies = deque(maxlen=latency_window)
+        self._requests = 0
 
     @staticmethod
     def _put(x: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dtype)
+
+    @staticmethod
+    def _upload(images: np.ndarray, targets: Optional[Dict[str, np.ndarray]], device):
+        """(images, targets) of a request or shard on `device`: one
+        `serve.upload` span."""
+        with span("serve.upload") as sp:
+            img = PoseServer._put(images, torch.float32, device)
+            if targets is not None:
+                targets = {k: PoseServer._put(v, TARGET_DTYPES[k], device)
+                           for k, v in targets.items()}
+            if sp:
+                sp.add(bytes=img.nbytes + sum(v.nbytes for v in (targets or {}).values()))
+        return img, targets
 
     def _targets(self, boxes, labels, n_boxes) -> Optional[Dict[str, np.ndarray]]:
         """The request's boxes, labels and counts (host arrays; None in
@@ -148,23 +179,30 @@ class PoseServer:
         B, (H, W) = self.batch_size, self.image_size
         if tuple(images.shape) != (B, H, W, 3):
             raise ValueError(f"images {tuple(images.shape)} != {(B, H, W, 3)}")
-        with torch.inference_mode():
-            targets = self._targets(boxes, labels, n_boxes)
+        targets = self._targets(boxes, labels, n_boxes)
+        unit = self._requests
+        self._requests += 1
+        with span("serve.request", unit=unit), torch.inference_mode():
             outs = []
             for i, (dev, replica) in enumerate(self.replicas):
                 rows = slice(i * self._shard, (i + 1) * self._shard)
-                shard = None if targets is None else {
-                    k: self._put(v[rows], TARGET_DTYPES[k], dev) for k, v in targets.items()}
-                img = self._put(images[rows], torch.float32, dev)
-                outs.append(self._outputs(replica(img, self._pad_masks[i], shard)))
+                img, shard = self._upload(images[rows], None if targets is None else {
+                    k: v[rows] for k, v in targets.items()}, dev)
+                with span("serve.forward"):
+                    outs.append(self._outputs(replica(img, self._pad_masks[i], shard)))
             if len(outs) == 1:
-                return outs[0]
-            return {k: torch.cat([o[k].to(self.device) for o in outs]) for k in outs[0]}
+                return Answer(outs[0], unit)
+            return Answer({k: torch.cat([o[k].to(self.device) for o in outs])
+                           for k in outs[0]}, unit)
 
     @staticmethod
     def fetch(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         """Materialize an `infer_async` result on the host (blocks)."""
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        with span("serve.fetch", unit=getattr(out, "unit", None)) as sp:
+            host = {k: v.cpu().numpy() for k, v in out.items()}
+            if sp:
+                sp.add(bytes=sum(v.nbytes for v in host.values()))
+        return host
 
     def infer(self, images: np.ndarray, boxes: Optional[np.ndarray] = None,
               labels: Optional[np.ndarray] = None,
@@ -327,6 +365,7 @@ class ExportedPoseServer:
         self._pad_mask = torch.zeros((self.batch_size, H, W), dtype=torch.bool,
                                      device=self.device)
         self._latencies = deque(maxlen=latency_window)
+        self._requests = 0
 
     def infer_async(self, images: np.ndarray, boxes: Optional[np.ndarray] = None,
                     labels: Optional[np.ndarray] = None,
@@ -340,12 +379,14 @@ class ExportedPoseServer:
         if tuple(images.shape) != (B, H, W, 3):
             raise ValueError(f"images {tuple(images.shape)} != {(B, H, W, 3)}")
         targets = self._targets(boxes, labels, n_boxes)
-        with torch.inference_mode():
-            img = PoseServer._put(images, torch.float32, self.device)
-            if targets is None:
-                return self._call(img, self._pad_mask)
-            return self._call(img, self._pad_mask, {
-                k: PoseServer._put(v, TARGET_DTYPES[k], self.device) for k, v in targets.items()})
+        unit = self._requests
+        self._requests += 1
+        with span("serve.request", unit=unit), torch.inference_mode():
+            img, targets = PoseServer._upload(images, targets, self.device)
+            with span("serve.forward"):
+                out = (self._call(img, self._pad_mask) if targets is None
+                       else self._call(img, self._pad_mask, targets))
+            return Answer(out, unit)
 
     _targets = PoseServer._targets
     fetch = staticmethod(PoseServer.fetch)

@@ -33,6 +33,12 @@ certificate's bool, then the cost matrix's copy for the solver), on top of
 the detector's NMS waits inside the forward. The NaN guard reads the
 metrics on the host once they are fetched (`fetch_metrics`).
 
+While a profiler records (`utils/tracing.py`): `prepare_batch` is a
+`train.prepare` span holding `train.match`, `train.pin` and `train.upload`
+(their bytes), its `unit` the newest optimizer's update count; the step's
+call is `train.step` (`unit` its update count) holding `train.forward`,
+`train.backward` and `train.optimizer`; `fetch_metrics` is `train.fetch`.
+
 The training model keeps f32 master weights: it must not go through
 `utils/params.py:cast_params_for_inference`. bf16 modules cast each f32
 weight at use (`models/layers.py`), bit-identical to the JAX step's
@@ -42,6 +48,7 @@ pre-cast, and autograd returns f32 gradients.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -52,6 +59,7 @@ from poet_tpu_torch.config import PoETConfig
 from poet_tpu_torch.models import criterion as crit
 from poet_tpu_torch.models.matcher import MatchResult, match_poses
 from poet_tpu_torch.models.poet import gt_queries
+from poet_tpu_torch.utils.tracing import span
 
 Batch = Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor], Optional[MatchResult]]
 
@@ -232,6 +240,8 @@ class Optimizer:
         self.micro_step = 0
         self.updates = 0
         self._acc: Optional[List[torch.Tensor]] = None
+        global _newest_optimizer
+        _newest_optimizer = weakref.ref(self)
 
     @staticmethod
     def _torch_optimizer(o, groups: List[Dict]) -> torch.optim.Optimizer:
@@ -416,6 +426,10 @@ class Optimizer:
                               "torch": {"state": state, "param_groups": groups}})
 
 
+# the optimizer made last, whose update count a prepared batch's span carries
+_newest_optimizer: Callable[[], Optional[Optimizer]] = lambda: None
+
+
 def make_optimizer(cfg: PoETConfig, model: nn.Module, steps_per_epoch: int) -> Optimizer:
     """`Optimizer`, or with `runtime.zero_opt_state` over more than one data
     slot its ZeRO-1 form (`parallel/zero.py`); over one data slot ZeRO is a
@@ -474,13 +488,30 @@ def _put(x, device) -> torch.Tensor:
 def prepare_batch(cfg: PoETConfig, images, pad_mask, targets: Dict, device) -> Batch:
     """Host arrays (numpy or CPU tensors) -> (images, pad_mask, targets,
     match) on `device`, the match computed on the host first (None in
-    bbox_mode='backbone', where the step matches)."""
-    host = {k: torch.as_tensor(np.asarray(v)) for k, v in targets.items()}
-    match = match_targets(cfg, host)
-    if match is not None:
-        match = MatchResult(_put(match.tgt_idx, device), _put(match.valid, device))
-    return (_put(images, device), _put(pad_mask, device),
-            {k: _put(v, device) for k, v in host.items()}, match)
+    bbox_mode='backbone', where the step matches). To a GPU every array is
+    pinned first, then each is copied without blocking, as `_put` does."""
+    with span("train.prepare") as sp:
+        if sp:
+            opt = _newest_optimizer()
+            sp.unit = None if opt is None else opt.updates
+        host = {k: torch.as_tensor(np.asarray(v)) for k, v in targets.items()}
+        with span("train.match"):
+            match = match_targets(cfg, host)
+        tensors = [x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+                   for x in (images, pad_mask, *host.values(), *(match or ()))]
+        if torch.device(device).type == "cuda":
+            with span("train.pin") as pin:
+                tensors = [x.pin_memory() for x in tensors]
+                if pin:
+                    pin.add(bytes=sum(x.nbytes for x in tensors))
+        with span("train.upload") as up:
+            tensors = [x.to(device, non_blocking=True) for x in tensors]
+            if up:
+                up.add(bytes=sum(x.nbytes for x in tensors))
+    images, pad_mask, *rest = tensors
+    n = len(host)
+    return (images, pad_mask, dict(zip(host, rest[:n])),
+            None if match is None else MatchResult(*rest[n:]))
 
 
 # ---------------------------------------------------------------------------
@@ -582,19 +613,24 @@ def make_train_step(model: nn.Module, cfg: PoETConfig, optimizer: Optimizer) -> 
 
     def step(images, pad_mask, targets, match: Optional[MatchResult],
              generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-        model.train()
-        optimizer.zero_grad()
-        total, losses = loss_fn(images, pad_mask, targets, match, generator)
-        total.backward()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["loss"] = total.detach()
-        grads = optimizer.grads()
-        if seq_partial:
-            reduce_over_processes([grads[i] for i in seq_partial], {}, layout.seq_group)
-        if data_parallel:
-            reduce_over_processes(grads, metrics, layout.data_group)
-        metrics["grad_norm"] = optimizer.norm(grads)
-        optimizer.step()
+        with span("train.step", unit=optimizer.updates):
+            model.train()
+            optimizer.zero_grad()
+            with span("train.forward"):
+                total, losses = loss_fn(images, pad_mask, targets, match, generator)
+            with span("train.backward"):
+                total.backward()
+            with span("train.optimizer"):
+                metrics = {k: v.detach() for k, v in losses.items()}
+                metrics["loss"] = total.detach()
+                grads = optimizer.grads()
+                if seq_partial:
+                    reduce_over_processes([grads[i] for i in seq_partial], {},
+                                          layout.seq_group)
+                if data_parallel:
+                    reduce_over_processes(grads, metrics, layout.data_group)
+                metrics["grad_norm"] = optimizer.norm(grads)
+                optimizer.step()
         return metrics
 
     return step
@@ -603,7 +639,8 @@ def make_train_step(model: nn.Module, cfg: PoETConfig, optimizer: Optimizer) -> 
 def fetch_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """Metrics on the host; raises FloatingPointError on a non-finite loss
     (the reference stops training there)."""
-    values = torch.stack([v.float() for v in metrics.values()]).tolist()  # one copy
+    with span("train.fetch"):
+        values = torch.stack([v.float() for v in metrics.values()]).tolist()  # one copy
     host = dict(zip(metrics, values))
     if not math.isfinite(host["loss"]):
         raise FloatingPointError(f"loss is {host['loss']}, stopping training: {host}")

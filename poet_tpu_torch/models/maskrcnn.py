@@ -43,6 +43,7 @@ from poet_tpu_torch.ops.detection import (
 )
 from poet_tpu_torch.ops.roi_align_cuda import multiscale_roi_align
 from poet_tpu_torch.utils.tables import device_table
+from poet_tpu_torch.utils.tracing import traced
 
 # torchvision GeneralizedRCNN defaults (used by MaskRCNN in the reference)
 ANCHOR_SIZES = ((32,), (64,), (128,), (256,), (512,))
@@ -215,6 +216,7 @@ class MaskRCNNDetector(nn.Module):
         return anchor_grids(tuple(grid_sizes), tuple(strides), self.anchor_sizes,
                             torch.device(device))
 
+    @traced("detector.select")
     def proposals(self, logits, deltas, anchors, image_size):
         """Per image: per-level top-k, decode, clip, min-size, NMS; then the
         top `post_nms_top_n` over the levels -> (boxes (B, P, 4), objectness
@@ -250,6 +252,7 @@ class MaskRCNNDetector(nn.Module):
         top_s, top_i = topk(all_scores, min(self.post_nms_top_n, all_scores.shape[1]))
         return _gather_rows(all_boxes, top_i), top_s
 
+    @traced("detector.select")
     def select(self, boxes_pc, masked, labels_pc):
         """Per-class NMS + top-`max_detections` of (B, PN) candidates ->
         (sel (B, md) indices, keep_valid (B, md)). With the pruned fast path

@@ -39,6 +39,7 @@ from poet_tpu_torch.ops.detection import NEG_INF, topk
 from poet_tpu_torch.ops.embeddings import bbox_embedding_sine
 from poet_tpu_torch.utils.boxes import box_normalize_cxcywh, box_xyxy_to_cxcywh
 from poet_tpu_torch.utils.rotations import rotation_6d_to_matrix
+from poet_tpu_torch.utils.tracing import span
 
 DUMMY_EMBED_FILL = -10.0
 DUMMY_BOX_FILL = -1.0
@@ -185,8 +186,9 @@ class PoET(nn.Module):
         srcs = [s.permute(0, 2, 3, 1) for s in srcs]                    # NHWC
 
         reference_points = t_boxes[:, :, :2] if cfg.reference_points == "bbox" else None
-        hs, _, _ = self.transformer(srcs, masks, pos, query_embeds, reference_points,
-                                    generator)
+        with span("transformer"):
+            hs, _, _ = self.transformer(srcs, masks, pos, query_embeds, reference_points,
+                                        generator)
 
         # ---- per-layer heads ----------------------------------------------
         output_idx = torch.where(t_classes > 0, t_classes, 0)

@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from poet_tpu_torch.models.layers import Conv
+from poet_tpu_torch.utils.tracing import traced
 
 
 class FrozenBatchNorm(nn.Module):
@@ -160,6 +161,7 @@ class ResNetFPN(nn.Module):
         self.body = ResNet50(dtype=dtype)
         self.fpn = FPN(out_channels, dtype=dtype, levels=levels)
 
+    @traced("backbone.body")
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         feats = self.body(images.permute(0, 3, 1, 2))     # NHWC -> NCHW view
         return {k: v.permute(0, 2, 3, 1) for k, v in self.fpn(feats).items()}

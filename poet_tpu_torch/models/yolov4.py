@@ -35,6 +35,7 @@ from poet_tpu_torch.models.layers import Conv
 from poet_tpu_torch.models.resnet_fpn import FrozenBatchNorm, downsample_mask
 from poet_tpu_torch.ops.conv_stem_cuda import conv_stem, mish  # noqa: F401  (mish re-exported)
 from poet_tpu_torch.ops.detection import NEG_INF, batched_class_nms, nms_padded, topk
+from poet_tpu_torch.utils.tracing import traced
 from poet_tpu_torch.utils.tables import device_table
 
 Sections = Tuple[Tuple[Tuple[str, Any], ...], ...]
@@ -169,6 +170,7 @@ class DarknetBody(nn.Module):
                       activation=None if act == "linear" else act)
         return y.permute(0, 3, 1, 2)                               # NCHW view
 
+    @traced("backbone.body")
     def forward(self, images: torch.Tensor):
         x = images.to(self.dtype).permute(0, 3, 1, 2)              # NCHW view
         outputs: List[torch.Tensor] = []
@@ -300,6 +302,7 @@ class YOLOv4Backbone(nn.Module):
             body.channels[li - 2] for li, sec in enumerate(body.sections[1:])
             if sec["type"] == "yolo" and body.strides[li - 2] >= encoder_min_stride)
 
+    @traced("detector.decode")
     def decode(self, yolo_inputs, yolo_specs, image_h: int):
         """Every head decoded in f32 -> boxes (B, N, 4), scores (B, N, nc)."""
         all_boxes, all_scores = [], []
@@ -316,6 +319,7 @@ class YOLOv4Backbone(nn.Module):
             all_scores.append(scores)
         return torch.cat(all_boxes, dim=1), torch.cat(all_scores, dim=1)
 
+    @traced("detector.select")
     def detect(self, boxes: torch.Tensor, scores: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Best class, threshold, top `pre_nms` (ties at the lower index, as
         `lax.top_k`) and NMS, every image in one fixed point."""

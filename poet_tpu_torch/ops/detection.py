@@ -10,8 +10,10 @@ RPN levels at once:
     iterated from k = valid. `lax.while_loop` becomes PyTorch's `while_loop`
     operator: its convergence test reads one bool per iteration (the host
     waits on the device once per iteration; `FIXED_POINT` counts iterations
-    and waits in eager calls), and a `torch.export`ed program holds the
-    whole loop, which its runtime iterates in the same way.
+    and waits in eager calls, and under a profiler each loop is an
+    `nms.fixed_point` span with its `iterations`), and a `torch.export`ed
+    program holds the whole loop, which its runtime iterates in the same
+    way.
   * top-k is a stable descending sort: ties keep the lower index first, as
     `jax.lax.top_k` does, so keep sets and selections match JAX exactly;
   * `nms_padded` and `batched_class_nms` (the YOLO detector's agnostic and
@@ -33,7 +35,6 @@ XLA op there, not a Pallas kernel).
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass
 from typing import Sequence, Tuple
 
@@ -41,21 +42,21 @@ import torch
 from torch._higher_order_ops.while_loop import while_loop_op
 
 from poet_tpu_torch.utils.tables import device_table
+from poet_tpu_torch.utils.tracing import span
 
 NEG_INF = float("-inf")
 
 
 class FixedPointStats:
     """Counts of the NMS fixed point's loop: `calls`, `iterations` (one host
-    wait each), the largest iteration count of one call, and `seconds` of
-    host time inside the loops (their waits included)."""
+    wait each) and the largest iteration count of one call. The host time in
+    the loops is the `nms.fixed_point` spans' (`utils/tracing.py`)."""
 
     def __init__(self):
         self.reset()
 
     def reset(self) -> None:
         self.calls = self.iterations = self.max_iterations = 0
-        self.seconds = 0.0
 
 
 FIXED_POINT = FixedPointStats()
@@ -111,15 +112,15 @@ def nms_keep_mask(boxes: torch.Tensor, scores: torch.Tensor,
     sup = upper & (pairwise_iou_xyxy(b, b) > iou_threshold)
     start = (torch.zeros((), dtype=torch.int64, device=boxes.device), valid.clone(),
              torch.ones((), dtype=torch.bool, device=boxes.device))
-    t0 = time.perf_counter()
-    t, k, _ = while_loop_op(_fixed_point_continues, _fixed_point_step, start, (valid, sup))
-    if not torch.compiler.is_exporting():
-        # a traced program keeps no count; eagerly the loop has run
-        iterations = int(t)
-        FIXED_POINT.calls += 1
-        FIXED_POINT.iterations += iterations
-        FIXED_POINT.max_iterations = max(FIXED_POINT.max_iterations, iterations)
-        FIXED_POINT.seconds += time.perf_counter() - t0
+    with span("nms.fixed_point") as sp:
+        t, k, _ = while_loop_op(_fixed_point_continues, _fixed_point_step, start, (valid, sup))
+        if not torch.compiler.is_exporting():
+            # a traced program keeps no count; eagerly the loop has run
+            iterations = int(t)
+            FIXED_POINT.calls += 1
+            FIXED_POINT.iterations += iterations
+            FIXED_POINT.max_iterations = max(FIXED_POINT.max_iterations, iterations)
+            sp.add(iterations=iterations)
     return torch.zeros_like(k).scatter(-1, order, k)
 
 

@@ -54,8 +54,8 @@ def weights():
 
 
 def test_flagship_detector_weights_are_the_parity_tests_draws(weights):
-    """`flagship.detector_state_dict` (what chip_smoke.py and the profiler
-    load) draws exactly the JAX numeric-parity test's weights."""
+    """`flagship.detector_state_dict` (what chip_smoke.py loads) draws
+    exactly the JAX numeric-parity test's weights."""
     from poet_tpu_torch.flagship import detector_state_dict
 
     ours = detector_state_dict(num_classes=NCLS)
@@ -381,21 +381,6 @@ def test_pose_server_detector_mode(slice_outputs, images):
             np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
     np.testing.assert_array_equal(streamed[1]["n_boxes"], res["n_boxes"][::-1])
     assert server.latency_stats()["frames"] == 1 + 3
-
-
-def test_profile_stages_recompose_the_forward(slice_outputs, images):
-    """`tools/profile_detect.py` times the forward stage by stage through
-    the model's own methods: the stages give the forward's answer."""
-    from poet_tpu_torch.tools.profile_detect import STAGES, staged_forward
-
-    _, model, got, _ = slice_outputs
-    seen = []
-    with torch.inference_mode():
-        out, dets = staged_forward(model, images, torch.zeros((B, H_IMG, W_IMG), dtype=torch.bool),
-                                   lambda name, fn: seen.append(name) or fn())
-    assert seen == list(STAGES)
-    for k, v in out.items():
-        np.testing.assert_array_equal(v.numpy(), got[k], err_msg=k)
 
 
 def test_pose_server_defaults_to_the_card():

@@ -525,21 +525,3 @@ def test_slice_through_pose_server_matches_jax(slice_outputs, images):
                 _assert_close(same[k][lvl, b, :n], want[k][lvl, b, :n], f"{k}[{lvl}] image {b}",
                               rtol=1e-4)
 
-
-def test_profile_stages_recompose_the_forward(slice_outputs, images):
-    """`tools/profile_detect.py --config yolo` times the forward stage by
-    stage through the backbone's own methods: the stages give the forward's
-    answer."""
-    from poet_tpu_torch.tools.profile_detect import YOLO_STAGES, yolo_staged_forward
-
-    tcfg, model, _ = slice_outputs
-    seen = []
-    pad = torch.zeros((B, H_IMG, W_IMG), dtype=torch.bool)
-    with torch.inference_mode():
-        want = model(_t(images), pad)
-        out, dets = yolo_staged_forward(model, images, pad,
-                                        lambda name, fn: seen.append(name) or fn())
-    assert seen == list(YOLO_STAGES)
-    assert dets["valid"].shape == (B, tcfg.backbone.max_detections)
-    for k, v in out.items():
-        np.testing.assert_array_equal(v.numpy(), want[k].numpy(), err_msg=k)
