@@ -481,9 +481,10 @@ EVAL_ADDS_ATOL = 1e-6
 EVAL_THIN = 32
 
 
-KERNEL_KEYS = ("fwd", "d_value", "d_loc", "roi", "stem", "nn", "merged", "dense_fwd",
-               "dense_bwd", "v2", "kpad", "variants", "gather", "fwd_slab", "merged_slab",
-               "d_value_slab", "roi_tiles", "d_loc_slab", "dense_dloc_slab", "merged_banded")
+KERNEL_KEYS = ("fwd", "d_value", "d_loc", "roi", "stem", "epilogue", "nn", "merged",
+               "dense_fwd", "dense_bwd", "v2", "kpad", "variants", "gather", "fwd_slab",
+               "merged_slab", "d_value_slab", "roi_tiles", "d_loc_slab", "dense_dloc_slab",
+               "merged_banded")
 LAUNCH_NAMES = "/".join(KERNEL_KEYS)
 
 
@@ -493,8 +494,9 @@ def log(msg: str) -> None:
 
 def all_kernels():
     """Every kernel wrapper, in the report's order (KERNEL_KEYS): the
-    forward's direct route, d_value, d_loc, RoIAlign, stem, min distance, the
-    merged adjoint's atomic route, dense forward, dense adjoint, v2 forward,
+    forward's direct route, d_value, d_loc, RoIAlign, stem, the darknet
+    body's epilogue, min distance, the merged adjoint's atomic route, dense
+    forward, dense adjoint, v2 forward,
     the three probes (kpad, the forward's variants, the dynamic gather), then
     the forward's and the merged adjoint's slab routes, the pair's d_value
     slab route, RoIAlign's tiles route, the pair's d_loc slab route, the
@@ -503,6 +505,7 @@ def all_kernels():
     from poet_tpu_torch.ops import deform_attn_cuda as gather
     from poet_tpu_torch.ops import deform_attn_dense_cuda as dense
     from poet_tpu_torch.ops.conv_stem_cuda import CONV_STEM_FWD
+    from poet_tpu_torch.ops.darknet_epilogue_cuda import DARKNET_EPILOGUE
     from poet_tpu_torch.ops.deform_attn_v2_cuda import MS_DEFORM_ATTN_V2
     from poet_tpu_torch.ops.nn_cuda import MIN_DIST_SQ
     from poet_tpu_torch.ops.roi_align_cuda import ROI_ALIGN_FWD, ROI_ALIGN_TILES
@@ -511,7 +514,8 @@ def all_kernels():
     from poet_tpu_torch.tools.dyn_gather import TAKE_ALONG_AXIS
 
     return [gather.MS_DEFORM_ATTN_FWD, gather.MS_DEFORM_ATTN_DVALUE, gather.MS_DEFORM_ATTN_DLOC,
-            ROI_ALIGN_FWD, CONV_STEM_FWD, MIN_DIST_SQ, gather.MS_DEFORM_ATTN_MERGED,
+            ROI_ALIGN_FWD, CONV_STEM_FWD, DARKNET_EPILOGUE, MIN_DIST_SQ,
+            gather.MS_DEFORM_ATTN_MERGED,
             dense.MS_DEFORM_ATTN_DENSE_FWD, dense.MS_DEFORM_ATTN_DENSE_BWD, MS_DEFORM_ATTN_V2,
             KPAD_CHAIN, MS_DEFORM_ATTN_VARIANT, TAKE_ALONG_AXIS, gather.MS_DEFORM_ATTN_FWD_SLAB,
             gather.MS_DEFORM_ATTN_MERGED_SLAB, gather.MS_DEFORM_ATTN_DVALUE_SLAB, ROI_ALIGN_TILES,
@@ -528,6 +532,15 @@ def expected(**counts):
 
 # the merged adjoint's routes (plan_merged) -> their KERNEL_KEYS
 MERGED_KEYS = {"slab": "merged_slab", "banded": "merged_banded", "atomic": "merged"}
+# the convs of the shipped YOLOv4-CSP cfgs whose FrozenBN and activation go
+# through the epilogue kernel (models/yolov4.py:_use_epilogue): every BN conv
+# after the three stem convs, per forward of the darknet body
+YOLO_EPILOGUE = 109
+# phase 31: the epilogue kernel at the shapes of those 109 convs, at the
+# detect cell's frames a request (checked and timed) and the train cell's
+# images a step (timed), 480x640, on the shipped cfg
+EPILOGUE_B, EPILOGUE_TRAIN_B = 32, 64
+YOLO_SHIPPED_CFG = os.path.join(ROOT, "configs", "ycbv_yolov4-csp.cfg")
 # the token counts of the two pyramids at 480x640: Mask R-CNN's ResNet-FPN
 # levels (gt mode and detect+pose) and YOLOv4-CSP's full pyramid
 FLAGSHIP_S, YOLO_S = 1600, 6380
@@ -1947,6 +1960,175 @@ def phase_stem(report):
     report["stem_max_err"] = (worst_abs, worst)
 
 
+def epilogue_bn(g, C):
+    """A FrozenBatchNorm on the card whose buffers are drawn from `g` in the
+    ranges of a trained one's."""
+    from poet_tpu_torch.models.resnet_fpn import FrozenBatchNorm
+
+    bn = FrozenBatchNorm(C).to(DEVICE)
+    for t, (lo, hi) in ((bn.weight, (0.8, 1.2)), (bn.bias, (-1, 1)),
+                        (bn.running_mean, (-1, 1)), (bn.running_var, (0.5, 1.5))):
+        t.uniform_(lo, hi, generator=g)
+    return bn
+
+
+def epilogue_gap(x, bn, act, got):
+    """How far the epilogue kernel's output `got` on x lies from what it must
+    match -> (largest gap in ulps of the reference, largest absolute gap,
+    the reference's pre-activation). f32: the plain composition
+    (FrozenBatchNorm, then the activation), in f32 ulps; bf16: the f32
+    composition of the same input with the scale and offset rounded to bf16
+    as FrozenBatchNorm rounds them, in bf16 ulps."""
+    import torch
+
+    from poet_tpu_torch.ops.darknet_epilogue_cuda import activate
+
+    nchw = x.permute(0, 3, 1, 2)
+    if x.dtype == torch.float32:
+        pre, bits = bn(nchw), 23
+    else:
+        inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+        off = bn.bias - bn.running_mean * inv
+        pre = (nchw.float() * inv.to(x.dtype).float()[:, None, None]
+               + off.to(x.dtype).float()[:, None, None])
+        bits = 7
+    ref = activate(pre, act).permute(0, 2, 3, 1)
+    gap = (got.float() - ref).abs()
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref)[1] - (bits + 1))
+    return (gap / ulp).max().item(), gap.max().item(), pre
+
+
+def phase_epilogue(report):
+    """The darknet epilogue kernel (`ops/darknet_epilogue_cuda.py`) at the
+    11 distinct (H, W, C) of the shipped cfg's 109 epilogue convs at B=32
+    480x640, for mish, leaky and linear, on inputs spanning -30..30 (both
+    sides of mish's clamp at 25): f32 within 2 ulp of the plain composition,
+    bf16 within 1 bf16 ulp of the f32 composition; then a forward's 109
+    calls (bf16, each conv its own input and buffers) timed by graph
+    replays against the plain composition and the library's batch_norm +
+    activation, at B=32 and B=64; the kernel alone at each distinct shape
+    and a copy of the largest map's bytes; the host's microseconds a call."""
+    import torch
+    import torch.nn.functional as F
+
+    from poet_tpu_torch.models.yolov4 import epilogue_convs, load_cfg_sections
+    from poet_tpu_torch.ops.darknet_epilogue_cuda import ACTIVATIONS
+    from poet_tpu_torch.ops.darknet_epilogue_cuda import DARKNET_EPILOGUE as K
+    from poet_tpu_torch.ops.darknet_epilogue_cuda import activate, darknet_epilogue
+    from poet_tpu_torch.tools.timing import graph_ms, host_us
+
+    convs = epilogue_convs([dict(s) for s in load_cfg_sections(YOLO_SHIPPED_CFG)])
+    if len(convs) != YOLO_EPILOGUE:
+        raise AssertionError(f"{len(convs)} epilogue convs in the shipped cfg, not "
+                             f"{YOLO_EPILOGUE}")
+    g = torch.Generator(device=DEVICE).manual_seed(27)
+    worst = {"f32_ulp": 0.0, "bf16_ulp": 0.0, "f32_abs": 0.0, "bf16_abs": 0.0}
+    for H, W, C in sorted({c[:3] for c in convs}):
+        bn = epilogue_bn(g, C)
+        x = torch.rand((EPILOGUE_B, H, W, C), device=DEVICE, generator=g) * 60 - 30
+        line = []
+        for act in ACTIVATIONS:
+            for dtype, name, tol in ((torch.float32, "f32", 2), (torch.bfloat16, "bf16", 1)):
+                xd = x.to(dtype)
+                n0 = K.launches
+                with torch.inference_mode():
+                    got = darknet_epilogue(xd, bn.weight, bn.bias, bn.running_mean,
+                                           bn.running_var, bn.eps, act)
+                    ulps, err, pre = epilogue_gap(xd, bn, act, got)
+                    torch.cuda.synchronize()
+                if K.launches != n0 + 1 or got.dtype != dtype or got.shape != xd.shape:
+                    raise AssertionError(f"epilogue {(H, W, C)} {act} {name}: "
+                                         f"{K.launches - n0} launches, {got.dtype} "
+                                         f"{tuple(got.shape)}")
+                if not (bool((pre > 25).any()) and bool((pre < -25).any())):
+                    raise AssertionError(f"epilogue {(H, W, C)}: the input missed a side of "
+                                         f"mish's clamp at 25")
+                if not ulps <= tol:
+                    raise AssertionError(f"epilogue {(H, W, C)} {act} {name}: {ulps} ulp of "
+                                         f"the reference > {tol}")
+                worst[f"{name}_ulp"] = max(worst[f"{name}_ulp"], ulps)
+                worst[f"{name}_abs"] = max(worst[f"{name}_abs"], err)
+                line.append(f"{act} {name} {ulps:.2f} ulp ({err:.2e})")
+        log(f"epilogue-vs-plain B={EPILOGUE_B} {H}x{W} C={C}: {', '.join(line)}")
+        del x, xd, got, pre
+    library_act = {"mish": F.mish, "leaky": lambda y: F.leaky_relu(y, 0.1),
+                   "linear": lambda y: y}
+    per_batch = {}
+    for B in (EPILOGUE_B, EPILOGUE_TRAIN_B):
+        calls = []
+        for H, W, C, act in convs:
+            x = (torch.randn((B, H, W, C), device=DEVICE, generator=g) * 4).bfloat16()
+            calls.append((x, epilogue_bn(g, C), act))
+
+        def kernel(calls=calls):
+            for x, bn, act in calls:
+                K(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps, act)
+
+        def plain(calls=calls):
+            for x, bn, act in calls:
+                activate(bn(x.permute(0, 3, 1, 2)), act)
+
+        def library(calls=calls):
+            for x, bn, act in calls:
+                library_act[act](F.batch_norm(x.permute(0, 3, 1, 2), bn.running_mean,
+                                              bn.running_var, bn.weight, bn.bias, False, 0.0,
+                                              bn.eps))
+
+        with torch.inference_mode():
+            t = {"ms": graph_ms(kernel, iters=1, replays=10),
+                 "plain_ms": graph_ms(plain, iters=1, replays=10),
+                 "library_ms": graph_ms(library, iters=1, replays=10),
+                 "ms_again": graph_ms(kernel, iters=1, replays=10),
+                 "plain_ms_again": graph_ms(plain, iters=1, replays=10)}
+            t["bound"] = bound(sum(nbytes(x) * 2 for x, _, _ in calls), 0)
+            t["share_of_bound"] = t["bound"][0] / max(t["ms"], t["ms_again"])
+            if B == EPILOGUE_B:
+                by_shape, largest = {}, max(x.numel() for x, _, _ in calls)
+                for x, bn, act in calls:
+                    for a in (ACTIVATIONS if x.numel() == largest else (act,)):
+                        key = f"{tuple(x.shape[1:])} {a}"
+                        if key not in by_shape:
+                            ms = graph_ms(lambda x=x, bn=bn, a=a: K(
+                                x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                                bn.eps, a), iters=10, replays=5)
+                            by_shape[key] = {"ms": ms, "TB_s": 2 * nbytes(x) / ms / 1e9}
+                x, bn, act = max(calls, key=lambda c: c[0].numel())
+                out = torch.empty_like(x)
+                copy_ms = graph_ms(lambda: out.copy_(x), iters=10, replays=5)
+                t.update(by_shape=by_shape, copy_ms=copy_ms,
+                         copy_TB_s=2 * nbytes(x) / copy_ms / 1e9,
+                         host_us=host_us(lambda: darknet_epilogue(
+                             x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps,
+                             act), calls=400),
+                         plain_host_us=host_us(lambda: activate(bn(x.permute(0, 3, 1, 2)),
+                                                                act), calls=400))
+        log(f"epilogue B={B}: a forward's {len(calls)} calls bf16 ms kernel {t['ms']:.4f}, "
+            f"{t['ms_again']:.4f}; plain {t['plain_ms']:.4f}, {t['plain_ms_again']:.4f}; "
+            f"batch_norm + act {t['library_ms']:.4f}; bound {t['bound'][0]:.4f} "
+            f"({t['bound'][1]}: each element read and written once), "
+            f"{100 * t['share_of_bound']:.1f}% of it")
+        if B == EPILOGUE_B:
+            log(f"epilogue B={B} alone by shape: " + "; ".join(
+                f"{k} {v['ms']:.4f} ms {v['TB_s']:.3f} TB/s" for k, v in t["by_shape"].items())
+                + f"; a copy of the largest map {t['copy_ms']:.4f} ms {t['copy_TB_s']:.3f} "
+                  f"TB/s; host us a call {t['host_us']:.1f} through the operator, "
+                  f"{t['plain_host_us']:.1f} plain")
+        per_batch[B] = t
+        del calls
+        torch.cuda.empty_cache()
+    # an input that requires grad is refused: the op has no gradient
+    bn = epilogue_bn(g, 16)
+    try:
+        K(torch.zeros((1, 2, 2, 16), device=DEVICE, requires_grad=True), bn.weight, bn.bias,
+          bn.running_mean, bn.running_var, bn.eps, "mish")
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("the epilogue kernel accepted an input that requires grad")
+    report["epilogue"] = per_batch
+    report["epilogue_max_err"] = worst
+
+
 def phase_yolo(report):
     import torch
 
@@ -1980,7 +2162,8 @@ def phase_yolo(report):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = all_kernels()
-    expect = expected(**path_launches(cfg, YOLO_S, YOLO_REQUESTS), stem=3 * YOLO_REQUESTS)
+    expect = expected(**path_launches(cfg, YOLO_S, YOLO_REQUESTS), stem=3 * YOLO_REQUESTS,
+                      epilogue=YOLO_EPILOGUE * YOLO_REQUESTS)
 
     def run(label, drive):
         for k in kernels:
@@ -2066,8 +2249,9 @@ def phase_yolo_f32():
             shared = {k: v.cpu().numpy() for k, v in model(*cargs, detections={
                 k: v.cuda() for k, v in cpu_dets.items()}).items()}
         if [k.launches - n for k, n in zip(kernels, n0)] != expected(
-                **path_launches(cfg, YOLO_S, 2), stem=2 * 3):
-            raise AssertionError("the card runs did not go through the forward and stem kernels")
+                **path_launches(cfg, YOLO_S, 2), stem=2 * 3, epilogue=2 * YOLO_EPILOGUE):
+            raise AssertionError("the card runs did not go through the forward, stem and "
+                                 "epilogue kernels")
     if not np.array_equal(card["n_boxes"], cpu["n_boxes"]) or cpu["n_boxes"].min() == 0:
         raise AssertionError(f"n_boxes card {card['n_boxes']} vs CPU {cpu['n_boxes']}")
     box_err = 0.0
@@ -4126,7 +4310,7 @@ def phase_train_detections(report):
                 ("maskrcnn", detect_pose_config("bfloat16"), detect_pose_model, FLAGSHIP_S,
                  lambda c, n: roi_launches(c, n)),
                 ("yolov4", yolo_detect_pose_config("bfloat16"), yolo_detect_pose_model, YOLO_S,
-                 lambda c, n: {"stem": 3 * n})):
+                 lambda c, n: {"stem": 3 * n, "epilogue": YOLO_EPILOGUE * n})):
             model = make_model(cfg).to(DEVICE)
             images, pad_mask = detect_pose_batch(B, H, W, seed=0)
             targets = detection_targets(model, images, seed=25)
@@ -5704,7 +5888,8 @@ def phase_export(report):
         cfg = flagship.yolo_detect_pose_config("bfloat16")
         export_case(report, tmp, "yolo", cfg, flagship.yolo_detect_pose_model(cfg),
                     flagship.yolo_detect_pose_batch(B, H, W, seed=0)[0], None,
-                    {**path_launches(cfg, YOLO_S, 1), "stem": 3}, E2E_RTOL)
+                    {**path_launches(cfg, YOLO_S, 1), "stem": 3, "epilogue": YOLO_EPILOGUE},
+                    E2E_RTOL)
         cfg = flagship.flagship_config("float32")
         f32_images, _, f32_targets = flagship.flagship_batch(2, H, W, seed=0)
         with tf32_off():
@@ -5892,7 +6077,8 @@ def phase_yolo_gt(report):
     with counting_calls(backbone, "decode", "detect") as calls:
         results = [server.infer(images, *boxes) for _ in range(YOLO_GT_REQUESTS)]
     counts = [k.launches for k in kernels]
-    want = expected(**path_launches(cfg, YOLO_S, YOLO_GT_REQUESTS), stem=3 * YOLO_GT_REQUESTS)
+    want = expected(**path_launches(cfg, YOLO_S, YOLO_GT_REQUESTS), stem=3 * YOLO_GT_REQUESTS,
+                    epilogue=YOLO_EPILOGUE * YOLO_GT_REQUESTS)
     if counts != want:
         raise AssertionError(f"yolo gt serve: launches {LAUNCH_NAMES} {counts}, expected {want}")
     if any(calls.values()) or FIXED_POINT.calls or FIXED_POINT.iterations:
@@ -5930,7 +6116,8 @@ def phase_yolo_gt(report):
     with counting_calls(model.backbone, "decode", "detect") as calls:
         stats, launches, history, opt = drive_train(
             "yolo gt train", cfg, model, (images, pad_mask, targets), YOLO_GT_STEPS,
-            {**path_launches(cfg, YOLO_S, 1, train=True), "stem": 3})
+            {**path_launches(cfg, YOLO_S, 1, train=True), "stem": 3,
+             "epilogue": YOLO_EPILOGUE})
     if any(calls.values()) or FIXED_POINT.calls:
         raise AssertionError(f"yolo gt train: the backbone decoded or ran its NMS: {calls}, "
                              f"{FIXED_POINT.calls} fixed points")
@@ -6007,8 +6194,8 @@ def orbax_config():
 
 def orbax_resumed_step(cfg, device, batch):
     """The model and optimizer resumed from the fixture on `device`, then
-    (model, stem calls, encoder tokens, a function running one step and
-    returning its metrics): the resume itself is outside the step."""
+    (model, stem and epilogue calls, encoder tokens, a function running one
+    step and returning its metrics): the resume itself is outside the step."""
     import torch
 
     from poet_tpu_torch.engine.checkpoint import load_resume, merge_params
@@ -6028,23 +6215,28 @@ def orbax_resumed_step(cfg, device, batch):
     opt.load_optax_state(payload["optax"], payload["step"])
     step = make_train_step(model, cfg, opt)
     gen = torch.Generator(device=device).manual_seed(0)
-    seen = {"stem": 0, "tokens": 0}
-    body, stem = model.backbone.body, model.backbone.body._stem
+    seen = {"stem": 0, "epilogue": 0, "tokens": 0}
+    body = model.backbone.body
+    stem, epilogue = body._stem, body._epilogue
 
     def counted_stem(*a, **k):
         seen["stem"] += 1
         return stem(*a, **k)
 
+    def counted_epilogue(*a, **k):
+        seen["epilogue"] += 1
+        return epilogue(*a, **k)
+
     def tokens(mod, args, out):                     # a level's map, NCHW
         seen["tokens"] += out.shape[-2] * out.shape[-1]
 
     def run():
-        body._stem = counted_stem
+        body._stem, body._epilogue = counted_stem, counted_epilogue
         hooks = [p.register_forward_hook(tokens) for p in model.input_proj]
         try:
             return fetch_metrics(step(*prepare_batch(cfg, *batch, device), gen))
         finally:
-            del body._stem
+            del body._stem, body._epilogue
             for h in hooks:
                 h.remove()
 
@@ -6098,10 +6290,13 @@ def phase_orbax_resume(report):
         step_ms = (time.perf_counter() - t) * 1e3
         launches = [k.launches for k in kernels]
     S = cpu_seen["tokens"]
-    want_launches = expected(**path_launches(cfg, S, 1, train=True), stem=cpu_seen["stem"])
-    if launches != want_launches or card_seen["stem"] != cpu_seen["stem"]:
+    want_launches = expected(**path_launches(cfg, S, 1, train=True), stem=cpu_seen["stem"],
+                             epilogue=cpu_seen["epilogue"])
+    if (launches != want_launches or card_seen["stem"] != cpu_seen["stem"]
+            or card_seen["epilogue"] != cpu_seen["epilogue"]):
         raise AssertionError(f"orbax: the resumed card step launched {LAUNCH_NAMES} {launches}, "
-                             f"expected {want_launches} (S={S}, {cpu_seen['stem']} stem convs)")
+                             f"expected {want_launches} (S={S}, {cpu_seen['stem']} stem and "
+                             f"{cpu_seen['epilogue']} epilogue convs)")
     if not cpu_seen["stem"]:
         raise AssertionError("orbax: the fixture's darknet ran no stem conv")
     loss_err = max(abs(card_metrics[k] - v) / max(abs(v), 1e-12)
@@ -6156,7 +6351,7 @@ def main(argv) -> int:
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = {int(n) for n in argv[1].split(",")}
     elif argv:
-        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-30; 1-2 always run)",
+        print("usage: chip_smoke.py [--only N,N,...]  (phase numbers 3-31; 1-2 always run)",
               file=sys.stderr)
         return 2
     try:
@@ -6196,10 +6391,12 @@ def main(argv) -> int:
               23: lambda: phase_cli(report), 24: lambda: phase_variants(report),
               25: lambda: phase_train_detections(report), 26: lambda: phase_data(report),
               27: lambda: phase_multi_device(report), 28: lambda: phase_export(report),
-              29: lambda: phase_leftovers(report), 30: lambda: phase_orbax_resume(report)}
+              29: lambda: phase_leftovers(report), 30: lambda: phase_orbax_resume(report),
+              31: lambda: phase_epilogue(report)}
     spans = []
     for first, last in ((3, 8), (9, 11), (12, 14), (15, 17), (18, 20), (21, 22), (23, 23),
-                        (24, 25), (26, 26), (27, 27), (28, 28), (29, 29), (30, 30)):
+                        (24, 25), (26, 26), (27, 27), (28, 28), (29, 29), (30, 30),
+                        (31, 31)):
         t0 = time.perf_counter()
         for n in range(first, last + 1):
             if only is None or n in only:
@@ -6269,6 +6466,7 @@ def main(argv) -> int:
     # the stem entry: the sums over the three launches of a YOLO request
     stem = [report["stem"][name] for name in STEM_PATH]
     stem_total = {k: sum(t[k] for t in stem) for k in ("ms", "plain_ms", "library_ms", "f32_ms")}
+    epi, epi_train = report["epilogue"][EPILOGUE_B], report["epilogue"][EPILOGUE_TRAIN_B]
     kernels = [
         {"name": "ms_deform_attn_fwd", "route": "cuda", "source": src + "ms_deform_attn_fwd.cu",
          "replaces": tpu + "221", **launched("fwd"),
@@ -6329,6 +6527,24 @@ def main(argv) -> int:
                                                 "library_ratio")}
                        | {"bound_ms": t["bound"][0], "f32_bound_ms": t["f32_bound"][0]}
                        for name, t in zip(STEM_PATH, stem)}},
+        {"name": "darknet_epilogue", "route": "cuda", "source": src + "darknet_epilogue.cu",
+         "replaces": "poet_tpu/models/yolov4.py:256", **launched("epilogue"),
+         # f32 over every phase-31 case (ulps: of the plain composition); bf16:
+         # bf16 ulps of the f32 composition
+         "max_abs_err": report["epilogue_max_err"]["f32_abs"],
+         "max_ulp": report["epilogue_max_err"]["f32_ulp"],
+         "bf16_max_ulp": report["epilogue_max_err"]["bf16_ulp"],
+         "ms": epi["ms"], "plain_ms": epi["plain_ms"], "bound_ms": epi["bound"][0],
+         "bound_by": epi["bound"][1], "library_ms": epi["library_ms"],
+         "library_is": "F.batch_norm + F.mish or F.leaky_relu (none for linear), two calls",
+         "ms_again": epi["ms_again"], "share_of_bound": epi["share_of_bound"],
+         "train_ms": epi_train["ms"], "train_plain_ms": epi_train["plain_ms"],
+         "train_bound_ms": epi_train["bound"][0], "host_us": epi["host_us"],
+         "plain_host_us": epi["plain_host_us"], "copy_TB_s": epi["copy_TB_s"],
+         "TB_s_by_shape": {k: v["TB_s"] for k, v in epi["by_shape"].items()},
+         "ms_are": f"sums over a YOLO request's {YOLO_EPILOGUE} calls at B={EPILOGUE_B} "
+                   f"480x640 (train_: a step's at B={EPILOGUE_TRAIN_B}), bf16, each conv's own "
+                   "input and buffers, device time from graph replays"},
         {"name": "min_dist_sq_fwd", "route": "cuda", "source": src + "min_dist_sq_fwd.cu",
          "replaces": "poet_tpu/ops/nn_pallas.py:35", **launched("nn"),
          # f32 over every phase-15 case; relative: to each case's max |gt|^2

@@ -79,11 +79,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "activations.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
 
 using namespace mma_sm90;
+using namespace poet_act;
 
 constexpr int TH = 8;              // output rows per tile (one warp each)
 constexpr int TW = 16;             // output columns per tile (one m16 tile)
@@ -92,24 +94,6 @@ constexpr int MAX_CHUNK = 64;      // output channels per block
 constexpr int W_PAD = 8;           // elements added to each staged weight row (banks)
 constexpr int FLUSH_STEPS = 4;     // k-steps per join of the im2col path
 constexpr int MAX_SMEM = 232448;   // bytes a block may use on sm_90
-
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_MISH = 2, ACT_LEAKY = 3 };
-
-__device__ __forceinline__ float activate(int act, float v) {
-  if (act == ACT_RELU) return fmaxf(v, 0.f);
-  if (act == ACT_LEAKY) return v > 0.f ? v : __fmul_rn(0.1f, v);
-  if (act == ACT_MISH) {
-    // x * tanh(softplus(x)) as 1 - 2 / ((1 + e^x)^2 + 1), x clamped at 25,
-    // each operation rounded on its own as in the plain version
-    const float e = expf(fminf(v, 25.f));
-    const float p = __fadd_rn(1.f, e);
-    // 2 / d as 2 * rcp_rn(d): scaling by 2 is exact, so this is the IEEE
-    // quotient, without the division's slow-path check
-    const float t = __fsub_rn(1.f, 2.f * __frcp_rn(__fadd_rn(__fmul_rn(p, p), 1.f)));
-    return v > 25.f ? v : __fmul_rn(v, t);
-  }
-  return v;
-}
 
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }

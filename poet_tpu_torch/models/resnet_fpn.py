@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from poet_tpu_torch.models.layers import Conv
+from poet_tpu_torch.ops.darknet_epilogue_cuda import frozen_bn
 from poet_tpu_torch.utils.tracing import traced
 
 
@@ -49,9 +50,8 @@ class FrozenBatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:   # NCHW
-        inv = self.weight * torch.rsqrt(self.running_var + self.eps)
-        off = self.bias - self.running_mean * inv
-        return x * inv.to(x.dtype)[:, None, None] + off.to(x.dtype)[:, None, None]
+        return frozen_bn(x, self.weight, self.bias, self.running_mean, self.running_var,
+                         self.eps)
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, dtype=torch.float32) -> Conv:

@@ -18,8 +18,13 @@ entry convolutions (`_use_stem`: 3x3 3->32, 3x3/2 32->64 and 3x3 32->64 at
 480x640) fold their FrozenBN into the kernel and bias and go through
 `ops/conv_stem_cuda.py:conv_stem`, which launches the hand-written stem
 kernel on the card: the JAX package's `POET_YOLO_STEM=1` route, with the
-same predicate on every device. The TPU-only `_Stride2ConvS2D` and the
-stem `optimization_barrier` are not carried over.
+same predicate on every device. Every other conv with a FrozenBN and a
+mish, leaky or linear activation (`_use_epilogue`: 109 of the 115 convs of
+the shipped cfgs) is cuDNN's conv followed by one pass of
+`ops/darknet_epilogue_cuda.py:darknet_epilogue`, which applies the BN and
+the activation in the hand-written epilogue kernel on the card and in their
+plain composition on the CPU. The TPU-only `_Stride2ConvS2D` and the stem
+`optimization_barrier` are not carried over.
 """
 
 from __future__ import annotations
@@ -34,8 +39,11 @@ import torch.nn.functional as F
 from poet_tpu_torch.models.layers import Conv
 from poet_tpu_torch.models.resnet_fpn import FrozenBatchNorm, downsample_mask
 from poet_tpu_torch.ops.conv_stem_cuda import conv_stem, mish  # noqa: F401  (mish re-exported)
+from poet_tpu_torch.ops.darknet_epilogue_cuda import (ACTIVATIONS as EPILOGUE_ACTIVATIONS,
+                                                      CHANNEL_MULTIPLE, MAX_CHANNELS,
+                                                      activate, darknet_epilogue)
 from poet_tpu_torch.ops.detection import NEG_INF, batched_class_nms, nms_padded, topk
-from poet_tpu_torch.utils.tracing import traced
+from poet_tpu_torch.utils.tracing import span, traced
 from poet_tpu_torch.utils.tables import device_table
 
 Sections = Tuple[Tuple[Tuple[str, Any], ...], ...]
@@ -111,16 +119,38 @@ def _use_stem(size: int, stride: int, pad: int, act: str, cin: int, hw: Tuple[in
             and act in ("mish", "leaky", "linear") and hw[0] * hw[1] >= 128 * 128)
 
 
-def _activate(x: torch.Tensor, act: str) -> torch.Tensor:
-    if act == "mish":
-        return mish(x)
-    if act == "leaky":
-        return F.leaky_relu(x, 0.1)
-    if act == "logistic":
-        return torch.sigmoid(x)
-    if act != "linear":
-        raise NotImplementedError(f"activation {act}")
-    return x
+def _use_epilogue(x: torch.Tensor, bn: bool, act: str) -> bool:
+    """The convs whose FrozenBN and activation go through the
+    `darknet_epilogue` operator, by what the conv's output x (NCHW view)
+    shows: a BN and an activation the kernel applies; a device the operator
+    runs on (the CPU's plain version, the card's kernel); f32 or bf16;
+    channels-last contiguous memory, whole 16-byte vectors of channels, no
+    more channels than the kernel's fold holds; no gradient wanted (the
+    darknet is frozen)."""
+    return (bn and act in EPILOGUE_ACTIVATIONS and x.device.type in ("cpu", "cuda")
+            and x.dtype in (torch.float32, torch.bfloat16) and x.dim() == 4
+            and x.is_contiguous(memory_format=torch.channels_last)
+            and x.shape[1] % CHANNEL_MULTIPLE == 0 and x.shape[1] <= MAX_CHANNELS
+            and not x.requires_grad)
+
+
+def epilogue_convs(sections: Sequence[Dict[str, Any]], H: int = 480,
+                   W: int = 640) -> List[Tuple[int, int, int, str]]:
+    """(H, W, C, activation) of the output of each conv that `DarknetBody`
+    sends to the epilogue operator at an H x W image, in the body's order,
+    when it runs channels-last in f32 or bf16 with no gradient wanted
+    (`_use_epilogue`)."""
+    channels, strides = channel_walk(sections)
+    convs, cin, s_in = [], int(sections[0].get("channels", 3)), 1
+    for li, sec in enumerate(sections[1:]):
+        if sec["type"] == "convolutional":
+            filters, size, stride, pad, bn, act = _conv_geometry(sec)
+            if (bn and act in EPILOGUE_ACTIVATIONS and filters % CHANNEL_MULTIPLE == 0
+                    and filters <= MAX_CHANNELS
+                    and not _use_stem(size, stride, pad, act, cin, (H // s_in, W // s_in))):
+                convs.append((H // strides[li], W // strides[li], filters, act))
+        cin, s_in = channels[li], strides[li]
+    return convs
 
 
 class DarknetBody(nn.Module):
@@ -170,8 +200,24 @@ class DarknetBody(nn.Module):
                       activation=None if act == "linear" else act)
         return y.permute(0, 3, 1, 2)                               # NCHW view
 
-    @traced("backbone.body")
+    def _epilogue(self, li: int, x: torch.Tensor, act: str) -> torch.Tensor:
+        """FrozenBN + activation of layer li's conv output in one pass."""
+        bn = getattr(self, f"bn_{li}")
+        y = darknet_epilogue(x.permute(0, 2, 3, 1), bn.weight, bn.bias, bn.running_mean,
+                             bn.running_var, bn.eps, act)
+        return y.permute(0, 3, 1, 2)                               # NCHW view
+
     def forward(self, images: torch.Tensor):
+        """The `backbone.body` span counts the convs of this forward that
+        took the epilogue operator (`epilogue`) and those that took the
+        plain BN and activation (`plain`); the stem's are neither."""
+        with span("backbone.body") as sp:
+            routes = {"epilogue": 0, "plain": 0}
+            out = self._run(images, routes)
+            sp.add(**routes)
+        return out
+
+    def _run(self, images: torch.Tensor, routes: Dict[str, int]):
         x = images.to(self.dtype).permute(0, 3, 1, 2)              # NCHW view
         outputs: List[torch.Tensor] = []
         yolo_inputs, yolo_specs, features = [], [], []
@@ -183,9 +229,14 @@ class DarknetBody(nn.Module):
                     x = self._stem(li, x, stride, pad, act)
                 else:
                     x = getattr(self, f"conv_{li}")(x)
-                    if bn:
-                        x = getattr(self, f"bn_{li}")(x)
-                    x = _activate(x, act)
+                    if _use_epilogue(x, bn, act):
+                        x = self._epilogue(li, x, act)
+                        routes["epilogue"] += 1
+                    else:
+                        if bn:
+                            x = getattr(self, f"bn_{li}")(x)
+                        x = activate(x, act)
+                        routes["plain"] += 1
             elif t == "route":
                 srcs = [outputs[i if i >= 0 else li + i] for i in _ints(sec["layers"])]
                 groups = int(sec.get("groups", 1))

@@ -205,6 +205,8 @@ ROI_LIB = CudaLibrary(CSRC / "roi_align_fwd.cu", {
     "poet_roi_align_tiles": [PTRS, INTS, I] + [P] * 6 + [I] * 9 + [P]})
 STEM_LIB = CudaLibrary(CSRC / "conv_stem_fwd.cu", {
     "poet_conv_stem_fwd": [P] * 4 + [I] * 15 + [P]})
+EPILOGUE_LIB = CudaLibrary(CSRC / "darknet_epilogue.cu", {
+    "poet_darknet_epilogue": [P] * 6 + [ctypes.c_float, I, ctypes.c_int64, I, I, P]})
 NN_LIB = CudaLibrary(CSRC / "min_dist_sq_fwd.cu", {
     "poet_min_dist_sq_fwd": [P] * 3 + [I] * 3 + [P]})
 DENSE_LIB = CudaLibrary(CSRC / "ms_deform_attn_dense.cu", {
@@ -220,8 +222,8 @@ VARIANTS_LIB = CudaLibrary(CSRC / "ms_deform_attn_fwd_variants.cu", {
     "poet_ms_deform_attn_fwd_variant": [P] * 4 + [I] * 8 + [INTS, I, P]})
 GATHER_LIB = CudaLibrary(CSRC / "take_along_axis.cu", {
     "poet_take_along_axis": [P] * 3 + [I] * 5 + [P]})
-LIBRARIES = (FWD_LIB, BWD_LIB, ROI_LIB, STEM_LIB, NN_LIB, DENSE_LIB, V2_LIB, KPAD_LIB,
-             VARIANTS_LIB, GATHER_LIB)
+LIBRARIES = (FWD_LIB, BWD_LIB, ROI_LIB, STEM_LIB, EPILOGUE_LIB, NN_LIB, DENSE_LIB, V2_LIB,
+             KPAD_LIB, VARIANTS_LIB, GATHER_LIB)
 
 
 def build_all() -> None:

@@ -340,11 +340,14 @@ def test_ldmatrix_rows_meet_no_bank_conflict(bf16, C, s):
 def test_library_key_covers_included_headers(tmp_path):
     """A library is keyed by its source and every `#include "..."` header it
     reads (through other headers too): a changed header is a new library,
-    not a stale one. Both redesigned kernels read mma_sm90.cuh."""
-    from poet_tpu_torch.ops.cuda_build import NN_LIB, STEM_LIB, CudaLibrary, local_includes
+    not a stale one. Both redesigned kernels read mma_sm90.cuh; the stem and
+    the darknet epilogue read activations.cuh."""
+    from poet_tpu_torch.ops.cuda_build import (EPILOGUE_LIB, NN_LIB, STEM_LIB, CudaLibrary,
+                                               local_includes)
 
-    for lib in (STEM_LIB, NN_LIB):
-        assert [p.name for p in local_includes(lib.source)][1:] == ["mma_sm90.cuh"]
+    for lib, headers in ((STEM_LIB, ["activations.cuh", "mma_sm90.cuh"]),
+                         (NN_LIB, ["mma_sm90.cuh"]), (EPILOGUE_LIB, ["activations.cuh"])):
+        assert [p.name for p in local_includes(lib.source)][1:] == headers
     (tmp_path / "a.cu").write_text('#include <cuda_runtime.h>\n#include "b.cuh"\nint f();\n')
     (tmp_path / "b.cuh").write_text('#pragma once\n#include "c.cuh"\n')
     (tmp_path / "c.cuh").write_text("// one\n")

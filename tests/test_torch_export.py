@@ -2,7 +2,7 @@
 `ExportedPoseServer` against `poet_tpu`'s, and the pieces that make a model
 traceable by `torch.export`:
 
-* the four kernel entries as custom operators (`torch.library.opcheck` on
+* the five kernel entries as custom operators (`torch.library.opcheck` on
   their CPU registrations: schema, fake implementation against the real
   output, autograd registration, an AOT trace with dynamic shapes, the two
   deformable ones' gradients included);
@@ -89,6 +89,14 @@ def _stem_operands(rng, bias, stride, padding, activation, out_dtype):
     return x, w, b, stride, padding, activation, out_dtype
 
 
+def _epilogue_operands(rng, dtype, activation):
+    x = _t(rng.uniform(-30, 30, size=(2, 5, 7, 16)).astype(np.float32)).to(dtype)
+    weight, bias, mean = (_t(rng.uniform(lo, hi, 16).astype(np.float32))
+                          for lo, hi in ((0.5, 1.5), (-2, 2), (-2, 2)))
+    var = _t(rng.uniform(0.5, 2.0, 16).astype(np.float32))
+    return x, weight, bias, mean, var, 1e-5, activation
+
+
 OPS = {
     "ms_deform_attn": lambda rng: (*_deform_operands(rng), "merged"),
     "ms_deform_attn_dense": _deform_operands,
@@ -96,6 +104,8 @@ OPS = {
     "conv_stem": lambda rng: _stem_operands(rng, True, 2, [1, 1, 1, 1], "mish", None),
     "conv_stem_bf16": lambda rng: _stem_operands(rng, False, 1, [1, 0, 0, 1], "",
                                                  torch.bfloat16),
+    "darknet_epilogue": lambda rng: _epilogue_operands(rng, torch.float32, "mish"),
+    "darknet_epilogue_bf16": lambda rng: _epilogue_operands(rng, torch.bfloat16, "leaky"),
 }
 
 

@@ -12,7 +12,8 @@
   across the frameworks here: neither artifact takes detections as an
   input, and a pose is chaotic in its box's coordinates (the dyadic box
   embedding; tests/test_torch_detect.py compares them on shared
-  detections). `stream` answers what `infer` does.
+  detections). `stream` answers what `infer` does. The YOLO program holds
+  the darknet epilogue operator, one call a BN conv after the stem.
 """
 
 import numpy as np
@@ -77,7 +78,7 @@ def detector(request, tmp_path_factory):
     path = export_model(tcfg, model, str(root / "port"), batch_size=B, image_size=(H, W),
                         platforms=("cpu", "cuda"))
     server = ExportedPoseServer(path, device="cpu")
-    return dict(server=server, images=images, got=server.infer(images),
+    return dict(kind=request.param, server=server, images=images, got=server.infer(images),
                 live=live.infer(images), want=want)
 
 
@@ -88,6 +89,16 @@ def test_detector_artifact_matches_the_live_server(detector):
     for k in got:
         np.testing.assert_array_equal(got[k], live[k], err_msg=k)
     assert detector["server"].meta["bbox_mode"] == "backbone"
+
+
+def test_detector_artifact_holds_the_darknet_epilogue(detector):
+    """The YOLO program calls the epilogue operator once for each of the
+    mini cfg's five BN convs after the stem (its answers are the live
+    server's, above); Mask R-CNN's ResNet-FPN never calls it."""
+    graph = detector["server"].program.graph
+    calls = [n for n in graph.nodes
+             if n.op == "call_function" and "darknet_epilogue" in str(n.target)]
+    assert len(calls) == (5 if detector["kind"] == "yolov4" else 0)
 
 
 def test_detector_artifact_finds_jax_artifacts_detections(detector):

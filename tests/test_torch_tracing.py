@@ -211,6 +211,41 @@ def test_detector_request_spans(detector_servers, detector):
     assert convs and all(e in inside for e in convs)
 
 
+@pytest.mark.parametrize("cfg, hw, counts", [
+    ("mini", (H_IMG, W_IMG), (2, 5, 3)),
+    # 256x256 puts the third entry conv (32->64 at 128x128) on the stem too
+    ("shipped", (256, 256), (3, 109, 3))])
+def test_darknet_body_routes_and_span_counts(cfg, hw, counts, monkeypatch):
+    """Every BN conv with a mish, leaky or linear activation that the stem
+    does not take goes through the epilogue operator, every other conv but
+    the stem's the plain path, and the `backbone.body` span counts both
+    (the shipped cfg: 109 and 3)."""
+    from poet_tpu_torch.models import yolov4
+    from tests.test_torch_yolov4 import SHIPPED, _frozen
+
+    text = MINI_CFG if cfg == "mini" else SHIPPED[0].read_text()
+    body = yolov4.DarknetBody(_frozen(text)).eval()
+    seen = {"stem": [], "epilogue": []}
+    for route in seen:
+        fn = getattr(yolov4.DarknetBody, f"_{route}")
+        monkeypatch.setattr(yolov4.DarknetBody, f"_{route}",
+                            lambda self, li, *a, fn=fn, route=route:
+                            seen[route].append(li) or fn(self, li, *a))
+    images = torch.from_numpy(np.random.default_rng(2).uniform(
+        size=(1, *hw, 3)).astype(np.float32))
+    with torch.no_grad():
+        _, recs, _ = _traced(lambda: body(images))
+    convs = {li: yolov4._conv_geometry(sec) for li, sec in enumerate(body.sections[1:])
+             if sec["type"] == "convolutional"}
+    bn_convs = [li for li, g in convs.items()
+                if g[4] and g[5] in ("mish", "leaky", "linear") and li not in seen["stem"]]
+    assert seen["epilogue"] == bn_convs
+    assert (len(seen["stem"]), len(bn_convs), len(convs) - len(bn_convs) - len(seen["stem"])) \
+        == counts
+    assert [(r["name"], r["counts"]) for r in recs] == [
+        ("backbone.body", {"epilogue": counts[1], "plain": counts[2]})]
+
+
 def test_tracker_request_spans(yolo_cfg_path):
     server = _server(*_yolo(yolo_cfg_path, "gt"))
     images, inputs = _images(), _tracker_inputs()
